@@ -37,6 +37,9 @@ def pytest_configure(config):
         "analysis.sanitizer.sanitize — thread-leak watchdog + "
         "order-asserting lock shims by default; kwargs forwarded "
         "(tracer_leaks=, debug_nans=, grace_s=, ...)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (PyTorch port kernels); skips without one")
 
 
 @pytest.fixture(autouse=True)
