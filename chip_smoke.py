@@ -8,20 +8,28 @@ Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions,
      and the kernel build from the repository's CUDA sources;
   2. each kernel against its plain PyTorch version on the same GPU tensors,
-     at the shapes the main path gives it;
-  3. the main path: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
+     at the shapes the main paths give it (and ragged and other head-size
+     cases for attention);
+  3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
      clients), hot-swapped, and checked against the same zip on the CPU;
   4. stateful sampling of 64 characters through rnn_time_step, each step
      held against the CPU;
-  5. times: kernel, plain version and bound per forward at bucket 32,
-     predict p50 per bucket, tokens/s at bucket 32.
+  5. main path 2: the transformer LM at nanoGPT's shakespeare-char widths
+     (vocab 65, width 384, 6 heads, 6 blocks, context 256, random weights
+     from a seed) served the same way and checked against the CPU;
+  6. times: each kernel, its plain version, the PyTorch library call where
+     there is one, and its bound; predict and HTTP p50 per bucket and
+     tokens/s at bucket 32 for both models; where the LM's bucket-32
+     forward spends its device time (torch.profiler).
 
-Each kernel counts its launches; the counts are set to 0 before phases 3-4
-and must equal two per char-RNN forward afterwards. The last two lines are a
-`{"kernels": [...]}` object and `{"ok": true, "device": {...}}`. Any failed
-check, or a machine without a CUDA device, exits non-zero before either.
+Each kernel counts its launches. Every count is set to 0 before each main
+path and read after it: two LSTM launches per char-RNN forward (phases
+3-4) and six attention launches per LM forward (phase 5). The last two
+lines are a `{"kernels": [...]}` object and `{"ok": true, "device":
+{...}}`. Any failed check, or a machine without a CUDA device, exits
+non-zero before either.
 """
 import json
 import os
@@ -36,13 +44,22 @@ import urllib.request
 import numpy as np
 
 DEVICE = "cuda"
-SEQ, VOCAB, HIDDEN = 64, 77, 200
 BUCKETS = (1, 8, 32)
-KERNEL_TOL = 5e-5   # f32 sums of up to 400 terms in another order, x 64 steps
 SERVE_TOL = 1e-4    # GPU kernel path vs the CPU plain path, end to end
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+# char-RNN (BASELINE config 3)
+SEQ, VOCAB, HIDDEN = 64, 77, 200
+LSTM_TOL = 5e-5     # f32 sums of up to 400 terms in another order, x 64 steps
 ALPHABET = string.ascii_letters + string.digits + " .,;:!?'\"-()&/\n"
+
+# transformer LM (nanoGPT config/train_shakespeare_char.py)
+LM_VOCAB, LM_WIDTH, LM_HEADS, LM_BLOCKS, LM_SEQ = 65, 384, 6, 6, 256
+# f32 sums of up to 256 terms (64 for the logits) in another order than the
+# plain version's einsum, and exp of differently rounded logits: about
+# 2e-5 abs is the expected scale
+ATTN_TOL = 5e-5
 
 
 def check(cond, msg):
@@ -50,7 +67,7 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def http(method, url, body=None, timeout=120):
+def http(method, url, body=None, timeout=300):
     req = urllib.request.Request(
         url, None if body is None else json.dumps(body).encode(),
         {"Content-Type": "application/json"}, method=method)
@@ -61,6 +78,10 @@ def http(method, url, body=None, timeout=120):
 def one_hot_batch(rng, rows):
     idx = rng.integers(0, VOCAB, (rows, SEQ))
     return np.eye(VOCAB, dtype=np.float32)[idx]
+
+
+def lm_ids(rng, rows):
+    return rng.integers(0, LM_VOCAB, (rows, LM_SEQ, 1)).astype(np.float32)
 
 
 def lstm_inputs(torch, T, B, F, H, seed):
@@ -78,16 +99,35 @@ def lstm_inputs(torch, T, B, F, H, seed):
             for a in arrays]
 
 
-def lstm_bound_ms(T, B, F, H):
-    """Least time for one sequence forward: each input read once, each
-    output written once, over HBM; the gate matmul's FLOPs over the f32
+def attention_inputs(torch, B, T, S, H, Dh, seed):
+    """q [B, T, H, Dh], k/v [B, S, H, Dh], standard normal."""
+    r = np.random.default_rng(seed)
+    return [torch.as_tensor(r.normal(size=(B, n, H, Dh)).astype(np.float32),
+                            device=DEVICE) for n in (T, S, S)]
+
+
+def bound(nbytes, flops):
+    """Least time for the work: bytes over HBM, FLOPs over the f32
     (non-tensor-core) peak. Returns (ms, what bounds it)."""
-    nbytes = 4 * (T * B * F + (F + H) * 4 * H + 7 * H + 2 * B * H
-                  + T * B * H + 2 * B * H)
-    flops = 2 * T * B * (F + H) * 4 * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def lstm_bound_ms(T, B, F, H):
+    """One sequence forward: each input read once, each output written
+    once; the gate matmul's FLOPs."""
+    nbytes = 4 * (T * B * F + (F + H) * 4 * H + 7 * H + 2 * B * H
+                  + T * B * H + 2 * B * H)
+    return bound(nbytes, 2 * T * B * (F + H) * 4 * H)
+
+
+def attention_bound_ms(B, T, S, H, Dh, causal):
+    """One launch: q, k, v read once and o written once; 4 Dh FLOPs (the
+    two products) per attended (query, key) pair this mask leaves."""
+    pairs = (sum(min(t + 1, S) for t in range(T)) if causal else T * S)
+    nbytes = 4 * B * H * Dh * (2 * T + 2 * S)
+    return bound(nbytes, 4 * Dh * pairs * B * H)
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -102,6 +142,187 @@ def cuda_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def make_lm(pt, torch, seed):
+    """The transformer LM at nanoGPT shakespeare-char widths, built with
+    the builder DSL (the repository has no zoo entry for it), with random
+    weights from `seed`."""
+    b = (pt.NeuralNetConfiguration.builder().seed(seed).list()
+         .layer(pt.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH)))
+    for _ in range(LM_BLOCKS):
+        b = b.layer(pt.TransformerBlock(n_heads=LM_HEADS))
+    conf = (b.layer(pt.RnnOutputLayer(n_out=LM_VOCAB, activation="softmax",
+                                      loss="mcxent"))
+            .set_input_type(pt.InputType.recurrent(1, LM_SEQ)).build())
+    return pt.MultiLayerNetwork(conf, device=DEVICE).init(
+        generator=torch.Generator().manual_seed(seed))
+
+
+def serve_and_check(pt, name, zips, cpu_nets, make_x, out_tail, rng):
+    """Register zips[0] with buckets 1/8/32, POST 1, 5 and 32 rows, run 8
+    concurrent clients x 4 requests of 1-4 rows through the batcher, swap
+    to zips[1] and POST once more directly. Every reply is checked for
+    shape, finite values, rows summing to 1 and agreement with the same zip
+    on the CPU. Returns the two versions served, the batcher's flush count,
+    the number of batched requests and the largest error seen."""
+    def check_output(out, x, ref, what):
+        out = np.asarray(out, np.float32)
+        check(out.shape == (x.shape[0],) + out_tail,
+              f"{name} {what}: output shape {out.shape}")
+        check(np.isfinite(out).all(), f"{name} {what}: non-finite output")
+        check(np.abs(out.sum(-1) - 1.0).max() <= 1e-4,
+              f"{name} {what}: rows do not sum to 1")
+        err = float(np.abs(out - ref).max())
+        check(err <= SERVE_TOL,
+              f"{name} {what}: max abs err {err} vs the CPU run")
+        return err
+
+    reg = pt.ModelRegistry(buckets=BUCKETS)
+    srv = pt.InferenceServer(registry=reg, port=0).start()
+    serve_err, n_batched = 0.0, 0
+    try:
+        reg.register(name, zips[0])
+        v1 = reg.get(name)
+        base = f"http://{srv.host}:{srv.port}/v1/models/{name}"
+        for rows in (1, 5, 32):
+            x = make_x(rng, rows)
+            r = http("POST", f"{base}/predict", {"features": x.tolist()})
+            check(r["version"] == 1 and r["batched"],
+                  f"{name} {rows}-row reply {r.keys()}")
+            serve_err = max(serve_err, check_output(
+                r["output"], x, cpu_nets[0].output(x).numpy(),
+                f"{rows}-row request"))
+            n_batched += 1
+        failures, replies = [], []
+
+        def client(i):
+            crng = np.random.default_rng(100 + i)
+            try:
+                for j in range(4):
+                    x = make_x(crng, 1 + (i + j) % 4)
+                    r = http("POST", f"{base}/predict",
+                             {"features": x.tolist()})
+                    replies.append((x, r))
+            except Exception as e:       # reported below, fails the run
+                failures.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not failures, f"{name} concurrent clients failed: {failures}")
+        check(len(replies) == 32,
+              f"{name}: {len(replies)} of 32 concurrent replies")
+        # rows are independent, so one CPU forward checks every reply
+        ref = cpu_nets[0].output(np.concatenate([x for x, _ in replies]))
+        ref, lo = ref.numpy(), 0
+        for x, r in replies:
+            check(r["batched"] and r["version"] == 1,
+                  f"{name} concurrent reply")
+            serve_err = max(serve_err, check_output(
+                r["output"], x, ref[lo:lo + len(x)], "concurrent request"))
+            lo += len(x)
+        n_batched += len(replies)
+        flushes = srv._batchers[name].flushes
+
+        info = http("POST", f"{base}/swap", {"source": zips[1]})
+        check(info["version"] == 2, f"{name} swap gave version "
+              f"{info['version']}")
+        v2 = reg.get(name)
+        x = make_x(rng, 8)
+        r = http("POST", f"{base}/predict", {"features": x.tolist(),
+                                             "batched": False})
+        check(r["version"] == 2 and not r["batched"],
+              f"{name} post-swap reply")
+        serve_err = max(serve_err, check_output(
+            r["output"], x, cpu_nets[1].output(x).numpy(),
+            "post-swap request"))
+        old = cpu_nets[0].output(x).numpy()
+        check(np.abs(np.asarray(r["output"]) - old).max() > 1e-3,
+              f"{name} post-swap output still follows the old weights")
+    finally:
+        srv.stop()
+    check(not any(t.name.startswith("dl4j-torch-serving")
+                  for t in threading.enumerate()), "serving threads left")
+    return v1, v2, flushes, n_batched, serve_err
+
+
+def time_serving(pt, name, zip_path, make_x, rng, tag, tokens_per_row):
+    """predict p50 and HTTP p50 per bucket, tokens/s at bucket 32."""
+    out = {}
+    reg = pt.ModelRegistry(buckets=BUCKETS)
+    reg.register(name, zip_path)
+    srv = pt.InferenceServer(registry=reg, port=0).start()
+    try:
+        base = f"http://{srv.host}:{srv.port}/v1/models/{name}"
+        for b in BUCKETS:
+            x = make_x(rng, b)
+            fwd, web = [], []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                reg.predict(name, x)
+                fwd.append(time.perf_counter() - t0)
+            for _ in range(10):
+                t0 = time.perf_counter()
+                http("POST", f"{base}/predict", {"features": x.tolist(),
+                                                 "batched": False})
+                web.append(time.perf_counter() - t0)
+            out[f"predict_p50_ms_b{b}"] = 1e3 * float(np.median(fwd))
+            out[f"http_p50_ms_b{b}"] = 1e3 * float(np.median(web))
+            print(f"{tag} {name} bucket {b}: registry.predict p50 "
+                  f"{out[f'predict_p50_ms_b{b}']:.3f} ms, HTTP predict "
+                  f"p50 {out[f'http_p50_ms_b{b}']:.3f} ms")
+    finally:
+        srv.stop()
+    for path in ("predict", "http"):
+        out[f"tokens_per_s_b32_{path}"] = 32 * tokens_per_row / (
+            out[f"{path}_p50_ms_b32"] / 1e3)
+    print(f"{tag} {name} tokens/s at bucket 32: "
+          f"{out['tokens_per_s_b32_predict']:.1f} (registry.predict), "
+          f"{out['tokens_per_s_b32_http']:.1f} (HTTP)")
+    return out
+
+
+def profile_forward(torch, pt, zip_path, x, tag, reps=5):
+    """Device time of the LM's bucket-32 `registry.predict` by kernel,
+    from torch.profiler over `reps` warm calls, beside their host wall
+    time. Returns (attention kernel ms per forward, device busy ms per
+    forward, wall ms per forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reg = pt.ModelRegistry(buckets=(32,))
+    reg.register("lm", zip_path)
+    reg.predict("lm", x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            reg.predict("lm", x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    # device-side events only (kernels and copies): an operator's own row
+    # repeats the time of the kernels it launched
+    events = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    check(events, "torch.profiler recorded no device time")
+    events.sort(key=lambda e: -e[1])
+    busy = sum(ms for _, ms, _ in events)
+    attn = sum(ms for key, ms, _ in events if "flash_fwd_kernel" in key)
+    print(f"{tag} LM bucket-32 forward, device time by kernel "
+          f"(torch.profiler, {reps} forwards): busy {busy:.3f} ms of "
+          f"{1e3 * wall:.3f} ms wall (idle share "
+          f"{1 - busy / (1e3 * wall):.3f})")
+    for key, ms, n in events[:12]:
+        print(f"{tag}   {ms:8.3f} ms  {100 * ms / busy:5.1f} %  x{n:<4d} "
+              f"{key[:90]}")
+    return attn, busy, 1e3 * wall
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -111,7 +332,11 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import deeplearning4j_tpu_torch as pt
     from deeplearning4j_tpu_torch import kernels
-    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.kernels import attention, lstm
+
+    def reset_counts():
+        lstm.reset_launches()
+        attention.reset_launches()
 
     # ---- 1. card, versions, build -------------------------------------
     card = subprocess.run(
@@ -125,8 +350,8 @@ def main():
     kernels.library()
     print(f"kernel build: {kernels.build_seconds:.3f} s (nvcc, sm_90a)")
 
-    # ---- 2. kernel vs plain on the card ---------------------------------
-    max_err = 0.0
+    # ---- 2. kernels vs plain on the card --------------------------------
+    lstm_err = 0.0
     shapes = [(SEQ, b, f, HIDDEN) for b in BUCKETS for f in (VOCAB, HIDDEN)]
     shapes += [(1, 1, f, HIDDEN) for f in (VOCAB, HIDDEN)]
     for T, B, F, H in shapes:
@@ -135,105 +360,57 @@ def main():
         want = lstm.lstm_sequence_reference(*args, 1.0)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        check(err <= KERNEL_TOL, f"LSTM kernel T={T} B={B} F={F} H={H}: "
-              f"max abs err {err} > {KERNEL_TOL}")
-        max_err = max(max_err, err)
-    print(f"kernel vs plain: {len(shapes)} shapes, max abs err {max_err:.3e}")
+        check(err <= LSTM_TOL, f"LSTM kernel T={T} B={B} F={F} H={H}: "
+              f"max abs err {err} > {LSTM_TOL}")
+        lstm_err = max(lstm_err, err)
+    print(f"LSTM kernel vs plain: {len(shapes)} shapes, max abs err "
+          f"{lstm_err:.3e} (limit {LSTM_TOL})")
 
-    # ---- 3. main path: serve the char-RNN -------------------------------
+    attn_err = 0.0
+    attn_shapes = [(b, LM_SEQ, LM_SEQ, LM_HEADS, LM_WIDTH // LM_HEADS, True)
+                   for b in BUCKETS]
+    attn_shapes += [(2, 100, 100, LM_HEADS, 64, True),   # ragged causal
+                    (3, 37, 129, LM_HEADS, 64, False),   # T != S
+                    (2, 256, 256, 4, 32, True), (2, 256, 256, 3, 128, True)]
+    for B, T, S, H, Dh, causal in attn_shapes:
+        q, k, v = attention_inputs(torch, B, T, S, H, Dh, seed=B + T + S + Dh)
+        got = attention.flash_attention_heads(q, k, v, causal)
+        want = attention.attention_reference_heads(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= ATTN_TOL, f"attention kernel B={B} T={T} S={S} H={H} "
+              f"Dh={Dh} causal={causal}: max abs err {err} > {ATTN_TOL}")
+        attn_err = max(attn_err, err)
+    print(f"attention kernel vs plain: {len(attn_shapes)} shapes, max abs "
+          f"err {attn_err:.3e} (limit {ATTN_TOL})")
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    zips = []
+    rng = np.random.default_rng(0)
+
+    # ---- 3. main path 1: serve the char-RNN -----------------------------
+    rnn_zips = []
     for seed in (1, 2):
         net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=SEQ)
         net.init(generator=torch.Generator().manual_seed(seed))
         path = os.path.join(tmp, f"char_rnn_{seed}.zip")
         pt.ModelSerializer.write_model(net, path)
-        zips.append(path)
-    cpu_nets = [pt.ModelSerializer.restore(z, device="cpu") for z in zips]
+        rnn_zips.append(path)
+    rnn_cpu = [pt.ModelSerializer.restore(z, device="cpu") for z in rnn_zips]
 
-    def check_output(out, x, ref_net, what):
-        out = np.asarray(out, np.float32)
-        check(out.shape == (x.shape[0], SEQ, VOCAB),
-              f"{what}: output shape {out.shape}")
-        check(np.isfinite(out).all(), f"{what}: non-finite output")
-        check(np.abs(out.sum(-1) - 1.0).max() <= 1e-4,
-              f"{what}: rows do not sum to 1")
-        ref = ref_net.output(x).numpy()
-        err = float(np.abs(out - ref).max())
-        check(err <= SERVE_TOL, f"{what}: max abs err {err} vs the CPU run")
-        return err
-
-    lstm.reset_launches()
-    rng = np.random.default_rng(0)
-    reg = pt.ModelRegistry(buckets=BUCKETS)
-    srv = pt.InferenceServer(registry=reg, port=0).start()
-    serve_err, n_batched = 0.0, 0
-    try:
-        reg.register("char_rnn", zips[0])
-        v1 = reg.get("char_rnn")
-        base = f"http://{srv.host}:{srv.port}/v1/models/char_rnn"
-        for rows in (1, 5, 32):
-            x = one_hot_batch(rng, rows)
-            r = http("POST", f"{base}/predict", {"features": x.tolist()})
-            check(r["version"] == 1 and r["batched"], f"{rows}-row reply {r.keys()}")
-            serve_err = max(serve_err, check_output(
-                r["output"], x, cpu_nets[0], f"{rows}-row request"))
-            n_batched += 1
-        failures, replies = [], []
-
-        def client(i):
-            crng = np.random.default_rng(100 + i)
-            try:
-                for j in range(4):
-                    x = one_hot_batch(crng, 1 + (i + j) % 4)
-                    r = http("POST", f"{base}/predict",
-                             {"features": x.tolist()})
-                    replies.append((x, r))
-            except Exception as e:       # reported below, fails the run
-                failures.append(repr(e))
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(8)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        check(not failures, f"concurrent clients failed: {failures}")
-        check(len(replies) == 32, f"{len(replies)} of 32 concurrent replies")
-        for x, r in replies:
-            check(r["batched"] and r["version"] == 1, "concurrent reply")
-            serve_err = max(serve_err, check_output(
-                r["output"], x, cpu_nets[0], "concurrent request"))
-        n_batched += len(replies)
-        flushes = srv._batchers["char_rnn"].flushes
-
-        info = http("POST", f"{base}/swap", {"source": zips[1]})
-        check(info["version"] == 2, f"swap gave version {info['version']}")
-        v2 = reg.get("char_rnn")
-        x = one_hot_batch(rng, 8)
-        r = http("POST", f"{base}/predict", {"features": x.tolist(),
-                                             "batched": False})
-        check(r["version"] == 2 and not r["batched"], "post-swap reply")
-        serve_err = max(serve_err, check_output(
-            r["output"], x, cpu_nets[1], "post-swap request"))
-        old = cpu_nets[0].output(x).numpy()
-        check(np.abs(np.asarray(r["output"]) - old).max() > 1e-3,
-              "post-swap output still follows the old weights")
-    finally:
-        srv.stop()
-    check(not any(t.name.startswith("dl4j-torch-serving")
-                  for t in threading.enumerate()), "serving threads left")
+    reset_counts()
+    v1, v2, flushes, n_batched, serve_err = serve_and_check(
+        pt, "char_rnn", rnn_zips, rnn_cpu, one_hot_batch, (SEQ, VOCAB), rng)
     forwards = v1.forwards + v2.forwards
     serve_launches = lstm.launches
     check(serve_launches == 2 * forwards,
           f"LSTM kernel launched {serve_launches} times for {forwards} "
           "forwards (want 2 per forward)")
-    print(f"serving: {n_batched} batched requests in {flushes} flushes + "
-          f"swap; {forwards} forwards, {serve_launches} kernel launches; "
-          f"max abs err vs CPU {serve_err:.3e}")
+    print(f"char-RNN serving: {n_batched} batched requests in {flushes} "
+          f"flushes + swap; {forwards} forwards, {serve_launches} LSTM "
+          f"kernel launches; max abs err vs CPU {serve_err:.3e}")
 
     # ---- 4. stateful sampling ------------------------------------------
-    sampler = pt.ModelSerializer.restore(zips[0])
+    sampler = pt.ModelSerializer.restore(rnn_zips[0])
     steps = []
     step = sampler.rnn_time_step
 
@@ -246,7 +423,7 @@ def main():
     text = pt.sample_characters(sampler, {c: i for i, c in enumerate(ALPHABET)},
                                 "The ", 64, rng_seed=0)
     check(len(text) == 64, f"sampled {len(text)} characters")
-    cpu = cpu_nets[0]
+    cpu = rnn_cpu[0]
     cpu.rnn_clear_previous_state()
     sample_err = 0.0
     for x, out in steps:
@@ -256,12 +433,40 @@ def main():
     sample_launches = lstm.launches - serve_launches
     check(sample_launches == 2 * len(steps),
           f"{sample_launches} launches for {len(steps)} rnn_time_step calls")
-    main_launches = lstm.launches
+    lstm_launches = lstm.launches
+    check(attention.launches == 0,
+          f"the char-RNN path launched attention {attention.launches} times")
     print(f"sampling: {len(steps)} rnn_time_step calls, {sample_launches} "
-          f"kernel launches, max abs err vs CPU {sample_err:.3e}, "
+          f"LSTM kernel launches, max abs err vs CPU {sample_err:.3e}, "
           f"text {text!r}")
 
-    # ---- 5. times (counted launches end above) --------------------------
+    # ---- 5. main path 2: serve the transformer LM -----------------------
+    lm_zips = []
+    for seed in (1, 2):
+        path = os.path.join(tmp, f"lm_{seed}.zip")
+        pt.ModelSerializer.write_model(make_lm(pt, torch, seed), path)
+        lm_zips.append(path)
+    lm_cpu = [pt.ModelSerializer.restore(z, device="cpu") for z in lm_zips]
+    n_params = sum(t.numel() for p in lm_cpu[0].params for t in p.values())
+
+    reset_counts()
+    t0 = time.perf_counter()
+    v1, v2, flushes, n_batched, lm_err = serve_and_check(
+        pt, "lm", lm_zips, lm_cpu, lm_ids, (LM_SEQ, LM_VOCAB), rng)
+    lm_forwards = v1.forwards + v2.forwards
+    attn_launches = attention.launches
+    check(attn_launches == LM_BLOCKS * lm_forwards,
+          f"attention kernel launched {attn_launches} times for "
+          f"{lm_forwards} LM forwards (want {LM_BLOCKS} per forward)")
+    check(lstm.launches == 0,
+          f"the LM path launched the LSTM kernel {lstm.launches} times")
+    print(f"LM serving ({n_params} parameters): {n_batched} batched "
+          f"requests in {flushes} flushes + swap; {lm_forwards} forwards, "
+          f"{attn_launches} attention kernel launches; max abs err vs CPU "
+          f"{lm_err:.3e} (limit {SERVE_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 6. times (counted launches end above) --------------------------
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for F in (VOCAB, HIDDEN):
@@ -274,39 +479,42 @@ def main():
               f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.6f} ms ({by})")
         kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + p, bound_ms + b
         bound_by.add(by)
+
+    Dh = LM_WIDTH // LM_HEADS
+    q, k, v = attention_inputs(torch, 32, LM_SEQ, LM_SEQ, LM_HEADS, Dh, seed=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    a_ms = cuda_ms(torch, lambda: attention.flash_attention_heads(q, k, v,
+                                                                  True))
+    a_plain = cuda_ms(torch, lambda: attention.attention_reference_heads(
+        q, k, v, True))
+    a_lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    a_bound, a_by = attention_bound_ms(32, LM_SEQ, LM_SEQ, LM_HEADS, Dh, True)
+    print(f"{tag} attention B=32 H={LM_HEADS} T=S={LM_SEQ} Dh={Dh} causal, "
+          f"per launch: kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, "
+          f"SDPA {a_lib:.4f} ms, bound {a_bound:.6f} ms ({a_by})")
+
     serving = {"card": card}
-    reg = pt.ModelRegistry(buckets=BUCKETS)
-    reg.register("char_rnn", zips[0])
-    srv = pt.InferenceServer(registry=reg, port=0).start()
-    try:
-        base = f"http://{srv.host}:{srv.port}/v1/models/char_rnn"
-        for b in BUCKETS:
-            x = one_hot_batch(rng, b)
-            fwd, web = [], []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                reg.predict("char_rnn", x)
-                fwd.append(time.perf_counter() - t0)
-            for _ in range(10):
-                t0 = time.perf_counter()
-                http("POST", f"{base}/predict", {"features": x.tolist(),
-                                                 "batched": False})
-                web.append(time.perf_counter() - t0)
-            serving[f"predict_p50_ms_b{b}"] = 1e3 * float(np.median(fwd))
-            serving[f"http_p50_ms_b{b}"] = 1e3 * float(np.median(web))
-            print(f"{tag} bucket {b}: registry.predict p50 "
-                  f"{serving[f'predict_p50_ms_b{b}']:.3f} ms, HTTP predict "
-                  f"p50 {serving[f'http_p50_ms_b{b}']:.3f} ms")
-    finally:
-        srv.stop()
-    serving["tokens_per_s_b32_predict"] = 32 * SEQ / (
-        serving["predict_p50_ms_b32"] / 1e3)
-    serving["tokens_per_s_b32_http"] = 32 * SEQ / (
-        serving["http_p50_ms_b32"] / 1e3)
-    print(f"{tag} tokens/s at bucket 32: "
-          f"{serving['tokens_per_s_b32_predict']:.1f} (registry.predict), "
-          f"{serving['tokens_per_s_b32_http']:.1f} (HTTP)")
+    serving.update(time_serving(pt, "char_rnn", rnn_zips[0], one_hot_batch,
+                                rng, tag, SEQ))
     print(json.dumps({"serving": serving}))
+    lm_serving = {"card": card}
+    lm_serving.update(time_serving(pt, "lm", lm_zips[0], lm_ids, rng, tag,
+                                   LM_SEQ))
+    attn_dev, busy, wall = profile_forward(torch, pt, lm_zips[0],
+                                           lm_ids(rng, 32), tag)
+    lm_serving.update({
+        "attention_share_of_predict_b32":
+            LM_BLOCKS * a_ms / lm_serving["predict_p50_ms_b32"],
+        "profiled_attention_ms_per_forward_b32": attn_dev,
+        "profiled_device_busy_ms_per_forward_b32": busy,
+        "profiled_wall_ms_per_forward_b32": wall})
+    print(f"{tag} LM registry.predict at bucket 32: p50 "
+          f"{lm_serving['predict_p50_ms_b32']:.3f} ms, of which "
+          f"{LM_BLOCKS} attention launches x {a_ms:.4f} ms = "
+          f"{100 * lm_serving['attention_share_of_predict_b32']:.1f} % "
+          f"(profiled: {attn_dev:.3f} ms of {busy:.3f} ms device time)")
+    print(json.dumps({"lm_serving": lm_serving}))
 
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
@@ -314,8 +522,8 @@ def main():
         "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm.cu",
         "replaces": "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via "
                     "_fwd_impl :121, fused_lstm_sequence :252)",
-        "launches": main_launches,
-        "max_abs_err": max_err,
+        "launches": lstm_launches,
+        "max_abs_err": lstm_err,
         "per": "char-RNN forward at bucket 32 (2 launches: F=77 and "
                "F=200, H=200, T=64)",
         "ms": kernel_ms,
@@ -323,6 +531,22 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_by == {"operations"} else "bytes",
         "library_ms": None,
+        "card": card,
+    }, {
+        "name": "flash_attention_heads",
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/attention.cu",
+        "replaces": "deeplearning4j_tpu/kernels/attention.py:81 (_make_kernel "
+                    "via _flash_fwd_impl :168, primal mode)",
+        "launches": attn_launches,
+        "max_abs_err": attn_err,
+        "per": f"one launch (one block's attention) at B=32, H={LM_HEADS}, "
+               f"T=S={LM_SEQ}, Dh={Dh}, causal",
+        "ms": a_ms,
+        "plain_ms": a_plain,
+        "bound_ms": a_bound,
+        "bound_by": a_by,
+        "library_ms": a_lib,
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

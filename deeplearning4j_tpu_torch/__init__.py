@@ -11,18 +11,24 @@ GravesLSTM / RnnOutputLayer / Dense / Output layers, `MultiLayerNetwork`
 inference and stateful `rnn_time_step`, the `ModelSerializer` zip shared
 with the JAX package, and the serving plane. Both LSTM layers run the
 hand-written CUDA sequence kernel in `kernels/csrc/lstm.cu`.
+
+The second slice serves a GPT-style transformer LM
+(`EmbeddingSequenceLayer`, `TransformerBlock`, softmax `RnnOutputLayer`)
+through the same registry and server; every block's attention runs the
+hand-written CUDA flash-attention kernel in `kernels/csrc/attention.cu`.
 """
 from .models import char_rnn, sample_characters
 from .nn import (BackpropType, InputType, MultiLayerConfiguration,
                  MultiLayerNetwork, NeuralNetConfiguration)
-from .nn.layers import DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer
+from .nn.layers import (DenseLayer, EmbeddingSequenceLayer, GravesLSTM,
+                        OutputLayer, RnnOutputLayer, TransformerBlock)
 from .nn.updaters import Adam, Nesterovs, Sgd
 from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
 
 __all__ = ["char_rnn", "sample_characters", "BackpropType", "InputType",
            "MultiLayerConfiguration", "MultiLayerNetwork",
-           "NeuralNetConfiguration", "DenseLayer", "GravesLSTM",
-           "OutputLayer", "RnnOutputLayer", "Adam", "Nesterovs", "Sgd",
+           "NeuralNetConfiguration", "DenseLayer", "EmbeddingSequenceLayer",
+           "GravesLSTM", "OutputLayer", "RnnOutputLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
            "InferenceServer", "ModelRegistry", "ModelSerializer",
            "from_jax_params"]

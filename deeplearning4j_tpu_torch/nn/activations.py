@@ -13,12 +13,18 @@ def _identity(x):
     return x
 
 
+def _gelu(x):
+    # jax.nn.gelu defaults to approximate=True: the tanh form, not erf
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 ACTIVATIONS = {
     "identity": _identity,
     "linear": _identity,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "relu": torch.relu,
+    "gelu": _gelu,
     "softmax": lambda x: torch.softmax(x, dim=-1),
 }
 

@@ -129,7 +129,8 @@ def test_port_imports_no_jax_by_ast():
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, deeplearning4j_tpu_torch, "
-            "deeplearning4j_tpu_torch.kernels.lstm; "
+            "deeplearning4j_tpu_torch.kernels.lstm, "
+            "deeplearning4j_tpu_torch.kernels.attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
