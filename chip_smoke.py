@@ -9,7 +9,8 @@ Phases:
      and the kernel build from the repository's CUDA sources;
   2. each kernel against its plain PyTorch version on the same GPU tensors,
      at the shapes the main paths give it (and ragged and other head-size
-     cases for attention);
+     cases for attention; one step, one row and a column tail for the LSTM
+     training kernels);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -19,14 +20,24 @@ Phases:
   5. main path 2: the transformer LM at nanoGPT's shakespeare-char widths
      (vocab 65, width 384, 6 heads, 6 blocks, context 256, random weights
      from a seed) served the same way and checked against the CPU;
-  6. times: each kernel, its plain version, the PyTorch library call where
+  6. main path 3: train the full-width char-RNN (BASELINE config 3's
+     training bench: vocab 77, 2 x GravesLSTM(200), Adam 2e-3, batch 64,
+     sequence 128, TBPTT 64) for 20 optimizer steps with `fit` over an
+     ArrayDataSetIterator of the repository's README.md, from a zip of
+     seeded random weights; the same zip and batches on the CPU; per-step
+     scores, first-step gradients and final parameters compared; the zip
+     with its updater state restored on both devices for one more step;
+  7. times: each kernel, its plain version, the PyTorch library call where
      there is one, and its bound; predict and HTTP p50 per bucket and
-     tokens/s at bucket 32 for both models; where the LM's bucket-32
-     forward spends its device time (torch.profiler).
+     tokens/s at bucket 32 for both models; training tokens/s and step
+     p50; where the LM's bucket-32 forward and a training batch spend
+     their device time (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
-path and read after it: two LSTM launches per char-RNN forward (phases
-3-4) and six attention launches per LM forward (phase 5). The last two
+path and read after it: two primal LSTM launches per char-RNN forward
+(phases 3-4), six attention launches per LM forward (phase 5), and two
+residual-forward, two adjoint and two reduction launches per training step
+(phase 6), each path launching none of the others' kernels. The last two
 lines are a `{"kernels": [...]}` object and `{"ok": true, "device":
 {...}}`. Any failed check, or a machine without a CUDA device, exits
 non-zero before either.
@@ -53,6 +64,26 @@ F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SEQ, VOCAB, HIDDEN = 64, 77, 200
 LSTM_TOL = 5e-5     # f32 sums of up to 400 terms in another order, x 64 steps
 ALPHABET = string.ascii_letters + string.digits + " .,;:!?'\"-()&/\n"
+
+# char-RNN training (deeplearning4j_tpu/models/zoo.py:bench_char_rnn)
+TRAIN_B, TRAIN_T, TRAIN_TBPTT, TRAIN_BATCHES = 64, 128, 64, 10
+# The backward kernels against their plain versions, relative to the
+# largest magnitude of the plain result: dx, dh0 and dc0 come out of a
+# 64-step recurrence of f32 products summed in another order, dW, db and
+# dpeep sum T*B = 4096 terms each.
+BWD_TOL = 2e-5
+# First-step gradients on the card against the CPU, per tensor relative to
+# its largest entry: the kernels' f32 sums in another order, plus cuBLAS
+# against the CPU's BLAS for the output layer.
+GRAD_TOL = 1e-4
+# Scores of the 20 steps, card against CPU (absolute; the score starts at
+# ln 77 = 4.34): the ROADMAP's trajectory bound.
+SCORE_TOL = 1e-4
+# Final parameters, card against CPU, per tensor: |a - b| / |b| in L2.
+# Adam's m / sqrt(v) can flip the sign of an update where a gradient entry
+# is near zero, so a max-abs bound is the wrong test.
+PARAM_TOL = 1e-3
+GRADS = ("dx", "dW", "db", "dpeep", "dh0", "dc0")
 
 # transformer LM (nanoGPT config/train_shakespeare_char.py)
 LM_VOCAB, LM_WIDTH, LM_HEADS, LM_BLOCKS, LM_SEQ = 65, 384, 6, 6, 256
@@ -99,6 +130,75 @@ def lstm_inputs(torch, T, B, F, H, seed):
             for a in arrays]
 
 
+def cotangents(torch, T, B, H, seed):
+    """Standard-normal cotangents for hs, h_T and c_T."""
+    r = np.random.default_rng(seed)
+    return [torch.as_tensor(r.normal(size=s).astype(np.float32),
+                            device=DEVICE)
+            for s in ((T, B, H), (B, H), (B, H))]
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def readme_batches(root):
+    """The repository's README.md as one-hot characters of ALPHABET
+    (anything else becomes a space), cut into TRAIN_BATCHES x TRAIN_B
+    evenly spaced windows of TRAIN_T + 1 characters; the labels are the
+    next character."""
+    with open(os.path.join(root, "README.md"), encoding="utf-8") as fh:
+        text = fh.read()
+    index = {c: i for i, c in enumerate(ALPHABET)}
+    ids = np.array([index.get(c, index[" "]) for c in text])
+    starts = np.linspace(0, len(ids) - TRAIN_T - 1,
+                         TRAIN_BATCHES * TRAIN_B).astype(np.int64)
+    windows = ids[starts[:, None] + np.arange(TRAIN_T + 1)]
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return eye[windows[:, :-1]], eye[windows[:, 1:]]
+
+
+class StepLog:
+    """Listener: every optimizer step's score tensor (no host sync), and,
+    given `torch`, the host time after synchronizing the card."""
+
+    def __init__(self, torch=None):
+        self.scores, self.times, self._torch = [], [], torch
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(model._score)
+        if self._torch is not None:
+            self._torch.cuda.synchronize()
+            self.times.append(time.perf_counter())
+
+
+def first_chunk_grads(torch, net, ds):
+    """Gradients of the first TBPTT chunk's score at the network's current
+    parameters (what the first optimizer step applies)."""
+    x, y, _, _ = net._batch(ds)
+    x, y = x[:, :TRAIN_TBPTT], y[:, :TRAIN_TBPTT]
+    params = tuple({k: v.detach().requires_grad_() for k, v in p.items()}
+                   for p in net.params)
+    with torch.enable_grad():
+        score, _ = net._loss_fn(params, net.state, x, y)
+        grads = torch.autograd.grad(
+            score, [v for p in params for v in p.values()])
+    names = [f"{i}/{k}" for i, p in enumerate(params) for k in p]
+    return dict(zip(names, (g.detach().cpu() for g in grads)))
+
+
+def param_rel_l2(net, ref):
+    """Largest per-tensor |a - b|_2 / |b|_2 between two networks."""
+    worst = 0.0
+    for p, q in zip(net.params, ref.params):
+        for k in q:
+            a, b = p[k].detach().cpu(), q[k].detach().cpu()
+            worst = max(worst, ((a - b).norm() / b.norm()).item())
+    return worst
+
+
 def attention_inputs(torch, B, T, S, H, Dh, seed):
     """q [B, T, H, Dh], k/v [B, S, H, Dh], standard normal."""
     r = np.random.default_rng(seed)
@@ -120,6 +220,32 @@ def lstm_bound_ms(T, B, F, H):
     nbytes = 4 * (T * B * F + (F + H) * 4 * H + 7 * H + 2 * B * H
                   + T * B * H + 2 * B * H)
     return bound(nbytes, 2 * T * B * (F + H) * 4 * H)
+
+
+def residual_forward_bound_ms(T, B, F, H):
+    """The residual-saving forward: inputs read once; hs, h_T, c_T and the
+    five residuals written once; the gate matmul's FLOPs."""
+    nbytes = 4 * (T * B * F + (F + H) * 4 * H + 7 * H + 2 * B * H
+                  + 6 * T * B * H + 2 * B * H)
+    return bound(nbytes, 2 * T * B * (F + H) * 4 * H)
+
+
+def adjoint_bound_ms(T, B, F, H, need_dx):
+    """The adjoint: the five residuals, the dhs cotangent, the rows of W it
+    multiplies, peep and the carries read once; dx (when needed), dh0 and
+    dc0 written once; 2 FLOPs per gate gradient and row of W^T."""
+    rows = F + H if need_dx else H
+    nbytes = 4 * (6 * T * B * H + rows * 4 * H + 3 * H + 3 * B * H
+                  + (T * B * F if need_dx else 0) + 2 * B * H)
+    return bound(nbytes, 2 * T * B * 4 * H * rows)
+
+
+def reduction_bound_ms(T, B, F, H):
+    """The reduction: x, hs, h0, cs, c0 and the gate gradients read once;
+    dW, db and dpeep written once; the [F+H, T*B] x [T*B, 4H] product."""
+    nbytes = 4 * (T * B * F + 2 * T * B * H + 2 * B * H + T * B * 4 * H
+                  + (F + H) * 4 * H + 7 * H)
+    return bound(nbytes, 2 * T * B * 4 * H * (F + H))
 
 
 def attention_bound_ms(B, T, S, H, Dh, causal):
@@ -284,43 +410,38 @@ def time_serving(pt, name, zip_path, make_x, rng, tag, tokens_per_row):
     return out
 
 
-def profile_forward(torch, pt, zip_path, x, tag, reps=5):
-    """Device time of the LM's bucket-32 `registry.predict` by kernel,
-    from torch.profiler over `reps` warm calls, beside their host wall
-    time. Returns (attention kernel ms per forward, device busy ms per
-    forward, wall ms per forward)."""
+def profile_device(torch, fn, what, tag, reps=5):
+    """Device time of `reps` warm calls of `fn` by kernel (torch.profiler,
+    device-side events only: an operator's own row repeats the time of the
+    kernels it launched), beside their host wall time. Returns ([(kernel,
+    ms per call, launches per call)], device busy ms per call, wall ms per
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reg = pt.ModelRegistry(buckets=(32,))
-    reg.register("lm", zip_path)
-    reg.predict("lm", x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            reg.predict("lm", x)
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
-    # device-side events only (kernels and copies): an operator's own row
-    # repeats the time of the kernels it launched
+        wall = 1e3 * (time.perf_counter() - t0) / reps
     events = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
               for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
-    check(events, "torch.profiler recorded no device time")
+    check(events, f"torch.profiler recorded no device time for {what}")
     events.sort(key=lambda e: -e[1])
     busy = sum(ms for _, ms, _ in events)
-    attn = sum(ms for key, ms, _ in events if "flash_fwd_kernel" in key)
-    print(f"{tag} LM bucket-32 forward, device time by kernel "
-          f"(torch.profiler, {reps} forwards): busy {busy:.3f} ms of "
-          f"{1e3 * wall:.3f} ms wall (idle share "
-          f"{1 - busy / (1e3 * wall):.3f})")
+    print(f"{tag} {what}, device time by kernel (torch.profiler, {reps} "
+          f"calls): busy {busy:.3f} ms of {wall:.3f} ms wall (idle share "
+          f"{1 - busy / wall:.3f})")
     for key, ms, n in events[:12]:
         print(f"{tag}   {ms:8.3f} ms  {100 * ms / busy:5.1f} %  x{n:<4d} "
               f"{key[:90]}")
-    return attn, busy, 1e3 * wall
+    return events, busy, wall
 
 
 def main():
@@ -337,6 +458,12 @@ def main():
     def reset_counts():
         lstm.reset_launches()
         attention.reset_launches()
+
+    def check_no_training_launches(path):
+        counts = lstm.launch_counts()
+        check(counts["residual_launches"] == counts["adjoint_launches"]
+              == counts["reduction_launches"] == 0,
+              f"the {path} path launched LSTM training kernels: {counts}")
 
     # ---- 1. card, versions, build -------------------------------------
     card = subprocess.run(
@@ -365,6 +492,48 @@ def main():
         lstm_err = max(lstm_err, err)
     print(f"LSTM kernel vs plain: {len(shapes)} shapes, max abs err "
           f"{lstm_err:.3e} (limit {LSTM_TOL})")
+
+    # the training kernels: residual forward, adjoint, reduction
+    res_err = adj_err = red_err = adj_rel = red_rel = 0.0
+    train_shapes = [(TRAIN_TBPTT, TRAIN_B, f, HIDDEN) for f in (VOCAB, HIDDEN)]
+    train_shapes += [(1, TRAIN_B, VOCAB, HIDDEN),          # one step
+                     (TRAIN_TBPTT, 1, HIDDEN, HIDDEN),     # one row
+                     (9, 3, 5, 37)]                        # a column tail
+    for T, B, F, H in train_shapes:
+        args = lstm_inputs(torch, T, B, F, H, seed=T * 7 + B * 3 + F)
+        x, W, b, peep, h0, c0 = args
+        got = lstm.lstm_residual_forward(*args, 1.0)
+        ref = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(
+            got, (ref[0], ref[0][-1], ref[1][-1]) + ref[1:]))
+        check(err <= LSTM_TOL, f"LSTM residual forward T={T} B={B} F={F} "
+              f"H={H}: max abs err {err} > {LSTM_TOL}")
+        res_err = max(res_err, err)
+        dhs, dhT, dcT = cotangents(torch, T, B, H, seed=F + H + T)
+        want = lstm.lstm_sequence_backward_reference(
+            x, W, peep, h0, c0, *ref, dhs, dhT, dcT)
+        for need_dx in ((False, True) if F == VOCAB else (True,)):
+            got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, *ref, dhs,
+                                              dhT, dcT, need_dx=need_dx)
+            torch.cuda.synchronize()
+            check((got[0] is None) == (not need_dx), "dx returned unasked")
+            for name, g, w in zip(GRADS, got, want):
+                if g is None:
+                    continue
+                rel = rel_err(g, w)
+                check(rel <= BWD_TOL, f"LSTM backward {name} T={T} B={B} "
+                      f"F={F} H={H}: max err / max |ref| {rel} > {BWD_TOL}")
+                err = (g - w).abs().max().item()
+                if name in ("dx", "dh0", "dc0"):
+                    adj_err, adj_rel = max(adj_err, err), max(adj_rel, rel)
+                else:
+                    red_err, red_rel = max(red_err, err), max(red_rel, rel)
+    print(f"LSTM training kernels vs plain: {len(train_shapes)} shapes; "
+          f"residual forward max abs err {res_err:.3e} (limit {LSTM_TOL}); "
+          f"adjoint (dx, dh0, dc0) max abs err {adj_err:.3e}, over max "
+          f"|ref| {adj_rel:.3e}; reduction (dW, db, dpeep) max abs err "
+          f"{red_err:.3e}, over max |ref| {red_rel:.3e} (limit {BWD_TOL})")
 
     attn_err = 0.0
     attn_shapes = [(b, LM_SEQ, LM_SEQ, LM_HEADS, LM_WIDTH // LM_HEADS, True)
@@ -436,6 +605,7 @@ def main():
     lstm_launches = lstm.launches
     check(attention.launches == 0,
           f"the char-RNN path launched attention {attention.launches} times")
+    check_no_training_launches("char-RNN serving")
     print(f"sampling: {len(steps)} rnn_time_step calls, {sample_launches} "
           f"LSTM kernel launches, max abs err vs CPU {sample_err:.3e}, "
           f"text {text!r}")
@@ -460,13 +630,108 @@ def main():
           f"{lm_forwards} LM forwards (want {LM_BLOCKS} per forward)")
     check(lstm.launches == 0,
           f"the LM path launched the LSTM kernel {lstm.launches} times")
+    check_no_training_launches("LM serving")
     print(f"LM serving ({n_params} parameters): {n_batched} batched "
           f"requests in {flushes} flushes + swap; {lm_forwards} forwards, "
           f"{attn_launches} attention kernel launches; max abs err vs CPU "
           f"{lm_err:.3e} (limit {SERVE_TOL}); "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # ---- 6. times (counted launches end above) --------------------------
+    # ---- 6. main path 3: train the char-RNN -----------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    x_text, y_text = readme_batches(root)
+    net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=TRAIN_T,
+                      tbptt=TRAIN_TBPTT)
+    net.init(generator=torch.Generator().manual_seed(3))
+    train_zip = os.path.join(tmp, "char_rnn_train.zip")
+    pt.ModelSerializer.write_model(net, train_zip)
+    gpu_net = pt.ModelSerializer.restore(train_zip)
+    cpu_net = pt.ModelSerializer.restore(train_zip, device="cpu")
+    batches = lambda: pt.ArrayDataSetIterator(x_text, y_text,
+                                              batch_size=TRAIN_B,
+                                              shuffle=True, seed=11)
+
+    # the first step's gradients (before the counted run)
+    first = batches().next()
+    g_gpu, g_cpu = (first_chunk_grads(torch, n, first)
+                    for n in (gpu_net, cpu_net))
+    grad_err = max(rel_err(g_gpu[k], g_cpu[k]) for k in g_cpu)
+    check(grad_err <= GRAD_TOL, f"first-step gradients: max err / max |ref| "
+          f"{grad_err} > {GRAD_TOL}")
+
+    gpu_log, cpu_log = StepLog(), StepLog()
+    gpu_net.set_listeners(gpu_log)
+    cpu_net.set_listeners(cpu_log)
+    reset_counts()
+    t0 = time.perf_counter()
+    gpu_net.fit(batches())
+    torch.cuda.synchronize()
+    gpu_fit_s = time.perf_counter() - t0
+    train_counts = lstm.launch_counts()
+    steps = gpu_net.iteration_count
+    check(steps == 2 * TRAIN_BATCHES, f"{steps} optimizer steps, want "
+          f"{2 * TRAIN_BATCHES}")
+    check(train_counts == {"launches": 0, "residual_launches": 2 * steps,
+                           "adjoint_launches": 2 * steps,
+                           "reduction_launches": 2 * steps},
+          f"training launches {train_counts} for {steps} steps (want 2 "
+          "residual forwards, 2 adjoints, 2 reductions and no primal "
+          "forward per step)")
+    check(attention.launches == 0,
+          f"training launched attention {attention.launches} times")
+    t0 = time.perf_counter()
+    cpu_net.fit(batches())
+    cpu_fit_s = time.perf_counter() - t0
+    gpu_scores = [float(v) for v in gpu_log.scores]
+    cpu_scores = [float(v) for v in cpu_log.scores]
+    check(len(gpu_scores) == len(cpu_scores) == steps, "missing step scores")
+    check(np.isfinite(gpu_scores).all(), f"non-finite scores {gpu_scores}")
+    score_err = float(np.abs(np.subtract(gpu_scores, cpu_scores)).max())
+    check(score_err <= SCORE_TOL, f"step scores card vs CPU: max abs err "
+          f"{score_err} > {SCORE_TOL}")
+    check(gpu_scores[-1] < gpu_scores[0], f"the score did not fall: "
+          f"{gpu_scores[0]} -> {gpu_scores[-1]}")
+    param_err = param_rel_l2(gpu_net, cpu_net)
+    check(param_err <= PARAM_TOL, f"parameters after {steps} steps: "
+          f"relative L2 {param_err} > {PARAM_TOL}")
+    print(f"char-RNN training: {steps} steps ({TRAIN_BATCHES} batches of "
+          f"{TRAIN_B} x {TRAIN_T}, TBPTT {TRAIN_TBPTT}) in {gpu_fit_s:.2f} s "
+          f"on the card, {cpu_fit_s:.2f} s on the CPU; launches "
+          f"{train_counts}; score {gpu_scores[0]:.4f} -> "
+          f"{gpu_scores[-1]:.4f}; card vs CPU: scores max abs err "
+          f"{score_err:.3e} (limit {SCORE_TOL}), first-step gradients "
+          f"{grad_err:.3e} of max (limit {GRAD_TOL}), final parameters "
+          f"relative L2 {param_err:.3e} (limit {PARAM_TOL})")
+    print(json.dumps({"train_scores_card": gpu_scores,
+                      "train_scores_cpu": cpu_scores}))
+
+    # the zip with its updater state, then one more step on both devices
+    resume_zip = os.path.join(tmp, "char_rnn_trained.zip")
+    pt.ModelSerializer.write_model(gpu_net, resume_zip)
+    resumed = [pt.ModelSerializer.restore(resume_zip, load_updater=True),
+               pt.ModelSerializer.restore(resume_zip, load_updater=True,
+                                          device="cpu")]
+    for u, w in zip(resumed[0].updater_state, gpu_net.updater_state):
+        for slot in w:
+            for k in w[slot]:
+                check(torch.equal(u[slot][k], w[slot][k]),
+                      f"restored updater state {slot}/{k} differs")
+    extra = pt.DataSet(x_text[:TRAIN_B, :TRAIN_TBPTT],
+                       y_text[:TRAIN_B, :TRAIN_TBPTT])
+    for n in resumed:
+        n.fit(extra)
+    check(all(n.iteration_count == steps + 1 for n in resumed),
+          "the resumed step did not run once on each device")
+    resume_err = abs(resumed[0].score() - resumed[1].score())
+    resume_param_err = param_rel_l2(*resumed)
+    check(resume_err <= SCORE_TOL and resume_param_err <= PARAM_TOL,
+          f"resumed step card vs CPU: score err {resume_err}, parameters "
+          f"relative L2 {resume_param_err}")
+    print(f"zip with updater state -> restore on card and CPU -> one more "
+          f"step: score err {resume_err:.3e}, parameters relative L2 "
+          f"{resume_param_err:.3e}")
+
+    # ---- 7. times (counted launches end above) --------------------------
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for F in (VOCAB, HIDDEN):
@@ -479,6 +744,16 @@ def main():
               f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.6f} ms ({by})")
         kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + p, bound_ms + b
         bound_by.add(by)
+    # the primal and residual forwards side by side at the serving and the
+    # training batch (per-step time of one block depends on both)
+    for B in (32, TRAIN_B):
+        for F in (VOCAB, HIDDEN):
+            args = lstm_inputs(torch, SEQ, B, F, HIDDEN, seed=F)
+            kp = cuda_ms(torch, lambda: lstm.fused_lstm_sequence(*args, 1.0))
+            kr = cuda_ms(torch, lambda: lstm.lstm_residual_forward(*args,
+                                                                   1.0))
+            print(f"{tag} LSTM forward B={B} T={SEQ} F={F} H={HIDDEN}: "
+                  f"primal {kp:.4f} ms, residual {kr:.4f} ms")
 
     Dh = LM_WIDTH // LM_HEADS
     q, k, v = attention_inputs(torch, 32, LM_SEQ, LM_SEQ, LM_HEADS, Dh, seed=3)
@@ -501,8 +776,12 @@ def main():
     lm_serving = {"card": card}
     lm_serving.update(time_serving(pt, "lm", lm_zips[0], lm_ids, rng, tag,
                                    LM_SEQ))
-    attn_dev, busy, wall = profile_forward(torch, pt, lm_zips[0],
-                                           lm_ids(rng, 32), tag)
+    reg = pt.ModelRegistry(buckets=(32,))
+    reg.register("lm", lm_zips[0])
+    x_lm = lm_ids(rng, 32)
+    events, busy, wall = profile_device(
+        torch, lambda: reg.predict("lm", x_lm), "LM bucket-32 forward", tag)
+    attn_dev = sum(ms for key, ms, _ in events if "flash_fwd_kernel" in key)
     lm_serving.update({
         "attention_share_of_predict_b32":
             LM_BLOCKS * a_ms / lm_serving["predict_p50_ms_b32"],
@@ -515,6 +794,91 @@ def main():
           f"{100 * lm_serving['attention_share_of_predict_b32']:.1f} % "
           f"(profiled: {attn_dev:.3f} ms of {busy:.3f} ms device time)")
     print(json.dumps({"lm_serving": lm_serving}))
+
+    # training: step p50 and tokens/s, then one batch's device time
+    timed = pt.ModelSerializer.restore(train_zip)
+    clock = StepLog(torch)
+    timed.set_listeners(clock)
+    source = batches()
+    timed.fit(source.next())                  # warm-up batch
+    clock.times.clear()
+    n_timed = TRAIN_BATCHES - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        timed.fit(source.next())
+    fit_s = time.perf_counter() - t0
+    step_ms = 1e3 * np.diff([t0] + clock.times)
+    training = {"card": card, "steps_timed": len(step_ms),
+                "step_p50_ms": float(np.median(step_ms)),
+                "batch_ms": 1e3 * fit_s / n_timed,
+                "tokens_per_s": n_timed * TRAIN_B * TRAIN_T / fit_s}
+    print(f"{tag} char-RNN training (B={TRAIN_B}, T={TRAIN_T}, TBPTT "
+          f"{TRAIN_TBPTT}): step p50 {training['step_p50_ms']:.3f} ms over "
+          f"{len(step_ms)} steps, {training['batch_ms']:.3f} ms per batch, "
+          f"{training['tokens_per_s']:.1f} tokens/s")
+    batch = pt.DataSet(x_text[:TRAIN_B], y_text[:TRAIN_B])
+    events, busy, wall = profile_device(
+        torch, lambda: timed.fit(batch), "char-RNN training batch (2 steps)",
+        tag, reps=3)
+    lstm_dev = sum(ms for key, ms, _ in events if "lstm" in key)
+    training.update({"profiled_device_busy_ms_per_batch": busy,
+                     "profiled_wall_ms_per_batch": wall,
+                     "profiled_idle_share": 1 - busy / wall,
+                     "profiled_lstm_kernels_ms_per_batch": lstm_dev})
+
+    # the training kernels per launch, at one TBPTT chunk of both layers
+    T, B, H = TRAIN_TBPTT, TRAIN_B, HIDDEN
+    train_times = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                          "library_ms": 0.0, "by": set()}
+                   for name in ("residual", "adjoint", "reduction")}
+    for F in (VOCAB, HIDDEN):
+        need_dx = F != VOCAB     # the first layer's one-hot input needs none
+        args = lstm_inputs(torch, T, B, F, H, seed=F + 1)
+        x, W, b, peep, h0, c0 = args
+        hs, _, _, *res = lstm.lstm_residual_forward(*args, 1.0)
+        cs = res[0]
+        dhs, dhT, dcT = cotangents(torch, T, B, H, seed=F + 2)
+        dgates = lstm.lstm_adjoint(W, peep, c0, *res, dhs, dhT, dcT, F,
+                                   need_dx)[0]
+        zcat_t = torch.cat([x, torch.cat([h0[None], hs[:-1]])], -1).reshape(
+            T * B, F + H).T.contiguous()
+        dg_2d = dgates.reshape(T * B, 4 * H)
+        rows = {
+            "residual": (
+                lambda: lstm.lstm_residual_forward(*args, 1.0),
+                lambda: lstm.lstm_sequence_reference(*args, 1.0,
+                                                     save_residuals=True),
+                None, residual_forward_bound_ms(T, B, F, H)),
+            "adjoint": (
+                lambda: lstm.lstm_adjoint(W, peep, c0, *res, dhs, dhT, dcT,
+                                          F, need_dx),
+                lambda: lstm.lstm_adjoint_reference(W, peep, c0, *res, dhs,
+                                                    dhT, dcT, F),
+                None, adjoint_bound_ms(T, B, F, H, need_dx)),
+            "reduction": (
+                lambda: lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates),
+                lambda: lstm.lstm_param_grads_reference(x, hs, h0, cs, c0,
+                                                        dgates),
+                lambda: torch.matmul(zcat_t, dg_2d),
+                reduction_bound_ms(T, B, F, H))}
+        for name, (kern, plain, lib, (bnd, by)) in rows.items():
+            k, p = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+            l = None if lib is None else cuda_ms(torch, lib)
+            print(f"{tag} LSTM {name} B={B} T={T} F={F} H={H}"
+                  f"{'' if name != 'adjoint' else f' dx={need_dx}'}: kernel "
+                  f"{k:.4f} ms, plain {p:.4f} ms, "
+                  + ("" if l is None else f"torch.matmul {l:.4f} ms, ")
+                  + f"bound {bnd:.6f} ms ({by})")
+            e = train_times[name]
+            e["ms"] += k
+            e["plain_ms"] += p
+            e["bound_ms"] += bnd
+            e["library_ms"] = None if l is None else e["library_ms"] + l
+            e["by"].add(by)
+    training["kernel_ms_per_step"] = {n: e["ms"]
+                                      for n, e in train_times.items()}
+    print(json.dumps({"training": training}))
 
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
@@ -548,7 +912,41 @@ def main():
         "bound_by": a_by,
         "library_ms": a_lib,
         "card": card,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm.cu",
+        "replaces": replaces,
+        "launches": train_counts[counter],
+        "max_abs_err": err,
+        "max_err_over_max_ref": rel,
+        "per": f"one TBPTT step (2 launches: F={VOCAB} and F={HIDDEN}, "
+               f"H={HIDDEN}, B={TRAIN_B}, T={TRAIN_TBPTT})",
+        "ms": train_times[key]["ms"],
+        "plain_ms": train_times[key]["plain_ms"],
+        "bound_ms": train_times[key]["bound_ms"],
+        "bound_by": ("operations" if train_times[key]["by"] == {"operations"}
+                     else "bytes"),
+        "library_ms": train_times[key]["library_ms"],
+        "library": library,
+        "card": card,
+    } for name, key, counter, err, rel, replaces, library in (
+        ("lstm_residual_forward", "residual", "residual_launches", res_err,
+         None,
+         "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via _fwd_impl "
+         ":121, save_residuals=True, for _vjp_fwd :265)",
+         "none: cuDNN's LSTM behind torch.nn.LSTM has no peepholes and no "
+         "forget offset"),
+        ("lstm_adjoint", "adjoint", "adjoint_launches", adj_err, adj_rel,
+         "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's per-step "
+         "chain via _bwd_impl :219, for _vjp_bwd :273)",
+         "none: cuDNN's LSTM behind torch.nn.LSTM has no peepholes and no "
+         "forget offset"),
+        ("lstm_param_grads", "reduction", "reduction_launches", red_err,
+         red_rel,
+         "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's dW, db and "
+         "dpeep accumulation :179-186 via _bwd_impl :219)",
+         "torch.matmul of the [F+H, T*B] x [T*B, 4H] product (dW only)"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,18 @@ The second slice serves a GPT-style transformer LM
 (`EmbeddingSequenceLayer`, `TransformerBlock`, softmax `RnnOutputLayer`)
 through the same registry and server; every block's attention runs the
 hand-written CUDA flash-attention kernel in `kernels/csrc/attention.cu`.
+
+The third slice trains the char-RNN: losses, updaters, lr schedules,
+gradient normalization, `MultiLayerNetwork.fit` with truncated BPTT,
+`score` / `score_examples` / `evaluate`, the in-memory iterators, the
+updater state in the zip and a float64 gradient check. The LSTM's
+gradients come from its autograd Function: the residual-saving forward,
+the reverse-time adjoint and the parameter-gradient reduction, each a
+hand-written CUDA kernel in `kernels/csrc/lstm.cu`.
 """
+from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
+                       ListDataSetIterator)
+from .eval import Evaluation
 from .models import char_rnn, sample_characters
 from .nn import (BackpropType, InputType, MultiLayerConfiguration,
                  MultiLayerNetwork, NeuralNetConfiguration)
@@ -26,7 +37,9 @@ from .nn.updaters import Adam, Nesterovs, Sgd
 from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
 
-__all__ = ["char_rnn", "sample_characters", "BackpropType", "InputType",
+__all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
+           "ListDataSetIterator", "Evaluation",
+           "char_rnn", "sample_characters", "BackpropType", "InputType",
            "MultiLayerConfiguration", "MultiLayerNetwork",
            "NeuralNetConfiguration", "DenseLayer", "EmbeddingSequenceLayer",
            "GravesLSTM", "OutputLayer", "RnnOutputLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",

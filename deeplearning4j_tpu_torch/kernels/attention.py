@@ -18,7 +18,11 @@ plane's `q_positions` / `kv_length` masks wait for the decode slice.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Both wrappers take float32 only, a head
-dimension of at most 128 and contiguous tensors, on either device.
+dimension of at most 128 and contiguous tensors, on either device. The
+kernel's output is not differentiable: on a CUDA tensor that autograd
+records, the wrapper raises `AttentionGradientNotPorted` (the backward
+kernels wait for LM training); the plain version on the CPU stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 
 __all__ = ["flash_attention", "flash_attention_heads", "attention_reference",
            "attention_reference_heads", "launches", "reset_launches",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "AttentionGradientNotPorted"]
 
 MAX_HEAD_DIM = 128       # the kernel keeps 8 * 16 output columns per thread
 _MAX_GRID_Y = 65535      # the kernel's grid is (ceil(T / 64), B * H)
@@ -38,6 +42,11 @@ _MAX_GRID_Y = 65535      # the kernel's grid is (ceil(T / 64), B * H)
 launches = 0
 _launch_lock = threading.Lock()
 _fn = None
+
+
+class AttentionGradientNotPorted(NotImplementedError):
+    """The attention kernel was asked for an output autograd would
+    differentiate; its backward (TPU kernels 2-3) is not ported yet."""
 
 
 def reset_launches() -> int:
@@ -131,6 +140,11 @@ def flash_attention_heads(q, k, v, causal: bool = False,
         return attention_reference_heads(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise AttentionGradientNotPorted(
+            "the CUDA attention kernel has no backward yet (LM training, "
+            "ROADMAP A3); its output would be cut off from autograd. Run "
+            "inference under torch.no_grad() / torch.inference_mode().")
     B, T, H, Dh = q.shape
     S = k.shape[1]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -1,41 +1,76 @@
-"""Whole-sequence Graves-LSTM forward: one CUDA kernel launch per layer.
+"""Whole-sequence Graves-LSTM: forward and backward as CUDA kernel launches.
 
-Counterpart of `deeplearning4j_tpu/kernels/lstm.py:fused_lstm_sequence` in
-primal (inference) mode. The kernel is `csrc/lstm.cu`; its header says what
-bounds it and how its design answers that. The backward kernel and the
-residual-saving forward wait for the training slice.
+Counterpart of `deeplearning4j_tpu/kernels/lstm.py:fused_lstm_sequence`,
+its custom VJP included. The kernels are in `csrc/lstm.cu`; its header says
+what bounds each and how its design answers that.
 
-  * `fused_lstm_sequence` — the wrapper. CPU tensors go to the plain
-    version; CUDA tensors launch the kernel or raise.
-  * `lstm_sequence_reference` — the plain PyTorch version: a step loop of
-    the same math, for the CPU and for holding the kernel to account.
-  * `launches` — how many times the wrapper launched the kernel.
+  * `fused_lstm_sequence` — the primal (inference) forward: hs, h_T, c_T.
+  * `lstm_sequence` — the same forward as a `torch.autograd.Function`: it
+    runs the residual-saving forward and, in backward, the adjoint and the
+    parameter-gradient reduction. The layer calls it whenever autograd
+    records (`GravesLSTM.apply`).
+  * `lstm_residual_forward`, `lstm_sequence_backward` — the two halves of
+    that Function as wrappers (what the custom VJP's `_vjp_fwd` and
+    `_vjp_bwd` compute); the backward is `lstm_adjoint` then
+    `lstm_param_grads`, one kernel each.
+  * `lstm_sequence_reference`, `lstm_adjoint_reference`,
+    `lstm_param_grads_reference`, `lstm_sequence_backward_reference` — the
+    plain PyTorch versions: step loops of the same equations, for the CPU
+    and for holding the kernels to account.
+  * Launch counts, one per kernel: `launches` (primal forward),
+    `residual_launches`, `adjoint_launches`, `reduction_launches`.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. Everything is computed in float32 (the TPU
+kernel's `_canon`); outputs come back in the input's dtype.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["fused_lstm_sequence", "lstm_sequence_reference", "launches",
-           "reset_launches", "MAX_SHARED_BYTES"]
+__all__ = ["fused_lstm_sequence", "lstm_sequence", "lstm_residual_forward",
+           "lstm_sequence_backward", "lstm_adjoint", "lstm_param_grads",
+           "lstm_sequence_reference",
+           "lstm_adjoint_reference", "lstm_param_grads_reference",
+           "lstm_sequence_backward_reference", "launches",
+           "residual_launches", "adjoint_launches", "reduction_launches",
+           "reset_launches", "launch_counts", "MAX_SHARED_BYTES"]
 
 # dynamic shared memory a block may use on Hopper (232,448 bytes)
 MAX_SHARED_BYTES = 227 * 1024
 
-launches = 0
+launches = 0              # primal forward
+residual_launches = 0     # residual-saving forward
+adjoint_launches = 0      # reverse-time adjoint
+reduction_launches = 0    # dW / db / dpeep reduction
+_COUNTS = ("launches", "residual_launches", "adjoint_launches",
+           "reduction_launches")
 _launch_lock = threading.Lock()
-_fn = None
+_fns = {}
 
 
 def reset_launches() -> int:
-    """Set the launch count to 0; returns the count it had."""
-    global launches
+    """Set every launch count to 0; returns the primal forward's count."""
     with _launch_lock:
-        n, launches = launches, 0
+        n = launches
+        for name in _COUNTS:
+            globals()[name] = 0
     return n
+
+
+def launch_counts() -> dict:
+    """{count name: launches} for the four kernels."""
+    with _launch_lock:
+        return {name: globals()[name] for name in _COUNTS}
+
+
+def _count(name: str):
+    with _launch_lock:
+        globals()[name] += 1
 
 
 def _canon(x, W, b, peep, h0, c0):
@@ -46,16 +81,23 @@ def _canon(x, W, b, peep, h0, c0):
             peep.reshape(-1).to(f32), h0.to(f32), c0.to(f32))
 
 
-def lstm_sequence_reference(x, W, b, peep, h0, c0, offs: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def lstm_sequence_reference(x, W, b, peep, h0, c0, offs: float,
+                            save_residuals: bool = False):
     """Plain version: x [T, B, F] time-major, W [F+H, 4H] (i|f|o|g),
-    b [4H], peep [3H] (i|f|o), carries [B, H]. Returns (hs, h_T, c_T) in
-    float32."""
+    b [4H], peep [3H] (i|f|o), carries [B, H]. Returns (hs, h_T, c_T), or
+    with `save_residuals` the six [T, B, H] tensors (hs, cs, i, f, o, g)
+    the adjoint reads; float32."""
     x, W, b, peep, h, c = _canon(x, W, b, peep, h0, c0)
     H = h.shape[-1]
     p_i, p_f, p_o = peep[:H], peep[H:2 * H], peep[2 * H:]
-    hs = []
+    outs = {k: [] for k in ("hs", "cs", "i", "f", "o", "g")}
     for t in range(x.shape[0]):
         z = torch.cat([x[t], h], dim=-1) @ W + b
         i = torch.sigmoid(z[:, :H] + c * p_i)
@@ -64,20 +106,114 @@ def lstm_sequence_reference(x, W, b, peep, h0, c0, offs: float
         c = f * c + i * g
         o = torch.sigmoid(z[:, 2 * H:3 * H] + c * p_o)
         h = o * torch.tanh(c)
-        hs.append(h)
-    return torch.stack(hs), h, c
+        for k, v in zip(outs, (h, c, i, f, o, g)):
+            outs[k].append(v)
+    if save_residuals:
+        return tuple(torch.stack(v) for v in outs.values())
+    return torch.stack(outs["hs"]), h, c
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def lstm_adjoint_reference(W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT, dcT,
+                           F: int):
+    """Plain version of the adjoint recurrence (`_bwd_kernel`'s per-step
+    chain): returns (dgates [T, B, 4H] as i|f|o|g, dx [T, B, F], dh0, dc0).
+    `dhs`, `dhT`, `dcT` may be None (zero cotangents)."""
+    W, peep, c0 = _f32(W), _f32(peep).reshape(-1), _f32(c0)
+    T, B, H = cs.shape
+    p_i, p_f, p_o = peep[:H], peep[H:2 * H], peep[2 * H:]
+    zeros = torch.zeros((B, H), dtype=torch.float32, device=cs.device)
+    dh = zeros if dhT is None else _f32(dhT)
+    dc = zeros if dcT is None else _f32(dcT)
+    dgates, dxs = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        c, i, f, o, g = cs[t], ii[t], ff[t], oo[t], gg[t]
+        c_prev = c0 if t == 0 else cs[t - 1]
+        if dhs is not None:
+            dh = dhs[t].to(torch.float32) + dh
+        tc = torch.tanh(c)
+        do_pre = dh * tc * o * (1.0 - o)
+        dct = dh * o * (1.0 - tc * tc) + dc + do_pre * p_o
+        di_pre = dct * g * i * (1.0 - i)
+        df_pre = dct * c_prev * f * (1.0 - f)
+        dg_pre = dct * i * (1.0 - g * g)
+        dc = dct * f + di_pre * p_i + df_pre * p_f
+        dgates[t] = torch.cat([di_pre, df_pre, do_pre, dg_pre], dim=-1)
+        dz = dgates[t] @ W.T
+        dxs[t], dh = dz[:, :F], dz[:, F:]
+    return torch.stack(dgates), torch.stack(dxs), dh, dc
+
+
+def lstm_param_grads_reference(x, hs, h0, cs, c0, dgates):
+    """Plain version of the parameter-gradient reduction, accumulated step
+    by step as `_bwd_kernel` does: dW = sum [x_t, h_{t-1}]^T dgates_t,
+    db = sum dgates_t, dpeep = (sum di c_{t-1}, sum df c_{t-1}, sum do c_t),
+    with h_{-1} = h0 and c_{-1} = c0."""
+    x, h0, c0 = _f32(x), _f32(h0), _f32(c0)
+    T, B, H = hs.shape
+    dW = torch.zeros((x.shape[-1] + H, 4 * H), dtype=torch.float32,
+                     device=x.device)
+    db = torch.zeros(4 * H, dtype=torch.float32, device=x.device)
+    dpeep = torch.zeros(3 * H, dtype=torch.float32, device=x.device)
+    for t in range(T - 1, -1, -1):
+        h_prev = h0 if t == 0 else hs[t - 1]
+        c_prev = c0 if t == 0 else cs[t - 1]
+        dg = dgates[t]
+        dW += torch.cat([x[t], h_prev], dim=-1).T @ dg
+        db += dg.sum(0)
+        dpeep += torch.cat([(dg[:, :H] * c_prev).sum(0),
+                            (dg[:, H:2 * H] * c_prev).sum(0),
+                            (dg[:, 2 * H:3 * H] * cs[t]).sum(0)])
+    return dW, db, dpeep
+
+
+def lstm_sequence_backward_reference(x, W, peep, h0, c0, hs, cs, ii, ff, oo,
+                                     gg, dhs, dhT=None, dcT=None):
+    """Plain version of the whole backward (`_bwd_impl`): returns dx, dW,
+    db, dpeep, dh0, dc0 in float32."""
+    dgates, dx, dh0, dc0 = lstm_adjoint_reference(
+        W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT, dcT, x.shape[-1])
+    dW, db, dpeep = lstm_param_grads_reference(x, hs, h0, cs, c0, dgates)
+    return dx, dW, db, dpeep, dh0, dc0
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {   # entry point -> (pointers, ints, trailing float offs)
+    "dl4j_lstm_seq_fwd": (9, 4, True),
+    "dl4j_lstm_seq_fwd_res": (14, 4, True),
+    "dl4j_lstm_seq_bwd": (15, 4, False),
+    "dl4j_lstm_param_grad": (9, 4, False),
+}
+
+
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
         from . import library
-        fn = library().dl4j_lstm_seq_fwd
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr]
+        fn = getattr(library(), name)
+        n_ptr, n_int, has_offs = _SIGNATURES[name]
+        fn.argtypes = ([_PTR] * n_ptr + [_INT] * n_int
+                       + ([ctypes.c_float] if has_offs else []) + [_PTR])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _launch(name: str, counter: str, device, *args):
+    """Launch `name` on the current stream of `device`; tensors are passed
+    by pointer (None is a null pointer)."""
+    fn = _kernel_fn(name)
+    ptr = lambda a: (a.data_ptr() if isinstance(a, torch.Tensor)
+                     else a)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(ptr(a) for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"LSTM kernel {name} launch failed: CUDA error "
+                           f"{err}")
+    _count(counter)
 
 
 def _check(x, W, b, peep, h0, c0):
@@ -98,42 +234,179 @@ def _check(x, W, b, peep, h0, c0):
                              f"{tuple(tensors[name].shape)}")
     if T < 1 or B < 1 or H < 1:
         raise ValueError(f"empty LSTM problem: T={T}, B={B}, H={H}")
+    _check_placed(tensors, x.device)
+
+
+def _check_placed(tensors, device):
     for name, t in tensors.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _prepare(x, W, b, peep, h0, c0):
+    if not x.is_floating_point():
+        raise TypeError(f"LSTM input must be floating point, got {x.dtype}")
+    args = _canon(x, W, b, peep, h0, c0)
+    _check(*args)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LSTM kernel for device {x.device}")
+    return args
 
 
 def fused_lstm_sequence(x, W, b, peep, h0, c0, offs: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-sequence LSTM forward, semantics of the layer's `_lstm_cell`
     without a mask. Shapes as `lstm_sequence_reference`; outputs come back
-    in x's dtype. One kernel launch on a CUDA device."""
-    global launches
-    if not x.is_floating_point():
-        raise TypeError(f"LSTM input must be floating point, got {x.dtype}")
-    args = _canon(x, W, b, peep, h0, c0)
-    _check(*args)
+    in x's dtype. One kernel launch on a CUDA device. Not differentiable:
+    the layer takes `lstm_sequence` when autograd records."""
+    args = _prepare(x, W, b, peep, h0, c0)
     if x.device.type == "cpu":
         hs, hT, cT = lstm_sequence_reference(*args, offs)
-    elif x.device.type == "cuda":
-        xf, Wf, bf, pf, h0f, c0f = args
-        T, B, F = xf.shape
-        H = h0f.shape[-1]
-        hs = torch.empty((T, B, H), dtype=torch.float32, device=xf.device)
-        hT = torch.empty((B, H), dtype=torch.float32, device=xf.device)
-        cT = torch.empty((B, H), dtype=torch.float32, device=xf.device)
-        fn = _kernel_fn()
-        with torch.cuda.device(xf.device):
-            stream = torch.cuda.current_stream(xf.device).cuda_stream
-            err = fn(*(t.data_ptr() for t in (xf, Wf, bf, pf, h0f, c0f,
-                                               hs, hT, cT)),
-                     T, B, F, H, float(offs), stream)
-        if err != 0:
-            raise RuntimeError(f"LSTM kernel launch failed: CUDA error {err}")
-        with _launch_lock:
-            launches += 1
     else:
-        raise ValueError(f"no LSTM kernel for device {x.device}")
+        xf, _, _, _, h0f, _ = args
+        T, B, _ = xf.shape
+        H = h0f.shape[-1]
+        hs, hT, cT = (torch.empty(s, dtype=torch.float32, device=xf.device)
+                      for s in ((T, B, H), (B, H), (B, H)))
+        _launch("dl4j_lstm_seq_fwd", "launches", xf.device, *args, hs, hT,
+                cT, *xf.shape, H, float(offs))
     return hs.to(x.dtype), hT.to(x.dtype), cT.to(x.dtype)
+
+
+def lstm_residual_forward(x, W, b, peep, h0, c0, offs: float):
+    """The residual-saving forward (`_vjp_fwd`'s `_fwd_impl(...,
+    save_residuals=True)`): returns (hs, h_T, c_T, cs, i, f, o, g) in
+    float32. One kernel launch on a CUDA device."""
+    args = _prepare(x, W, b, peep, h0, c0)
+    if x.device.type == "cpu":
+        hs, cs, ii, ff, oo, gg = lstm_sequence_reference(
+            *args, offs, save_residuals=True)
+        return hs, hs[-1].clone(), cs[-1].clone(), cs, ii, ff, oo, gg
+    xf, _, _, _, h0f, _ = args
+    T, B, _ = xf.shape
+    H = h0f.shape[-1]
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=xf.device)
+    hs, hT, cT = new(T, B, H), new(B, H), new(B, H)
+    res = [new(T, B, H) for _ in range(5)]
+    _launch("dl4j_lstm_seq_fwd_res", "residual_launches", xf.device, *args,
+            hs, hT, cT, *res, T, B, xf.shape[-1], H, float(offs))
+    return (hs, hT, cT, *res)
+
+
+def _check_residuals(T, B, H, device, **tensors):
+    _check_placed(tensors, device)
+    for name, t in tensors.items():
+        if t is not None and (tuple(t.shape) != (T, B, H)
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 [T, B, H] = "
+                             f"[{T}, {B}, {H}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def lstm_adjoint(W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT=None, dcT=None,
+                 F: int = 0, need_dx: bool = True):
+    """The adjoint recurrence (`_bwd_kernel`'s per-step chain) from the
+    residuals and the cotangents (`dhs`, `dhT`, `dcT` may be None: zeros).
+    Returns (dgates [T, B, 4H], dx [T, B, F] or None when not `need_dx`,
+    dh0, dc0) in float32. One kernel launch on a CUDA device."""
+    W, peep, c0 = _f32(W), _f32(peep).reshape(-1), _f32(c0)
+    dhs, dhT, dcT = _f32(dhs), _f32(dhT), _f32(dcT)
+    T, B, H = cs.shape
+    if tuple(W.shape) != (F + H, 4 * H) or tuple(peep.shape) != (3 * H,):
+        raise ValueError(f"W must be [{F + H}, {4 * H}] and peep [{3 * H}] "
+                         f"for F={F}, H={H}; got {tuple(W.shape)}, "
+                         f"{tuple(peep.shape)}")
+    _check_placed({"W": W, "peep": peep, "c0": c0, "dhT": dhT, "dcT": dcT},
+                  cs.device)
+    _check_residuals(T, B, H, cs.device, cs=cs, i=ii, f=ff, o=oo, g=gg,
+                     dhs=dhs)
+    if cs.device.type == "cpu":
+        dgates, dx, dh0, dc0 = lstm_adjoint_reference(
+            W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT, dcT, F)
+        return dgates, (dx if need_dx else None), dh0, dc0
+    if cs.device.type != "cuda":
+        raise ValueError(f"no LSTM kernel for device {cs.device}")
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=cs.device)
+    dgates, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
+    dx = new(T, B, F) if need_dx else None
+    _launch("dl4j_lstm_seq_bwd", "adjoint_launches", cs.device, W, peep, c0,
+            cs, ii, ff, oo, gg, dhs, dhT, dcT, dgates, dx, dh0, dc0, T, B, F,
+            H)
+    return dgates, dx, dh0, dc0
+
+
+def lstm_param_grads(x, hs, h0, cs, c0, dgates):
+    """The parameter-gradient reduction: dW = sum [x_t, h_{t-1}]^T dgates_t,
+    db, dpeep (see `lstm_param_grads_reference`), in float32. One kernel
+    launch on a CUDA device."""
+    x, h0, c0, dgates = _f32(x), _f32(h0), _f32(c0), _f32(dgates)
+    T, B, F = x.shape
+    H = h0.shape[-1]
+    if tuple(dgates.shape) != (T, B, 4 * H):
+        raise ValueError(f"dgates must be [{T}, {B}, {4 * H}], got "
+                         f"{tuple(dgates.shape)}")
+    _check_placed({"h0": h0, "c0": c0, "dgates": dgates}, x.device)
+    _check_residuals(T, B, H, x.device, hs=hs, cs=cs)
+    if x.device.type == "cpu":
+        return lstm_param_grads_reference(x, hs, h0, cs, c0, dgates)
+    if x.device.type != "cuda":
+        raise ValueError(f"no LSTM kernel for device {x.device}")
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=x.device)
+    dW, db, dpeep = new(F + H, 4 * H), new(4 * H), new(3 * H)
+    _launch("dl4j_lstm_param_grad", "reduction_launches", x.device, x, hs,
+            h0, cs, c0, dgates, dW, db, dpeep, T, B, F, H)
+    return dW, db, dpeep
+
+
+def lstm_sequence_backward(x, W, peep, h0, c0, hs, cs, ii, ff, oo, gg, dhs,
+                           dhT=None, dcT=None, need_dx: bool = True):
+    """The backward (`_vjp_bwd`'s `_bwd_impl`) from the residuals and the
+    cotangents (`dhs`, `dhT`, `dcT` may be None: zeros). Returns dx (None
+    when not `need_dx`), dW, db, dpeep, dh0, dc0 in float32. On a CUDA
+    device: two launches, the adjoint and the reduction."""
+    x = _f32(x)
+    dgates, dx, dh0, dc0 = lstm_adjoint(W, peep, c0, cs, ii, ff, oo, gg, dhs,
+                                        dhT, dcT, x.shape[-1], need_dx)
+    dW, db, dpeep = lstm_param_grads(x, hs, h0, cs, c0, dgates)
+    return dx, dW, db, dpeep, dh0, dc0
+
+
+class _LstmSequence(torch.autograd.Function):
+    """`fused_lstm_sequence` with its custom VJP: forward saves what
+    `_vjp_fwd` saves, backward is `_vjp_bwd`. The h_T / c_T cotangents may
+    be None (TBPTT carries leave a chunk detached)."""
+
+    @staticmethod
+    def forward(ctx, x, W, b, peep, h0, c0, offs):
+        hs, hT, cT, cs, ii, ff, oo, gg = lstm_residual_forward(
+            x, W, b, peep, h0, c0, offs)
+        ctx.save_for_backward(x, W, peep, h0, c0, hs, cs, ii, ff, oo, gg)
+        ctx.dtypes = (x.dtype, W.dtype, b.dtype, peep.dtype, h0.dtype,
+                      c0.dtype)
+        ctx.shapes = (b.shape, peep.shape)
+        ctx.set_materialize_grads(False)
+        return hs.to(x.dtype), hT.to(x.dtype), cT.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dhs, dhT, dcT):
+        x, W, peep, h0, c0, hs, cs, ii, ff, oo, gg = ctx.saved_tensors
+        dx, dW, db, dpeep, dh0, dc0 = lstm_sequence_backward(
+            x, W, peep, h0, c0, hs, cs, ii, ff, oo, gg, dhs, dhT, dcT,
+            need_dx=ctx.needs_input_grad[0])
+        dt = ctx.dtypes
+        b_shape, p_shape = ctx.shapes
+        return (None if dx is None else dx.to(dt[0]), dW.to(dt[1]),
+                db.reshape(b_shape).to(dt[2]),
+                dpeep.reshape(p_shape).to(dt[3]), dh0.to(dt[4]),
+                dc0.to(dt[5]), None)
+
+
+def lstm_sequence(x, W, b, peep, h0, c0, offs: float):
+    """Differentiable whole-sequence LSTM forward (same contract as
+    `fused_lstm_sequence`): the residual-saving kernel forward, and the
+    adjoint and reduction kernels in backward."""
+    return _LstmSequence.apply(x, W, b, peep, h0, c0, float(offs))

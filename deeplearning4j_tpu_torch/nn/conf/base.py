@@ -4,8 +4,8 @@ A layer is one dataclass that is at once its hyperparameter record (the
 `__layer__` JSON form of `deeplearning4j_tpu/nn/conf/base.py`, read and
 written identically), its parameter initializer (`init_params(gen, it,
 device)` returns a dict of tensors keyed as in JAX) and its forward
-(`apply(params, state, x, mask=None) -> (y, state)`, a plain function of
-tensors).
+(`apply(params, state, x, train=False, generator=None, mask=None) -> (y,
+state)`, a plain function of tensors that autograd differentiates).
 """
 from __future__ import annotations
 
@@ -89,9 +89,8 @@ def conf_from_dict(obj: Any) -> Any:
 
 @dataclass
 class LayerConf:
-    """Hyperparameters shared by all layers. The training fields (updater,
-    regularization, dropout, ...) are kept as configuration data so the
-    JSON round-trips; inference does not read them."""
+    """Hyperparameters shared by all layers. Left as None, an inheritable
+    field takes the network's global value at build time."""
 
     # expected input family for shape inference: "ff"|"cnn"|"rnn"|"any"
     input_kind = "ff"
@@ -133,11 +132,28 @@ class LayerConf:
         return {}
 
     # ---- forward ---------------------------------------------------------
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
         raise NotImplementedError(type(self).__name__)
 
     def output_mask(self, mask):
         return mask
+
+    # ---- regularization contribution ------------------------------------
+    def reg_score(self, params) -> torch.Tensor:
+        """L1/L2 penalty for this layer's params, with the weight / bias
+        split of JAX `LayerConf.reg_score`."""
+        score = torch.zeros((), dtype=torch.float32,
+                            device=next(iter(params.values())).device)
+        for k, v in params.items():
+            is_bias = k == "b" or k.endswith("_b") or "bias" in k
+            l1 = (self.l1_bias if is_bias else self.l1) or 0.0
+            l2 = (self.l2_bias if is_bias else self.l2) or 0.0
+            if l1:
+                score = score + l1 * v.abs().sum()
+            if l2:
+                score = score + 0.5 * l2 * (v * v).sum()
+        return score
 
     # ---- helpers ---------------------------------------------------------
     def _act(self, x):
@@ -155,3 +171,16 @@ class LayerConf:
     def _binit(self, shape, device):
         return torch.full(shape, self.bias_init or 0.0,
                           dtype=self._param_dtype(), device=device)
+
+    def maybe_dropout_input(self, x, train, generator):
+        """Inverted dropout of the layer's input while training (`dropout`
+        is the retain probability), from an explicit generator. Its random
+        stream is not `jax.random`'s, so only dropout-free runs compare
+        with JAX value for value."""
+        if (not train or not self.dropout or self.dropout >= 1.0
+                or generator is None):
+            return x
+        keep = self.dropout
+        u = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                       device=generator.device).to(x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))

@@ -1,5 +1,5 @@
-"""Layers of the port (inference forward). Importing this package
-registers every layer type for the JSON codec."""
+"""Layers of the port. Importing this package registers every layer type
+for the JSON codec."""
 from .feedforward import BaseOutputLayerConf, DenseLayer, OutputLayer
 from .recurrent import BaseRecurrentLayer, GravesLSTM, RnnOutputLayer
 from .transformer import EmbeddingSequenceLayer, TransformerBlock

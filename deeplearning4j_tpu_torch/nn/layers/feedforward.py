@@ -1,12 +1,13 @@
-"""Feed-forward layers: DenseLayer, OutputLayer (inference forward of
-`deeplearning4j_tpu/nn/layers/feedforward.py`). W is [n_in, n_out] as in
-the JAX package, so parameters cross unchanged.
+"""Feed-forward layers: DenseLayer, OutputLayer (forward and loss of
+`deeplearning4j_tpu/nn/layers/feedforward.py`; backward through autograd).
+W is [n_in, n_out] as in the JAX package, so parameters cross unchanged.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import losses as _losses
 from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
 
@@ -49,24 +50,55 @@ class DenseLayer(LayerConf):
         return _affine_params(self, gen, self.n_in or input_type.flat_size(),
                               device)
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        x = self.maybe_dropout_input(x, train, generator)
         return self._act(_affine(params, x, self.has_bias)), state
 
 
 @dataclass
 class BaseOutputLayerConf(LayerConf):
     """Loss-bearing layers: `preout` gives the logits, `apply` the
-    activations. The loss itself is configuration data until the training
-    slice."""
+    activations, `loss_score` the (fused, stable) mean loss from the
+    logits."""
 
     loss: str = "mcxent"
     loss_weights: Optional[list] = None
 
-    def preout(self, params, state, x, *, mask=None):
+    def loss_fn(self):
+        return _losses.get(self.loss)
+
+    def preout(self, params, state, x, *, train=False, generator=None,
+               mask=None):
         return x
 
-    def apply(self, params, state, x, *, mask=None):
-        return self._act(self.preout(params, state, x, mask=mask)), state
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        z = self.preout(params, state, x, train=train, generator=generator,
+                        mask=mask)
+        return self._act(z), state
+
+    def loss_score(self, params, state, x, labels, *, train=False,
+                   generator=None, mask=None):
+        """Mean per-example loss computed from the logits."""
+        z = self.preout(params, state, x, train=train, generator=generator,
+                        mask=mask)
+        return self.loss_fn().score(labels, z, activation=self.activation,
+                                    mask=mask, weights=self.loss_weights)
+
+    def loss_per_example(self, params, state, x, labels, *, mask=None):
+        """Unreduced per-example loss [batch]: masked, and summed over time
+        for a time series (JAX `loss_per_example`)."""
+        z = self.preout(params, state, x, mask=mask)
+        per = self.loss_fn().per_example(labels, z,
+                                         activation=self.activation,
+                                         weights=self.loss_weights)
+        if mask is not None:
+            m = mask.to(per.dtype)
+            per = per * m.reshape(m.shape + (1,) * (per.dim() - m.dim()))
+        while per.dim() > 1:    # [B, T] (RNN) -> sum over time
+            per = per.sum(dim=-1)
+        return per
 
 
 @register_layer
@@ -93,5 +125,7 @@ class OutputLayer(BaseOutputLayerConf):
         return _affine_params(self, gen, self.n_in or input_type.flat_size(),
                               device)
 
-    def preout(self, params, state, x, *, mask=None):
+    def preout(self, params, state, x, *, train=False, generator=None,
+               mask=None):
+        x = self.maybe_dropout_input(x, train, generator)
         return _affine(params, x, self.has_bias)

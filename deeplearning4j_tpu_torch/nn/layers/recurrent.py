@@ -1,5 +1,5 @@
-"""Recurrent layers: GravesLSTM and RnnOutputLayer (inference forward of
-`deeplearning4j_tpu/nn/layers/recurrent.py`).
+"""Recurrent layers: GravesLSTM and RnnOutputLayer (forward of
+`deeplearning4j_tpu/nn/layers/recurrent.py`; backward through autograd).
 
 Data layout is [batch, time, features]. Parameters are keyed as in JAX:
 GravesLSTM's `W` is [n_in + n_out, 4 n_out] (input and recurrent weights
@@ -7,12 +7,17 @@ stacked, gate columns i|f|o|g), `b` is [4 n_out], `peep` is [3 n_out]
 (i|f|o), and the forget-gate bias offset stays out of `b`.
 
 Kernel selection follows the JAX layer's `_helper`: a mask-free input with
-sigmoid gates, tanh cell and a float dtype goes through
-`kernels.lstm.fused_lstm_sequence` (one CUDA launch for the whole sequence
-on a GPU tensor, the plain step loop on a CPU tensor). A masked input takes
-the plain step loop on any device, as the JAX layer takes its scan there.
-The TPU's VMEM size rule is not copied: the CUDA kernel reads W from global
-memory and has no such limit.
+sigmoid gates and tanh cell goes through the sequence kernels, which
+compute in float32 (as the TPU kernel does): any float dtype on a GPU
+tensor, float32 only on a CPU tensor, where another dtype takes the step
+loop in its own precision (as JAX takes its scan there). A masked input
+takes the plain step loop on any device. When autograd records (training),
+the layer calls `kernels.lstm.lstm_sequence`, the autograd Function whose
+forward saves residuals and whose backward runs the adjoint and reduction
+kernels; otherwise (serving, `rnn_time_step`, scoring) it calls the primal
+`fused_lstm_sequence`. On a CPU tensor both run their plain versions. The
+TPU's VMEM size rule is not copied: the CUDA kernels read W from global
+memory and have no such limit.
 
 Carry protocol (stateful `rnn_time_step`): `init_carry(batch, dtype,
 device)` and `apply(..., carry=..., return_carry=True)`.
@@ -106,16 +111,19 @@ class GravesLSTM(BaseRecurrentLayer):
         return (z, z.clone())
 
     def _helper(self, x, mask) -> bool:
-        """Whether the sequence kernel computes this forward."""
+        """Whether the sequence kernels compute this forward."""
         if mask is not None:
             return False
         if self.gate_activation != "sigmoid" or \
                 (self.activation or "tanh") != "tanh":
             return False
-        return x.is_floating_point()
+        if not x.is_floating_point():
+            return False
+        return x.device.type != "cpu" or x.dtype == torch.float32
 
-    def apply(self, params, state, x, *, mask=None, carry=None,
-              return_carry=False):
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None, carry=None, return_carry=False):
+        x = self.maybe_dropout_input(x, train, generator)
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
         else:
@@ -123,10 +131,14 @@ class GravesLSTM(BaseRecurrentLayer):
         offs = float(self.forget_gate_bias_init)
         xs = x.transpose(0, 1).contiguous()   # [T, B, F]
         if self._helper(x, mask):
-            from ...kernels.lstm import fused_lstm_sequence
-            hs, hT, cT = fused_lstm_sequence(
-                xs, params["W"].contiguous(), params["b"], params["peep"],
-                carry[0].contiguous(), carry[1].contiguous(), offs)
+            from ...kernels import lstm
+            args = (xs, params["W"].contiguous(), params["b"],
+                    params["peep"], carry[0].contiguous(),
+                    carry[1].contiguous())
+            records = torch.is_grad_enabled() and any(
+                a.requires_grad for a in args)
+            fn = lstm.lstm_sequence if records else lstm.fused_lstm_sequence
+            hs, hT, cT = fn(*args, offs)
             final = (hT, cT)
         else:
             gate_act = activations.get(self.gate_activation)
@@ -175,5 +187,7 @@ class RnnOutputLayer(BaseOutputLayerConf):
     def init_params(self, gen, it: InputType, device):
         return _affine_params(self, gen, self.n_in or it.size, device)
 
-    def preout(self, params, state, x, *, mask=None):
+    def preout(self, params, state, x, *, train=False, generator=None,
+               mask=None):
+        x = self.maybe_dropout_input(x, train, generator)
         return _affine(params, x, self.has_bias)

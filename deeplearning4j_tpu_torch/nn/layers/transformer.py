@@ -13,7 +13,9 @@ inline masked einsum on any device (the kernels take no mask); otherwise
 all heads on a GPU tensor and the plain version on a CPU tensor. The JAX
 block's `flash` switch has no counterpart: the tensor's device picks the
 implementation. The decode-mode methods (`decode_qkv`, ...) wait for the
-decode slice and the tensor-parallel hooks for the parallel stack.
+decode slice and the tensor-parallel hooks for the parallel stack. The
+layers take `train` / `generator` (dropout) as every layer does, but the
+LM is not trained yet: the attention kernel has no backward (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -105,7 +107,9 @@ class TransformerBlock(LayerConf):
         from ...kernels.attention import flash_attention_heads
         return flash_attention_heads(q, k, v, self.causal)
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        x = self.maybe_dropout_input(x, train, generator)
         b, t, d = x.shape
         hd = d // self.n_heads
 
@@ -170,7 +174,8 @@ class EmbeddingSequenceLayer(LayerConf):
                                dtype=torch.float32)
         return {"W": W, "P": P.to(device)}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
         idx = x[..., 0] if x.dim() == 3 and x.shape[-1] == 1 else x
         if idx.is_floating_point():
             idx = torch.nan_to_num(idx, nan=0.0).clamp(_INT32_MIN, _INT32_MAX)

@@ -78,7 +78,8 @@ def load_source(source, device: torch.device):
         last_err = None
         for _, ckpt in reversed(ckpts):
             try:
-                return ModelSerializer.restore(ckpt, device=device), ckpt
+                return ModelSerializer.restore(ckpt, load_updater=False,
+                                                device=device), ckpt
             except (CorruptCheckpointError, OSError, KeyError,
                     ValueError, zipfile.BadZipFile) as e:
                 last_err = e
@@ -91,7 +92,8 @@ def load_source(source, device: torch.device):
     if not zipfile.is_zipfile(path):
         raise ServingError(f"{path!r} is not a ModelSerializer zip (the "
                            "PyTorch port serves no other format yet)")
-    return ModelSerializer.restore(path, device=device), path
+    return ModelSerializer.restore(path, load_updater=False,
+                                   device=device), path
 
 
 def _example_shape(model, override: Optional[Sequence[int]]) -> Tuple[int, ...]:

@@ -4,20 +4,21 @@ writes, so a model saved by either package loads in the other:
   * `configuration.json`   — the network config (identical JSON)
   * `coefficients.npz`     — parameters, keyed `i:<layer>/k:<param>`
   * `networkState.npz`     — layer state (empty for the port's layers)
-  * `updaterState.npz`     — optimizer state (JAX writes it; the port has
-                             no updater yet and neither reads nor writes it)
+  * `updaterState.npz`     — optimizer state, keyed `i:<layer>/k:<slot>/
+                             k:<param>` (`i:0/k:m/k:W`)
   * `metadata.json`        — counters and model kind
   * `manifest.sha256.json` — sha256 of every other entry, checked on restore
 
 Writes are crash-safe (fault/atomic.py). `from_jax_params` loads the JAX
-net's parameters, as numpy arrays, straight into a port network.
+net's parameters (and optionally its updater state), as numpy arrays,
+straight into a port network.
 """
 from __future__ import annotations
 
 import io
 import json
 import zipfile
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +46,10 @@ def tree_to_arrays(tree) -> Dict[str, np.ndarray]:
     paths JAX's `tree_flatten_with_path` gives (`i:0/k:W`)."""
     flat: Dict = {}
     _flatten(tree, [], flat)
-    return {k: v.detach().cpu().numpy() for k, v in flat.items()}
+    # numpy has no bfloat16: such tensors (Adam's m with state_dtype
+    # "bfloat16") are written as float32, which holds them exactly
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+            .detach().cpu().numpy() for k, v in flat.items()}
 
 
 def arrays_to_tree(template, arrays: Dict[str, np.ndarray]):
@@ -68,16 +72,24 @@ def arrays_to_tree(template, arrays: Dict[str, np.ndarray]):
     return build(template, [])
 
 
-def from_jax_params(net, params: Sequence[Dict[str, np.ndarray]]):
+def from_jax_params(net, params: Sequence[Dict[str, np.ndarray]],
+                    updater_state: Optional[Sequence] = None):
     """Load the JAX network's parameters (one dict of numpy arrays per
-    layer, keyed as in JAX) into `net`, which must be initialized. Shapes
-    are checked; a missing key raises KeyError."""
-    if len(params) != len(net.params):
-        raise ValueError(f"{len(params)} layer parameter dicts for a "
-                         f"{len(net.params)}-layer network")
-    arrays = {f"i:{i}/k:{k}": np.asarray(v)
-              for i, p in enumerate(params) for k, v in p.items()}
+    layer, keyed as in JAX) into `net`, which must be initialized, and with
+    `updater_state` (JAX's `updater_state` with its leaves as numpy arrays:
+    one entry per layer, `{"m": {"W": ...}, ...}` or `()`) its updater
+    state too. Shapes are checked; a missing key raises KeyError."""
+    for what, tree in (("parameter", params), ("updater state", updater_state)):
+        if tree is not None and len(tree) != len(net.params):
+            raise ValueError(f"{len(tree)} layer {what} dicts for a "
+                             f"{len(net.params)}-layer network")
+    arrays: Dict = {}
+    _flatten(list(params), [], arrays)
     net.params = arrays_to_tree(net.params, arrays)
+    if updater_state is not None:
+        arrays = {}
+        _flatten(list(updater_state), [], arrays)
+        net.updater_state = arrays_to_tree(net.updater_state, arrays)
     return net
 
 
@@ -101,9 +113,10 @@ class ModelSerializer:
     MANIFEST = "manifest.sha256.json"
 
     @staticmethod
-    def write_model(model, path: str):
+    def write_model(model, path: str, save_updater: bool = True):
         """Write a MultiLayerNetwork to a zip, crash-safely, with a sha256
-        manifest of every entry."""
+        manifest of every entry; with `save_updater`, its updater state
+        too."""
         meta = {"kind": type(model).__name__,
                 "iteration_count": model.iteration_count,
                 "epoch_count": model.epoch_count,
@@ -112,8 +125,11 @@ class ModelSerializer:
                    (ModelSerializer.COEFFICIENTS,
                     _savez(tree_to_arrays(model.params))),
                    (ModelSerializer.NETWORK_STATE,
-                    _savez(tree_to_arrays(model.state))),
-                   (ModelSerializer.METADATA, json.dumps(meta).encode())]
+                    _savez(tree_to_arrays(model.state)))]
+        if save_updater and model.updater_state is not None:
+            entries.append((ModelSerializer.UPDATER_STATE,
+                            _savez(tree_to_arrays(model.updater_state))))
+        entries.append((ModelSerializer.METADATA, json.dumps(meta).encode()))
         manifest = {"sha256": {name: sha256_hex(data)
                                for name, data in entries},
                     "format_version": 1}
@@ -147,17 +163,14 @@ class ModelSerializer:
         return entries
 
     @staticmethod
-    def restore(path: str, load_updater: bool = False,
+    def restore(path: str, load_updater: bool = True,
                 device: DeviceLike = None):
         """Restore a MultiLayerNetwork zip onto `device` (the GPU unless
-        the caller asks for the CPU)."""
+        the caller asks for the CPU); with `load_updater`, its updater
+        state where the zip has one (else the updater's zero state)."""
         from ..nn.conf import MultiLayerConfiguration
         from ..nn.multilayer import MultiLayerNetwork
 
-        if load_updater:
-            raise NotImplementedError(
-                "updater state is not in the PyTorch port yet; restore with "
-                "load_updater=False")
         entries = ModelSerializer._read_verified(path)
         meta = json.loads(entries[ModelSerializer.METADATA].decode())
         if meta.get("kind", "MultiLayerNetwork") != "MultiLayerNetwork":
@@ -169,6 +182,10 @@ class ModelSerializer:
         model = MultiLayerNetwork(conf, device=device).init()
         model.params = arrays_to_tree(
             model.params, _loadz(entries[ModelSerializer.COEFFICIENTS]))
+        if load_updater and ModelSerializer.UPDATER_STATE in entries:
+            model.updater_state = arrays_to_tree(
+                model.updater_state,
+                _loadz(entries[ModelSerializer.UPDATER_STATE]))
         model.iteration_count = meta.get("iteration_count", 0)
         model.epoch_count = meta.get("epoch_count", 0)
         return model

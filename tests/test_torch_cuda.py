@@ -1,6 +1,9 @@
 """Card tests of the PyTorch port's CUDA kernels: each kernel against its
-plain PyTorch version on the same GPU tensors, and the full-width
-transformer LM on the card against the CPU.
+plain PyTorch version on the same GPU tensors (the LSTM forward in primal
+and residual mode, its adjoint and its parameter-gradient reduction, the
+attention forward), the LSTM autograd Function against autograd of the
+plain forward, the launch counts of a TBPTT training step, and the
+full-width transformer LM on the card against the CPU.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs on a machine without it. On the card:
@@ -171,3 +174,121 @@ def test_out_of_range_ids_give_nan_rows_and_keep_the_context(cuda):
     x[0, 3, 0], x[1, 0, 0] = 5.0, -1.0           # -1 wraps to 64
     ok = net.output(x).cpu().numpy()
     assert np.isfinite(ok).all()
+
+
+# The backward: dx, dh0 and dc0 come out of a 64-step recurrence of f32
+# products in another order than the plain version's; dW, db and dpeep sum
+# T*B = 4096 terms each. Both are held relative to the largest magnitude
+# of the plain result (an absolute bound would depend on the scale of the
+# cotangents).
+BWD_REL_TOL = 2e-5
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _cotangents(T, B, H, device, seed):
+    r = np.random.default_rng(seed)
+    return [torch.as_tensor(r.normal(size=s).astype(np.float32),
+                            device=device)
+            for s in ((T, B, H), (B, H), (B, H))]
+
+
+@pytest.mark.parametrize("T,B,F,H", [
+    (64, 64, 77, 200), (64, 64, 200, 200),      # the char-RNN's training
+    (1, 64, 77, 200), (64, 1, 200, 200),        # one step, one row
+    (9, 3, 5, 37)])                             # a column tail
+def test_lstm_residual_forward_matches_plain(cuda, T, B, F, H):
+    args = _lstm_args(T, B, F, H, cuda, seed=T + B + F)
+    before = lstm.launch_counts()
+    got = lstm.lstm_residual_forward(*args, 1.0)
+    torch.cuda.synchronize()
+    after = lstm.launch_counts()
+    assert after["residual_launches"] == before["residual_launches"] + 1
+    assert after["launches"] == before["launches"]
+    hs, cs, ii, ff, oo, gg = lstm.lstm_sequence_reference(
+        *args, 1.0, save_residuals=True)
+    want = (hs, hs[-1], cs[-1], cs, ii, ff, oo, gg)
+    names = ("hs", "h_T", "c_T", "cs", "i", "f", "o", "g")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = (g - w).abs().max().item()
+        assert err <= TOL, f"{name}: max abs err {err}"
+
+
+@pytest.mark.parametrize("T,B,F,H,need_dx", [
+    (64, 64, 77, 200, False), (64, 64, 200, 200, True),
+    (1, 64, 77, 200, True), (64, 1, 200, 200, True), (9, 3, 5, 37, True)])
+def test_lstm_backward_kernels_match_plain(cuda, T, B, F, H, need_dx):
+    args = _lstm_args(T, B, F, H, cuda, seed=T * B + F)
+    x, W, b, peep, h0, c0 = args
+    hs, cs, ii, ff, oo, gg = lstm.lstm_sequence_reference(
+        *args, 1.0, save_residuals=True)
+    dhs, dhT, dcT = _cotangents(T, B, H, cuda, seed=F + H)
+    before = lstm.launch_counts()
+    got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, hs, cs, ii, ff, oo,
+                                      gg, dhs, dhT, dcT, need_dx=need_dx)
+    torch.cuda.synchronize()
+    after = lstm.launch_counts()
+    assert after["adjoint_launches"] == before["adjoint_launches"] + 1
+    assert after["reduction_launches"] == before["reduction_launches"] + 1
+    want = lstm.lstm_sequence_backward_reference(
+        x, W, peep, h0, c0, hs, cs, ii, ff, oo, gg, dhs, dhT, dcT)
+    names = ("dx", "dW", "db", "dpeep", "dh0", "dc0")
+    assert (got[0] is None) == (not need_dx)
+    for name, g, w in zip(names, got, want):
+        if g is None:
+            continue
+        assert g.shape == w.shape
+        err = _rel_err(g, w)
+        assert err <= BWD_REL_TOL, f"{name}: max err / max |ref| {err}"
+
+
+def test_lstm_backward_kernels_take_missing_cotangents(cuda):
+    args = _lstm_args(6, 4, 5, 37, cuda, seed=3)
+    x, W, b, peep, h0, c0 = args
+    res = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+    dhs, _, _ = _cotangents(6, 4, 37, cuda, seed=4)
+    got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, *res, dhs)
+    want = lstm.lstm_sequence_backward_reference(x, W, peep, h0, c0, *res,
+                                                 dhs)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= BWD_REL_TOL
+
+
+def test_lstm_function_matches_autograd_of_plain_forward(cuda):
+    T, B, F, H = 16, 8, 77, 200
+    leaves = [a.requires_grad_() for a in _lstm_args(T, B, F, H, cuda)]
+    w = _cotangents(T, B, H, cuda, seed=5)
+    mix = lambda outs: sum((o * c).sum() for o, c in zip(outs, w))
+    got = torch.autograd.grad(mix(lstm.lstm_sequence(*leaves, 1.0)), leaves)
+    want = torch.autograd.grad(
+        mix(lstm.lstm_sequence_reference(*leaves, 1.0)), leaves)
+    for name, g, r in zip(("dx", "dW", "db", "dpeep", "dh0", "dc0"), got,
+                          want):
+        err = _rel_err(g, r)
+        assert err <= BWD_REL_TOL, f"{name}: max err / max |ref| {err}"
+
+
+def test_tbptt_step_launches_two_of_each_training_kernel(cuda):
+    net = pt.char_rnn(vocab_size=11, lstm_size=16, seq_len=8, tbptt=8,
+                      device=cuda).init()
+    r = np.random.default_rng(0)
+    idx = r.integers(0, 11, (4, 9))
+    eye = np.eye(11, dtype=np.float32)
+    lstm.reset_launches()
+    net.fit(eye[idx[:, :-1]], eye[idx[:, 1:]])
+    torch.cuda.synchronize()
+    assert lstm.launch_counts() == {"launches": 0, "residual_launches": 2,
+                                    "adjoint_launches": 2,
+                                    "reduction_launches": 2}
+    assert net.iteration_count == 1 and np.isfinite(net.score())
+
+
+def test_attention_kernel_refuses_autograd(cuda):
+    q, k, v = _qkv(2, 16, 16, 2, 64, cuda)
+    with pytest.raises(attention.AttentionGradientNotPorted, match="A3"):
+        attention.flash_attention_heads(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        attention.flash_attention_heads(q, k, v)
