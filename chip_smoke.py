@@ -9,8 +9,8 @@ Phases:
      and the kernel build from the repository's CUDA sources;
   2. each kernel against its plain PyTorch version on the same GPU tensors,
      at the shapes the main paths give it (and ragged and other head-size
-     cases for attention; one step, one row and a column tail for the LSTM
-     training kernels);
+     cases for attention and its backward; one step, one row and a column
+     tail for the LSTM training kernels);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -27,20 +27,31 @@ Phases:
      seeded random weights; the same zip and batches on the CPU; per-step
      scores, first-step gradients and final parameters compared; the zip
      with its updater state restored on both devices for one more step;
-  7. times: each kernel, its plain version, the PyTorch library call where
+  7. main path 4: train the transformer LM of phase 5 (nanoGPT's
+     shakespeare-char widths, Adam 1e-3 with beta2 0.99, dropout 0) for 20
+     optimizer steps at batch 64 x 256 with `fit` over an
+     ArrayDataSetIterator of overlapping windows of README.md, from a zip
+     of seeded random weights; first-step gradients at batch 64 and a
+     20-step trajectory at batch 16 held against the same zip and batches
+     on the CPU; the trained zip with its updater state restored on both
+     devices for one more step, then registered and served at bucket 32
+     against the CPU;
+  8. times: each kernel, its plain version, the PyTorch library call where
      there is one, and its bound; predict and HTTP p50 per bucket and
      tokens/s at bucket 32 for both models; training tokens/s and step
-     p50; where the LM's bucket-32 forward and a training batch spend
-     their device time (torch.profiler).
+     p50 for both models; where the LM's bucket-32 forward, a char-RNN
+     training batch and an LM training step spend their device time
+     (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
-(phases 3-4), six attention launches per LM forward (phase 5), and two
-residual-forward, two adjoint and two reduction launches per training step
-(phase 6), each path launching none of the others' kernels. The last two
-lines are a `{"kernels": [...]}` object and `{"ok": true, "device":
-{...}}`. Any failed check, or a machine without a CUDA device, exits
-non-zero before either.
+(phases 3-4), six primal attention launches per LM forward (phase 5), two
+residual-forward, two adjoint and two reduction launches per char-RNN
+training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
+launches per LM training step (phase 7), each path launching none of the
+others' kernels. The last two lines are a `{"kernels": [...]}` object and
+`{"ok": true, "device": {...}}`. Any failed check, or a machine without a
+CUDA device, exits non-zero before either.
 """
 import json
 import os
@@ -91,6 +102,31 @@ LM_VOCAB, LM_WIDTH, LM_HEADS, LM_BLOCKS, LM_SEQ = 65, 384, 6, 6, 256
 # plain version's einsum, and exp of differently rounded logits: about
 # 2e-5 abs is the expected scale
 ATTN_TOL = 5e-5
+# The attention backward (and the logsumexp) against its plain version,
+# relative to the largest magnitude of the plain result: sums of up to 256
+# products in another order (the kv or q loop, and Dh per score), exp of
+# differently rounded logits.
+ATTN_GRAD_TOL = 2e-5
+
+# LM training (nanoGPT config/train_shakespeare_char.py: batch 64, block
+# 256, learning_rate 1e-3, beta2 0.99, dropout 0 for the comparison; no
+# weight decay, warm-up or clipping, which the JAX package does not have in
+# that form)
+LM_ALPHABET = ("\n !$&',-.3:;?ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+               "abcdefghijklmnopqrstuvwxyz")     # its 65 characters
+LM_TRAIN_B, LM_STEPS, LM_LR = 64, 20, 1e-3
+# The card-against-CPU trajectory runs at batch 16: a batch-64 step of the
+# full-width LM takes seconds on the CPU (printed below), 20 of them more
+# than a minute.
+LM_CMP_B = 16
+# Scores of the LM's 20 steps, card against CPU (absolute). Without
+# nanoGPT's warm-up, Adam at 1e-3 drives the score through spikes (4.2 ->
+# 8.2 -> 3.1 at batch 16) that amplify float32 rounding about 1000-fold:
+# 2.4e-7 apart at step 2, 2.0e-4 by step 17 through the kernels and 8.2e-5
+# through the plain attention on the card (NVIDIA H100 80GB HBM3, 700 W,
+# this script's printout), so the char-RNN's 1e-4 is out of reach for
+# either. The plain-attention run is repeated below in every run.
+LM_SCORE_TOL = 1e-3
 
 
 def check(cond, msg):
@@ -144,20 +180,34 @@ def rel_err(got, want):
             / want.abs().max().clamp_min(1e-30)).item()
 
 
-def readme_batches(root):
-    """The repository's README.md as one-hot characters of ALPHABET
-    (anything else becomes a space), cut into TRAIN_BATCHES x TRAIN_B
-    evenly spaced windows of TRAIN_T + 1 characters; the labels are the
-    next character."""
+def text_windows(root, alphabet, n, length):
+    """The repository's README.md as ids of `alphabet` (anything else
+    becomes a space), cut into `n` evenly spaced windows of `length`
+    characters (overlapping where the text is shorter than n * length)."""
     with open(os.path.join(root, "README.md"), encoding="utf-8") as fh:
         text = fh.read()
-    index = {c: i for i, c in enumerate(ALPHABET)}
+    index = {c: i for i, c in enumerate(alphabet)}
     ids = np.array([index.get(c, index[" "]) for c in text])
-    starts = np.linspace(0, len(ids) - TRAIN_T - 1,
-                         TRAIN_BATCHES * TRAIN_B).astype(np.int64)
-    windows = ids[starts[:, None] + np.arange(TRAIN_T + 1)]
+    starts = np.linspace(0, len(ids) - length, n).astype(np.int64)
+    return ids[starts[:, None] + np.arange(length)]
+
+
+def readme_batches(root):
+    """TRAIN_BATCHES x TRAIN_B windows of TRAIN_T + 1 characters of
+    ALPHABET as one-hot characters; the labels are the next character."""
+    windows = text_windows(root, ALPHABET, TRAIN_BATCHES * TRAIN_B,
+                           TRAIN_T + 1)
     eye = np.eye(VOCAB, dtype=np.float32)
     return eye[windows[:, :-1]], eye[windows[:, 1:]]
+
+
+def lm_text_batches(root):
+    """LM_STEPS x LM_TRAIN_B windows of LM_SEQ + 1 characters of
+    LM_ALPHABET: ids [N, LM_SEQ, 1] and next-character one-hot labels."""
+    windows = text_windows(root, LM_ALPHABET, LM_STEPS * LM_TRAIN_B,
+                           LM_SEQ + 1)
+    return (windows[:, :-1, None].astype(np.float32),
+            np.eye(LM_VOCAB, dtype=np.float32)[windows[:, 1:]])
 
 
 class StepLog:
@@ -174,11 +224,12 @@ class StepLog:
             self.times.append(time.perf_counter())
 
 
-def first_chunk_grads(torch, net, ds):
-    """Gradients of the first TBPTT chunk's score at the network's current
-    parameters (what the first optimizer step applies)."""
+def first_chunk_grads(torch, net, ds, steps=TRAIN_TBPTT):
+    """Gradients of the first `steps` time steps' score (the first TBPTT
+    chunk; all of them when None) at the network's current parameters
+    (what the first optimizer step applies)."""
     x, y, _, _ = net._batch(ds)
-    x, y = x[:, :TRAIN_TBPTT], y[:, :TRAIN_TBPTT]
+    x, y = x[:, :steps], y[:, :steps]
     params = tuple({k: v.detach().requires_grad_() for k, v in p.items()}
                    for p in net.params)
     with torch.enable_grad():
@@ -189,14 +240,27 @@ def first_chunk_grads(torch, net, ds):
     return dict(zip(names, (g.detach().cpu() for g in grads)))
 
 
-def param_rel_l2(net, ref):
-    """Largest per-tensor |a - b|_2 / |b|_2 between two networks."""
+def param_rel_l2(net, ref, skip=()):
+    """Largest per-tensor |a - b|_2 / |b|_2 between two networks, over the
+    parameter keys not in `skip`."""
     worst = 0.0
     for p, q in zip(net.params, ref.params):
         for k in q:
+            if k in skip:
+                continue
             a, b = p[k].detach().cpu(), q[k].detach().cpu()
             worst = max(worst, ((a - b).norm() / b.norm()).item())
     return worst
+
+
+def key_bias_max(net):
+    """Largest |b_k| over the network's transformer blocks. The key bias's
+    gradient is exactly 0 in exact arithmetic (one vector added to every
+    key shifts a row's logits by a constant, which the softmax ignores), so
+    its Adam updates follow rounding noise and two devices cannot agree on
+    it: it is held to what Adam can move it, LM_LR per step."""
+    return max(p["b_k"].abs().max().item() for p in net.params
+               if "b_k" in p)
 
 
 def attention_inputs(torch, B, T, S, H, Dh, seed):
@@ -248,12 +312,36 @@ def reduction_bound_ms(T, B, F, H):
     return bound(nbytes, 2 * T * B * 4 * H * (F + H))
 
 
+def live_pairs(T, S, causal):
+    """(query, key) pairs a mask leaves, per (batch, head)."""
+    return sum(min(t + 1, S) for t in range(T)) if causal else T * S
+
+
 def attention_bound_ms(B, T, S, H, Dh, causal):
     """One launch: q, k, v read once and o written once; 4 Dh FLOPs (the
     two products) per attended (query, key) pair this mask leaves."""
-    pairs = (sum(min(t + 1, S) for t in range(T)) if causal else T * S)
     nbytes = 4 * B * H * Dh * (2 * T + 2 * S)
-    return bound(nbytes, 4 * Dh * pairs * B * H)
+    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H)
+
+
+def lse_bound_ms(B, T, S, H, Dh, causal):
+    """The logsumexp forward: as the primal, plus L [B, H, T] written."""
+    nbytes = 4 * B * H * (Dh * (2 * T + 2 * S) + T)
+    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H)
+
+
+def dq_bound_ms(B, T, S, H, Dh, causal):
+    """dq: q, k, v, o, do and L read once, dq and D written once; 6 Dh
+    FLOPs per live pair (s, do v^T, ds k)."""
+    nbytes = 4 * B * H * (Dh * (5 * T + 2 * S) + 2 * T)
+    return bound(nbytes, 6 * Dh * live_pairs(T, S, causal) * B * H)
+
+
+def dkv_bound_ms(B, T, S, H, Dh, causal):
+    """dk/dv: q, k, v, do, L and D read once, dk and dv written once; 8 Dh
+    FLOPs per live pair (s, do v^T, p^T do, ds^T q)."""
+    nbytes = 4 * B * H * (Dh * (2 * T + 4 * S) + 2 * T)
+    return bound(nbytes, 8 * Dh * live_pairs(T, S, causal) * B * H)
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -268,11 +356,17 @@ def cuda_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def make_lm(pt, torch, seed):
+def make_lm(pt, torch, seed, updater=None, dist=None):
     """The transformer LM at nanoGPT shakespeare-char widths, built with
     the builder DSL (the repository has no zoo entry for it), with random
-    weights from `seed`."""
-    b = (pt.NeuralNetConfiguration.builder().seed(seed).list()
+    weights from `seed` (the configuration's default Xavier init, or the
+    weight distribution `dist`)."""
+    b = pt.NeuralNetConfiguration.builder().seed(seed)
+    if updater is not None:
+        b = b.updater(updater)
+    if dist is not None:
+        b = b.dist(dist)
+    b = (b.list()
          .layer(pt.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH)))
     for _ in range(LM_BLOCKS):
         b = b.layer(pt.TransformerBlock(n_heads=LM_HEADS))
@@ -454,6 +548,7 @@ def main():
     import deeplearning4j_tpu_torch as pt
     from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.kernels import attention, lstm
+    from deeplearning4j_tpu_torch.nn.weights import Distribution
 
     def reset_counts():
         lstm.reset_launches()
@@ -464,6 +559,11 @@ def main():
         check(counts["residual_launches"] == counts["adjoint_launches"]
               == counts["reduction_launches"] == 0,
               f"the {path} path launched LSTM training kernels: {counts}")
+        counts = attention.launch_counts()
+        check(counts["lse_launches"] == counts["dq_launches"]
+              == counts["dkv_launches"] == 0,
+              f"the {path} path launched attention training kernels: "
+              f"{counts}")
 
     # ---- 1. card, versions, build -------------------------------------
     card = subprocess.run(
@@ -552,6 +652,50 @@ def main():
         attn_err = max(attn_err, err)
     print(f"attention kernel vs plain: {len(attn_shapes)} shapes, max abs "
           f"err {attn_err:.3e} (limit {ATTN_TOL})")
+
+    # the attention training kernels: logsumexp forward, dq, dk/dv
+    Dh = LM_WIDTH // LM_HEADS
+    grad_shapes = [(LM_TRAIN_B, LM_SEQ, LM_SEQ, LM_HEADS, Dh, True),  # fit
+                   (1, LM_SEQ, LM_SEQ, LM_HEADS, Dh, True),           # b=1
+                   (2, 100, 100, LM_HEADS, Dh, True),      # ragged causal
+                   (3, 96, 80, LM_HEADS, Dh, False),       # T != S
+                   (2, LM_SEQ, LM_SEQ, LM_HEADS, 16, True),
+                   (2, LM_SEQ, LM_SEQ, 3, 128, True)]
+    attn_train_err = {name: [0.0, 0.0] for name in ("lse", "dq", "dkv")}
+    for B, T, S, H, Dh_, causal in grad_shapes:
+        q, k, v = attention_inputs(torch, B, T, S, H, Dh_, seed=T + 3 * S)
+        do = attention_inputs(torch, B, T, T, H, Dh_, seed=T + Dh_)[0]
+        what = f"B={B} T={T} S={S} H={H} Dh={Dh_} causal={causal}"
+        o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, causal)
+        want_o, want_lse = attention.attention_reference_heads_lse(
+            q, k, v, causal)
+        dq, dsum = attention.attention_bwd_dq(q, k, v, want_o, want_lse, do,
+                                              causal)
+        dk, dv = attention.attention_bwd_dkv(q, k, v, do, want_lse, dsum,
+                                             causal)
+        want_dq, want_dsum = attention.attention_bwd_dq_reference(
+            q, k, v, want_o, want_lse, do, causal)
+        want_dk, want_dv = attention.attention_bwd_dkv_reference(
+            q, k, v, do, want_lse, want_dsum, causal)
+        torch.cuda.synchronize()
+        err = (o - want_o).abs().max().item()
+        check(err <= ATTN_TOL, f"logsumexp forward {what}: output max abs "
+              f"err {err} > {ATTN_TOL}")
+        for key, pairs in (("lse", ((lse, want_lse),)),
+                           ("dq", ((dsum, want_dsum), (dq, want_dq))),
+                           ("dkv", ((dk, want_dk), (dv, want_dv)))):
+            for got, want in pairs:
+                rel = rel_err(got, want)
+                check(rel <= ATTN_GRAD_TOL, f"attention {key} {what}: max "
+                      f"err / max |ref| {rel} > {ATTN_GRAD_TOL}")
+                e = attn_train_err[key]
+                e[0] = max(e[0], (got - want).abs().max().item())
+                e[1] = max(e[1], rel)
+    print(f"attention training kernels vs plain: {len(grad_shapes)} shapes; "
+          + "; ".join(f"{k} max abs err {a:.3e}, over max |ref| {r:.3e}"
+                      for k, (a, r) in attn_train_err.items())
+          + f" (limit {ATTN_GRAD_TOL} of max |ref|; the logsumexp "
+          f"forward's output within {ATTN_TOL} abs)")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     rng = np.random.default_rng(0)
@@ -677,8 +821,9 @@ def main():
           f"training launches {train_counts} for {steps} steps (want 2 "
           "residual forwards, 2 adjoints, 2 reductions and no primal "
           "forward per step)")
-    check(attention.launches == 0,
-          f"training launched attention {attention.launches} times")
+    check(set(attention.launch_counts().values()) == {0},
+          f"char-RNN training launched attention kernels: "
+          f"{attention.launch_counts()}")
     t0 = time.perf_counter()
     cpu_net.fit(batches())
     cpu_fit_s = time.perf_counter() - t0
@@ -731,7 +876,172 @@ def main():
           f"step: score err {resume_err:.3e}, parameters relative L2 "
           f"{resume_param_err:.3e}")
 
-    # ---- 7. times (counted launches end above) --------------------------
+    # ---- 7. main path 4: train the transformer LM ------------------------
+    lm_x, lm_y = lm_text_batches(root)
+    lm_zip = os.path.join(tmp, "lm_train.zip")
+    # nanoGPT's init (normal, std 0.02): from Xavier at this depth, with no
+    # final LayerNorm, the logits start large and Adam at 1e-3 diverges
+    pt.ModelSerializer.write_model(
+        make_lm(pt, torch, 5, pt.Adam(LM_LR, beta2=0.99),
+                Distribution(kind="normal", std=0.02)), lm_zip)
+    gpu_lm = pt.ModelSerializer.restore(lm_zip)
+    cpu_lm = pt.ModelSerializer.restore(lm_zip, device="cpu")
+    lm_batches = lambda n, b: pt.ArrayDataSetIterator(
+        lm_x[:n], lm_y[:n], batch_size=b, shuffle=True, seed=11)
+
+    def check_key_bias(nets, steps, what):
+        for n in nets:
+            kb = key_bias_max(n)
+            check(kb <= LM_LR * steps, f"{what}: |b_k| {kb} beyond Adam's "
+                  f"reach {LM_LR * steps}")
+
+    # the first step's gradients at batch 64 (before the counted run); the
+    # key bias's gradient is 0 up to rounding on both devices
+    first = lm_batches(len(lm_x), LM_TRAIN_B).next()
+    t0 = time.perf_counter()
+    lg_cpu = first_chunk_grads(torch, cpu_lm, first, steps=None)
+    cpu_grad_s = time.perf_counter() - t0
+    lg_gpu = first_chunk_grads(torch, gpu_lm, first, steps=None)
+    lm_grad_err = max(rel_err(lg_gpu[k], lg_cpu[k]) for k in lg_cpu
+                      if not k.endswith("/b_k"))
+    check(lm_grad_err <= GRAD_TOL, f"LM first-step gradients: max err / max "
+          f"|ref| {lm_grad_err} > {GRAD_TOL}")
+    bk_grad = max(g[f"{i}/b_k"].abs().max().item()
+                  / g[f"{i}/W_k"].abs().max().item()
+                  for g in (lg_gpu, lg_cpu) for i in range(1, 1 + LM_BLOCKS))
+    check(bk_grad <= GRAD_TOL, f"LM key-bias gradient {bk_grad} of its "
+          "W_k's largest entry: not 0 up to rounding")
+
+    lm_log = StepLog()
+    gpu_lm.set_listeners(lm_log)
+    reset_counts()
+    t0 = time.perf_counter()
+    gpu_lm.fit(lm_batches(len(lm_x), LM_TRAIN_B))
+    torch.cuda.synchronize()
+    lm_fit_s = time.perf_counter() - t0
+    lm_counts = attention.launch_counts()
+    lm_steps = gpu_lm.iteration_count
+    check(lm_steps == LM_STEPS, f"{lm_steps} LM optimizer steps, want "
+          f"{LM_STEPS}")
+    check(lm_counts == {"launches": 0, "lse_launches": LM_BLOCKS * lm_steps,
+                        "dq_launches": LM_BLOCKS * lm_steps,
+                        "dkv_launches": LM_BLOCKS * lm_steps},
+          f"LM training launches {lm_counts} for {lm_steps} steps (want "
+          f"{LM_BLOCKS} logsumexp forwards, dq and dk/dv per step and no "
+          "primal forward)")
+    check(set(lstm.launch_counts().values()) == {0},
+          f"LM training launched LSTM kernels: {lstm.launch_counts()}")
+    lm_scores = [float(v) for v in lm_log.scores]
+    print(f"LM training: {lm_steps} steps of {LM_TRAIN_B} x {LM_SEQ} "
+          f"tokens in {lm_fit_s:.2f} s on the card; launches {lm_counts}; "
+          f"score {lm_scores[0]:.4f} -> {lm_scores[-1]:.4f}; first-step "
+          f"gradients card vs CPU {lm_grad_err:.3e} of max (limit "
+          f"{GRAD_TOL}; key bias {bk_grad:.3e} of its W_k's max on either "
+          f"device); the CPU took {cpu_grad_s:.2f} s for that batch-"
+          f"{LM_TRAIN_B} forward and backward")
+    check(np.isfinite(lm_scores).all() and lm_scores[-1] < lm_scores[0],
+          f"LM training scores {lm_scores}")
+    check_key_bias([gpu_lm], lm_steps, "LM training")
+
+    # card against CPU: 20 steps at batch LM_CMP_B from the same zip
+    cmp_nets = [pt.ModelSerializer.restore(lm_zip),
+                pt.ModelSerializer.restore(lm_zip, device="cpu")]
+    cmp_logs = [StepLog(), StepLog()]
+    reset_counts()
+    t0 = time.perf_counter()
+    for n, log in zip(cmp_nets, cmp_logs):
+        n.set_listeners(log)
+        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+    cmp_s = time.perf_counter() - t0
+    check(attention.launch_counts()["lse_launches"] == LM_BLOCKS * LM_STEPS,
+          f"comparison run launches {attention.launch_counts()}")
+    cmp_scores = [[float(v) for v in log.scores] for log in cmp_logs]
+    check(len(cmp_scores[0]) == len(cmp_scores[1]) == LM_STEPS,
+          "missing LM step scores")
+    lm_score_err = float(np.abs(np.subtract(*cmp_scores)).max())
+    lm_param_err = param_rel_l2(*cmp_nets, skip=("b_k",))
+    print(f"LM card vs CPU at batch {LM_CMP_B} ({cmp_s:.1f} s for both): "
+          f"score {cmp_scores[0][0]:.4f} -> {cmp_scores[0][-1]:.4f}; scores "
+          f"max abs err {lm_score_err:.3e} (limit {LM_SCORE_TOL}); final "
+          f"parameters relative L2 {lm_param_err:.3e} (limit {PARAM_TOL}; "
+          f"with the key biases {param_rel_l2(*cmp_nets):.3e}); |b_k| at "
+          f"most {max(key_bias_max(n) for n in cmp_nets):.3e} (Adam's reach "
+          f"{LM_LR * LM_STEPS})")
+    print(json.dumps({"lm_train_scores_card": cmp_scores[0],
+                      "lm_train_scores_cpu": cmp_scores[1],
+                      "lm_train_scores_b64": lm_scores}))
+    # the same run with the plain attention on the card: the LM's own
+    # float32 sensitivity, which LM_SCORE_TOL answers
+    block = pt.TransformerBlock
+    kernel_attend = block._attend
+    block._attend = lambda self, q, k, v, mask: \
+        attention.attention_reference_heads(q, k, v, self.causal)
+    try:
+        plain = pt.ModelSerializer.restore(lm_zip)
+        plain_log = StepLog()
+        plain.set_listeners(plain_log)
+        plain.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+    finally:
+        block._attend = kernel_attend
+    plain_scores = [float(v) for v in plain_log.scores]
+    plain_score_err = float(np.abs(np.subtract(plain_scores,
+                                               cmp_scores[1])).max())
+    plain_param_err = param_rel_l2(plain, cmp_nets[1], skip=("b_k",))
+    print(f"plain attention on the card vs CPU, same run: scores max abs err "
+          f"{plain_score_err:.3e}, parameters relative L2 "
+          f"{plain_param_err:.3e}")
+    check(lm_score_err <= LM_SCORE_TOL, f"LM step scores card vs CPU: max "
+          f"abs err {lm_score_err} > {LM_SCORE_TOL}")
+    check(lm_param_err <= PARAM_TOL, f"LM parameters after {LM_STEPS} "
+          f"steps: relative L2 {lm_param_err} > {PARAM_TOL}")
+    check(cmp_scores[0][-1] < cmp_scores[0][0], "the LM score did not fall "
+          f"at batch {LM_CMP_B}: {cmp_scores[0]}")
+    check_key_bias(cmp_nets, LM_STEPS, "LM comparison")
+
+    # the trained zip with its updater state: one more step on both
+    # devices, then served against the CPU
+    lm_trained = os.path.join(tmp, "lm_trained.zip")
+    pt.ModelSerializer.write_model(gpu_lm, lm_trained)
+    resumed = [pt.ModelSerializer.restore(lm_trained),
+               pt.ModelSerializer.restore(lm_trained, device="cpu")]
+    for u, w in zip(resumed[0].updater_state, gpu_lm.updater_state):
+        for slot in w:
+            for k in w[slot]:
+                check(torch.equal(u[slot][k], w[slot][k]),
+                      f"restored LM updater state {slot}/{k} differs")
+    extra = pt.DataSet(lm_x[:LM_CMP_B], lm_y[:LM_CMP_B])
+    for n in resumed:
+        n.fit(extra)
+    check(all(n.iteration_count == lm_steps + 1 for n in resumed),
+          "the resumed LM step did not run once on each device")
+    lm_resume_err = abs(resumed[0].score() - resumed[1].score())
+    lm_resume_param = param_rel_l2(*resumed, skip=("b_k",))
+    check(lm_resume_err <= SCORE_TOL and lm_resume_param <= PARAM_TOL,
+          f"resumed LM step card vs CPU: score err {lm_resume_err}, "
+          f"parameters relative L2 {lm_resume_param}")
+    reset_counts()
+    reg = pt.ModelRegistry(buckets=(32,))
+    v = reg.register("lm_trained", lm_trained)
+    x_held = lm_x[-32:]
+    out, _ = reg.predict("lm_trained", x_held)
+    ref = pt.ModelSerializer.restore(lm_trained, device="cpu").output(x_held)
+    trained_err = float(np.abs(out - ref.numpy()).max())
+    check(out.shape == (32, LM_SEQ, LM_VOCAB) and np.isfinite(out).all(),
+          f"trained LM served output shape {out.shape}")
+    check(trained_err <= SERVE_TOL, f"trained LM served vs CPU: max abs err "
+          f"{trained_err} > {SERVE_TOL}")
+    check(attention.launches == LM_BLOCKS * v.forwards,
+          f"serving the trained LM: {attention.launch_counts()} for "
+          f"{v.forwards} forwards")
+    check_no_training_launches("trained-LM serving")
+    print(f"trained LM zip with updater state -> restore on card and CPU -> "
+          f"one more step: score err {lm_resume_err:.3e}, parameters "
+          f"relative L2 {lm_resume_param:.3e}; registered and served at "
+          f"bucket 32: max abs err vs CPU {trained_err:.3e} (limit "
+          f"{SERVE_TOL}), {v.forwards} forwards, {attention.launches} primal "
+          "attention launches")
+
+    # ---- 8. times (counted launches end above) --------------------------
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for F in (VOCAB, HIDDEN):
@@ -880,6 +1190,98 @@ def main():
                                       for n, e in train_times.items()}
     print(json.dumps({"training": training}))
 
+    # the attention training kernels per launch at the LM's training shape,
+    # the primal forward beside the logsumexp one (two instantiations of
+    # one template), and SDPA as the yardstick (f32, its own backend)
+    B, T, H = LM_TRAIN_B, LM_SEQ, LM_HEADS
+    q, k, v = attention_inputs(torch, B, T, T, H, Dh, seed=7)
+    do = attention_inputs(torch, B, T, T, H, Dh, seed=8)[0]
+    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+    dsum = attention.attention_bwd_dq(q, k, v, o, lse, do, True)[1]
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    sdpa_fwd = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
+    attn_train = {
+        "lse": (lambda: attention.flash_attention_fwd_lse_heads(q, k, v,
+                                                                True),
+                lambda: attention.attention_reference_heads_lse(q, k, v,
+                                                                True),
+                sdpa_fwd, lse_bound_ms(B, T, T, H, Dh, True)),
+        "dq": (lambda: attention.attention_bwd_dq(q, k, v, o, lse, do, True),
+               lambda: attention.attention_bwd_dq_reference(q, k, v, o, lse,
+                                                            do, True),
+               sdpa_both - sdpa_fwd, dq_bound_ms(B, T, T, H, Dh, True)),
+        "dkv": (lambda: attention.attention_bwd_dkv(q, k, v, do, lse, dsum,
+                                                    True),
+                lambda: attention.attention_bwd_dkv_reference(
+                    q, k, v, do, lse, dsum, True),
+                sdpa_both - sdpa_fwd, dkv_bound_ms(B, T, T, H, Dh, True))}
+    attn_train_times = {}
+    for name, (kern, plain, lib, (bnd, by)) in attn_train.items():
+        kms, pms = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+        attn_train_times[name] = (kms, pms, lib, bnd, by)
+        sdpa_what = ("forward" if name == "lse"
+                     else "backward (dq, dk, dv together)")
+        print(f"{tag} attention {name} B={B} H={H} T=S={T} Dh={Dh} causal, "
+              f"per launch: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
+              f"{sdpa_what} {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
+    for Bp in (32, LM_TRAIN_B):
+        qp, kp, vp = attention_inputs(torch, Bp, T, T, H, Dh, seed=Bp)
+        kp_ms = cuda_ms(torch, lambda: attention.flash_attention_heads(
+            qp, kp, vp, True))
+        kl_ms = cuda_ms(torch, lambda: attention.flash_attention_fwd_lse_heads(
+            qp, kp, vp, True))
+        print(f"{tag} attention forward B={Bp} H={H} T=S={T} Dh={Dh}: "
+              f"primal {kp_ms:.4f} ms, logsumexp {kl_ms:.4f} ms")
+
+    # LM training: step p50 and tokens/s at batch 64, then one step's
+    # device time by kind
+    timed_lm = pt.ModelSerializer.restore(lm_zip)
+    lm_clock = StepLog(torch)
+    timed_lm.set_listeners(lm_clock)
+    source = lm_batches(len(lm_x), LM_TRAIN_B)
+    timed_lm.fit(source.next())                  # warm-up step
+    lm_clock.times.clear()
+    n_timed = LM_STEPS - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        timed_lm.fit(source.next())
+    lm_fit_s = time.perf_counter() - t0
+    step_ms = 1e3 * np.diff([t0] + lm_clock.times)
+    lm_training = {"card": card, "steps_timed": len(step_ms),
+                   "step_p50_ms": float(np.median(step_ms)),
+                   "tokens_per_s": n_timed * LM_TRAIN_B * LM_SEQ / lm_fit_s,
+                   "parameters": n_params}
+    timed_lm.set_listeners()
+    batch = pt.DataSet(lm_x[:LM_TRAIN_B], lm_y[:LM_TRAIN_B])
+    events, busy, wall = profile_device(
+        torch, lambda: timed_lm.fit(batch), "LM training step (batch 64)",
+        tag, reps=3)
+    kinds = {"gemm": 0.0, "attention": 0.0, "copies": 0.0, "other": 0.0}
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("attention" if "flash_" in low else
+                "gemm" if "gemm" in low else
+                "copies" if "memcpy" in low or "memset" in low else "other")
+        kinds[kind] += ms
+    lm_training.update({
+        "profiled_wall_ms_per_step": wall,
+        "profiled_device_busy_ms_per_step": busy,
+        "profiled_idle_share": 1 - busy / wall,
+        "profiled_ms_per_step_by_kind": kinds,
+        "attention_kernel_ms_per_step": LM_BLOCKS * sum(
+            attn_train_times[n][0] for n in ("lse", "dq", "dkv"))})
+    print(f"{tag} LM training (B={LM_TRAIN_B}, T={LM_SEQ}, {n_params} "
+          f"parameters): step p50 {lm_training['step_p50_ms']:.3f} ms over "
+          f"{len(step_ms)} steps, {lm_training['tokens_per_s']:.1f} tokens/s; "
+          f"one step's device time: "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
+          + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
+    print(json.dumps({"lm_training": lm_training}))
+
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
         "route": "cuda",
@@ -946,7 +1348,41 @@ def main():
          red_rel,
          "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's dW, db and "
          "dpeep accumulation :179-186 via _bwd_impl :219)",
-         "torch.matmul of the [F+H, T*B] x [T*B, 4H] product (dW only)"))]}))
+         "torch.matmul of the [F+H, T*B] x [T*B, 4H] product (dW only)"))]
+        + [{
+            "name": name,
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/attention.cu",
+            "replaces": replaces,
+            "launches": lm_counts[counter],
+            "max_abs_err": attn_train_err[key][0],
+            "max_err_over_max_ref": attn_train_err[key][1],
+            "per": f"one launch (one block's attention) at B={LM_TRAIN_B}, "
+                   f"H={LM_HEADS}, T=S={LM_SEQ}, Dh={Dh}, causal; "
+                   f"{LM_BLOCKS} per LM training step",
+            "ms": attn_train_times[key][0],
+            "plain_ms": attn_train_times[key][1],
+            "bound_ms": attn_train_times[key][3],
+            "bound_by": attn_train_times[key][4],
+            "library_ms": attn_train_times[key][2],
+            "library": library,
+            "card": card,
+        } for name, key, counter, replaces, library in (
+            ("flash_attention_fwd_lse_heads", "lse", "lse_launches",
+             "deeplearning4j_tpu/kernels/attention.py:81 (_make_kernel via "
+             "_flash_fwd_impl :168, emit_lse=True, for _flash_fwd :350)",
+             "scaled_dot_product_attention forward (f32, is_causal, inputs "
+             "requiring grad)"),
+            ("attention_bwd_dq", "dq", "dq_launches",
+             "deeplearning4j_tpu/kernels/attention.py:206 (_make_dq_kernel "
+             "via _flash_bwd_impl :312)",
+             "scaled_dot_product_attention backward (f32, is_causal): dq, dk "
+             "and dv together, the same time on both backward entries"),
+            ("attention_bwd_dkv", "dkv", "dkv_launches",
+             "deeplearning4j_tpu/kernels/attention.py:244 (_make_dkv_kernel "
+             "via _flash_bwd_impl :329)",
+             "scaled_dot_product_attention backward (f32, is_causal): dq, dk "
+             "and dv together, the same time on both backward entries"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""GPT-style transformer block and sequence embedding (inference forward of
-`deeplearning4j_tpu/nn/layers/transformer.py`).
+"""GPT-style transformer block and sequence embedding (the forward of
+`deeplearning4j_tpu/nn/layers/transformer.py`, inference and training).
 
 Parameters are keyed and shaped as in JAX, so they cross through the zip
 unchanged: the block's `W_q`/`W_k`/`W_v`/`W_o` [d, d] with biases,
@@ -9,13 +9,16 @@ unchanged: the block's `W_q`/`W_k`/`W_v`/`W_o` [d, d] with biases,
 
 Attention follows the JAX block's `_attend`: a features mask takes the
 inline masked einsum on any device (the kernels take no mask); otherwise
-`kernels.attention.flash_attention_heads` computes it, one CUDA launch for
-all heads on a GPU tensor and the plain version on a CPU tensor. The JAX
-block's `flash` switch has no counterpart: the tensor's device picks the
-implementation. The decode-mode methods (`decode_qkv`, ...) wait for the
-decode slice and the tensor-parallel hooks for the parallel stack. The
-layers take `train` / `generator` (dropout) as every layer does, but the
-LM is not trained yet: the attention kernel has no backward (ROADMAP A3).
+`kernels.attention.flash_attention_heads` computes it, on a GPU tensor with
+CUDA launches for all heads and on a CPU tensor with the plain versions.
+When autograd records (training), that is the flash custom VJP: the
+forward that saves the logsumexp, then the dq and dk/dv kernels in
+backward; under `no_grad` / `inference_mode` (serving) the primal forward,
+one launch per block. The JAX block's `flash` switch has no counterpart:
+the tensor's device picks the implementation. Input dropout draws from the
+network's `torch.Generator`, so only dropout-free runs are compared with
+JAX. The decode-mode methods (`decode_qkv`, ...) wait for the decode slice
+and the tensor-parallel hooks for the parallel stack.
 """
 from __future__ import annotations
 

@@ -14,7 +14,8 @@ configuration one step per chunk of `tbptt_fwd_length` time steps
 (`_fit_tbptt`), with the recurrent carries flowing forward detached. A step
 is the masked-mean loss of the output layer plus l1/l2 normalised by live
 rows (`_loss_fn`), its gradients from autograd (the LSTM's through its
-CUDA adjoint kernels), then per layer: gradient normalization, the
+CUDA adjoint kernels, the transformer block's attention through the flash
+dq and dk/dv kernels), then per layer: gradient normalization, the
 scheduled per-layer lr, the updater, the bias-lr rescale
 (`apply_layer_updates`).
 """
@@ -30,7 +31,6 @@ from .conf import (BackpropType, MultiLayerConfiguration,
 from .conf.input_type import InputType
 from .gradnorm import apply_gradient_normalization
 from .layers.feedforward import BaseOutputLayerConf
-from .layers.transformer import EmbeddingSequenceLayer, TransformerBlock
 from ..datasets.iterators import DataSet, DataSetIterator
 from ..eval.evaluation import Evaluation
 from ..util.platform import DeviceLike, resolve_device, strict_fp32
@@ -357,11 +357,6 @@ class MultiLayerNetwork:
             raise _not_in_port(
                 f"optimization_algo={self.conf.conf.optimization_algo!r} "
                 "(line-search training)", "7")
-        lm = [type(l).__name__ for l in self.layers
-              if isinstance(l, (TransformerBlock, EmbeddingSequenceLayer))]
-        if lm:
-            raise _not_in_port(f"training a network with {sorted(set(lm))} "
-                               "(LM training)", "3")
         if self.params is None:
             self.init()
         if labels is not None:

@@ -106,7 +106,9 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(bad):
              "non_contiguous": "contiguous", "mixed_device": "on meta",
              "meta_device": "no attention kernel"}[bad]
     if bad in ("float64", "bfloat16"):
-        q = q.to(getattr(torch, bad))
+        # a CPU tensor of another float dtype takes the plain version (as
+        # JAX's reference does); off the CPU only float32 reaches a kernel
+        q, k, v = (t.to("meta", getattr(torch, bad)) for t in (q, k, v))
     elif bad == "rank":
         q = q[0]
     elif bad == "kv_shape":

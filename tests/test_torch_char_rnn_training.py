@@ -15,8 +15,8 @@ RnnOutputLayer, batch 3) and a small MLP, with parameters crossing through
   * a float64 gradient check;
   * the zip with updater state both ways, and resumed training equal to
     uninterrupted training;
-  * named errors for what the slice does not train, and no kernel launch
-    on the CPU.
+  * named errors for what the slice does not train, the transformer LM's
+    `fit` against JAX's, and no kernel launch on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -31,18 +31,20 @@ from deeplearning4j_tpu.nn import updaters as jax_updaters
 from deeplearning4j_tpu.nn.conf import InputType as JaxInputType
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JaxNNC
 from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
+from deeplearning4j_tpu.nn.layers import \
+    EmbeddingSequenceLayer as JaxEmbedding
 from deeplearning4j_tpu.nn.layers import GravesLSTM as JaxGravesLSTM
 from deeplearning4j_tpu.nn.layers import OutputLayer as JaxOutput
 from deeplearning4j_tpu.nn.layers import RnnOutputLayer as JaxRnnOutput
+from deeplearning4j_tpu.nn.layers import TransformerBlock as JaxBlock
 from deeplearning4j_tpu.nn.multilayer import \
     MultiLayerNetwork as JaxMultiLayerNetwork
 from deeplearning4j_tpu.util.serializer import \
     ModelSerializer as JaxModelSerializer
-from deeplearning4j_tpu_torch import (EmbeddingSequenceLayer, InputType,
-                                      ModelSerializer, MultiLayerNetwork,
+from deeplearning4j_tpu_torch import (InputType, ModelSerializer,
+                                      MultiLayerNetwork,
                                       NeuralNetConfiguration, RnnOutputLayer,
-                                      TransformerBlock, char_rnn,
-                                      from_jax_params)
+                                      char_rnn, from_jax_params)
 from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator, DataSet,
                                                ListDataSetIterator)
 from deeplearning4j_tpu_torch.kernels import lstm
@@ -392,17 +394,37 @@ def test_fit_options_not_in_the_slice_raise_named_errors(option, value, item):
     assert net.iteration_count == 0
 
 
-def test_fit_on_the_lm_raises_named_error():
-    conf = (NeuralNetConfiguration.builder().list()
-            .layer(EmbeddingSequenceLayer(n_in=16, n_out=8))
-            .layer(TransformerBlock(n_heads=2))
-            .layer(RnnOutputLayer(n_out=16, activation="softmax"))
-            .set_input_type(InputType.recurrent(1, 6)).build())
-    net = MultiLayerNetwork(conf, device="cpu").init()
-    x = np.zeros((2, 6, 1), np.float32)
-    y = np.eye(16, dtype=np.float32)[np.zeros((2, 6), int)]
-    with pytest.raises(NotImplementedError, match="TransformerBlock.*A3"):
+def test_fit_on_the_lm_matches_jax_fit():
+    """`fit(features, labels)` trains the transformer LM as JAX's does
+    (three Adam steps on arrays; the trajectory bound 1e-4; the key bias,
+    whose gradient is exactly 0 and whose Adam updates follow rounding
+    noise, is held to lr per step: `tests/test_torch_lm_training.py`)."""
+    conf = (JaxNNC.builder().seed(2).updater(jax_updaters.Adam(1e-3)).list()
+            .layer(JaxEmbedding(n_in=16, n_out=8))
+            .layer(JaxBlock(n_heads=2))
+            .layer(JaxRnnOutput(n_out=16, activation="softmax",
+                                loss="mcxent"))
+            .set_input_type(JaxInputType.recurrent(1, 6)).build())
+    jnet = JaxMultiLayerNetwork(conf).init()
+    net = _twin(jnet)
+    r = np.random.default_rng(10)
+    for _ in range(3):
+        idx = r.integers(0, 16, (2, 7))
+        x = idx[:, :-1, None].astype(np.float32)
+        y = np.eye(16, dtype=np.float32)[idx[:, 1:]]
+        jnet.fit(x, y)
         net.fit(x, y)
+    assert net.iteration_count == jnet.iteration_count == 3
+    np.testing.assert_allclose(net.score(), float(jnet.score()), rtol=0,
+                               atol=TRAJ_TOL)
+    for i, (p, jp) in enumerate(zip(net.params, jnet.params)):
+        for k in jp:
+            if k == "b_k":
+                assert np.abs(p[k].numpy()).max() <= 3e-3
+                continue
+            np.testing.assert_allclose(p[k].numpy(), np.asarray(jp[k]),
+                                       rtol=0, atol=TRAJ_TOL,
+                                       err_msg=f"layer {i} {k}")
 
 
 @pytest.mark.parametrize("setting,item", [

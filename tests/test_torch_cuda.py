@@ -127,8 +127,12 @@ def test_attention_kernel_refuses_what_it_cannot_take(cuda):
         attention.flash_attention_heads(q, k.cpu(), v)
 
 
-def _lm(device, width=384, heads=6, blocks=6, t=256, vocab=65, seed=1):
-    b = (pt.NeuralNetConfiguration.builder().list()
+def _lm(device, width=384, heads=6, blocks=6, t=256, vocab=65, seed=1,
+        updater=None):
+    b = pt.NeuralNetConfiguration.builder()
+    if updater is not None:
+        b = b.updater(updater)
+    b = (b.list()
          .layer(pt.EmbeddingSequenceLayer(n_in=vocab, n_out=width)))
     for _ in range(blocks):
         b = b.layer(pt.TransformerBlock(n_heads=heads))
@@ -286,9 +290,121 @@ def test_tbptt_step_launches_two_of_each_training_kernel(cuda):
     assert net.iteration_count == 1 and np.isfinite(net.score())
 
 
-def test_attention_kernel_refuses_autograd(cuda):
-    q, k, v = _qkv(2, 16, 16, 2, 64, cuda)
-    with pytest.raises(attention.AttentionGradientNotPorted, match="A3"):
-        attention.flash_attention_heads(q.requires_grad_(), k, v)
-    with torch.no_grad():
-        attention.flash_attention_heads(q, k, v)
+# The attention backward against its plain version, relative to the
+# largest magnitude of the plain result: f32 sums of up to 256 terms (the
+# kv or q loop, and Dh for each score) in another order, and exp of
+# differently rounded logits.
+ATTN_GRAD_TOL = 2e-5
+ATTN_BWD_SHAPES = [
+    (64, 256, 256, 6, 64, True), (1, 256, 256, 6, 64, True),   # the LM
+    (2, 100, 100, 6, 64, True), (3, 96, 80, 6, 64, False),     # ragged
+    (2, 70, 70, 4, 16, True), (2, 70, 50, 2, 128, False),      # head dims
+    (2, 9, 17, 2, 10, True)]
+
+
+@pytest.mark.parametrize("B,T,S,H,Dh,causal", ATTN_BWD_SHAPES)
+def test_attention_lse_forward_matches_plain(cuda, B, T, S, H, Dh, causal):
+    q, k, v = _qkv(B, T, S, H, Dh, cuda, seed=T + S + Dh)
+    before = attention.launch_counts()
+    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, causal)
+    torch.cuda.synchronize()
+    after = attention.launch_counts()
+    assert after["lse_launches"] == before["lse_launches"] + 1
+    assert after["launches"] == before["launches"]
+    want_o, want_lse = attention.attention_reference_heads_lse(q, k, v,
+                                                               causal)
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    assert (o - want_o).abs().max().item() <= ATTN_TOL
+    assert _rel_err(lse, want_lse) <= ATTN_GRAD_TOL
+
+
+@pytest.mark.parametrize("B,T,S,H,Dh,causal", ATTN_BWD_SHAPES)
+def test_attention_backward_kernels_match_plain(cuda, B, T, S, H, Dh,
+                                                causal):
+    q, k, v = _qkv(B, T, S, H, Dh, cuda, seed=2 * T + S + Dh)
+    do = _qkv(B, T, T, H, Dh, cuda, seed=3 * T + Dh)[0]
+    o, lse = attention.attention_reference_heads_lse(q, k, v, causal)
+    before = attention.launch_counts()
+    dq, dsum = attention.attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = attention.attention_bwd_dkv(q, k, v, do, lse, dsum, causal)
+    torch.cuda.synchronize()
+    after = attention.launch_counts()
+    assert after["dq_launches"] == before["dq_launches"] + 1
+    assert after["dkv_launches"] == before["dkv_launches"] + 1
+    want_dq, want_dsum = attention.attention_bwd_dq_reference(
+        q, k, v, o, lse, do, causal)
+    want_dk, want_dv = attention.attention_bwd_dkv_reference(
+        q, k, v, do, lse, want_dsum, causal)
+    for name, g, w in (("D", dsum, want_dsum), ("dq", dq, want_dq),
+                       ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = _rel_err(g, w)
+        assert err <= ATTN_GRAD_TOL, f"{name}: max err / max |ref| {err}"
+
+
+def test_attention_backward_is_deterministic(cuda):
+    q, k, v, do = _qkv(4, 256, 256, 6, 64, cuda, seed=8) + \
+        _qkv(4, 256, 256, 6, 64, cuda, seed=9)[:1]
+    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+    first = attention.flash_attention_bwd_heads(q, k, v, o, lse, do, True)
+    again = attention.flash_attention_bwd_heads(q, k, v, o, lse, do, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_attention_function_matches_autograd_of_plain_forward(cuda):
+    leaves = [t.requires_grad_() for t in _qkv(3, 100, 100, 6, 64, cuda)]
+    w = _qkv(3, 100, 100, 6, 64, cuda, seed=5)[0]
+    before = attention.launch_counts()
+    out = attention.flash_attention_heads(*leaves, True)
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    torch.cuda.synchronize()
+    after = attention.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "launches": 0, "lse_launches": 1, "dq_launches": 1,
+        "dkv_launches": 1}
+    ref = attention.attention_reference_heads(*leaves, True)
+    assert (out - ref).abs().max().item() <= ATTN_TOL
+    want = torch.autograd.grad((ref * w).sum(), leaves)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        err = _rel_err(g, r)
+        assert err <= ATTN_GRAD_TOL, f"{name}: max err / max |ref| {err}"
+
+
+def test_inference_mode_still_takes_the_primal_attention_kernel(cuda):
+    net = _lm(cuda, blocks=2)
+    x = np.random.default_rng(3).integers(0, 65, (2, 256, 1))
+    attention.reset_launches()
+    net.output(x.astype(np.float32))
+    torch.cuda.synchronize()
+    assert attention.launch_counts() == {"launches": 2, "lse_launches": 0,
+                                         "dq_launches": 0, "dkv_launches": 0}
+
+
+def test_lm_training_step_on_the_card_matches_the_cpu(cuda):
+    """A 2-block LM (width 384, 6 heads, T 256), one Adam step on batch 4:
+    scores within 1e-4, parameters within 1e-3 relative L2 per tensor (the
+    key bias apart: its gradient is exactly 0 and Adam follows the rounding
+    noise, tests/test_torch_lm_training.py); 2 LSE, 2 dq and 2 dk/dv
+    launches and no primal one."""
+    nets = [_lm(d, blocks=2, seed=4, updater=pt.Adam(1e-3, beta2=0.99))
+            for d in (cuda, "cpu")]
+    r = np.random.default_rng(4)
+    idx = r.integers(0, 65, (4, 257))
+    x = idx[:, :-1, None].astype(np.float32)
+    y = np.eye(65, dtype=np.float32)[idx[:, 1:]]
+    attention.reset_launches()
+    lstm.reset_launches()
+    for n in nets:
+        n.fit(x, y)
+    torch.cuda.synchronize()
+    assert attention.launch_counts() == {"launches": 0, "lse_launches": 2,
+                                         "dq_launches": 2, "dkv_launches": 2}
+    assert set(lstm.launch_counts().values()) == {0}
+    assert abs(nets[0].score() - nets[1].score()) <= 1e-4
+    for p, q in zip(*(n.params for n in nets)):
+        for k in q:
+            if k == "b_k":
+                continue
+            a, b = p[k].cpu(), q[k]
+            assert ((a - b).norm() / b.norm()).item() <= 1e-3, k
