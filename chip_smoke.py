@@ -10,7 +10,9 @@ Phases:
   2. each kernel against its plain PyTorch version on the same GPU tensors,
      at the shapes the main paths give it (and ragged and other head-size
      cases for attention and its backward; one step, one row and a column
-     tail for the LSTM training kernels);
+     tail for the LSTM training kernels; N in {128, 4096, 4097} x C in
+     {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for the BN+ReLU
+     forward and backward);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -36,20 +38,34 @@ Phases:
      on the CPU; the trained zip with its updater state restored on both
      devices for one more step, then registered and served at bucket 32
      against the CPU;
-  8. times: each kernel, its plain version, the PyTorch library call where
+  8. main path 5: train the repository's `mlp_mnist` (784 -> 1024 -> 1024
+     -> 10, Adam 1e-3) with a BatchNormalization(relu) after each hidden
+     Dense(identity) layer, in bf16 compute (`compute_dtype("bfloat16")`,
+     float32 masters), built from one JSON, for 20 optimizer steps with
+     `fit` over an ArrayDataSetIterator of the 320 bundled MNIST training
+     digits (batch 128, shuffled, drop_last: two batches an epoch, ten
+     epochs) from a zip of seeded random weights; the same zip and batches
+     on the CPU; per-step scores, first-step gradients, final parameters
+     and running statistics compared; `evaluate` on the 64 held-out
+     digits; the zip with updater and layer state restored on both devices
+     for one more step; then the same network in float32 (no
+     compute_dtype), which must launch no BN kernel, against the CPU;
+  9. times: each kernel, its plain version, the PyTorch library call where
      there is one, and its bound; predict and HTTP p50 per bucket and
      tokens/s at bucket 32 for both models; training tokens/s and step
-     p50 for both models; where the LM's bucket-32 forward, a char-RNN
-     training batch and an LM training step spend their device time
-     (torch.profiler).
+     p50 for both models and samples/s for the BN-MLP; where the LM's
+     bucket-32 forward, a char-RNN training batch, an LM training step and
+     a BN-MLP step spend their device time (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
 (phases 3-4), six primal attention launches per LM forward (phase 5), two
 residual-forward, two adjoint and two reduction launches per char-RNN
 training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
-launches per LM training step (phase 7), each path launching none of the
-others' kernels. The last two lines are a `{"kernels": [...]}` object and
+launches per LM training step (phase 7), and one BN+ReLU forward and one
+backward launch per BN layer and bf16 training step (phase 8: 40 and 40
+over 20 steps, none in evaluation or in float32), each path launching none
+of the others' kernels. The last two lines are a `{"kernels": [...]}` object and
 `{"ok": true, "device": {...}}`. Any failed check, or a machine without a
 CUDA device, exits non-zero before either.
 """
@@ -127,6 +143,38 @@ LM_CMP_B = 16
 # this script's printout), so the char-RNN's 1e-4 is out of reach for
 # either. The plain-attention run is repeated below in every run.
 LM_SCORE_TOL = 1e-3
+
+# BN-MLP (deeplearning4j_tpu/models/zoo.py:mlp_mnist with a
+# BatchNormalization(relu) after each hidden Dense(identity) layer), trained
+# in bf16 on the bundled MNIST digits (deeplearning4j_tpu_torch/resources/
+# mnist_subset.npz: 320 train, 64 held out)
+MLP_WIDTH, MLP_B, MLP_EPOCHS, MLP_LR = 1024, 128, 10, 1e-3
+MLP_STEPS = 2 * MLP_EPOCHS          # 320 digits, batch 128, drop_last
+BN_SHAPES = [(n, c) for n in (MLP_B, 4096, 4097) for c in (1024, 200, 48)]
+# The BN+ReLU kernels against their plain versions: statistics, dgamma and
+# dbeta are float32 sums of up to 4097 terms in another order (1e-5 of the
+# largest plain magnitude); y and dx are compared in float32 after both are
+# rounded to x's dtype, within that plus one ulp of the dtype (8 or 11
+# significant bits) for a value on a rounding boundary.
+BN_TOL = 1e-5
+BN_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# bf16 compute, card against CPU: both sides round every product and sum of
+# the hidden layers to bf16 (8 significant bits), but the card's bf16 GEMMs
+# accumulate in another order than the CPU's, so about 1 in 100-500 values
+# lands one ulp (up to 2^-8 relative) apart, and the gap compounds over 20
+# Adam steps. Gradients per tensor relative to its largest entry; scores
+# absolute (the score starts near ln 10 = 2.3); parameters relative L2 per
+# tensor, against the larger of the tensor's norm and Adam's reach over the
+# run (tensors that start at 0: beta, the output bias); running statistics
+# relative L2 per tensor too, since they are functions of those parameters:
+# at lr 1e-3 an Adam step moves a weight by up to a third of its Xavier
+# scale, so entries whose gradient is within rounding of 0 step either way,
+# and the parameters end 1.35e-2 apart, the running statistics 1.56e-2 (the
+# port against the JAX package on the CPU, the same run:
+# tests/test_torch_mlp_bn_training.py, run as a script, prints them).
+BF16_GRAD_TOL = 2e-2
+BF16_SCORE_TOL = 2e-2
+BF16_PARAM_TOL = 5e-2
 
 
 def check(cond, msg):
@@ -344,6 +392,85 @@ def dkv_bound_ms(B, T, S, H, Dh, causal):
     return bound(nbytes, 8 * Dh * live_pairs(T, S, causal) * B * H)
 
 
+def bn_args(torch, N, C, dtype, seed):
+    """x [N, C] with per-channel means, gamma near 1, beta near 0, dy
+    standard normal; x and dy in `dtype`."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(N, C)) * 1.5 + r.normal(size=C)
+    arrays = (x, 1 + 0.2 * r.normal(size=C), 0.3 * r.normal(size=C),
+              r.normal(size=(N, C)))
+    x, g, b, dy = (torch.as_tensor(a.astype(np.float32), device=DEVICE)
+                   for a in arrays)
+    dt = getattr(torch, dtype)
+    return x.to(dt), g, b, dy.to(dt)
+
+
+def bn_err(got, want, dtype):
+    """(within the limit, max abs err, max err / max |want|): the limit is
+    BN_TOL of max |want| plus one ulp of `dtype` of each element."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = (BN_ULP[dtype] * got.abs().maximum(want.abs())
+             + BN_TOL * want.abs().max())
+    return (bool((err <= limit).all()), err.max().item(),
+            (err.max() / want.abs().max().clamp_min(1e-30)).item())
+
+
+def bn_fwd_bound_ms(N, C, itemsize):
+    """The forward: x read once, y written once (the [C] vectors are
+    noise); a few FLOPs per element, far under the tensor-free f32 rate."""
+    return bound(2 * N * C * itemsize + 4 * 4 * C, 10 * N * C)
+
+
+def bn_bwd_bound_ms(N, C, itemsize):
+    """The backward: x and dy read once, dx written once."""
+    return bound(3 * N * C * itemsize + 6 * 4 * C, 16 * N * C)
+
+
+def bn_mlp_json(pt):
+    """The BN-MLP's configuration JSON: mlp_mnist's widths, seed and Adam
+    with each hidden Dense(relu) split into Dense(identity) +
+    BatchNormalization(relu), in bf16 compute."""
+    return (pt.NeuralNetConfiguration.builder().seed(42)
+            .updater(pt.Adam(MLP_LR)).compute_dtype("bfloat16").list()
+            .layer(pt.DenseLayer(n_out=MLP_WIDTH, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.DenseLayer(n_out=MLP_WIDTH, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(784)).build().to_json())
+
+
+class BiasLog(StepLog):
+    """StepLog that also keeps, before each step, the biases of the Dense
+    layers feeding a BN layer (`pre_bn`): their gradient is 0 in exact
+    arithmetic, so Adam moves them by rounding noise, and a running mean
+    carries them."""
+
+    def __init__(self, net, pre_bn):
+        super().__init__()
+        self.net, self.pre_bn = net, pre_bn
+        self.biases = [self._biases()]
+
+    def _biases(self):
+        return [self.net.params[i]["b"].detach().cpu().clone()
+                for i in self.pre_bn]
+
+    def iteration_done(self, model, iteration):
+        super().iteration_done(model, iteration)
+        self.biases.append(self._biases())
+
+    def running_mean_without_bias(self, state, pos, bn, decay):
+        """The BN layer's running mean less the share of it that is the
+        pre-BN bias: sum_t (1 - d) d^(T-1-t) b_t over the T steps (the
+        running mean starts at 0)."""
+        steps = len(self.scores)
+        part = sum((1 - decay) * decay ** (steps - 1 - t)
+                   * self.biases[t][pos] for t in range(steps))
+        return state[bn]["mean"].detach().cpu() - part
+
+
 def cuda_ms(torch, fn, reps=20):
     fn()
     torch.cuda.synchronize()
@@ -354,6 +481,27 @@ def cuda_ms(torch, fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of `fn`: every device-side kernel and copy it
+    ran, summed (torch.profiler), apart from the host's launch path. Where
+    a call does microseconds of device work, `cuda_ms` of back-to-back
+    calls measures how fast the host issues them instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    check(total > 0, "torch.profiler recorded no device time")
+    return total / 1e3 / reps
 
 
 def make_lm(pt, torch, seed, updater=None, dist=None):
@@ -547,12 +695,18 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import deeplearning4j_tpu_torch as pt
     from deeplearning4j_tpu_torch import kernels
-    from deeplearning4j_tpu_torch.kernels import attention, lstm
+    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
     from deeplearning4j_tpu_torch.nn.weights import Distribution
 
     def reset_counts():
         lstm.reset_launches()
         attention.reset_launches()
+        bn_relu.reset_launches()
+
+    def check_no_bn_launches(path):
+        check(set(bn_relu.launch_counts().values()) == {0},
+              f"the {path} path launched BN+ReLU kernels: "
+              f"{bn_relu.launch_counts()}")
 
     def check_no_training_launches(path):
         counts = lstm.launch_counts()
@@ -564,6 +718,7 @@ def main():
               == counts["dkv_launches"] == 0,
               f"the {path} path launched attention training kernels: "
               f"{counts}")
+        check_no_bn_launches(path)
 
     # ---- 1. card, versions, build -------------------------------------
     card = subprocess.run(
@@ -697,6 +852,41 @@ def main():
           + f" (limit {ATTN_GRAD_TOL} of max |ref|; the logsumexp "
           f"forward's output within {ATTN_TOL} abs)")
 
+    # the BN+ReLU forward and backward
+    bn_max = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    bn_cases = [(N, C, dt, False) for N, C in BN_SHAPES
+                for dt in ("bfloat16", "float16", "float32")]
+    bn_cases.append((2 * 14 * 14, 64, "bfloat16", True))      # NHWC
+    for N, C, dt, nhwc in bn_cases:
+        x, g, b, dy = bn_args(torch, N, C, dt, seed=N + C)
+        what = f"N={N} C={C} {dt}{' NHWC' if nhwc else ''}"
+        if nhwc:        # [2, 14, 14, C] through the layer's entry point
+            y, mean, var = bn_relu.fused_bn_relu(x.reshape(2, 14, 14, C), g,
+                                                 b)
+            y = y.reshape(N, C)
+        else:
+            y, mean, var = bn_relu.bn_relu_forward(x, g, b)
+        dx, dg, db = bn_relu.bn_relu_backward(x, g, b, mean, var, dy)
+        want_y, want_m, want_v = bn_relu.bn_relu_reference(x, g, b)
+        want_dx, want_dg, want_db = bn_relu.bn_relu_backward_reference(
+            x, g, b, mean, var, dy)
+        torch.cuda.synchronize()
+        for key, pairs in (("fwd", ((y, want_y, dt), (mean, want_m, "float32"),
+                                    (var, want_v, "float32"))),
+                           ("bwd", ((dx, want_dx, dt), (dg, want_dg, "float32"),
+                                    (db, want_db, "float32")))):
+            for got, want, kind in pairs:
+                ok, err, rel = bn_err(got, want, kind)
+                check(ok and got.dtype == want.dtype,
+                      f"BN+ReLU {key} {what}: max abs err {err}, over max "
+                      f"|ref| {rel} ({got.dtype} vs {want.dtype})")
+                m = bn_max[key]
+                m[0], m[1] = max(m[0], err), max(m[1], rel)
+    print(f"BN+ReLU kernels vs plain: {len(bn_cases)} cases; "
+          + "; ".join(f"{k} max abs err {a:.3e}, over max |ref| {r:.3e}"
+                      for k, (a, r) in bn_max.items())
+          + f" (limit {BN_TOL} of max |ref| plus one ulp of x's dtype)")
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     rng = np.random.default_rng(0)
 
@@ -824,6 +1014,7 @@ def main():
     check(set(attention.launch_counts().values()) == {0},
           f"char-RNN training launched attention kernels: "
           f"{attention.launch_counts()}")
+    check_no_bn_launches("char-RNN training")
     t0 = time.perf_counter()
     cpu_net.fit(batches())
     cpu_fit_s = time.perf_counter() - t0
@@ -931,6 +1122,7 @@ def main():
           "primal forward)")
     check(set(lstm.launch_counts().values()) == {0},
           f"LM training launched LSTM kernels: {lstm.launch_counts()}")
+    check_no_bn_launches("LM training")
     lm_scores = [float(v) for v in lm_log.scores]
     print(f"LM training: {lm_steps} steps of {LM_TRAIN_B} x {LM_SEQ} "
           f"tokens in {lm_fit_s:.2f} s on the card; launches {lm_counts}; "
@@ -1041,7 +1233,201 @@ def main():
           f"{SERVE_TOL}), {v.forwards} forwards, {attention.launches} primal "
           "attention launches")
 
-    # ---- 8. times (counted launches end above) --------------------------
+    # ---- 8. main path 5: train the BN-MLP in bf16 -----------------------
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    mlp_json = bn_mlp_json(pt)
+    mlp_zip = os.path.join(tmp, "bn_mlp.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(mlp_json), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(7)), mlp_zip)
+    mlp_gpu = pt.ModelSerializer.restore(mlp_zip)
+    mlp_cpu = pt.ModelSerializer.restore(mlp_zip, device="cpu")
+    check(mlp_gpu._compute_dtype == torch.bfloat16, "the BN-MLP zip lost "
+          "compute_dtype")
+    pre_bn = [0, 2]                 # the Dense layers feeding BN layers
+    mlp_batches = lambda x, y: pt.ArrayDataSetIterator(
+        x, y, batch_size=MLP_B, shuffle=True, seed=13, drop_last=True)
+
+    def pre_bn_grad_ratio(grads):
+        """The largest pre-BN bias gradient (0 in exact arithmetic) over its
+        W's largest gradient entry."""
+        return max(grads[f"{i}/b"].abs().max().item()
+                   / grads[f"{i}/W"].abs().max().item() for i in pre_bn)
+
+    def mlp_param_err(net, ref, steps):
+        """Largest per-tensor |a - b|_2 / max(|b|_2, Adam's reach over
+        `steps` in L2), the pre-BN biases apart; and their largest |b|."""
+        worst, bias = 0.0, 0.0
+        for i, (p, q) in enumerate(zip(net.params, ref.params)):
+            for k in q:
+                a, b = p[k].detach().cpu(), q[k].detach().cpu()
+                if i in pre_bn and k == "b":
+                    bias = max(bias, a.abs().max().item(),
+                               b.abs().max().item())
+                    continue
+                scale = max(b.norm().item(),
+                            MLP_LR * steps * b.numel() ** 0.5)
+                worst = max(worst, (a - b).norm().item() / scale)
+        return worst, bias
+
+    def mlp_state_err(logs, nets):
+        """Largest relative L2 error of the running means (less their
+        pre-BN bias share) and vars, per tensor."""
+        worst = 0.0
+        for pos, i in enumerate((1, 3)):
+            d = nets[0].layers[i].decay
+            m = [log.running_mean_without_bias(n.state, pos, i, d)
+                 for log, n in zip(logs, nets)]
+            v = [n.state[i]["var"].detach().cpu() for n in nets]
+            for a, b in (m, v):
+                worst = max(worst, ((a - b).norm() / b.norm()).item())
+        return worst
+
+    first = mlp_batches(x_tr, y_tr).next()
+    mg_gpu, mg_cpu = (first_chunk_grads(torch, n, first, steps=None)
+                      for n in (mlp_gpu, mlp_cpu))
+    mlp_grad_err = max(rel_err(mg_gpu[k], mg_cpu[k]) for k in mg_cpu
+                       if k not in ("0/b", "2/b"))
+    mlp_bias_grad = max(pre_bn_grad_ratio(g) for g in (mg_gpu, mg_cpu))
+    check(mlp_grad_err <= BF16_GRAD_TOL, f"BN-MLP first-step gradients: max "
+          f"err / max |ref| {mlp_grad_err} > {BF16_GRAD_TOL}")
+    check(mlp_bias_grad <= BF16_GRAD_TOL, f"BN-MLP pre-BN bias gradient "
+          f"{mlp_bias_grad} of its W's largest: not 0 up to rounding")
+
+    mlp_logs = [BiasLog(n, pre_bn) for n in (mlp_gpu, mlp_cpu)]
+    for n, log in zip((mlp_gpu, mlp_cpu), mlp_logs):
+        n.set_listeners(log)
+    reset_counts()
+    t0 = time.perf_counter()
+    mlp_gpu.fit(mlp_batches(x_tr, y_tr), epochs=MLP_EPOCHS)
+    torch.cuda.synchronize()
+    mlp_fit_s = time.perf_counter() - t0
+    bn_counts = bn_relu.launch_counts()
+    mlp_steps = mlp_gpu.iteration_count
+    check(mlp_steps == MLP_STEPS, f"{mlp_steps} BN-MLP steps, want "
+          f"{MLP_STEPS}")
+    check(bn_counts == {"fwd_launches": 2 * mlp_steps,
+                        "bwd_launches": 2 * mlp_steps},
+          f"BN-MLP training launches {bn_counts} for {mlp_steps} steps "
+          "(want 2 forward and 2 backward BN launches per step)")
+    check(set(lstm.launch_counts().values()) == {0}
+          and set(attention.launch_counts().values()) == {0},
+          f"BN-MLP training launched LSTM or attention kernels: "
+          f"{lstm.launch_counts()} {attention.launch_counts()}")
+    t0 = time.perf_counter()
+    mlp_cpu.fit(mlp_batches(x_tr, y_tr), epochs=MLP_EPOCHS)
+    mlp_cpu_s = time.perf_counter() - t0
+    mlp_scores = [[float(v) for v in log.scores] for log in mlp_logs]
+    check(len(mlp_scores[0]) == len(mlp_scores[1]) == mlp_steps,
+          "missing BN-MLP step scores")
+    check(np.isfinite(mlp_scores[0]).all()
+          and mlp_scores[0][-1] < mlp_scores[0][0],
+          f"BN-MLP scores {mlp_scores[0]}")
+    mlp_score_err = float(np.abs(np.subtract(*mlp_scores)).max())
+    mlp_param, mlp_bias = mlp_param_err(mlp_gpu, mlp_cpu, mlp_steps)
+    mlp_state = mlp_state_err(mlp_logs, (mlp_gpu, mlp_cpu))
+    for n in (mlp_gpu, mlp_cpu):
+        check(all(t.dtype == torch.float32 and not t.requires_grad
+                  for tree in (n.params, n.state) for d in tree
+                  for t in d.values()),
+              "BN-MLP masters or layer state not float32 and detached")
+    print(f"BN-MLP training (bf16 compute): {mlp_steps} steps of {MLP_B} "
+          f"digits in {mlp_fit_s:.2f} s on the card, {mlp_cpu_s:.2f} s on "
+          f"the CPU; launches {bn_counts}; score {mlp_scores[0][0]:.4f} -> "
+          f"{mlp_scores[0][-1]:.4f}; card vs CPU: scores max abs err "
+          f"{mlp_score_err:.3e} (limit {BF16_SCORE_TOL}), first-step "
+          f"gradients {mlp_grad_err:.3e} of max (limit {BF16_GRAD_TOL}; "
+          f"pre-BN biases {mlp_bias_grad:.3e} of their W's max), final "
+          f"parameters {mlp_param:.3e} (limit {BF16_PARAM_TOL}), running "
+          f"stats {mlp_state:.3e} (limit {BF16_PARAM_TOL}); pre-BN "
+          f"biases at most {mlp_bias:.3e} (Adam's reach "
+          f"{MLP_LR * mlp_steps})")
+    print(json.dumps({"bn_mlp_scores_card": mlp_scores[0],
+                      "bn_mlp_scores_cpu": mlp_scores[1]}))
+    check(mlp_score_err <= BF16_SCORE_TOL, f"BN-MLP scores card vs CPU: "
+          f"max abs err {mlp_score_err} > {BF16_SCORE_TOL}")
+    check(mlp_param <= BF16_PARAM_TOL, f"BN-MLP parameters after "
+          f"{mlp_steps} steps: {mlp_param} > {BF16_PARAM_TOL}")
+    check(mlp_state <= BF16_PARAM_TOL, f"BN-MLP running stats: {mlp_state} "
+          f"> {BF16_PARAM_TOL}")
+    check(mlp_bias <= MLP_LR * mlp_steps + 1e-6, f"pre-BN biases "
+          f"{mlp_bias} beyond Adam's reach")
+
+    # evaluate on the held-out digits: inference takes the plain folded
+    # path, no BN launch
+    reset_counts()
+    evs = [n.evaluate(pt.ArrayDataSetIterator(x_te, y_te, batch_size=64))
+           for n in (mlp_gpu, mlp_cpu)]
+    out = mlp_gpu.output(x_te)
+    torch.cuda.synchronize()
+    check_no_bn_launches("BN-MLP evaluate / output")
+    out_err = (out.cpu() - mlp_cpu.output(x_te)).abs().max().item()
+    check(out.shape == (len(x_te), 10) and torch.isfinite(out).all().item(),
+          f"BN-MLP output {tuple(out.shape)}")
+    check(out_err <= BF16_SCORE_TOL, f"BN-MLP held-out output card vs CPU "
+          f"{out_err}")
+    print(f"BN-MLP evaluate on {len(x_te)} held-out digits: accuracy "
+          f"{evs[0].accuracy():.4f} on the card, {evs[1].accuracy():.4f} on "
+          f"the CPU; outputs max abs err {out_err:.3e}; no BN launch")
+
+    # the zip with updater and layer state, then one more step on both
+    mlp_trained = os.path.join(tmp, "bn_mlp_trained.zip")
+    pt.ModelSerializer.write_model(mlp_gpu, mlp_trained)
+    resumed = [pt.ModelSerializer.restore(mlp_trained),
+               pt.ModelSerializer.restore(mlp_trained, device="cpu")]
+    for tree, ref in ((resumed[0].state, mlp_gpu.state),
+                      (resumed[0].updater_state, mlp_gpu.updater_state)):
+        for u, w in zip(tree, ref):
+            for k in w:
+                same = (all(torch.equal(u[k][j], w[k][j]) for j in w[k])
+                        if isinstance(w[k], dict)
+                        else torch.equal(u[k], w[k]))
+                check(same, f"restored BN-MLP state {k} differs")
+    extra = pt.DataSet(x_tr[:MLP_B], y_tr[:MLP_B])
+    for n in resumed:
+        n.fit(extra)
+    mlp_resume_err = abs(resumed[0].score() - resumed[1].score())
+    mlp_resume_param = mlp_param_err(*resumed, 1)[0]
+    check(mlp_resume_err <= BF16_SCORE_TOL
+          and mlp_resume_param <= BF16_PARAM_TOL,
+          f"resumed BN-MLP step card vs CPU: score err {mlp_resume_err}, "
+          f"parameters {mlp_resume_param}")
+    print(f"BN-MLP zip with updater and layer state -> restore on card and "
+          f"CPU -> one more step: score err {mlp_resume_err:.3e}, "
+          f"parameters {mlp_resume_param:.3e}")
+
+    # the same network in float32: the exact BN path, no kernel
+    f32_conf = json.loads(mlp_json)
+    f32_conf["conf"]["compute_dtype"] = None
+    f32_zip = os.path.join(tmp, "bn_mlp_f32.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(json.dumps(f32_conf)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(7)),
+        f32_zip)
+    f32_nets = [pt.ModelSerializer.restore(f32_zip),
+                pt.ModelSerializer.restore(f32_zip, device="cpu")]
+    f32_logs = [BiasLog(n, pre_bn) for n in f32_nets]
+    reset_counts()
+    for n, log in zip(f32_nets, f32_logs):
+        n.set_listeners(log)
+        n.fit(mlp_batches(x_tr, y_tr), epochs=MLP_EPOCHS)
+    torch.cuda.synchronize()
+    check_no_bn_launches("float32 BN-MLP training")
+    f32_scores = [[float(v) for v in log.scores] for log in f32_logs]
+    f32_score_err = float(np.abs(np.subtract(*f32_scores)).max())
+    f32_param, f32_bias = mlp_param_err(*f32_nets, MLP_STEPS)
+    f32_state = mlp_state_err(f32_logs, f32_nets)
+    print(f"BN-MLP in float32: {MLP_STEPS} steps, no BN launch; score "
+          f"{f32_scores[0][0]:.4f} -> {f32_scores[0][-1]:.4f}; card vs CPU: "
+          f"scores {f32_score_err:.3e} (limit {SCORE_TOL}), parameters "
+          f"{f32_param:.3e} (limit {PARAM_TOL}), running stats "
+          f"{f32_state:.3e} (limit {PARAM_TOL}); pre-BN biases at "
+          f"most {f32_bias:.3e}")
+    check(f32_score_err <= SCORE_TOL and f32_param <= PARAM_TOL
+          and f32_state <= PARAM_TOL and f32_bias <= MLP_LR * MLP_STEPS + 1e-6,
+          "float32 BN-MLP card vs CPU beyond the float32 limits")
+
+    # ---- 9. times (counted launches end above) --------------------------
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for F in (VOCAB, HIDDEN):
@@ -1282,6 +1668,91 @@ def main():
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"lm_training": lm_training}))
 
+    # the BN+ReLU kernels per launch at the BN-MLP's shape (N = MLP_B) and
+    # at N = 4096, C = 1024, bf16, beside their plain versions and the
+    # library call (F.batch_norm in training mode + relu, bf16 input with
+    # float32 weight and bias; its backward through autograd, the forward's
+    # time subtracted), timed here as the yardstick only; each both per
+    # call (CUDA events around back-to-back calls, as every other row) and
+    # in device time (torch.profiler), since at N = 128 a call is
+    # microseconds of device work behind tens of host microseconds
+    fn = torch.nn.functional
+    bn_times = {}
+    for N in (MLP_B, 4096):
+        x, g, b, dy = bn_args(torch, N, MLP_WIDTH, "bfloat16", seed=N)
+        _, mean, var = bn_relu.bn_relu_forward(x, g, b)
+        xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
+        lib_fwd = lambda: fn.relu(fn.batch_norm(xl, None, None, gl, bl,
+                                                training=True))
+        lib_grad = lambda: torch.autograd.grad(lib_fwd(), (xl, gl, bl), dy)
+        lib_f, lib_both = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_grad)
+        lib_dev_f = device_ms(torch, lib_fwd)
+        lib_dev = {"fwd": lib_dev_f,
+                   "bwd": device_ms(torch, lib_grad) - lib_dev_f}
+        rows = {
+            "fwd": (lambda: bn_relu.bn_relu_forward(x, g, b),
+                    lambda: bn_relu.bn_relu_reference(x, g, b), lib_f,
+                    bn_fwd_bound_ms(N, MLP_WIDTH, 2)),
+            "bwd": (lambda: bn_relu.bn_relu_backward(x, g, b, mean, var, dy),
+                    lambda: bn_relu.bn_relu_backward_reference(
+                        x, g, b, mean, var, dy),
+                    lib_both - lib_f, bn_bwd_bound_ms(N, MLP_WIDTH, 2))}
+        for name, (kern, plain, lib, (bnd, by)) in rows.items():
+            kms, pms = cuda_ms(torch, kern), cuda_ms(torch, plain)
+            dev = (device_ms(torch, kern), device_ms(torch, plain),
+                   lib_dev[name])
+            bn_times[(name, N)] = (kms, pms, lib, bnd, by) + dev
+            print(f"{tag} BN+ReLU {name} N={N} C={MLP_WIDTH} bf16, per "
+                  f"call: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+                  f"F.batch_norm + relu "
+                  f"{'forward' if name == 'fwd' else 'backward'} {lib:.4f} "
+                  f"ms; device time: kernel {dev[0]:.4f} ms, plain "
+                  f"{dev[1]:.4f} ms, library {dev[2]:.4f} ms; bound "
+                  f"{bnd:.6f} ms ({by})")
+
+    # BN-MLP training: step p50 and samples/s, then one step's device time
+    # by kind
+    timed_mlp = pt.ModelSerializer.restore(mlp_zip)
+    mlp_clock = StepLog(torch)
+    timed_mlp.set_listeners(mlp_clock)
+    source = mlp_batches(x_tr, y_tr)
+    timed_mlp.fit(source)                       # warm-up epoch, 2 steps
+    mlp_clock.times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_mlp.fit(source, epochs=MLP_EPOCHS - 1)
+    mlp_fit_s = time.perf_counter() - t0
+    step_ms = 1e3 * np.diff([t0] + mlp_clock.times)
+    bn_mlp = {"card": card, "steps_timed": len(step_ms),
+              "step_p50_ms": float(np.median(step_ms)),
+              "samples_per_s": len(step_ms) * MLP_B / mlp_fit_s}
+    timed_mlp.set_listeners()
+    batch = pt.DataSet(x_tr[:MLP_B], y_tr[:MLP_B])
+    events, busy, wall = profile_device(
+        torch, lambda: timed_mlp.fit(batch),
+        f"BN-MLP training step (batch {MLP_B}, bf16)", tag, reps=5)
+    kinds = {"gemm": 0.0, "bn_relu": 0.0, "copies": 0.0, "other": 0.0}
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("bn_relu" if "bn_relu" in low else
+                "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass"))
+                else "copies" if "memcpy" in low or "memset" in low
+                else "other")
+        kinds[kind] += ms
+    bn_mlp.update({
+        "profiled_wall_ms_per_step": wall,
+        "profiled_device_busy_ms_per_step": busy,
+        "profiled_idle_share": 1 - busy / wall,
+        "profiled_ms_per_step_by_kind": kinds,
+        "accuracy_held_out_card": evs[0].accuracy(),
+        "accuracy_held_out_cpu": evs[1].accuracy()})
+    print(f"{tag} BN-MLP training (batch {MLP_B}, bf16 compute): step p50 "
+          f"{bn_mlp['step_p50_ms']:.3f} ms over {len(step_ms)} steps, "
+          f"{bn_mlp['samples_per_s']:.1f} samples/s; one step's device "
+          f"time: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
+          + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
+    print(json.dumps({"bn_mlp_training": bn_mlp}))
+
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
         "route": "cuda",
@@ -1382,7 +1853,42 @@ def main():
              "deeplearning4j_tpu/kernels/attention.py:244 (_make_dkv_kernel "
              "via _flash_bwd_impl :329)",
              "scaled_dot_product_attention backward (f32, is_causal): dq, dk "
-             "and dv together, the same time on both backward entries"))]}))
+             "and dv together, the same time on both backward entries"))]
+        + [{
+            "name": name,
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/bn_relu.cu",
+            "replaces": replaces,
+            "launches": bn_counts[counter],
+            "max_abs_err": bn_max[key][0],
+            "max_err_over_max_ref": bn_max[key][1],
+            "per": f"one launch at the BN-MLP's N={MLP_B}, C={MLP_WIDTH}, "
+                   f"bf16 (2 per training step)",
+            "ms": bn_times[(key, MLP_B)][0],
+            "plain_ms": bn_times[(key, MLP_B)][1],
+            "bound_ms": bn_times[(key, MLP_B)][3],
+            "bound_by": bn_times[(key, MLP_B)][4],
+            "library_ms": bn_times[(key, MLP_B)][2],
+            "library": library,
+            "device_ms": bn_times[(key, MLP_B)][5],
+            "plain_device_ms": bn_times[(key, MLP_B)][6],
+            "library_device_ms": bn_times[(key, MLP_B)][7],
+            "at_n4096": {k: v for k, v in zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "device_ms", "plain_device_ms", "library_device_ms"),
+                bn_times[(key, 4096)])},
+            "card": card,
+        } for name, key, counter, replaces, library in (
+            ("bn_relu_forward", "fwd", "fwd_launches",
+             "deeplearning4j_tpu/kernels/bn_relu.py:38 (_fwd_kernel via "
+             "_fwd_call's pallas_call :88)",
+             "F.batch_norm(training=True) + relu forward (bf16 input, f32 "
+             "weight and bias)"),
+            ("bn_relu_backward", "bwd", "bwd_launches",
+             "deeplearning4j_tpu/kernels/bn_relu.py:50 (_bwd_kernel via "
+             "_bwd_call's pallas_call :123)",
+             "autograd backward of F.batch_norm(training=True) + relu "
+             "(forward time subtracted)"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

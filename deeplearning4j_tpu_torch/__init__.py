@@ -24,24 +24,36 @@ updater state in the zip and a float64 gradient check. The LSTM's
 gradients come from its autograd Function: the residual-saving forward,
 the reverse-time adjoint and the parameter-gradient reduction, each a
 hand-written CUDA kernel in `kernels/csrc/lstm.cu`.
+
+The fourth slice trains the transformer LM through the flash-attention
+backward kernels in `kernels/csrc/attention.cu`.
+
+The fifth slice trains a batch-normalised MLP in bf16: the bf16-compute /
+f32-master contract (`compute_dtype`), layer state (BatchNormalization's
+running statistics, carried through training and the zip), the
+`BatchNormalization` layer with JAX's tier selection, and its training-mode
+BN+ReLU forward and backward as hand-written CUDA kernels in
+`kernels/csrc/bn_relu.cu`.
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
-                       ListDataSetIterator)
+                       ListDataSetIterator, bundled_mnist_subset)
 from .eval import Evaluation
-from .models import char_rnn, sample_characters
+from .models import char_rnn, mlp_mnist, sample_characters
 from .nn import (BackpropType, InputType, MultiLayerConfiguration,
                  MultiLayerNetwork, NeuralNetConfiguration)
-from .nn.layers import (DenseLayer, EmbeddingSequenceLayer, GravesLSTM,
-                        OutputLayer, RnnOutputLayer, TransformerBlock)
+from .nn.layers import (BatchNormalization, DenseLayer,
+                        EmbeddingSequenceLayer, GravesLSTM, OutputLayer,
+                        RnnOutputLayer, TransformerBlock)
 from .nn.updaters import Adam, Nesterovs, Sgd
 from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "Evaluation",
-           "char_rnn", "sample_characters", "BackpropType", "InputType",
-           "MultiLayerConfiguration", "MultiLayerNetwork",
-           "NeuralNetConfiguration", "DenseLayer", "EmbeddingSequenceLayer",
-           "GravesLSTM", "OutputLayer", "RnnOutputLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
+           "ListDataSetIterator", "bundled_mnist_subset", "Evaluation",
+           "char_rnn", "mlp_mnist", "sample_characters", "BackpropType",
+           "InputType", "MultiLayerConfiguration", "MultiLayerNetwork",
+           "NeuralNetConfiguration", "BatchNormalization", "DenseLayer",
+           "EmbeddingSequenceLayer", "GravesLSTM", "OutputLayer",
+           "RnnOutputLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
            "InferenceServer", "ModelRegistry", "ModelSerializer",
            "from_jax_params"]

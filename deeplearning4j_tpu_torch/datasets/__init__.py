@@ -1,6 +1,8 @@
-"""Datasets of the port: DataSet and the in-memory iterators."""
+"""Datasets of the port: DataSet, the in-memory iterators and the bundled
+MNIST digits."""
+from .fetchers import bundled_mnist_subset
 from .iterators import (ArrayDataSetIterator, DataSet, DataSetIterator,
                         ListDataSetIterator)
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator"]
+           "ListDataSetIterator", "bundled_mnist_subset"]

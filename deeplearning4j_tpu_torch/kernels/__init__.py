@@ -1,10 +1,10 @@
 """Hand-written Hopper kernels of the port, and the builder that compiles them.
 
-Each kernel module here (lstm.py, attention.py) holds, for every kernel,
-the wrapper the layers call, the kernel's plain PyTorch version and a
-launch count. A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises. There is no switch that
-turns a kernel off.
+Each kernel module here (lstm.py, attention.py, bn_relu.py) holds, for
+every kernel, the wrapper the layers call, the kernel's plain PyTorch
+version and a launch count. A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel or raises. There is no
+switch that turns a kernel off.
 
 The CUDA sources under `csrc/` are compiled with nvcc for `sm_90a` at first
 use, through `torch.utils.cpp_extension.load`, into `_build/` beside this

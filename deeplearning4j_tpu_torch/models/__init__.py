@@ -1,3 +1,3 @@
-from .zoo import char_rnn, sample_characters
+from .zoo import char_rnn, mlp_mnist, sample_characters
 
-__all__ = ["char_rnn", "sample_characters"]
+__all__ = ["char_rnn", "mlp_mnist", "sample_characters"]

@@ -1,18 +1,32 @@
 """Model zoo of the port: the char-RNN (BASELINE config 3, the reference's
-GravesLSTMCharModellingExample topology) and its sampling loop, as in
-`deeplearning4j_tpu/models/zoo.py`.
+GravesLSTMCharModellingExample topology) and its sampling loop, and the MNIST
+MLP, as in `deeplearning4j_tpu/models/zoo.py`.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..nn.conf import BackpropType, InputType, NeuralNetConfiguration
-from ..nn.layers import GravesLSTM, RnnOutputLayer
+from ..nn.layers import DenseLayer, GravesLSTM, OutputLayer, RnnOutputLayer
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam
 from ..util.platform import DeviceLike
 
-__all__ = ["char_rnn", "sample_characters"]
+__all__ = ["char_rnn", "mlp_mnist", "sample_characters"]
+
+
+def mlp_mnist(seed: int = 42, device: DeviceLike = None) -> MultiLayerNetwork:
+    """784 -> Dense(1024, relu) -> Dense(1024, relu) -> softmax 10, Adam
+    1e-3. Returns the network uninitialized, as JAX does."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed).updater(Adam(1e-3))
+            .list()
+            .layer(DenseLayer(n_out=1024, activation="relu"))
+            .layer(DenseLayer(n_out=1024, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784))
+            .build())
+    return MultiLayerNetwork(conf, device=device)
 
 
 def char_rnn(vocab_size: int = 77, lstm_size: int = 200, seq_len: int = 64,

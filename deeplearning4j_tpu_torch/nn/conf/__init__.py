@@ -350,6 +350,11 @@ def _check_no_preprocessor(i: int, it: InputType, layer: LayerConf):
 
 
 def _fill_n_in(layer: LayerConf, input_type: InputType) -> LayerConf:
+    """Fill n_in (and a layer's own fields, such as BatchNormalization's
+    n_out) from the incoming InputType, as the JAX builder does."""
+    updates = {}
     if hasattr(layer, "n_in") and getattr(layer, "n_in") in (None, 0):
-        return replace(layer, n_in=layer.n_in_from(input_type))
-    return layer
+        updates["n_in"] = layer.n_in_from(input_type)
+    if hasattr(layer, "fill_from_input_type"):
+        updates.update(layer.fill_from_input_type(input_type) or {})
+    return replace(layer, **updates) if updates else layer

@@ -22,7 +22,7 @@ from ..schedules import Schedule
 from ..weights import Distribution, WeightInit, init_weight
 
 __all__ = ["LayerConf", "register_layer", "conf_to_dict", "conf_from_dict",
-           "LAYER_REGISTRY"]
+           "LAYER_REGISTRY", "cast_floating"]
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -32,6 +32,17 @@ def register_layer(cls):
     the JSON round-trip."""
     LAYER_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Cast every floating-point tensor of a (nested) dict to `dtype` (the
+    mixed-precision compute cast; integer tensors untouched). Through
+    autograd, so the cast's gradient comes back in the master dtype."""
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
 
 
 def conf_to_dict(obj: Any) -> Any:
@@ -129,6 +140,11 @@ class LayerConf:
 
     def init_params(self, gen: torch.Generator, input_type: InputType,
                     device: torch.device) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def init_state(self, input_type: InputType,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+        """Non-trained layer state (BatchNormalization's running stats)."""
         return {}
 
     # ---- forward ---------------------------------------------------------

@@ -7,6 +7,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
 from .. import losses as _losses
 from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
@@ -15,7 +17,14 @@ __all__ = ["DenseLayer", "OutputLayer", "BaseOutputLayerConf"]
 
 
 def _affine(params, x, has_bias: bool):
-    z = x @ params["W"]
+    """x @ W (+ b), the operands promoted to a common float type first as
+    jnp's `@` promotes them (a bf16 activation into an output layer's f32
+    W); torch's matmul does not promote."""
+    W = params["W"]
+    if x.dtype != W.dtype:
+        dt = torch.promote_types(x.dtype, W.dtype)
+        x, W = x.to(dt), W.to(dt)
+    z = x @ W
     if has_bias:
         z = z + params["b"]
     return z

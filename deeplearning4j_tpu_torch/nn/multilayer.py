@@ -3,8 +3,11 @@
 surface.
 
 Parameters are a tuple with one dict of tensors per layer (keys as in JAX:
-`W`, `b`, `peep`), held on the network's device; `updater_state` is a tuple
-with one updater-state dict per layer. `predict_fn` is the pure
+`W`, `b`, `peep`, `gamma`), held on the network's device; `state` is a tuple
+with one layer-state dict per layer (BatchNormalization's running `mean` and
+`var`, empty for the other layers), which the training forward renews and a
+training step stores detached; `updater_state` is a tuple with one
+updater-state dict per layer. `predict_fn` is the pure
 `(params, state, x, fmask) -> out` forward that serving calls;
 `rnn_time_step` threads one (h, c) carry per recurrent layer across calls.
 
@@ -18,6 +21,13 @@ CUDA adjoint kernels, the transformer block's attention through the flash
 dq and dk/dv kernels), then per layer: gradient normalization, the
 scheduled per-layer lr, the updater, the bias-lr rescale
 (`apply_layer_updates`).
+
+Mixed precision (`compute_dtype`, e.g. "bfloat16", as in JAX): the masters,
+the updater state and the layer state stay in the configuration's dtype; a
+step casts a floating input and every non-output layer's parameters to the
+compute dtype (`cast_floating`, through autograd, so gradients come back in
+the master dtype), and the output layers keep master-dtype parameters, so
+the logits and the loss are float32.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import torch
 
 from .conf import (BackpropType, MultiLayerConfiguration,
                    OptimizationAlgorithm)
+from .conf.base import cast_floating
 from .conf.input_type import InputType
 from .gradnorm import apply_gradient_normalization
 from .layers.feedforward import BaseOutputLayerConf
@@ -58,6 +69,18 @@ def _rescale_bias_updates(updates, scale):
             for k, v in updates.items()}
 
 
+def _compute_dtype(c) -> Optional[torch.dtype]:
+    """The mixed-precision compute dtype, or None when it is off (unset, or
+    the same as the master dtype), as JAX's `_compute_dtype`."""
+    if c.compute_dtype is None:
+        return None
+    cdt = getattr(torch, str(c.compute_dtype), None)
+    if not isinstance(cdt, torch.dtype):
+        raise ValueError(f"compute_dtype={c.compute_dtype!r} is not a torch "
+                         "dtype name")
+    return None if cdt == getattr(torch, c.dtype) else cdt
+
+
 def _not_in_port(what: str, item: str):
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet (ROADMAP A{item})")
@@ -66,11 +89,6 @@ def _not_in_port(what: str, item: str):
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
-        c = conf.conf
-        if c.compute_dtype is not None and c.compute_dtype != c.dtype:
-            raise NotImplementedError(
-                f"compute_dtype={c.compute_dtype!r} (mixed precision) is not "
-                "in the PyTorch port yet")
         self.conf = conf
         self.layers = list(conf.layers)
         self.device = resolve_device(device)
@@ -87,6 +105,7 @@ class MultiLayerNetwork:
         self._rnn_carries = None
         self._generator: Optional[torch.Generator] = None
         self._dropout_seed = conf.conf.seed
+        self._compute_dtype = _compute_dtype(conf.conf)
 
     # ------------------------------------------------------------------
     # Initialization and placement
@@ -119,7 +138,7 @@ class MultiLayerNetwork:
                 it = InputType.feed_forward(n_in or 0)
             self._input_types.append(it)
             params.append(layer.init_params(generator, it, self.device))
-            state.append({})
+            state.append(layer.init_state(it, self.device))
             it = layer.output_type(it)
         self.params = tuple(params)
         self.state = tuple(state)
@@ -132,8 +151,8 @@ class MultiLayerNetwork:
         return layer.updater or self.conf.conf.updater
 
     def to(self, device: DeviceLike) -> "MultiLayerNetwork":
-        """Move parameters, updater state (and any stateful-RNN carries) to
-        `device`."""
+        """Move parameters, layer state, updater state (and any stateful-RNN
+        carries) to `device`."""
         self.device = resolve_device(device)
         move = lambda d: _tree_map(lambda v: v.to(self.device), d)
         self._generator = None
@@ -152,24 +171,34 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------------
     def _forward(self, params, state, x, train=False, generator=None,
                  fmask=None, upto=None, carries=None):
-        """Returns (activations, mask, new_carries) after the first `upto`
-        layers (all when None). `carries` (one entry per layer, None for
-        non-recurrent layers) threads RNN state across TBPTT chunks and
-        rnn_time_step calls."""
+        """Returns (activations, new_state, mask, new_carries) after the
+        first `upto` layers (all when None); `new_state` has one entry per
+        layer (the layers past `upto` keep theirs). `carries` (one entry per
+        layer, None for non-recurrent layers) threads RNN state across TBPTT
+        chunks and rnn_time_step calls."""
         new_carries = (list(carries) if carries is not None
                        else [None] * len(self.layers))
+        new_state = list(state)
         mask = fmask
         n = len(self.layers) if upto is None else upto
+        cdt = self._compute_dtype
+        if cdt is not None and x.is_floating_point():
+            x = x.to(cdt)
         for i, layer in enumerate(self.layers[:n]):
             kw = dict(train=train, generator=generator, mask=mask)
+            p_i = params[i]
+            # hidden layers compute in cdt; output layers keep the master
+            # dtype, so the logits and the loss are float32
+            if cdt is not None and not isinstance(layer, BaseOutputLayerConf):
+                p_i = cast_floating(p_i, cdt)
             if carries is not None and getattr(layer, "is_recurrent", False):
-                (x, new_carries[i]), _ = layer.apply(
-                    params[i], state[i], x, carry=carries[i],
-                    return_carry=True, **kw)
+                (x, new_carries[i]), new_state[i] = layer.apply(
+                    p_i, state[i], x, carry=carries[i], return_carry=True,
+                    **kw)
             else:
-                x, _ = layer.apply(params[i], state[i], x, **kw)
+                x, new_state[i] = layer.apply(p_i, state[i], x, **kw)
             mask = layer.output_mask(mask)
-        return x, mask, tuple(new_carries)
+        return x, tuple(new_state), mask, tuple(new_carries)
 
     # ------------------------------------------------------------------
     # Loss and update
@@ -184,12 +213,13 @@ class MultiLayerNetwork:
     def _loss_fn(self, params, state, x, y, generator=None, fmask=None,
                  lmask=None, train=True, carries=None):
         """Scalar score = masked-mean loss of the output layer + l1/l2 over
-        the live rows of the batch. Returns (score, new_carries)."""
+        the live rows of the batch. Returns (score, (new_state,
+        new_carries)), as JAX's `_loss_fn`."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, BaseOutputLayerConf):
             raise ValueError("Last layer must be an output/loss layer for fit()")
         n = len(self.layers)
-        h, mask, new_carries = self._forward(
+        h, new_state, mask, new_carries = self._forward(
             params, state, x, train, generator, fmask=fmask, upto=n - 1,
             carries=carries)
         eff_lmask = lmask if lmask is not None else mask
@@ -202,7 +232,8 @@ class MultiLayerNetwork:
             live = eff_lmask.to(torch.float32).reshape(
                 eff_lmask.shape[0], -1).amax(dim=1)
             batch = torch.clamp(live.sum(), min=1.0)
-        return loss + self._reg_score(params) / batch, new_carries
+        return (loss + self._reg_score(params) / batch,
+                (new_state, new_carries))
 
     def _layer_lr(self, layer, step):
         """Scheduled, per-layer learning rate (None = updater default)."""
@@ -247,14 +278,15 @@ class MultiLayerNetwork:
         return new_params, new_opt
 
     def _train_step(self, x, y, fmask, lmask, carries=None):
-        """One optimizer step on one batch (or TBPTT chunk). Returns (score,
-        new carries), both detached."""
+        """One optimizer step on one batch (or TBPTT chunk); stores the new
+        parameters, updater state and layer state (detached, so no step's
+        graph outlives it). Returns (score, new carries), both detached."""
         params = tuple({k: v.detach().requires_grad_(not layer.frozen)
                         for k, v in p.items()}
                        for layer, p in zip(self.layers, self.params))
         leaves = [v for p in params for v in p.values() if v.requires_grad]
         with torch.enable_grad():
-            score, new_carries = self._loss_fn(
+            score, (new_state, new_carries) = self._loss_fn(
                 params, self.state, x, y, self._train_generator(), fmask,
                 lmask, train=True, carries=carries)
             flat = iter(torch.autograd.grad(score, leaves, allow_unused=True))
@@ -273,6 +305,8 @@ class MultiLayerNetwork:
             self.layers, detached, grads, self.updater_state,
             self.iteration_count)
         self.params, self.updater_state = tuple(new_params), tuple(new_opt)
+        self.state = tuple(_tree_map(torch.Tensor.detach, s)
+                           for s in new_state)
         carries = None if carries is None else tuple(
             None if c is None else tuple(t.detach() for t in c)
             for c in new_carries)
@@ -437,7 +471,8 @@ class MultiLayerNetwork:
         return self.predict_fn(self.params, self.state, x, fm)
 
     def feed_forward(self, x) -> List[torch.Tensor]:
-        """Every layer's activations, input first."""
+        """Every layer's activations, input first (in the master dtype, as
+        JAX's `feed_forward`)."""
         x = self._as_input(x)
         acts = [x]
         with torch.inference_mode():
@@ -493,8 +528,8 @@ class MultiLayerNetwork:
         x, y, fm, lm = self._batch(data)
         n = len(self.layers)
         with torch.no_grad():
-            h, mask, _ = self._forward(self.params, self.state, x, fmask=fm,
-                                       upto=n - 1)
+            h, _, mask, _ = self._forward(self.params, self.state, x,
+                                          fmask=fm, upto=n - 1)
             per = self.layers[-1].loss_per_example(
                 self.params[-1], self.state[-1], h, y,
                 mask=lm if lm is not None else mask)
@@ -557,7 +592,7 @@ class MultiLayerNetwork:
         if self._rnn_carries is None:
             self._rnn_carries = self._zero_carries(int(x.shape[0]), x.dtype)
         with torch.inference_mode():
-            out, _, self._rnn_carries = self._forward(
+            out, _, _, self._rnn_carries = self._forward(
                 self.params, self.state, x, carries=self._rnn_carries)
         return out[:, 0] if (squeeze and out.dim() == 3) else out
 

@@ -28,6 +28,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def strict_fp32():
     """Full float32 for matrix products and convolutions: the JAX reference
-    is compared in f32, and TF32 keeps only about three decimal digits."""
+    is compared in f32, and TF32 keeps only about three decimal digits. A
+    bf16 product keeps its float32 accumulation too (XLA accumulates bf16
+    products in f32; cuBLAS's default reduced-precision split-K would not)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -3,15 +3,16 @@ writes, so a model saved by either package loads in the other:
 
   * `configuration.json`   — the network config (identical JSON)
   * `coefficients.npz`     — parameters, keyed `i:<layer>/k:<param>`
-  * `networkState.npz`     — layer state (empty for the port's layers)
+  * `networkState.npz`     — layer state, keyed `i:<layer>/k:<name>`
+                             (BatchNormalization's `i:1/k:mean`, `k:var`)
   * `updaterState.npz`     — optimizer state, keyed `i:<layer>/k:<slot>/
                              k:<param>` (`i:0/k:m/k:W`)
   * `metadata.json`        — counters and model kind
   * `manifest.sha256.json` — sha256 of every other entry, checked on restore
 
 Writes are crash-safe (fault/atomic.py). `from_jax_params` loads the JAX
-net's parameters (and optionally its updater state), as numpy arrays,
-straight into a port network.
+net's parameters (and optionally its layer state and updater state), as
+numpy arrays, straight into a port network.
 """
 from __future__ import annotations
 
@@ -73,23 +74,27 @@ def arrays_to_tree(template, arrays: Dict[str, np.ndarray]):
 
 
 def from_jax_params(net, params: Sequence[Dict[str, np.ndarray]],
-                    updater_state: Optional[Sequence] = None):
+                    updater_state: Optional[Sequence] = None,
+                    state: Optional[Sequence[Dict[str, np.ndarray]]] = None):
     """Load the JAX network's parameters (one dict of numpy arrays per
-    layer, keyed as in JAX) into `net`, which must be initialized, and with
+    layer, keyed as in JAX) into `net`, which must be initialized; with
     `updater_state` (JAX's `updater_state` with its leaves as numpy arrays:
     one entry per layer, `{"m": {"W": ...}, ...}` or `()`) its updater
+    state, and with `state` (JAX's `state`: one dict per layer, `{"mean":
+    ..., "var": ...}` for BatchNormalization, `{}` for the others) its layer
     state too. Shapes are checked; a missing key raises KeyError."""
-    for what, tree in (("parameter", params), ("updater state", updater_state)):
+    trees = (("parameter", params, "params"),
+             ("updater state", updater_state, "updater_state"),
+             ("layer state", state, "state"))
+    for what, tree, _ in trees:
         if tree is not None and len(tree) != len(net.params):
             raise ValueError(f"{len(tree)} layer {what} dicts for a "
                              f"{len(net.params)}-layer network")
-    arrays: Dict = {}
-    _flatten(list(params), [], arrays)
-    net.params = arrays_to_tree(net.params, arrays)
-    if updater_state is not None:
-        arrays = {}
-        _flatten(list(updater_state), [], arrays)
-        net.updater_state = arrays_to_tree(net.updater_state, arrays)
+    for _, tree, attr in trees:
+        if tree is not None:
+            arrays: Dict = {}
+            _flatten(list(tree), [], arrays)
+            setattr(net, attr, arrays_to_tree(getattr(net, attr), arrays))
     return net
 
 
@@ -166,8 +171,9 @@ class ModelSerializer:
     def restore(path: str, load_updater: bool = True,
                 device: DeviceLike = None):
         """Restore a MultiLayerNetwork zip onto `device` (the GPU unless
-        the caller asks for the CPU); with `load_updater`, its updater
-        state where the zip has one (else the updater's zero state)."""
+        the caller asks for the CPU): parameters, layer state, and with
+        `load_updater` its updater state where the zip has one (else the
+        updater's zero state)."""
         from ..nn.conf import MultiLayerConfiguration
         from ..nn.multilayer import MultiLayerNetwork
 
@@ -182,6 +188,9 @@ class ModelSerializer:
         model = MultiLayerNetwork(conf, device=device).init()
         model.params = arrays_to_tree(
             model.params, _loadz(entries[ModelSerializer.COEFFICIENTS]))
+        if ModelSerializer.NETWORK_STATE in entries:
+            model.state = arrays_to_tree(
+                model.state, _loadz(entries[ModelSerializer.NETWORK_STATE]))
         if load_updater and ModelSerializer.UPDATER_STATE in entries:
             model.updater_state = arrays_to_tree(
                 model.updater_state,

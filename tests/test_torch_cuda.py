@@ -1,9 +1,10 @@
 """Card tests of the PyTorch port's CUDA kernels: each kernel against its
 plain PyTorch version on the same GPU tensors (the LSTM forward in primal
 and residual mode, its adjoint and its parameter-gradient reduction, the
-attention forward), the LSTM autograd Function against autograd of the
-plain forward, the launch counts of a TBPTT training step, and the
-full-width transformer LM on the card against the CPU.
+attention forward and backward, the BN+ReLU forward and backward in
+float32, bfloat16 and float16), the autograd Functions against autograd of
+the plain forwards, bit-equal reruns, the launch counts of training steps,
+and full-width networks on the card against the CPU.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs on a machine without it. On the card:
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import deeplearning4j_tpu_torch as pt
-from deeplearning4j_tpu_torch.kernels import attention, lstm
+from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
 
 pytestmark = pytest.mark.cuda
 
@@ -408,3 +409,135 @@ def test_lm_training_step_on_the_card_matches_the_cpu(cuda):
                 continue
             a, b = p[k].cpu(), q[k]
             assert ((a - b).norm() / b.norm()).item() <= 1e-3, k
+
+
+# The BN+ReLU kernels against their plain versions: statistics, dgamma and
+# dbeta are float32 sums of up to 4097 terms in another order (1e-5 of the
+# largest plain magnitude); y and dx are compared in float32 after both are
+# rounded to x's dtype, within that plus one ulp of the dtype for a value
+# on a rounding boundary.
+BN_TOL = 1e-5
+BN_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+          torch.float16: 2.0 ** -10}
+
+
+def _bn_args(N, C, dtype, device, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(N, C)) * 1.5 + r.normal(size=C)
+    arrays = (x, 1 + 0.2 * r.normal(size=C), 0.3 * r.normal(size=C),
+              r.normal(size=(N, C)))
+    x, g, b, dy = (torch.as_tensor(a.astype(np.float32), device=device)
+                   for a in arrays)
+    return x.to(dtype), g, b, dy.to(dtype)
+
+
+def _bn_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    limit = (BN_ULP[dtype] * torch.maximum(got.abs(), want.abs())
+             + BN_TOL * want.abs().max())
+    return bool(((got - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("N,C", [(128, 1024), (4096, 1024), (4097, 200),
+                                 (1, 48), (33, 10), (64, 7)])
+def test_bn_relu_kernels_match_plain(cuda, N, C, dtype):
+    x, g, b, dy = _bn_args(N, C, dtype, cuda, seed=N + C)
+    before = bn_relu.launch_counts()
+    y, mean, var = bn_relu.bn_relu_forward(x, g, b)
+    dx, dg, db = bn_relu.bn_relu_backward(x, g, b, mean, var, dy)
+    torch.cuda.synchronize()
+    after = bn_relu.launch_counts()
+    assert after["fwd_launches"] == before["fwd_launches"] + 1
+    assert after["bwd_launches"] == before["bwd_launches"] + 1
+    want_y, want_m, want_v = bn_relu.bn_relu_reference(x, g, b)
+    want = bn_relu.bn_relu_backward_reference(x, g, b, mean, var, dy)
+    assert y.dtype == dx.dtype == dtype
+    assert _bn_close(y, want_y, dtype) and _bn_close(dx, want[0], dtype)
+    for got, ref in ((mean, want_m), (var, want_v), (dg, want[1]),
+                     (db, want[2])):
+        assert got.dtype == torch.float32
+        assert _bn_close(got, ref, torch.float32)
+
+
+def test_bn_relu_takes_nhwc_and_unaligned_rows(cuda):
+    x, g, b, _ = _bn_args(2 * 21 * 7 + 1, 64, torch.bfloat16, cuda)
+    # a storage offset of 3 elements (6 bytes): the one-element loads
+    nhwc = x.reshape(-1)[3:3 + 2 * 21 * 7 * 64].reshape(2, 21, 7, 64)
+    y, mean, var = bn_relu.fused_bn_relu(nhwc, g, b)
+    want = bn_relu.bn_relu_reference(nhwc.reshape(-1, 64), g, b)
+    assert tuple(y.shape) == tuple(nhwc.shape)
+    assert _bn_close(y.reshape(-1, 64), want[0], torch.bfloat16)
+    assert _bn_close(mean, want[1], torch.float32)
+
+
+def test_bn_relu_kernels_are_bit_equal_run_to_run(cuda):
+    x, g, b, dy = _bn_args(4096, 1024, torch.bfloat16, cuda, seed=3)
+    first = bn_relu.bn_relu_forward(x, g, b)
+    first += bn_relu.bn_relu_backward(x, g, b, first[1], first[2], dy)
+    for _ in range(3):
+        again = bn_relu.bn_relu_forward(x, g, b)
+        again += bn_relu.bn_relu_backward(x, g, b, again[1], again[2], dy)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_bn_relu_refuses_float64_on_the_card(cuda):
+    x, g, b, _ = _bn_args(8, 4, torch.float64, cuda)
+    with pytest.raises(ValueError, match="float64"):
+        bn_relu.fused_bn_relu(x, g, b)
+    with pytest.raises(ValueError, match="on cpu"):
+        bn_relu.bn_relu_forward(x.float(), g.cpu(), b)
+
+
+def test_bn_relu_function_matches_autograd_of_plain_forward(cuda):
+    x, g, b, w = _bn_args(256, 96, torch.float32, cuda, seed=5)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+        return torch.autograd.grad((fn(*leaves) * w).sum(), leaves)
+
+    got = grads(lambda *a: bn_relu.fused_bn_relu(*a)[0])
+    want = grads(lambda *a: bn_relu.bn_relu_reference(*a)[0])
+    for a, c in zip(got, want):
+        assert _bn_close(a, c, torch.float32)
+
+
+def _bn_mlp(device, compute_dtype="bfloat16", width=64):
+    b = pt.NeuralNetConfiguration.builder().seed(2).updater(pt.Adam(1e-3))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    conf = (b.list()
+            .layer(pt.DenseLayer(n_out=width, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.DenseLayer(n_out=width, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax"))
+            .set_input_type(pt.InputType.feed_forward(784)).build())
+    return pt.MultiLayerNetwork(conf, device=device).init(
+        generator=torch.Generator().manual_seed(2))
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", None])
+def test_bn_mlp_step_launches_bn_kernels_only_in_bf16(cuda, compute):
+    """A bf16 BN-MLP step launches one forward and one backward BN kernel
+    per BN layer, inference none; the float32 net none at all. The step
+    agrees with the CPU's: score within 2e-2 in bf16 (rounding in another
+    order through two bf16 layers), 1e-4 in float32."""
+    nets = [_bn_mlp(d, compute) for d in (cuda, "cpu")]
+    x, y, _, _ = pt.bundled_mnist_subset()
+    bn_relu.reset_launches()
+    nets[0].fit(x[:128], y[:128])
+    torch.cuda.synchronize()
+    want = 2 if compute else 0
+    assert bn_relu.launch_counts() == {"fwd_launches": want,
+                                       "bwd_launches": want}
+    nets[0].output(x[128:192])
+    nets[0].score(pt.DataSet(x[:64], y[:64]))
+    assert bn_relu.launch_counts()["fwd_launches"] == want
+    nets[1].fit(x[:128], y[:128])
+    assert abs(nets[0].score() - nets[1].score()) <= (2e-2 if compute
+                                                      else 1e-4)
+    for s, t in zip(nets[0].state, nets[1].state):
+        for k in s:
+            assert s[k].dtype == torch.float32 and not s[k].requires_grad
