@@ -50,12 +50,25 @@ Phases:
      digits; the zip with updater and layer state restored on both devices
      for one more step; then the same network in float32 (no
      compute_dtype), which must launch no BN kernel, against the CPU;
-  9. times: each kernel, its plain version, the PyTorch library call where
-     there is one, and its bound; predict and HTTP p50 per bucket and
-     tokens/s at bucket 32 for both models; training tokens/s and step
-     p50 for both models and samples/s for the BN-MLP; where the LM's
-     bucket-32 forward, a char-RNN training batch, an LM training step and
-     a BN-MLP step spend their device time (torch.profiler).
+  9. main path 6: the LM of phase 7 in bf16 compute
+     (`compute_dtype("bfloat16")`, float32 masters) with nanoGPT's lr
+     warm-up, through the bf16 instantiations of the attention kernels:
+     first-step gradients at batch 16 and a 20-step trajectory at batch 16
+     held against the same zip on the CPU, 20 steps at batch 64 x 256
+     counted, and the trained zip's bucket-32 forward through the primal
+     kernel against the CPU; the same trajectory without the warm-up,
+     through the kernels and the plain attention, printed beside the CPU's;
+     then a one-block LM at head dimension 256 (width 512, 2 heads), one
+     step and one forward in float32 and in bf16, against the CPU;
+ 10. times: each kernel, its plain version, the PyTorch library call where
+     there is one, and its bound (also in bf16 and at Dh = 256 for the
+     attention kernels, with device times for the redesigned ones, and
+     the LSTM reduction's whole function in PyTorch calls beside
+     torch.matmul); predict and HTTP p50 per bucket and tokens/s at bucket
+     32 for both models; training tokens/s and step p50 for both models
+     and samples/s for the BN-MLP; where the LM's bucket-32 forward, a
+     char-RNN training batch, an LM training step and a BN-MLP step spend
+     their device time (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -64,8 +77,10 @@ residual-forward, two adjoint and two reduction launches per char-RNN
 training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
 launches per LM training step (phase 7), and one BN+ReLU forward and one
 backward launch per BN layer and bf16 training step (phase 8: 40 and 40
-over 20 steps, none in evaluation or in float32), each path launching none
-of the others' kernels. The last two lines are a `{"kernels": [...]}` object and
+over 20 steps, none in evaluation or in float32), six bf16 logsumexp-
+forward, dq and dk/dv launches per bf16 LM training step and six primal
+ones per bf16 LM forward, one of each per step or forward of the wide-head
+LM (phase 9), each path launching none of the others' kernels. The last two lines are a `{"kernels": [...]}` object and
 `{"ok": true, "device": {...}}`. Any failed check, or a machine without a
 CUDA device, exits non-zero before either.
 """
@@ -86,6 +101,7 @@ BUCKETS = (1, 8, 32)
 SERVE_TOL = 1e-4    # GPU kernel path vs the CPU plain path, end to end
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 / fp16 tensor cores, dense
 
 # char-RNN (BASELINE config 3)
 SEQ, VOCAB, HIDDEN = 64, 77, 200
@@ -175,6 +191,31 @@ BN_ULP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 BF16_GRAD_TOL = 2e-2
 BF16_SCORE_TOL = 2e-2
 BF16_PARAM_TOL = 5e-2
+
+# Attention kernels in bf16 / f16 and at head dimensions 160 and 256
+# against their plain versions: both compute in f32 from the same inputs
+# and round o, dq, dk and dv to the inputs' dtype, so a value on a rounding
+# boundary may land one ulp of the dtype apart (BN_ULP), on top of the f32
+# limit ATTN_GRAD_TOL of the largest plain magnitude; L and D are f32.
+TYPED_ATTN = [("bfloat16", LM_TRAIN_B, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
+              ("bfloat16", 32, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
+              ("float16", 4, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
+              ("bfloat16", 3, 37, 129, 3, 10, False),
+              ("float32", 2, 100, 100, 2, 160, True),
+              ("float32", 4, LM_SEQ, LM_SEQ, 2, 256, True),
+              ("bfloat16", 4, LM_SEQ, LM_SEQ, 2, 256, True),
+              ("float16", 2, 70, 50, 2, 256, False)]
+# The bf16 LM trains with nanoGPT's warm-up (config/train_shakespeare_char.py
+# `warmup_iters = 100`, get_lr's lr * (it + 1) / (warmup_iters + 1); 20 steps
+# see its first fifth). Without it, Adam at 1e-3 drives the score through a
+# spike that amplifies bf16 rounding: the card ends up 1.8e-1 from the CPU
+# through the kernels and 7.5e-2 through the plain attention (NVIDIA H100
+# 80GB HBM3, 700 W, this script's printout); with it, 7.0e-5. The
+# no-warm-up run is repeated below in every run, printed beside the held
+# one.
+LM_WARMUP = 100
+# the wide-head LM: one block at Dh = 256 (width 512, 2 heads)
+WIDE_WIDTH, WIDE_HEADS = 512, 2
 
 
 def check(cond, msg):
@@ -301,6 +342,22 @@ def param_rel_l2(net, ref, skip=()):
     return worst
 
 
+def adam_param_err(net, ref, lr, steps, skip=("b_k",)):
+    """Largest per-tensor |a - b|_2 / max(|b|_2, Adam's reach lr * steps in
+    L2) between two networks, over the parameter keys not in `skip` (the
+    reach for tensors that start at 0, whose entries with a gradient within
+    rounding of 0 Adam moves by lr per step with the noise's sign)."""
+    worst = 0.0
+    for p, q in zip(net.params, ref.params):
+        for k in q:
+            if k in skip:
+                continue
+            a, b = p[k].detach().cpu(), q[k].detach().cpu()
+            scale = max(b.norm().item(), lr * steps * b.numel() ** 0.5)
+            worst = max(worst, (a - b).norm().item() / scale)
+    return worst
+
+
 def key_bias_max(net):
     """Largest |b_k| over the network's transformer blocks. The key bias's
     gradient is exactly 0 in exact arithmetic (one vector added to every
@@ -318,10 +375,11 @@ def attention_inputs(torch, B, T, S, H, Dh, seed):
                             device=DEVICE) for n in (T, S, S)]
 
 
-def bound(nbytes, flops):
-    """Least time for the work: bytes over HBM, FLOPs over the f32
-    (non-tensor-core) peak. Returns (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
+    """Least time for the work: bytes over HBM, FLOPs over the peak of the
+    inputs' type (f32 outside the tensor cores unless given). Returns (ms,
+    what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -365,31 +423,54 @@ def live_pairs(T, S, causal):
     return sum(min(t + 1, S) for t in range(T)) if causal else T * S
 
 
-def attention_bound_ms(B, T, S, H, Dh, causal):
+def _peak(itemsize):
+    """The FLOP rate of the inputs' type: f32 on the CUDA cores, or the
+    bf16 / f16 tensor-core rate for 2-byte inputs."""
+    return F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+
+
+def attention_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
     """One launch: q, k, v read once and o written once; 4 Dh FLOPs (the
     two products) per attended (query, key) pair this mask leaves."""
-    nbytes = 4 * B * H * Dh * (2 * T + 2 * S)
-    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H)
+    nbytes = itemsize * B * H * Dh * (2 * T + 2 * S)
+    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H,
+                 _peak(itemsize))
 
 
-def lse_bound_ms(B, T, S, H, Dh, causal):
-    """The logsumexp forward: as the primal, plus L [B, H, T] written."""
-    nbytes = 4 * B * H * (Dh * (2 * T + 2 * S) + T)
-    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H)
+def lse_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
+    """The logsumexp forward: as the primal, plus L [B, H, T] (f32)
+    written."""
+    nbytes = itemsize * B * H * Dh * (2 * T + 2 * S) + 4 * B * H * T
+    return bound(nbytes, 4 * Dh * live_pairs(T, S, causal) * B * H,
+                 _peak(itemsize))
 
 
-def dq_bound_ms(B, T, S, H, Dh, causal):
+def dq_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
     """dq: q, k, v, o, do and L read once, dq and D written once; 6 Dh
     FLOPs per live pair (s, do v^T, ds k)."""
-    nbytes = 4 * B * H * (Dh * (5 * T + 2 * S) + 2 * T)
-    return bound(nbytes, 6 * Dh * live_pairs(T, S, causal) * B * H)
+    nbytes = itemsize * B * H * Dh * (5 * T + 2 * S) + 8 * B * H * T
+    return bound(nbytes, 6 * Dh * live_pairs(T, S, causal) * B * H,
+                 _peak(itemsize))
 
 
-def dkv_bound_ms(B, T, S, H, Dh, causal):
+def dkv_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
     """dk/dv: q, k, v, do, L and D read once, dk and dv written once; 8 Dh
     FLOPs per live pair (s, do v^T, p^T do, ds^T q)."""
-    nbytes = 4 * B * H * (Dh * (2 * T + 4 * S) + 2 * T)
-    return bound(nbytes, 8 * Dh * live_pairs(T, S, causal) * B * H)
+    nbytes = itemsize * B * H * Dh * (2 * T + 4 * S) + 8 * B * H * T
+    return bound(nbytes, 8 * Dh * live_pairs(T, S, causal) * B * H,
+                 _peak(itemsize))
+
+
+def ulp_err(got, want, dtype, tol=BN_TOL):
+    """(within the limit, max abs err, max err / max |want|): the limit is
+    `tol` of max |want| plus one ulp of `dtype` (BN_ULP) of each
+    element."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = (BN_ULP[dtype] * got.abs().maximum(want.abs())
+             + tol * want.abs().max())
+    return (bool((err <= limit).all()), err.max().item(),
+            (err.max() / want.abs().max().clamp_min(1e-30)).item())
 
 
 def bn_args(torch, N, C, dtype, seed):
@@ -403,17 +484,6 @@ def bn_args(torch, N, C, dtype, seed):
                    for a in arrays)
     dt = getattr(torch, dtype)
     return x.to(dt), g, b, dy.to(dt)
-
-
-def bn_err(got, want, dtype):
-    """(within the limit, max abs err, max err / max |want|): the limit is
-    BN_TOL of max |want| plus one ulp of `dtype` of each element."""
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    limit = (BN_ULP[dtype] * got.abs().maximum(want.abs())
-             + BN_TOL * want.abs().max())
-    return (bool((err <= limit).all()), err.max().item(),
-            (err.max() / want.abs().max().clamp_min(1e-30)).item())
 
 
 def bn_fwd_bound_ms(N, C, itemsize):
@@ -504,20 +574,29 @@ def device_ms(torch, fn, reps=20):
     return total / 1e3 / reps
 
 
-def make_lm(pt, torch, seed, updater=None, dist=None):
-    """The transformer LM at nanoGPT shakespeare-char widths, built with
-    the builder DSL (the repository has no zoo entry for it), with random
-    weights from `seed` (the configuration's default Xavier init, or the
-    weight distribution `dist`)."""
+def make_lm(pt, torch, seed, updater=None, dist=None, compute_dtype=None,
+            width=LM_WIDTH, heads=LM_HEADS, blocks=LM_BLOCKS, warmup=False):
+    """The transformer LM at nanoGPT shakespeare-char widths (or the given
+    width, heads and depth), built with the builder DSL (the repository
+    has no zoo entry for it), with random weights from `seed` (the
+    configuration's default Xavier init, or the weight distribution
+    `dist`), in float32 or the given compute dtype (float32 masters); with
+    `warmup`, the updater's lr ramps up as nanoGPT's first LM_STEPS
+    iterations do (LM_WARMUP)."""
     b = pt.NeuralNetConfiguration.builder().seed(seed)
     if updater is not None:
         b = b.updater(updater)
     if dist is not None:
         b = b.dist(dist)
+    if compute_dtype is not None:
+        b = b.compute_dtype(compute_dtype)
+    if warmup:
+        b = b.learning_rate_decay_policy("schedule", schedule={
+            i: LM_LR * (i + 1) / (LM_WARMUP + 1) for i in range(LM_STEPS)})
     b = (b.list()
-         .layer(pt.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH)))
-    for _ in range(LM_BLOCKS):
-        b = b.layer(pt.TransformerBlock(n_heads=LM_HEADS))
+         .layer(pt.EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=width)))
+    for _ in range(blocks):
+        b = b.layer(pt.TransformerBlock(n_heads=heads))
     conf = (b.layer(pt.RnnOutputLayer(n_out=LM_VOCAB, activation="softmax",
                                       loss="mcxent"))
             .set_input_type(pt.InputType.recurrent(1, LM_SEQ)).build())
@@ -852,6 +931,60 @@ def main():
           + f" (limit {ATTN_GRAD_TOL} of max |ref|; the logsumexp "
           f"forward's output within {ATTN_TOL} abs)")
 
+    # the attention kernels in bf16 / f16 and at head dimensions 160, 256
+    typed_err = {}
+    for dt, B, T, S, H, Dh_, causal in TYPED_ATTN:
+        dtype = getattr(torch, dt)
+        q, k, v = (t.to(dtype) for t in attention_inputs(
+            torch, B, T, S, H, Dh_, seed=T + S + Dh_))
+        do = attention_inputs(torch, B, T, T, H, Dh_, seed=2 * T + Dh_)[0]
+        do = do.to(dtype)
+        what = f"{dt} B={B} T={T} S={S} H={H} Dh={Dh_} causal={causal}"
+        out = attention.flash_attention_heads(q, k, v, causal)
+        o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, causal)
+        want_o, want_lse = attention.attention_reference_heads_lse(
+            q, k, v, causal)
+        dq, dsum = attention.attention_bwd_dq(q, k, v, want_o, want_lse, do,
+                                              causal)
+        dk, dv = attention.attention_bwd_dkv(q, k, v, do, want_lse, dsum,
+                                             causal)
+        want_dq, want_dsum = attention.attention_bwd_dq_reference(
+            q, k, v, want_o, want_lse, do, causal)
+        want_dk, want_dv = attention.attention_bwd_dkv_reference(
+            q, k, v, do, want_lse, want_dsum, causal)
+        torch.cuda.synchronize()
+        for name, got, want in (("o", out, want_o), ("o (lse)", o, want_o),
+                                ("L", lse, want_lse), ("D", dsum, want_dsum),
+                                ("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
+            ok, err, rel = ulp_err(got, want, str(got.dtype)[6:],
+                                   ATTN_GRAD_TOL)
+            check(ok and got.dtype == want.dtype, f"attention {name} {what}: "
+                  f"max abs err {err}, over max |ref| {rel} ({got.dtype} vs "
+                  f"{want.dtype})")
+            e = typed_err.setdefault(dt, [0.0, 0.0])
+            e[0], e[1] = max(e[0], err), max(e[1], rel)
+    print(f"attention kernels in other dtypes and head dimensions vs plain: "
+          f"{len(TYPED_ATTN)} cases (primal, logsumexp, dq, dk/dv; Dh up to "
+          f"256); " + "; ".join(f"{k} max abs err {a:.3e}, over max |ref| "
+                               f"{r:.3e}" for k, (a, r) in typed_err.items())
+          + f" (limit {ATTN_GRAD_TOL} of max |ref| plus one ulp of the "
+          "dtype)")
+
+    # the reduction: the same bits run to run (a fixed summation order)
+    args = lstm_inputs(torch, TRAIN_TBPTT, TRAIN_B, VOCAB, HIDDEN, seed=21)
+    x, W, b, peep, h0, c0 = args
+    hs, cs = lstm.lstm_sequence_reference(*args, 1.0,
+                                          save_residuals=True)[:2]
+    dgates = cotangents(torch, TRAIN_TBPTT, TRAIN_B, 4 * HIDDEN, seed=22)[0]
+    first = lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates)
+    for _ in range(3):
+        again = lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates)
+        check(all(torch.equal(a, c) for a, c in zip(first, again)),
+              "the LSTM reduction differs run to run")
+    print("LSTM reduction: bit-equal over 4 runs at the char-RNN's "
+          "training shape")
+
     # the BN+ReLU forward and backward
     bn_max = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     bn_cases = [(N, C, dt, False) for N, C in BN_SHAPES
@@ -876,7 +1009,7 @@ def main():
                            ("bwd", ((dx, want_dx, dt), (dg, want_dg, "float32"),
                                     (db, want_db, "float32")))):
             for got, want, kind in pairs:
-                ok, err, rel = bn_err(got, want, kind)
+                ok, err, rel = ulp_err(got, want, kind)
                 check(ok and got.dtype == want.dtype,
                       f"BN+ReLU {key} {what}: max abs err {err}, over max "
                       f"|ref| {rel} ({got.dtype} vs {want.dtype})")
@@ -1427,7 +1560,202 @@ def main():
           and f32_state <= PARAM_TOL and f32_bias <= MLP_LR * MLP_STEPS + 1e-6,
           "float32 BN-MLP card vs CPU beyond the float32 limits")
 
-    # ---- 9. times (counted launches end above) --------------------------
+    # ---- 9. main path 6: the LM in bf16 compute --------------------------
+    # the LM of phase 7 under compute_dtype("bfloat16") (float32 masters),
+    # with nanoGPT's warm-up: every block's attention runs the bf16
+    # instantiations of kernels 1-3
+    bf16_zip = os.path.join(tmp, "lm_bf16.zip")
+    pt.ModelSerializer.write_model(
+        make_lm(pt, torch, 9, pt.Adam(LM_LR, beta2=0.99),
+                Distribution(kind="normal", std=0.02),
+                compute_dtype="bfloat16", warmup=True), bf16_zip)
+    bf16_lm = pt.ModelSerializer.restore(bf16_zip)
+    check(bf16_lm._compute_dtype == torch.bfloat16, "the bf16 LM computes "
+          f"in {bf16_lm._compute_dtype}")
+
+    # first-step gradients at batch LM_CMP_B, card against CPU
+    first = lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B).next()
+    bg = [first_chunk_grads(torch, n, first, steps=None) for n in
+          (bf16_lm, pt.ModelSerializer.restore(bf16_zip, device="cpu"))]
+    bf16_grad_err = max(rel_err(bg[0][k], bg[1][k]) for k in bg[1]
+                        if not k.endswith("/b_k"))
+    bf16_bk = max(g[f"{i}/b_k"].abs().max().item()
+                  / g[f"{i}/W_k"].abs().max().item()
+                  for g in bg for i in range(1, 1 + LM_BLOCKS))
+    check(bf16_grad_err <= BF16_GRAD_TOL, f"bf16 LM first-step gradients: "
+          f"max err / max |ref| {bf16_grad_err} > {BF16_GRAD_TOL}")
+    check(bf16_bk <= BF16_GRAD_TOL, f"bf16 LM key-bias gradient {bf16_bk} "
+          "of its W_k's largest entry: not 0 up to rounding")
+
+    # 20 steps at batch 64 x 256, counted
+    bf16_log = StepLog()
+    bf16_lm.set_listeners(bf16_log)
+    reset_counts()
+    t0 = time.perf_counter()
+    bf16_lm.fit(lm_batches(len(lm_x), LM_TRAIN_B))
+    torch.cuda.synchronize()
+    bf16_fit_s = time.perf_counter() - t0
+    bf16_counts = attention.launch_counts()
+    bf16_steps = bf16_lm.iteration_count
+    check(bf16_steps == LM_STEPS, f"{bf16_steps} bf16 LM steps, want "
+          f"{LM_STEPS}")
+    check(bf16_counts == {"launches": 0,
+                          "lse_launches": LM_BLOCKS * bf16_steps,
+                          "dq_launches": LM_BLOCKS * bf16_steps,
+                          "dkv_launches": LM_BLOCKS * bf16_steps},
+          f"bf16 LM training launches {bf16_counts} for {bf16_steps} steps "
+          f"(want {LM_BLOCKS} logsumexp forwards, dq and dk/dv per step)")
+    check(set(lstm.launch_counts().values()) == {0},
+          f"bf16 LM training launched LSTM kernels: {lstm.launch_counts()}")
+    check_no_bn_launches("bf16 LM training")
+    bf16_scores = [float(v) for v in bf16_log.scores]
+    check(np.isfinite(bf16_scores).all()
+          and bf16_scores[-1] < bf16_scores[0],
+          f"bf16 LM training scores {bf16_scores}")
+    check_key_bias([bf16_lm], bf16_steps, "bf16 LM training")
+    for p in bf16_lm.params:
+        check(all(t.dtype == torch.float32 for t in p.values()),
+              "bf16 LM masters not float32")
+
+    # card against CPU: 20 steps at batch LM_CMP_B from the same zip
+    bf16_nets = [pt.ModelSerializer.restore(bf16_zip),
+                 pt.ModelSerializer.restore(bf16_zip, device="cpu")]
+    bf16_logs = [StepLog(), StepLog()]
+    reset_counts()
+    t0 = time.perf_counter()
+    for n, log in zip(bf16_nets, bf16_logs):
+        n.set_listeners(log)
+        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+    bf16_cmp_s = time.perf_counter() - t0
+    check(attention.launch_counts()["lse_launches"] == LM_BLOCKS * LM_STEPS,
+          f"bf16 comparison run launches {attention.launch_counts()}")
+    bf16_cmp = [[float(v) for v in log.scores] for log in bf16_logs]
+    bf16_score_err = float(np.abs(np.subtract(*bf16_cmp)).max())
+    bf16_param_err = adam_param_err(*bf16_nets, LM_LR, LM_STEPS)
+    check_key_bias(bf16_nets, LM_STEPS, "bf16 LM comparison")
+
+    # served: a bucket-32 forward of the trained network through the
+    # primal kernel, against the same zip on the CPU
+    bf16_trained = os.path.join(tmp, "lm_bf16_trained.zip")
+    pt.ModelSerializer.write_model(bf16_lm, bf16_trained)
+    served = pt.ModelSerializer.restore(bf16_trained)
+    x_held = lm_x[-32:]
+    reset_counts()
+    with torch.inference_mode():
+        out = served.output(x_held)
+    torch.cuda.synchronize()
+    bf16_serve_counts = attention.launch_counts()
+    check(bf16_serve_counts == {"launches": LM_BLOCKS, "lse_launches": 0,
+                                "dq_launches": 0, "dkv_launches": 0},
+          f"bf16 LM forward launches {bf16_serve_counts} (want "
+          f"{LM_BLOCKS} primal)")
+    check_no_training_launches("bf16 LM serving")
+    ref = pt.ModelSerializer.restore(bf16_trained, device="cpu").output(
+        x_held)
+    check(tuple(out.shape) == (32, LM_SEQ, LM_VOCAB)
+          and torch.isfinite(out).all().item(), "bf16 LM served output "
+          f"{tuple(out.shape)}")
+    bf16_serve_err = (out.float().cpu() - ref.float()).abs().max().item()
+    print(f"bf16 LM (compute_dtype bfloat16, float32 masters): {bf16_steps} "
+          f"steps of {LM_TRAIN_B} x {LM_SEQ} tokens in {bf16_fit_s:.2f} s on "
+          f"the card; launches {bf16_counts}; score {bf16_scores[0]:.4f} -> "
+          f"{bf16_scores[-1]:.4f}; card vs CPU: first-step gradients at "
+          f"batch {LM_CMP_B} {bf16_grad_err:.3e} of max (limit "
+          f"{BF16_GRAD_TOL}; key bias {bf16_bk:.3e} of its W_k's max), "
+          f"{LM_STEPS}-step scores at batch {LM_CMP_B} max abs err "
+          f"{bf16_score_err:.3e} (limit {BF16_SCORE_TOL}; {bf16_cmp_s:.1f} s "
+          f"for both), final parameters {bf16_param_err:.3e} (limit "
+          f"{BF16_PARAM_TOL}); the trained zip served at bucket 32: "
+          f"{bf16_serve_counts['launches']} primal launches, max abs err vs "
+          f"CPU {bf16_serve_err:.3e} (limit {BF16_SCORE_TOL})")
+    print(json.dumps({"bf16_lm_scores_card": bf16_cmp[0],
+                      "bf16_lm_scores_cpu": bf16_cmp[1],
+                      "bf16_lm_scores_b64": bf16_scores}))
+    check(bf16_score_err <= BF16_SCORE_TOL, f"bf16 LM scores card vs CPU: "
+          f"max abs err {bf16_score_err} > {BF16_SCORE_TOL}")
+    check(bf16_param_err <= BF16_PARAM_TOL, f"bf16 LM parameters after "
+          f"{LM_STEPS} steps: {bf16_param_err} > {BF16_PARAM_TOL}")
+    check(bf16_cmp[0][-1] < bf16_cmp[0][0], "the bf16 LM score did not fall "
+          f"at batch {LM_CMP_B}: {bf16_cmp[0]}")
+    check(bf16_serve_err <= BF16_SCORE_TOL, f"bf16 LM served vs CPU: max abs "
+          f"err {bf16_serve_err} > {BF16_SCORE_TOL}")
+
+    # the same 20 steps without the warm-up, through the kernels and
+    # through the plain attention on the card, against the CPU: the LM's
+    # own amplification of bf16 rounding, printed, not held
+    nowarm_zip = os.path.join(tmp, "lm_bf16_nowarm.zip")
+    pt.ModelSerializer.write_model(
+        make_lm(pt, torch, 9, pt.Adam(LM_LR, beta2=0.99),
+                Distribution(kind="normal", std=0.02),
+                compute_dtype="bfloat16"), nowarm_zip)
+    nowarm = {}
+    for name, device, attend in (("cpu", "cpu", None), ("kernels", None, None),
+                                 ("plain", None, lambda self, q, k, v, mask:
+                                  attention.attention_reference_heads(
+                                      q, k, v, self.causal))):
+        if attend is not None:
+            block._attend = attend
+        try:
+            n = pt.ModelSerializer.restore(
+                nowarm_zip, **({} if device is None else {"device": device}))
+            log = StepLog()
+            n.set_listeners(log)
+            n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+        finally:
+            block._attend = kernel_attend
+        nowarm[name] = [float(v) for v in log.scores]
+    nowarm_gap = {k: np.abs(np.subtract(nowarm[k], nowarm["cpu"]))
+                  for k in ("kernels", "plain")}
+    print("bf16 LM without the warm-up, card vs CPU at batch "
+          f"{LM_CMP_B}: " + "; ".join(
+              f"{k} max abs err {g.max():.3e} at step {int(g.argmax()) + 1} "
+              f"(first 8 steps {g[:8].max():.3e})"
+              for k, g in nowarm_gap.items())
+          + f"; scores on the CPU {nowarm['cpu'][0]:.4f} -> "
+          f"{nowarm['cpu'][-1]:.4f}, max {max(nowarm['cpu']):.4f}")
+    print(json.dumps({"bf16_lm_nowarm_scores": nowarm}))
+
+    # the wide-head LM: one block at Dh = 256, one training step and one
+    # forward on the card against the CPU, in float32 and in bf16 compute
+    wide = {}
+    for cd in (None, "bfloat16"):
+        limits = ((GRAD_TOL, SCORE_TOL, LM_SCORE_TOL) if cd is None
+                  else (BF16_GRAD_TOL, BF16_SCORE_TOL, BF16_SCORE_TOL))
+        wide_zip = os.path.join(tmp, f"lm_wide_{cd}.zip")
+        pt.ModelSerializer.write_model(
+            make_lm(pt, torch, 10, pt.Adam(LM_LR, beta2=0.99),
+                    Distribution(kind="normal", std=0.02), compute_dtype=cd,
+                    width=WIDE_WIDTH, heads=WIDE_HEADS, blocks=1), wide_zip)
+        nets = [pt.ModelSerializer.restore(wide_zip),
+                pt.ModelSerializer.restore(wide_zip, device="cpu")]
+        batch = pt.DataSet(lm_x[:4], lm_y[:4])
+        g = [first_chunk_grads(torch, n, batch, steps=None) for n in nets]
+        g_err = max(rel_err(g[0][k], g[1][k]) for k in g[1]
+                    if not k.endswith("/b_k"))
+        reset_counts()
+        for n in nets:
+            n.fit(batch)
+        outs = [n.output(lm_x[4:8]) for n in nets]
+        torch.cuda.synchronize()
+        counts = attention.launch_counts()
+        check(counts == {"launches": 1, "lse_launches": 1, "dq_launches": 1,
+                         "dkv_launches": 1},
+              f"wide-head LM ({cd or 'float32'}) launches {counts}")
+        s_err = abs(nets[0].score() - nets[1].score())
+        o_err = (outs[0].float().cpu() - outs[1].float()).abs().max().item()
+        wide[cd or "float32"] = {"grad": g_err, "score": s_err,
+                                 "output": o_err}
+        print(f"wide-head LM (width {WIDE_WIDTH}, {WIDE_HEADS} heads, Dh "
+              f"{WIDE_WIDTH // WIDE_HEADS}, one block, {cd or 'float32'}): "
+              f"launches {counts}; card vs CPU: first-step gradients "
+              f"{g_err:.3e} of max (limit {limits[0]}), step score "
+              f"{s_err:.3e} (limit {limits[1]}), next forward {o_err:.3e} "
+              f"(limit {limits[2]})")
+        check(g_err <= limits[0] and s_err <= limits[1]
+              and o_err <= limits[2], f"wide-head LM ({cd or 'float32'}) "
+              "card vs CPU beyond its limits")
+
+    # ---- 10. times (counted launches end above) --------------------------
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
     for F in (VOCAB, HIDDEN):
@@ -1461,9 +1789,25 @@ def main():
         q, k, v, True))
     a_lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
     a_bound, a_by = attention_bound_ms(32, LM_SEQ, LM_SEQ, LM_HEADS, Dh, True)
+    a_dev = device_ms(torch, lambda: attention.flash_attention_heads(
+        q, k, v, True))
+    a_lib_dev = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
     print(f"{tag} attention B=32 H={LM_HEADS} T=S={LM_SEQ} Dh={Dh} causal, "
-          f"per launch: kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, "
-          f"SDPA {a_lib:.4f} ms, bound {a_bound:.6f} ms ({a_by})")
+          f"per launch: kernel {a_ms:.4f} ms ({a_dev:.4f} ms device), plain "
+          f"{a_plain:.4f} ms, SDPA {a_lib:.4f} ms ({a_lib_dev:.4f} ms "
+          f"device), bound {a_bound:.6f} ms ({a_by})")
+    # the primal kernel at buckets 1 and 8 (the q-tile height it picks)
+    for Bp in (1, 8):
+        qb_, kb_, vb_ = attention_inputs(torch, Bp, LM_SEQ, LM_SEQ, LM_HEADS,
+                                         Dh, seed=Bp)
+        tb = [t.transpose(1, 2).contiguous() for t in (qb_, kb_, vb_)]
+        print(f"{tag} attention B={Bp} H={LM_HEADS} T=S={LM_SEQ} Dh={Dh} "
+              f"causal, per launch: kernel "
+              f"{cuda_ms(torch, lambda: attention.flash_attention_heads(qb_, kb_, vb_, True)):.4f}"
+              f" ms, SDPA {cuda_ms(torch, lambda: sdpa(*tb, is_causal=True)):.4f}"
+              f" ms, bound "
+              f"{attention_bound_ms(Bp, LM_SEQ, LM_SEQ, LM_HEADS, Dh, True)[0]:.6f}"
+              " ms")
 
     serving = {"card": card}
     serving.update(time_serving(pt, "char_rnn", rnn_zips[0], one_hot_batch,
@@ -1528,6 +1872,8 @@ def main():
     train_times = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                           "library_ms": 0.0, "by": set()}
                    for name in ("residual", "adjoint", "reduction")}
+    red_extra = {"device_ms": 0.0, "library_device_ms": 0.0,
+                 "same_work_ms": 0.0, "same_work_device_ms": 0.0}
     for F in (VOCAB, HIDDEN):
         need_dx = F != VOCAB     # the first layer's one-hot input needs none
         args = lstm_inputs(torch, T, B, F, H, seed=F + 1)
@@ -1540,6 +1886,17 @@ def main():
         zcat_t = torch.cat([x, torch.cat([h0[None], hs[:-1]])], -1).reshape(
             T * B, F + H).T.contiguous()
         dg_2d = dgates.reshape(T * B, 4 * H)
+
+        def same_work():
+            """The reduction's whole function in PyTorch calls: [x | h]
+            assembled, the dW product, db and dpeep."""
+            c_prev = torch.cat([c0[None], cs[:-1]])
+            zc = torch.cat([x, torch.cat([h0[None], hs[:-1]])], -1)
+            dW = zc.reshape(T * B, F + H).T @ dg_2d
+            return dW, dg_2d.sum(0), torch.cat([
+                (dgates[..., :H] * c_prev).sum((0, 1)),
+                (dgates[..., H:2 * H] * c_prev).sum((0, 1)),
+                (dgates[..., 2 * H:3 * H] * cs).sum((0, 1))])
         rows = {
             "residual": (
                 lambda: lstm.lstm_residual_forward(*args, 1.0),
@@ -1561,6 +1918,19 @@ def main():
         for name, (kern, plain, lib, (bnd, by)) in rows.items():
             k, p = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
             l = None if lib is None else cuda_ms(torch, lib)
+            if name == "reduction":
+                extra = {"device_ms": device_ms(torch, kern),
+                         "library_device_ms": device_ms(torch, lib),
+                         "same_work_ms": cuda_ms(torch, same_work),
+                         "same_work_device_ms": device_ms(torch, same_work)}
+                print(f"{tag} LSTM reduction B={B} T={T} F={F} H={H}: device "
+                      f"time kernel {extra['device_ms']:.4f} ms, "
+                      f"torch.matmul {extra['library_device_ms']:.4f} ms; "
+                      f"the same work in PyTorch (cat + matmul + db + "
+                      f"dpeep) {extra['same_work_ms']:.4f} ms per call, "
+                      f"{extra['same_work_device_ms']:.4f} ms device")
+                for key, val in extra.items():
+                    red_extra[key] += val
             print(f"{tag} LSTM {name} B={B} T={T} F={F} H={H}"
                   f"{'' if name != 'adjoint' else f' dx={need_dx}'}: kernel "
                   f"{k:.4f} ms, plain {p:.4f} ms, "
@@ -1574,6 +1944,15 @@ def main():
             e["by"].add(by)
     training["kernel_ms_per_step"] = {n: e["ms"]
                                       for n, e in train_times.items()}
+    training["reduction_per_step"] = dict(red_extra)
+    print(f"{tag} LSTM reduction per TBPTT step (both layers): kernel "
+          f"{train_times['reduction']['ms']:.4f} ms per call, "
+          f"{red_extra['device_ms']:.4f} ms device; torch.matmul "
+          f"{train_times['reduction']['library_ms']:.4f} / "
+          f"{red_extra['library_device_ms']:.4f} ms; same work "
+          f"{red_extra['same_work_ms']:.4f} / "
+          f"{red_extra['same_work_device_ms']:.4f} ms; bound "
+          f"{train_times['reduction']['bound_ms']:.6f} ms")
     print(json.dumps({"training": training}))
 
     # the attention training kernels per launch at the LM's training shape,
@@ -1621,6 +2000,64 @@ def main():
             qp, kp, vp, True))
         print(f"{tag} attention forward B={Bp} H={H} T=S={T} Dh={Dh}: "
               f"primal {kp_ms:.4f} ms, logsumexp {kl_ms:.4f} ms")
+    lse_dev = device_ms(torch, attn_train["lse"][0])
+    sdpa_fwd_dev = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    print(f"{tag} attention lse B={B} device time: kernel {lse_dev:.4f} ms, "
+          f"SDPA forward {sdpa_fwd_dev:.4f} ms")
+
+    def attn_typed_times(dt, B, H, Dh_):
+        """Per launch at [B, 256, H, Dh_] causal in dtype `dt`: {kernel:
+        (ms, plain ms, SDPA ms, bound ms, bound by)}, SDPA forward beside
+        the two forwards and its backward (forward subtracted) beside dq
+        and dk/dv."""
+        dtype = getattr(torch, dt)
+        q, k, v = (t.to(dtype) for t in attention_inputs(
+            torch, B, T, T, H, Dh_, seed=Dh_))
+        do = attention_inputs(torch, B, T, T, H, Dh_, seed=Dh_ + 1)[0]
+        do = do.to(dtype)
+        o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+        dsum = attention.attention_bwd_dq(q, k, v, o, lse, do, True)[1]
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                           for t in (q, k, v, do))
+        f = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+        fb = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
+        size = dtype.itemsize
+        rows = {
+            "primal": (lambda: attention.flash_attention_heads(q, k, v, True),
+                       lambda: attention.attention_reference_heads(q, k, v,
+                                                                   True),
+                       f, attention_bound_ms(B, T, T, H, Dh_, True, size)),
+            "lse": (lambda: attention.flash_attention_fwd_lse_heads(
+                        q, k, v, True),
+                    lambda: attention.attention_reference_heads_lse(
+                        q, k, v, True),
+                    f, lse_bound_ms(B, T, T, H, Dh_, True, size)),
+            "dq": (lambda: attention.attention_bwd_dq(q, k, v, o, lse, do,
+                                                      True),
+                   lambda: attention.attention_bwd_dq_reference(
+                       q, k, v, o, lse, do, True),
+                   fb - f, dq_bound_ms(B, T, T, H, Dh_, True, size)),
+            "dkv": (lambda: attention.attention_bwd_dkv(q, k, v, do, lse,
+                                                        dsum, True),
+                    lambda: attention.attention_bwd_dkv_reference(
+                        q, k, v, do, lse, dsum, True),
+                    fb - f, dkv_bound_ms(B, T, T, H, Dh_, True, size))}
+        out = {}
+        for name, (kern, plain, lib, (bnd, by)) in rows.items():
+            out[name] = (cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5),
+                         lib, bnd, by)
+            print(f"{tag} attention {name} {dt} B={B} H={H} T=S={T} "
+                  f"Dh={Dh_} causal, per launch: kernel {out[name][0]:.4f} "
+                  f"ms, plain {out[name][1]:.4f} ms, SDPA "
+                  f"{'forward' if name in ('primal', 'lse') else 'backward'}"
+                  f" {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
+        return out
+
+    attn_bf16 = {"b32": attn_typed_times("bfloat16", 32, H, Dh),
+                 "b64": attn_typed_times("bfloat16", LM_TRAIN_B, H, Dh)}
+    attn_dh256 = {dt: attn_typed_times(dt, 8, WIDE_HEADS, 256)
+                  for dt in ("float32", "bfloat16")}
 
     # LM training: step p50 and tokens/s at batch 64, then one step's
     # device time by kind
@@ -1667,6 +2104,21 @@ def main():
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"lm_training": lm_training}))
+    bf16_training = {"card": card, "steps": bf16_steps,
+                     "fit_s": bf16_fit_s,
+                     "tokens_per_s_incl_first_step":
+                         bf16_steps * LM_TRAIN_B * LM_SEQ / bf16_fit_s,
+                     "card_vs_cpu": {"grad": bf16_grad_err,
+                                     "score": bf16_score_err,
+                                     "param": bf16_param_err,
+                                     "served": bf16_serve_err},
+                     "wide_head_dh256": wide,
+                     "card_vs_cpu_without_warmup": {
+                         k: float(g.max()) for k, g in nowarm_gap.items()}}
+    print(f"{tag} bf16 LM training (B={LM_TRAIN_B}, T={LM_SEQ}): "
+          f"{bf16_steps} steps in {bf16_fit_s:.3f} s, first step included, "
+          f"{bf16_training['tokens_per_s_incl_first_step']:.1f} tokens/s")
+    print(json.dumps({"bf16_lm_training": bf16_training}))
 
     # the BN+ReLU kernels per launch at the BN-MLP's shape (N = MLP_B) and
     # at N = 4096, C = 1024, bf16, beside their plain versions and the
@@ -1753,6 +2205,27 @@ def main():
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"bn_mlp_training": bn_mlp}))
 
+    def typed_entry(key, launches):
+        """A kernel's bf16 numbers (the LM's shapes: B=32 for the primal,
+        B=64 for the training kernels; launches from main path 6) and its
+        Dh = 256 numbers (B=8, 2 heads) in float32 and bf16."""
+        b = attn_bf16["b32" if key == "primal" else "b64"][key]
+        entry = {"launches": launches, "max_abs_err": typed_err["bfloat16"][0],
+                 "ms": b[0], "plain_ms": b[1], "library_ms": b[2],
+                 "bound_ms": b[3], "bound_by": b[4]}
+        for dt, rows in attn_dh256.items():
+            r = rows[key]
+            entry[f"dh256_{dt}"] = {"ms": r[0], "plain_ms": r[1],
+                                    "library_ms": r[2], "bound_ms": r[3],
+                                    "bound_by": r[4]}
+        return entry
+
+    red_json = {"device_ms": red_extra["device_ms"],
+                "library_device_ms": red_extra["library_device_ms"],
+                "same_work_ms": red_extra["same_work_ms"],
+                "same_work_device_ms": red_extra["same_work_device_ms"],
+                "same_work": "torch.cat of [x | h_{t-1}] + torch.matmul + "
+                             "the db and dpeep sums"}
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
         "route": "cuda",
@@ -1784,6 +2257,9 @@ def main():
         "bound_ms": a_bound,
         "bound_by": a_by,
         "library_ms": a_lib,
+        "device_ms": a_dev,
+        "library_device_ms": a_lib_dev,
+        "bf16": typed_entry("primal", bf16_serve_counts["launches"]),
         "card": card,
     }] + [{
         "name": name,
@@ -1802,6 +2278,7 @@ def main():
                      else "bytes"),
         "library_ms": train_times[key]["library_ms"],
         "library": library,
+        **(red_json if key == "reduction" else {}),
         "card": card,
     } for name, key, counter, err, rel, replaces, library in (
         ("lstm_residual_forward", "residual", "residual_launches", res_err,
@@ -1837,6 +2314,9 @@ def main():
             "bound_by": attn_train_times[key][4],
             "library_ms": attn_train_times[key][2],
             "library": library,
+            **({"device_ms": lse_dev, "library_device_ms": sdpa_fwd_dev}
+               if key == "lse" else {}),
+            "bf16": typed_entry(key, bf16_counts[counter]),
             "card": card,
         } for name, key, counter, replaces, library in (
             ("flash_attention_fwd_lse_heads", "lse", "lse_launches",

@@ -29,10 +29,13 @@ says what bounds each and how its design answers that. The decode plane's
     `lse_launches`, `dq_launches`, `dkv_launches` (`launch_counts()`).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. The plain versions take any floating dtype
-and compute in float32, casting the output back to q's dtype, as JAX's
-`attention_reference` does; the kernels take float32 only, a head dimension
-of at most 128 and contiguous tensors.
+launches the kernel or raises. Both compute in float32 and write o, dq, dk
+and dv in q's dtype, as the TPU kernels do (`preferred_element_type=
+jnp.float32`, outputs in the inputs' dtype); the row statistics L and D are
+float32 [B, H, T]. q, k, v (and o, do) must share one dtype. The plain
+versions take any floating dtype; the kernels take float32, bfloat16 or
+float16 and contiguous tensors. Both take head dimensions up to 256
+(`MAX_HEAD_DIM`).
 """
 from __future__ import annotations
 
@@ -51,7 +54,9 @@ __all__ = ["flash_attention", "flash_attention_heads",
            "dq_launches", "dkv_launches", "reset_launches", "launch_counts",
            "MAX_HEAD_DIM"]
 
-MAX_HEAD_DIM = 128       # the kernels keep 8 * 16 output columns per thread
+MAX_HEAD_DIM = 256       # the head sizes of public configs, up to Gemma's;
+                         # beyond it: ROADMAP C1
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535      # the kernels' grids are (tiles, B * H)
 
 launches = 0             # primal forward
@@ -132,32 +137,33 @@ def _probs(q, k, lse, causal, scale):
 
 def attention_bwd_dq_reference(q, k, v, o, lse, do, causal: bool = False,
                                sm_scale: Optional[float] = None):
-    """Plain version of the dq kernel: returns (dq [B, T, H, Dh], D =
-    rowsum(do * o) [B, H, T]), float32."""
+    """Plain version of the dq kernel: returns (dq [B, T, H, Dh] in q's
+    dtype, D = rowsum(do * o) [B, H, T] float32), computed in float32."""
     scale = _scale(q, sm_scale)
     p = _probs(q, k, lse, causal, scale)
     dsum = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)
     dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
     ds = p * (dp - dsum[..., None]) * scale
-    return torch.einsum("bhts,bshd->bthd", ds, k.float()), dsum.contiguous()
+    dq = torch.einsum("bhts,bshd->bthd", ds, k.float())
+    return dq.to(q.dtype), dsum.contiguous()
 
 
 def attention_bwd_dkv_reference(q, k, v, do, lse, dsum, causal: bool = False,
                                 sm_scale: Optional[float] = None):
     """Plain version of the dk/dv kernel: returns (dk, dv), [B, S, H, Dh]
-    float32, from D = rowsum(do * o) [B, H, T]."""
+    in q's dtype (computed in float32), from D = rowsum(do * o) [B, H, T]."""
     scale = _scale(q, sm_scale)
     p = _probs(q, k, lse, causal, scale)
     dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
     ds = p * (dp - dsum.float()[..., None]) * scale
-    return (torch.einsum("bhts,bthd->bshd", ds, q.float()),
-            torch.einsum("bhts,bthd->bshd", p, do.float()))
+    return (torch.einsum("bhts,bthd->bshd", ds, q.float()).to(q.dtype),
+            torch.einsum("bhts,bthd->bshd", p, do.float()).to(q.dtype))
 
 
 def attention_bwd_reference_heads(q, k, v, o, lse, do, causal: bool = False,
                                   sm_scale: Optional[float] = None):
     """Plain version of the whole backward (`_flash_bwd_impl`): returns
-    dq, dk, dv in float32."""
+    dq, dk, dv in q's dtype."""
     dq, dsum = attention_bwd_dq_reference(q, k, v, o, lse, do, causal,
                                           sm_scale)
     dk, dv = attention_bwd_dkv_reference(q, k, v, do, lse, dsum, causal,
@@ -180,13 +186,13 @@ def attention_reference(q, k, v, causal: bool = False,
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {   # entry point -> argument types before the stream
     "dl4j_flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_I64] * 4
-                           + [_INT, ctypes.c_float],
+                           + [_INT, ctypes.c_float, _INT],
     "dl4j_flash_attn_fwd_lse": [_PTR] * 5 + [_INT] * 5 + [_I64]
-                               + [_INT, ctypes.c_float],
+                               + [_INT, ctypes.c_float, _INT],
     "dl4j_flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 5 + [_I64]
-                              + [_INT, ctypes.c_float],
+                              + [_INT, ctypes.c_float, _INT],
     "dl4j_flash_attn_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [_I64]
-                               + [_INT, ctypes.c_float],
+                               + [_INT, ctypes.c_float, _INT],
 }
 
 
@@ -216,17 +222,21 @@ def _launch(name: str, counter: str, device, *args):
         globals()[counter] += 1
 
 
-def _check_placed(tensors, device):
+def _check_placed(tensors, device, dtype):
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, q on {device}")
         if not t.is_floating_point():
             raise ValueError(f"{name} is {t.dtype}; attention takes "
                              "floating-point tensors")
-        if device.type != "cpu" and t.dtype != torch.float32:
+        if t.dtype != dtype:
+            raise ValueError(f"mixed dtypes: {name} is {t.dtype}, q is "
+                             f"{dtype}; attention takes one dtype")
+        if device.type != "cpu" and t.dtype not in _DTYPE_CODES:
             raise ValueError(f"{name} is {t.dtype}; the attention kernels "
-                             "take float32 only (a CPU tensor of another "
-                             "float dtype takes the plain version)")
+                             "take float32, bfloat16 or float16 (a CPU "
+                             "tensor of another float dtype takes the plain "
+                             "version)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -236,7 +246,7 @@ def _check(q, k, v):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, T, H, Dh], got shape "
                              f"{tuple(t.shape)}")
-    _check_placed({"q": q, "k": k, "v": v}, q.device)
+    _check_placed({"q": q, "k": k, "v": v}, q.device, q.dtype)
     B, T, H, Dh = q.shape
     S = k.shape[1]
     if k.shape != (B, S, H, Dh) or v.shape != k.shape:
@@ -248,7 +258,7 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)}")
     if Dh > MAX_HEAD_DIM:
         raise ValueError(f"head dimension {Dh} > {MAX_HEAD_DIM}, the most "
-                         "the attention kernels take")
+                         "the attention kernels take (ROADMAP C1)")
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"B * H = {B * H} > {_MAX_GRID_Y} (the kernels' "
                          "grid)")
@@ -266,8 +276,8 @@ def _check_rows(T, B, H, device, **rows):
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _new(shape, device):
-    return torch.empty(shape, dtype=torch.float32, device=device)
+def _new(shape, device, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 def _ld(q):
@@ -281,7 +291,8 @@ def _primal(q, k, v, causal, scale):
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ld = _ld(q)
     _launch("dl4j_flash_attn_fwd", "launches", q.device, q, k, v, o, B, T,
-            k.shape[1], H, Dh, ld, ld, ld, ld, int(bool(causal)), scale)
+            k.shape[1], H, Dh, ld, ld, ld, ld, int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype])
     return o
 
 
@@ -295,9 +306,10 @@ def flash_attention_fwd_lse_heads(q, k, v, causal: bool = False,
     if q.device.type == "cpu":
         return attention_reference_heads_lse(q, k, v, causal, scale)
     B, T, H, Dh = q.shape
-    o, lse = _new(q.shape, q.device), _new((B, H, T), q.device)
+    o, lse = _new(q.shape, q.device, q.dtype), _new((B, H, T), q.device)
     _launch("dl4j_flash_attn_fwd_lse", "lse_launches", q.device, q, k, v, o,
-            lse, B, T, k.shape[1], H, Dh, _ld(q), int(bool(causal)), scale)
+            lse, B, T, k.shape[1], H, Dh, _ld(q), int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype])
     return o, lse
 
 
@@ -305,7 +317,7 @@ def _check_bwd(q, k, v, rows, **like_q):
     """q/k/v as `_check`; the tensors `like_q` (o, do) placed and shaped as
     q; the row statistics `rows` (L, D) as `_check_rows`."""
     _check(q, k, v)
-    _check_placed(like_q, q.device)
+    _check_placed(like_q, q.device, q.dtype)
     for name, t in like_q.items():
         if t.shape != q.shape:
             raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
@@ -317,35 +329,35 @@ def _check_bwd(q, k, v, rows, **like_q):
 def attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
                      sm_scale: Optional[float] = None):
     """dq and D = rowsum(do * o) (`_make_dq_kernel`, with D folded into its
-    preamble): returns (dq [B, T, H, Dh], D [B, H, T]) in float32. One
-    kernel launch on a CUDA device."""
+    preamble): returns (dq [B, T, H, Dh] in q's dtype, D [B, H, T] in
+    float32). One kernel launch on a CUDA device."""
     _check_bwd(q, k, v, {"lse": lse}, o=o, do=do)
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return attention_bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
     B, T, H, Dh = q.shape
-    dq, dsum = _new(q.shape, q.device), _new((B, H, T), q.device)
+    dq, dsum = _new(q.shape, q.device, q.dtype), _new((B, H, T), q.device)
     _launch("dl4j_flash_attn_bwd_dq", "dq_launches", q.device, q, k, v, o,
             do, lse, dq, dsum, B, T, k.shape[1], H, Dh, _ld(q),
-            int(bool(causal)), scale)
+            int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
     return dq, dsum
 
 
 def attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = False,
                       sm_scale: Optional[float] = None):
     """dk and dv (`_make_dkv_kernel`) from D = rowsum(do * o) [B, H, T]:
-    returns (dk, dv) [B, S, H, Dh] in float32. One kernel launch on a CUDA
-    device."""
+    returns (dk, dv) [B, S, H, Dh] in q's dtype. One kernel launch on a
+    CUDA device."""
     _check_bwd(q, k, v, {"lse": lse, "dsum": dsum}, do=do)
     B, T, H, Dh = q.shape
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
         return attention_bwd_dkv_reference(q, k, v, do, lse, dsum, causal,
                                            scale)
-    dk, dv = _new(k.shape, q.device), _new(k.shape, q.device)
+    dk, dv = (_new(k.shape, q.device, q.dtype) for _ in range(2))
     _launch("dl4j_flash_attn_bwd_dkv", "dkv_launches", q.device, q, k, v,
             do, lse, dsum, dk, dv, B, T, k.shape[1], H, Dh, _ld(q),
-            int(bool(causal)), scale)
+            int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
     return dk, dv
 
 
@@ -353,7 +365,7 @@ def flash_attention_bwd_heads(q, k, v, o, lse, do, causal: bool = False,
                               sm_scale: Optional[float] = None):
     """The backward (`_flash_bwd_impl`) from the forward's output o, its
     logsumexp L [B, H, T] and the output cotangent do (made contiguous
-    here): returns dq, dk, dv in float32. On a CUDA device: two launches,
+    here): returns dq, dk, dv in q's dtype. On a CUDA device: two launches,
     dq (which forms D) and then dk/dv."""
     do = do.contiguous()
     dq, dsum = attention_bwd_dq(q, k, v, o, lse, do, causal, sm_scale)
@@ -377,7 +389,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_heads(q, k, v, o, lse, do,
                                                ctx.causal, ctx.scale)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention_heads(q, k, v, causal: bool = False,
@@ -401,7 +413,7 @@ def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None):
     """Flash attention with the JAX contract: q [B, T, D], k/v [B, S, D].
     The TPU kernel's tiling knobs `block_q` / `block_k` have no
-    counterpart: the CUDA kernels tile by 64 x 64."""
+    counterpart: the CUDA kernels pick their tiles at launch."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 3:
             raise ValueError(f"{name} must be [B, T, D], got shape "

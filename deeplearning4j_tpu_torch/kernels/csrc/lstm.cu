@@ -55,18 +55,43 @@
 // block's 227 KB of shared memory, and 64 row-blocks adding into it with
 // atomics would serialise and give a different sum each run. So the adjoint
 // writes the gate gradients of every step to a [T, B, 4H] buffer and a
-// second launch reduces them: 64 x 64 tiles of dW, each summed by one
-// thread over all T*B rows in a fixed order (deterministic, no atomics),
-// reading x, hs and the gate gradients directly (no concatenated copy),
-// plus blocks of column sums for db and dpeep. W is read from global memory
-// every step and stays resident in the 50 MB L2. A persistent cluster
-// kernel with W slices resident in shared memory, and wgmma for the dz and
-// dW products, are left for later work.
+// second launch reduces them. W is read from global memory every step and
+// stays resident in the 50 MB L2. A persistent cluster kernel with W slices
+// resident in shared memory, and wgmma for the dz product, are left for
+// later work.
+//
+// The reduction (redesigned; the first design walked all T*B rows serially
+// in each of 65-91 blocks of 64 x 64 tiles, with synchronous loads, a 4 x 4
+// micro-tile and separate serial column-sum blocks, 6.7x behind a
+// torch.matmul of the same product):
+//   * the T*B axis is split into S slices, one per block of a thread-block
+//     cluster, over 128 x 64 tiles of dW; S (at most 8) is the most for
+//     which all the clusters are resident at once (39 tiles for the
+//     char-RNN's first layer, F = 77, and 52 for its second, on 132 SMs),
+//     so no tail wave runs a few clusters alone;
+//   * the [x | h_{t-1}] operand is tiled by source, x's F columns and h's
+//     H columns apart, so a tile reads one tensor with one row stride;
+//     each block stages 16-row chunks of it and of the gate gradients
+//     through a 3-stage cp.async ring, 16 bytes a copy where the row
+//     stride allows (h, the gate gradients, x at F = 200) and 4 bytes
+//     where it does not (x rows of F = 77 floats are not 16-byte aligned);
+//     a thread keeps an 8 x 4 micro-tile in registers: 32 FMAs per three
+//     16-byte shared loads;
+//   * the blocks of the first row tile also sum db and dpeep for their 64
+//     gate columns from the same staged gate gradients (and the cell
+//     states dpeep multiplies), so there is no separate column-sum pass;
+//   * the S slices' partial tiles meet in distributed shared memory: rank
+//     r sums its share of the tile over the ranks 0..S-1 in order and
+//     writes it. One launch per layer, no workspace, no atomics: the same
+//     sums in the same order every run.
+// It stays in f32 on the CUDA cores (TF32 would break the f32 parity).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes. Each entry
 // point launches on the caller's stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -268,25 +293,50 @@ lstm_seq_bwd_kernel(const float* __restrict__ W,
   }
 }
 
-constexpr int kTile = 64;      // dW tile: 64 rows of [x, h] x 64 gate columns
-constexpr int kChunk = 16;     // (t, b) rows staged per pass
 constexpr int kRedThreads = 256;
-constexpr int kRedCols = 32;   // db / dpeep columns per reduction block
+constexpr int kTileK = 128;   // dW rows ([x, h] columns) per block
+constexpr int kTileG = 64;    // dW columns (gate columns) per block
+constexpr int kChunk = 16;    // (t, b) rows per pipeline stage
+constexpr int kStages = 3;    // cp.async ring depth
+constexpr int kMaxSplit = 8;  // slices of the T*B axis: a portable cluster
+constexpr int kRedFloats = kStages * kChunk * (kTileK + 2 * kTileG);
 
-// [x_t, h_{t-1}] at flat row n = t * B + b, column k.
-__device__ __forceinline__ float zcat_at(const float* __restrict__ x,
-                                         const float* __restrict__ hs,
-                                         const float* __restrict__ h0,
-                                         int n, int k, int B, int F, int H) {
-  if (k < F) return x[(size_t)n * F + k];
-  return n >= B ? hs[(size_t)(n - B) * H + (k - F)]
-                : h0[(size_t)n * H + (k - F)];
+// Copy 4 or 16 bytes from global to shared memory asynchronously; when !ok
+// nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
-// Blocks [0, n_tiles) each own one 64 x 64 tile of dW; the rest each own
-// 32 of the 7H columns [db (4H) | dpeep (3H)]. Every output is summed by
-// one thread over all T*B rows in a fixed order.
-__global__ void __launch_bounds__(kRedThreads)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// Which operands may be staged in 16-byte packs (the row stride a multiple
+// of 4 floats and the pointers 16-byte aligned); the rest go 4 bytes a copy.
+constexpr int kVecX = 1, kVecH = 2, kVecG = 4, kVecC = 8;
+
+// dW = sum_n [x_n, h_{n-B}]^T dgates_n over the flat rows n = t * B + b,
+// with db and dpeep. The [x | h] operand is tiled by source: row tiles
+// [0, n_xtiles) cover the F columns of x, the rest the H columns of h, so
+// a tile reads one tensor with one row stride and, where that stride
+// allows (H = 200, F = 200; not F = 77), 16-byte copies. Grid (S, tiles),
+// launched as clusters of S blocks along x: blockIdx.y is a 128 x 64 tile
+// of dW (row tile kt, gate-column tile gt); the S blocks of a cluster each
+// sum one slice of the T*B rows into registers, then reduce the slices
+// through distributed shared memory in rank order. The row tile kt = 0
+// blocks also sum db and dpeep for their 64 gate columns from the same
+// staged gate gradients. No atomics: the same sums in the same order every
+// run (for a given S, which the launch derives from the shapes and the
+// card).
+// Three resident blocks an SM (80 registers a thread) ran faster than two
+// (127 registers) on an H100 80GB HBM3: more warps hide the latency.
+__global__ void __launch_bounds__(kRedThreads, 3)
 lstm_param_grad_kernel(const float* __restrict__ x,
                        const float* __restrict__ hs,
                        const float* __restrict__ h0,
@@ -296,90 +346,254 @@ lstm_param_grad_kernel(const float* __restrict__ x,
                        float* __restrict__ dW,
                        float* __restrict__ db,
                        float* __restrict__ dpeep,
-                       int T, int B, int F, int H, int n_tile_cols,
-                       int n_tiles) {
-  __shared__ __align__(16) float As[kChunk][kTile];
-  __shared__ __align__(16) float Bs[kChunk][kTile];
-  __shared__ float red[kRedThreads / kRedCols][kRedCols];
+                       int T, int B, int F, int H, int n_gtiles,
+                       int n_xtiles, int vec) {
+  __shared__ __align__(16) float smem[kRedFloats];   // 48 KB
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   const int G = 4 * H;
-  const int K = F + H;
   const int N = T * B;
   const int tid = threadIdx.x;
+  const int tx = tid & 15;    // gate columns g0 + 4 tx .. + 3
+  const int ty = tid >> 4;    // tile rows 8 ty .. + 7
+  const int n_split = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int kt = blockIdx.y / n_gtiles;
+  const int g0 = (blockIdx.y % n_gtiles) * kTileG;
+  const bool sums = kt == 0;  // this block also sums db and dpeep
+  // the tile's source: columns [base, base + 128) of x (row stride F) or
+  // of h (row stride H), dW rows from k0
+  const bool seg_x = kt < n_xtiles;
+  const int base = (seg_x ? kt : kt - n_xtiles) * kTileK;
+  const int width = seg_x ? F : H;
+  const int k0 = seg_x ? base : F + base;
+  const int rows_here = min(kTileK, width - base);
+  const bool vec_z = (vec & (seg_x ? kVecX : kVecH)) != 0;
+  const bool vec_g = (vec & kVecG) != 0;
+  const bool vec_c = (vec & kVecC) != 0;
 
-  if ((int)blockIdx.x < n_tiles) {
-    const int k0 = (blockIdx.x / n_tile_cols) * kTile;
-    const int c0_ = (blockIdx.x % n_tile_cols) * kTile;
-    const int ty = tid / 16;   // rows k0 + 4 ty .. + 3
-    const int tx = tid % 16;   // columns c0 + 4 tx .. + 3
-    float acc[4][4] = {};
-    for (int n0 = 0; n0 < N; n0 += kChunk) {
+  // this block's slice of the T*B rows, a whole number of chunks
+  const int per =
+      ((N + n_split - 1) / n_split + kChunk - 1) / kChunk * kChunk;
+  const int n_begin = rank * per;
+  const int n_end = min(N, n_begin + per);
+  const int chunks = n_end > n_begin ? (n_end - n_begin + kChunk - 1) / kChunk
+                                     : 0;
+
+  float* Zs = smem;                                // [kStages][kChunk][kTileK]
+  float* Gs = Zs + kStages * kChunk * kTileK;      // [kStages][kChunk][kTileG]
+  float* Cs = Gs + kStages * kChunk * kTileG;      // [kStages][kChunk][kTileG]
+
+  // The element (row n, column c) of the tile's source, and of the cell
+  // state dpeep multiplies at gate column c (c_{t-1} for i and f, c_t for
+  // o; c0 and h0 stand for step -1).
+  auto z_at = [&](int n, int c) -> const float* {
+    return seg_x ? x + (size_t)n * F + c
+                 : (n >= B ? hs + (size_t)(n - B) * H + c
+                           : h0 + (size_t)n * H + c);
+  };
+  auto c_at = [&](int n, int gate, int u) -> const float* {
+    return gate == 2 ? cs + (size_t)n * H + u
+                     : (n >= B ? cs + (size_t)(n - B) * H + u
+                               : c0 + (size_t)n * H + u);
+  };
+  // What a thread copies in every chunk. Packs: the [x | h] tile's pack
+  // (row e >> 5, columns 4 (e & 31)) for e = tid and tid + 256, and one
+  // gate-gradient pack (row tid >> 4, columns 4 tx). Single floats: one
+  // [x | h] column (tid & 127) in rows (tid >> 7) + 2 q, one gate column
+  // (tid & 63) in rows (tid >> 6) + 4 q.
+  const int gc4 = g0 + 4 * tx;
+  const int gate4 = gc4 / H, gu4 = gc4 - gate4 * H;
+  const int gc1 = g0 + (tid & (kTileG - 1));
+  const int gate1 = gc1 / H, gu1 = gc1 - gate1 * H;
+
+  // One chunk into stage s, zero-filled past the slice and the edges.
+  auto stage = [&](int s, int ch) {
+    const int nb = n_begin + ch * kChunk;
+    float* zs = Zs + s * kChunk * kTileK;
+    float* gs = Gs + s * kChunk * kTileG;
+    float* cz = Cs + s * kChunk * kTileG;
+    if (vec_z) {
 #pragma unroll
-      for (int q = 0; q < kChunk * kTile / kRedThreads; ++q) {
+      for (int q = 0; q < kChunk * kTileK / 4 / kRedThreads; ++q) {
         const int e = tid + q * kRedThreads;
-        const int nn = e / kTile;
-        const int kk = e % kTile;
-        const int n = n0 + nn;
-        const int k = k0 + kk;
-        const int c = c0_ + kk;
-        As[nn][kk] = (n < N && k < K) ? zcat_at(x, hs, h0, n, k, B, F, H)
-                                      : 0.0f;
-        Bs[nn][kk] = (n < N && c < G) ? dgates[(size_t)n * G + c] : 0.0f;
+        const int n = nb + (e >> 5);
+        const int c = base + 4 * (e & 31);
+        const bool ok = n < n_end && c < width;
+        cp_async16(zs + 4 * e, ok ? z_at(n, c) : x, ok);
       }
-      __syncthreads();
+    } else {
+      const int c = base + (tid & (kTileK - 1));
 #pragma unroll
-      for (int nn = 0; nn < kChunk; ++nn) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[nn][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[nn][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bw[s], acc[r][s]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = k0 + ty * 4 + r;
-      if (k >= K) continue;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int c = c0_ + tx * 4 + s;
-        if (c < G) dW[(size_t)k * G + c] = acc[r][s];
+      for (int q = 0; q < kChunk * kTileK / kRedThreads; ++q) {
+        const int nn = (tid / kTileK) + q * (kRedThreads / kTileK);
+        const int n = nb + nn;
+        const bool ok = n < n_end && c < width;
+        cp_async4(zs + nn * kTileK + (tid & (kTileK - 1)),
+                  ok ? z_at(n, c) : x, ok);
       }
     }
-    return;
-  }
+    if (vec_g) {
+      const int nn = tid >> 4;
+      const int n = nb + nn;
+      const bool ok = n < n_end && gc4 < G;
+      cp_async16(gs + 4 * tid, ok ? dgates + (size_t)n * G + gc4 : dgates,
+                 ok);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kChunk * kTileG / kRedThreads; ++q) {
+        const int nn = (tid / kTileG) + q * (kRedThreads / kTileG);
+        const int n = nb + nn;
+        const bool ok = n < n_end && gc1 < G;
+        cp_async4(gs + nn * kTileG + (tid & (kTileG - 1)),
+                  ok ? dgates + (size_t)n * G + gc1 : dgates, ok);
+      }
+    }
+    if (!sums) return;
+    if (vec_c) {
+      const int n = nb + (tid >> 4);
+      const bool ok = n < n_end && gc4 < G && gate4 < 3;
+      cp_async16(cz + 4 * tid, ok ? c_at(n, gate4, gu4) : cs, ok);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kChunk * kTileG / kRedThreads; ++q) {
+        const int nn = (tid / kTileG) + q * (kRedThreads / kTileG);
+        const int n = nb + nn;
+        const bool ok = n < n_end && gc1 < G && gate1 < 3;
+        cp_async4(cz + nn * kTileG + (tid & (kTileG - 1)),
+                  ok ? c_at(n, gate1, gu1) : cs, ok);
+      }
+    }
+  };
 
-  // column sums: db over gate columns, dpeep over (i, f, o) x H
-  const int lane = tid % kRedCols;
-  const int slice = tid / kRedCols;
-  const int nslices = kRedThreads / kRedCols;
-  const int col = ((int)blockIdx.x - n_tiles) * kRedCols + lane;
-  float acc = 0.0f;
-  if (col < G) {
-    for (int n = slice; n < N; n += nslices) acc += dgates[(size_t)n * G + col];
-  } else if (col < G + 3 * H) {
-    const int j = col - G;
-    const int gate = j / H;   // 0: i, 1: f, 2: o
-    const int u = j % H;
-    for (int n = slice; n < N; n += nslices) {
-      const float d = dgates[(size_t)n * G + gate * H + u];
-      const float cv = gate == 2 ? cs[(size_t)n * H + u]
-                       : (n >= B ? cs[(size_t)(n - B) * H + u]
-                                 : c0[(size_t)n * H + u]);
-      acc = fmaf(d, cv, acc);
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+  float dbs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dps[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const bool sum_here = sums && ty == 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) stage(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();   // chunk ch has landed; stage (ch - 1) % kStages is free
+    const int nxt = ch + kStages - 1;
+    if (nxt < chunks) stage(nxt % kStages, nxt);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int s = ch % kStages;
+    const float* zs = Zs + s * kChunk * kTileK + 8 * ty;
+    const float* gs = Gs + s * kChunk * kTileG + 4 * tx;
+    const float* cz = Cs + s * kChunk * kTileG + 4 * tx;
+#pragma unroll
+    for (int nn = 0; nn < kChunk; ++nn) {
+      const float4 a0 = *reinterpret_cast<const float4*>(zs + nn * kTileK);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(zs + nn * kTileK + 4);
+      const float4 g4 = *reinterpret_cast<const float4*>(gs + nn * kTileG);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], gv[c], acc[r][c]);
+      if (sum_here) {
+        const float4 c4 = *reinterpret_cast<const float4*>(cz + nn * kTileG);
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dbs[c] += gv[c];
+          dps[c] = fmaf(gv[c], cv[c], dps[c]);
+        }
+      }
     }
   }
-  red[slice][lane] = acc;
-  __syncthreads();
-  if (slice == 0) {
-    float s = 0.0f;
-    for (int q = 0; q < nslices; ++q) s += red[q][lane];
-    if (col < G) db[col] = s;
-    else if (col < G + 3 * H) dpeep[col - G] = s;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();   // the stages are free: they hold the partial sums now
+
+  // this slice's partial tile [kTileK][kTileG], then db and dpeep [2][64]
+  float* red = smem;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<float4*>(red + (8 * ty + r) * kTileG + 4 * tx) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  if (sum_here) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      red[kTileK * kTileG + 4 * tx + c] = dbs[c];
+      red[kTileK * kTileG + kTileG + 4 * tx + c] = dps[c];
+    }
   }
+  cluster.sync();
+
+  // rank r sums the float4s r * 256 + tid (+ S * 256 ...) of the tile over
+  // the slices 0 .. S-1 in order
+  for (int i4 = rank * kRedThreads + tid; i4 < kTileK * kTileG / 4;
+       i4 += n_split * kRedThreads) {
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int qr = 0; qr < n_split; ++qr) {
+      const float4 p =
+          reinterpret_cast<const float4*>(cluster.map_shared_rank(red, qr))[i4];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    const int row = (4 * i4) / kTileG;
+    const int c = g0 + (4 * i4) % kTileG;
+    if (row < rows_here) {
+      const float sv[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < G) dW[(size_t)(k0 + row) * G + c + j] = sv[j];
+    }
+  }
+  if (sums && rank == n_split - 1 && tid < 2 * kTileG) {
+    float sum = 0.0f;
+    for (int qr = 0; qr < n_split; ++qr)
+      sum += cluster.map_shared_rank(red, qr)[kTileK * kTileG + tid];
+    const int c = g0 + tid % kTileG;
+    if (tid < kTileG) {
+      if (c < G) db[c] = sum;
+    } else if (c < 3 * H) {
+      dpeep[c] = sum;       // dpeep is [i | f | o] x H: gate column c
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its shared memory
+}
+
+// Slices of the T*B axis for `tiles` dW tiles: the most (at most
+// kMaxSplit, a portable cluster) for which every tile's cluster is resident
+// at once (cudaOccupancyMaxActiveClusters), so no tail wave runs a few
+// clusters alone; 1 when even single-block clusters need more than a wave.
+int reduction_split(int tiles) {
+  static int max_clusters[kMaxSplit + 1] = {0};
+  for (int split = kMaxSplit; split > 1; --split) {
+    if (max_clusters[split] == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(split, 1);
+      cfg.blockDim = dim3(kRedThreads);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = split;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      int n = 0;
+      if (cudaOccupancyMaxActiveClusters(&n, lstm_param_grad_kernel, &cfg) !=
+              cudaSuccess || n < 1)
+        n = -1;   // not launchable as such a cluster: never picked
+      max_clusters[split] = n;
+    }
+    if (max_clusters[split] >= tiles) return split;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -431,12 +645,31 @@ extern "C" int dl4j_lstm_param_grad(const float* x, const float* hs,
                                     const float* c0, const float* dgates,
                                     float* dW, float* db, float* dpeep, int T,
                                     int B, int F, int H, void* stream) {
-  const int n_tile_cols = (4 * H + kTile - 1) / kTile;
-  const int n_tiles = ((F + H + kTile - 1) / kTile) * n_tile_cols;
-  const int n_red = (7 * H + kRedCols - 1) / kRedCols;
-  lstm_param_grad_kernel<<<n_tiles + n_red, kRedThreads, 0,
-                           (cudaStream_t)stream>>>(
-      x, hs, h0, cs, c0, dgates, dW, db, dpeep, T, B, F, H, n_tile_cols,
-      n_tiles);
+  const int n_gtiles = (4 * H + kTileG - 1) / kTileG;
+  const int n_xtiles = (F + kTileK - 1) / kTileK;
+  const int n_tiles = (n_xtiles + (H + kTileK - 1) / kTileK) * n_gtiles;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  auto al = [](const float* p) { return (uintptr_t)p % 16 == 0; };
+  const int vec = (F % 4 == 0 && al(x) ? kVecX : 0) |
+                  (H % 4 == 0 && al(hs) && al(h0) ? kVecH : 0) |
+                  (al(dgates) ? kVecG : 0) |
+                  (H % 4 == 0 && al(cs) && al(c0) ? kVecC : 0);
+  const int split = reduction_split(n_tiles);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, n_tiles);
+  cfg.blockDim = dim3(kRedThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, lstm_param_grad_kernel, x, hs, h0,
+                                     cs, c0, dgates, dW, db, dpeep, T, B, F,
+                                     H, n_gtiles, n_xtiles, vec);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -100,15 +100,18 @@ def test_reset_launches_returns_the_count():
                                  "mixed_device", "meta_device"])
 def test_wrapper_refuses_what_the_kernel_cannot_take(bad):
     q, k, v = map(torch.from_numpy, _qkv(2, 6, 6, 8, heads=2))
-    match = {"float64": "float32", "bfloat16": "float32",
+    match = {"float64": "float32", "bfloat16": "mixed dtypes",
              "rank": r"\[B, T, H, Dh\]", "kv_shape": "k and v",
              "head_dim": "head dimension", "empty": "empty",
              "non_contiguous": "contiguous", "mixed_device": "on meta",
              "meta_device": "no attention kernel"}[bad]
-    if bad in ("float64", "bfloat16"):
+    if bad == "float64":
         # a CPU tensor of another float dtype takes the plain version (as
-        # JAX's reference does); off the CPU only float32 reaches a kernel
-        q, k, v = (t.to("meta", getattr(torch, bad)) for t in (q, k, v))
+        # JAX's reference does); off the CPU float64 reaches no kernel
+        q, k, v = (t.to("meta", torch.float64) for t in (q, k, v))
+    elif bad == "bfloat16":
+        # bf16 reaches the kernels, but q, k and v must share one dtype
+        q = q.to(torch.bfloat16)
     elif bad == "rank":
         q = q[0]
     elif bad == "kv_shape":

@@ -119,8 +119,13 @@ def test_attention_three_dim_entry_matches_plain(cuda):
 
 def test_attention_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v = _qkv(2, 16, 16, 2, 64, cuda)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="mixed dtypes"):
         attention.flash_attention_heads(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        attention.flash_attention_heads(q.double(), k.double(), v.double())
+    wide = torch.zeros((1, 4, 1, attention.MAX_HEAD_DIM + 1), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP C1"):
+        attention.flash_attention_heads(wide, wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention_heads(
             q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
@@ -129,10 +134,12 @@ def test_attention_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def _lm(device, width=384, heads=6, blocks=6, t=256, vocab=65, seed=1,
-        updater=None):
+        updater=None, compute_dtype=None):
     b = pt.NeuralNetConfiguration.builder()
     if updater is not None:
         b = b.updater(updater)
+    if compute_dtype is not None:
+        b = b.compute_dtype(compute_dtype)
     b = (b.list()
          .layer(pt.EmbeddingSequenceLayer(n_in=vocab, n_out=width)))
     for _ in range(blocks):
@@ -541,3 +548,174 @@ def test_bn_mlp_step_launches_bn_kernels_only_in_bf16(cuda, compute):
     for s, t in zip(nets[0].state, nets[1].state):
         for k in s:
             assert s[k].dtype == torch.float32 and not s[k].requires_grad
+
+
+# The redesigned LSTM reduction (split T*B axis, cluster reduction) against
+# its plain version at the char-RNN's training shapes and ragged ones (a
+# row tail of the 16-row chunks and of the eight slices, column tails of
+# the 128 x 64 tiles): f32 sums of T*B terms in another order, relative to
+# the largest magnitude (BWD_REL_TOL).
+@pytest.mark.parametrize("T,B,F,H", [
+    (64, 64, 77, 200), (64, 64, 200, 200),      # the char-RNN, T*B = 4096
+    (9, 3, 5, 37), (7, 13, 5, 37), (1, 1, 5, 37), (33, 5, 130, 70)])
+def test_lstm_reduction_matches_plain(cuda, T, B, F, H):
+    x, W, b, peep, h0, c0 = _lstm_args(T, B, F, H, cuda, seed=T + B + H)
+    hs, cs, ii, ff, oo, gg = lstm.lstm_sequence_reference(
+        x, W, b, peep, h0, c0, 1.0, save_residuals=True)
+    dgates = torch.as_tensor(np.random.default_rng(F).normal(
+        size=(T, B, 4 * H)).astype(np.float32), device=cuda)
+    before = lstm.launch_counts()["reduction_launches"]
+    got = lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates)
+    torch.cuda.synchronize()
+    assert lstm.launch_counts()["reduction_launches"] == before + 1
+    want = lstm.lstm_param_grads_reference(x, hs, h0, cs, c0, dgates)
+    for name, g, w in zip(("dW", "db", "dpeep"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        err = _rel_err(g, w)
+        assert err <= BWD_REL_TOL, f"{name}: max err / max |ref| {err}"
+
+
+def test_lstm_reduction_is_bit_equal_run_to_run(cuda):
+    T, B, F, H = 64, 64, 77, 200
+    x, W, b, peep, h0, c0 = _lstm_args(T, B, F, H, cuda, seed=11)
+    hs, cs, *_ = lstm.lstm_sequence_reference(x, W, b, peep, h0, c0, 1.0,
+                                              save_residuals=True)
+    dgates = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(T, B, 4 * H)).astype(np.float32), device=cuda)
+    first = lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates)
+    for _ in range(3):
+        again = lstm.lstm_param_grads(x, hs, h0, cs, c0, dgates)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+# Attention in bf16 and f16, and at head dimensions 160 and 256: the
+# kernels and the plain versions both compute in f32 from the same inputs
+# and round o, dq, dk, dv to the inputs' dtype, so a value on a rounding
+# boundary may land one ulp of the dtype apart (BN_ULP: 2^-7 of its
+# magnitude for bf16, 2^-10 for f16); on top of that the f32 limits above,
+# relative to the largest plain magnitude (sums in another order). L and D
+# are f32.
+def _close(got, want, dtype, tol):
+    got, want = got.float(), want.float()
+    limit = (BN_ULP[dtype] * torch.maximum(got.abs(), want.abs())
+             + tol * want.abs().max())
+    err = (got - want).abs()
+    return bool((err <= limit).all()), err.max().item()
+
+
+TYPED_CASES = [
+    (torch.bfloat16, 64, 256, 256, 6, 64, True),   # the LM's training shape
+    (torch.float16, 4, 256, 256, 6, 64, True),
+    (torch.bfloat16, 2, 100, 100, 6, 64, True),    # ragged causal
+    (torch.bfloat16, 3, 37, 129, 3, 10, False),    # unaligned head dim
+    (torch.float32, 2, 100, 100, 2, 160, True),    # wide heads
+    (torch.float32, 2, 70, 50, 2, 256, False),
+    (torch.bfloat16, 2, 100, 100, 2, 256, True),
+    (torch.float16, 2, 70, 70, 2, 160, True)]
+
+
+@pytest.mark.parametrize("dtype,B,T,S,H,Dh,causal", TYPED_CASES)
+def test_attention_kernels_take_dtypes_and_wide_heads(cuda, dtype, B, T, S,
+                                                      H, Dh, causal):
+    q, k, v = (t.to(dtype) for t in _qkv(B, T, S, H, Dh, cuda, seed=T + Dh))
+    do = _qkv(B, T, T, H, Dh, cuda, seed=2 * T + Dh)[0].to(dtype)
+    before = attention.launch_counts()
+    out = attention.flash_attention_heads(q, k, v, causal)
+    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, causal)
+    want_o, want_lse = attention.attention_reference_heads_lse(q, k, v,
+                                                               causal)
+    dq, dsum = attention.attention_bwd_dq(q, k, v, want_o, want_lse, do,
+                                          causal)
+    dk, dv = attention.attention_bwd_dkv(q, k, v, do, want_lse, dsum, causal)
+    torch.cuda.synchronize()
+    after = attention.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "launches": 1, "lse_launches": 1, "dq_launches": 1,
+        "dkv_launches": 1}
+    want_dq, want_dsum = attention.attention_bwd_dq_reference(
+        q, k, v, want_o, want_lse, do, causal)
+    want_dk, want_dv = attention.attention_bwd_dkv_reference(
+        q, k, v, do, want_lse, want_dsum, causal)
+    for name, g, w, tol in (
+            ("o", out, want_o, ATTN_GRAD_TOL), ("o (lse)", o, want_o,
+                                                ATTN_GRAD_TOL),
+            ("L", lse, want_lse, ATTN_GRAD_TOL),
+            ("D", dsum, want_dsum, ATTN_GRAD_TOL),
+            ("dq", dq, want_dq, ATTN_GRAD_TOL),
+            ("dk", dk, want_dk, ATTN_GRAD_TOL),
+            ("dv", dv, want_dv, ATTN_GRAD_TOL)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        ok, err = _close(g, w, g.dtype, tol)
+        assert ok, f"{name}: max abs err {err}"
+
+
+def test_attention_forward_is_bit_equal_run_to_run(cuda):
+    for dtype, Dh in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q, k, v = (t.to(dtype) for t in _qkv(2, 200, 200, 2, Dh, cuda))
+        first = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+        again = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def _first_grads(net, x, y):
+    """{"layer/name": gradient on the CPU} of the network's score at its
+    parameters."""
+    params = tuple({k: v.detach().requires_grad_() for k, v in p.items()}
+                   for p in net.params)
+    score, _ = net._loss_fn(params, net.state,
+                            torch.as_tensor(x, device=net.device),
+                            torch.as_tensor(y, device=net.device))
+    grads = torch.autograd.grad(score, [v for p in params for v in p.values()])
+    names = [f"{i}/{k}" for i, p in enumerate(params) for k in p]
+    return {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+@pytest.mark.parametrize("width,heads", [(384, 6), (512, 2)])
+def test_bf16_lm_step_on_the_card_matches_the_cpu(cuda, width, heads):
+    """A bf16-compute LM (2 blocks; Dh 64, or 256 at width 512 and 2
+    heads) through the bf16 attention kernels, against the CPU within PR
+    5's bf16 limits: first-step gradients per tensor within 2e-2 of its
+    largest entry (the key bias, whose exact gradient is 0, to 2e-2 of its
+    W_k's); one Adam step's score and the following forward's outputs
+    within 2e-2; the step's parameters, as PR 5's one-step check: within
+    1e-5 where the CPU's gradient entry is beyond 2e-2 of the tensor's
+    largest (Adam's first step is lr times its sign), else within Adam's
+    reach, 2 lr (rounding noise may flip the sign of a near-zero entry;
+    every entry of the key bias, whose exact gradient is 0).
+    One launch of each attention kernel per block."""
+    lr = 1e-3
+    nets = [_lm(d, width=width, heads=heads, blocks=2, seed=6,
+                updater=pt.Adam(lr, beta2=0.99),
+                compute_dtype="bfloat16") for d in (cuda, "cpu")]
+    r = np.random.default_rng(6)
+    idx = r.integers(0, 65, (4, 257))
+    x = idx[:, :-1, None].astype(np.float32)
+    y = np.eye(65, dtype=np.float32)[idx[:, 1:]]
+    grads = [_first_grads(n, x, y) for n in nets]
+    for name, want in grads[1].items():
+        got = grads[0][name]
+        if name.endswith("/b_k"):
+            w_k = grads[1][name[:-3] + "W_k"].abs().max()
+            assert max(got.abs().max(), want.abs().max()) <= 2e-2 * w_k
+            continue
+        err = _rel_err(got, want)
+        assert err <= 2e-2, f"{name}: max err / max |ref| {err}"
+    attention.reset_launches()
+    for n in nets:
+        n.fit(x, y)
+    outs = [n.output(x) for n in nets]
+    torch.cuda.synchronize()
+    assert attention.launch_counts() == {"launches": 2, "lse_launches": 2,
+                                         "dq_launches": 2, "dkv_launches": 2}
+    assert abs(nets[0].score() - nets[1].score()) <= 2e-2
+    assert (outs[0].cpu() - outs[1]).abs().max().item() <= 2e-2
+    for i, (p, q) in enumerate(zip(*(n.params for n in nets))):
+        for k in q:
+            a, b = p[k].cpu(), q[k]
+            assert a.dtype == torch.float32
+            g = grads[1][f"{i}/{k}"].abs()
+            clear = g > 2e-2 * g.max()
+            err = (a - b).abs()
+            assert err.max().item() <= 2 * lr + 1e-7, k
+            if k != "b_k" and clear.any():   # b_k's gradient is all noise
+                assert err[clear].max().item() <= 1e-5, k
