@@ -9,10 +9,12 @@ Phases:
      and the kernel build from the repository's CUDA sources;
   2. each kernel against its plain PyTorch version on the same GPU tensors,
      at the shapes the main paths give it (and ragged and other head-size
-     cases for attention and its backward; one step, one row and a column
-     tail for the LSTM training kernels; N in {128, 4096, 4097} x C in
-     {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for the BN+ReLU
-     forward and backward);
+     cases for attention and its backward: every backward variant, simt,
+     wgmma and wide, at head dimensions 10 to 512, in f32 / bf16 / f16, at
+     B * H = 65,536, each variant also rerun bit-equal; one step, one row
+     and a column tail for the LSTM training kernels; N in {128, 4096,
+     4097} x C in {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for
+     the BN+ReLU forward and backward);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -35,9 +37,9 @@ Phases:
      ArrayDataSetIterator of overlapping windows of README.md, from a zip
      of seeded random weights; first-step gradients at batch 64 and a
      20-step trajectory at batch 16 held against the same zip and batches
-     on the CPU; the trained zip with its updater state restored on both
-     devices for one more step, then registered and served at bucket 32
-     against the CPU;
+     on the CPU, and the same trajectory with nanoGPT's lr warm-up; the
+     trained zip with its updater state restored on both devices for one
+     more step, then registered and served at bucket 32 against the CPU;
   8. main path 5: train the repository's `mlp_mnist` (784 -> 1024 -> 1024
      -> 10, Adam 1e-3) with a BatchNormalization(relu) after each hidden
      Dense(identity) layer, in bf16 compute (`compute_dtype("bfloat16")`,
@@ -58,30 +60,34 @@ Phases:
      counted, and the trained zip's bucket-32 forward through the primal
      kernel against the CPU; the same trajectory without the warm-up,
      through the kernels and the plain attention, printed beside the CPU's;
-     then a one-block LM at head dimension 256 (width 512, 2 heads), one
-     step and one forward in float32 and in bf16, against the CPU;
+     then one-block LMs at head dimensions 256 and 512 (widths 512 and
+     1024, 2 heads), one step and one forward each in float32 and in bf16,
+     against the CPU;
  10. times: each kernel, its plain version, the PyTorch library call where
-     there is one, and its bound (also in bf16 and at Dh = 256 for the
-     attention kernels, with device times for the redesigned ones, and
+     there is one, and its bound (also in bf16 and at Dh = 256 and 512 for
+     the attention kernels, per call and on the device, SDPA's backward
+     beside dq and dk/dv, and
      the LSTM reduction's whole function in PyTorch calls beside
      torch.matmul); predict and HTTP p50 per bucket and tokens/s at bucket
      32 for both models; training tokens/s and step p50 for both models
      and samples/s for the BN-MLP; where the LM's bucket-32 forward, a
-     char-RNN training batch, an LM training step and a BN-MLP step spend
-     their device time (torch.profiler).
+     char-RNN training batch, an LM training step in f32 and in bf16 and a
+     BN-MLP step spend their device time (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
 (phases 3-4), six primal attention launches per LM forward (phase 5), two
 residual-forward, two adjoint and two reduction launches per char-RNN
 training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
-launches per LM training step (phase 7), and one BN+ReLU forward and one
-backward launch per BN layer and bf16 training step (phase 8: 40 and 40
-over 20 steps, none in evaluation or in float32), six bf16 logsumexp-
-forward, dq and dk/dv launches per bf16 LM training step and six primal
-ones per bf16 LM forward, one of each per step or forward of the wide-head
-LM (phase 9), each path launching none of the others' kernels. The last two lines are a `{"kernels": [...]}` object and
-`{"ok": true, "device": {...}}`. Any failed check, or a machine without a
+launches per LM training step, the backward all of the "simt" variant
+(phase 7), and one BN+ReLU forward and one backward launch per BN layer
+and bf16 training step (phase 8: 40 and 40 over 20 steps, none in
+evaluation or in float32), six bf16 logsumexp-forward, dq and dk/dv
+launches per bf16 LM training step, the backward all of the "wgmma"
+variant, and six primal ones per bf16 LM forward, one of each per step or
+forward of the wide-head LMs, at Dh = 512 of the "wide" variants (phase
+9), each path launching none of the others' kernels. The last two lines
+are a `{"kernels": [...]}` object and `{"ok": true, "device": {...}}`. Any failed check, or a machine without a
 CUDA device, exits non-zero before either.
 """
 import json
@@ -159,6 +165,10 @@ LM_CMP_B = 16
 # this script's printout), so the char-RNN's 1e-4 is out of reach for
 # either. The plain-attention run is repeated below in every run.
 LM_SCORE_TOL = 1e-3
+# The same 20 steps with nanoGPT's warm-up (LM_WARMUP, as the bf16 LM of
+# phase 9 trains) stay clear of the spikes, so they are held to the
+# char-RNN's trajectory limit.
+LM_WARM_SCORE_TOL = SCORE_TOL
 
 # BN-MLP (deeplearning4j_tpu/models/zoo.py:mlp_mnist with a
 # BatchNormalization(relu) after each hidden Dense(identity) layer), trained
@@ -192,19 +202,37 @@ BF16_GRAD_TOL = 2e-2
 BF16_SCORE_TOL = 2e-2
 BF16_PARAM_TOL = 5e-2
 
-# Attention kernels in bf16 / f16 and at head dimensions 160 and 256
-# against their plain versions: both compute in f32 from the same inputs
-# and round o, dq, dk and dv to the inputs' dtype, so a value on a rounding
-# boundary may land one ulp of the dtype apart (BN_ULP), on top of the f32
-# limit ATTN_GRAD_TOL of the largest plain magnitude; L and D are f32.
+# Attention kernels in bf16 / f16, at head dimensions from 10 to 512 and at
+# B * H = 65,536 against their plain versions: both compute in f32 from the
+# same inputs (the "wgmma" backward takes p and ds as hi + lo pairs of the
+# input type, about 2^-16 relative) and round o, dq, dk and dv to the
+# inputs' dtype, so a value on a rounding boundary may land one ulp of the
+# dtype apart (BN_ULP), on top of the f32 limit ATTN_GRAD_TOL of the
+# largest plain magnitude; L and D are f32. The cases reach every backward
+# variant ("simt": f32, or a head dimension not a multiple of 16; "wgmma":
+# bf16 / f16 at multiples of 16 up to 256; "wide": past 256) and both
+# forward variants.
 TYPED_ATTN = [("bfloat16", LM_TRAIN_B, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
               ("bfloat16", 32, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
               ("float16", 4, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
+              ("bfloat16", 2, 100, 100, LM_HEADS, 64, True),    # ragged
+              ("bfloat16", 3, 96, 80, LM_HEADS, 64, False),     # T != S
               ("bfloat16", 3, 37, 129, 3, 10, False),
+              ("bfloat16", 2, LM_SEQ, LM_SEQ, 4, 16, True),
+              ("float16", 2, LM_SEQ, LM_SEQ, 3, 128, True),
               ("float32", 2, 100, 100, 2, 160, True),
+              ("bfloat16", 2, 100, 100, 2, 160, True),
               ("float32", 4, LM_SEQ, LM_SEQ, 2, 256, True),
               ("bfloat16", 4, LM_SEQ, LM_SEQ, 2, 256, True),
-              ("float16", 2, 70, 50, 2, 256, False)]
+              ("float16", 2, 70, 50, 2, 256, False),
+              ("float32", 2, 24, 24, 2, 257, True),      # the wide kernels
+              ("bfloat16", 2, 24, 24, 2, 257, True),
+              ("float32", 2, 70, 50, 2, 320, False),
+              ("bfloat16", 2, 20, 13, 2, 320, False),
+              ("float32", 2, 100, 100, 2, 512, True),
+              ("bfloat16", 2, LM_SEQ, LM_SEQ, 2, 512, True),
+              ("float32", 16384, 8, 8, 4, 16, True),     # B * H = 65,536
+              ("bfloat16", 16384, 8, 8, 4, 16, True)]
 # The bf16 LM trains with nanoGPT's warm-up (config/train_shakespeare_char.py
 # `warmup_iters = 100`, get_lr's lr * (it + 1) / (warmup_iters + 1); 20 steps
 # see its first fifth). Without it, Adam at 1e-3 drives the score through a
@@ -214,8 +242,9 @@ TYPED_ATTN = [("bfloat16", LM_TRAIN_B, LM_SEQ, LM_SEQ, LM_HEADS, 64, True),
 # no-warm-up run is repeated below in every run, printed beside the held
 # one.
 LM_WARMUP = 100
-# the wide-head LM: one block at Dh = 256 (width 512, 2 heads)
-WIDE_WIDTH, WIDE_HEADS = 512, 2
+# the wide-head LMs: one block at Dh = 256 and 512 (widths 512 and 1024, 2
+# heads)
+WIDE_WIDTHS, WIDE_HEADS = (512, 1024), 2
 
 
 def check(cond, msg):
@@ -448,7 +477,7 @@ def lse_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
 def dq_bound_ms(B, T, S, H, Dh, causal, itemsize=4):
     """dq: q, k, v, o, do and L read once, dq and D written once; 6 Dh
     FLOPs per live pair (s, do v^T, ds k)."""
-    nbytes = itemsize * B * H * Dh * (5 * T + 2 * S) + 8 * B * H * T
+    nbytes = itemsize * B * H * Dh * (4 * T + 2 * S) + 8 * B * H * T
     return bound(nbytes, 6 * Dh * live_pairs(T, S, causal) * B * H,
                  _peak(itemsize))
 
@@ -563,13 +592,19 @@ def device_ms(torch, fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+    # a profiling session now and then records no device event at all
+    # (seen on the H100 machine after a few dozen sessions): up to three
+    # sessions, then the check fails
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            break
     check(total > 0, "torch.profiler recorded no device time")
     return total / 1e3 / reps
 
@@ -931,8 +966,9 @@ def main():
           + f" (limit {ATTN_GRAD_TOL} of max |ref|; the logsumexp "
           f"forward's output within {ATTN_TOL} abs)")
 
-    # the attention kernels in bf16 / f16 and at head dimensions 160, 256
-    typed_err = {}
+    # the attention kernels in bf16 / f16, at head dimensions up to 512 and
+    # at B * H = 65,536; each case's launches by variant are recorded
+    typed_err, typed_variants = {}, {}
     for dt, B, T, S, H, Dh_, causal in TYPED_ATTN:
         dtype = getattr(torch, dt)
         q, k, v = (t.to(dtype) for t in attention_inputs(
@@ -940,6 +976,7 @@ def main():
         do = attention_inputs(torch, B, T, T, H, Dh_, seed=2 * T + Dh_)[0]
         do = do.to(dtype)
         what = f"{dt} B={B} T={T} S={S} H={H} Dh={Dh_} causal={causal}"
+        attention.reset_launches()
         out = attention.flash_attention_heads(q, k, v, causal)
         o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, causal)
         want_o, want_lse = attention.attention_reference_heads_lse(
@@ -953,6 +990,7 @@ def main():
         want_dk, want_dv = attention.attention_bwd_dkv_reference(
             q, k, v, do, want_lse, want_dsum, causal)
         torch.cuda.synchronize()
+        errs = {}
         for name, got, want in (("o", out, want_o), ("o (lse)", o, want_o),
                                 ("L", lse, want_lse), ("D", dsum, want_dsum),
                                 ("dq", dq, want_dq), ("dk", dk, want_dk),
@@ -962,14 +1000,55 @@ def main():
             check(ok and got.dtype == want.dtype, f"attention {name} {what}: "
                   f"max abs err {err}, over max |ref| {rel} ({got.dtype} vs "
                   f"{want.dtype})")
-            e = typed_err.setdefault(dt, [0.0, 0.0])
-            e[0], e[1] = max(e[0], err), max(e[1], rel)
-    print(f"attention kernels in other dtypes and head dimensions vs plain: "
-          f"{len(TYPED_ATTN)} cases (primal, logsumexp, dq, dk/dv; Dh up to "
-          f"256); " + "; ".join(f"{k} max abs err {a:.3e}, over max |ref| "
-                               f"{r:.3e}" for k, (a, r) in typed_err.items())
+            errs[name] = (err, rel)
+        for key in (dt,) + tuple(
+                f"{kind} {variant}" for kind, counts in
+                attention.variant_counts().items()
+                for variant, n in counts.items() if n):
+            kind = key.split()[0]
+            names = {"fwd": ("o",), "lse": ("o (lse)", "L"),
+                     "dq": ("D", "dq"), "dkv": ("dk", "dv")}.get(kind, errs)
+            e = typed_err.setdefault(key, [0.0, 0.0])
+            e[0] = max([e[0]] + [errs[n][0] for n in names])
+            e[1] = max([e[1]] + [errs[n][1] for n in names])
+            if key != dt:
+                typed_variants[tuple(key.split())] = \
+                    typed_variants.get(tuple(key.split()), 0) + 1
+    print(f"attention kernels in other dtypes, head dimensions and B * H vs "
+          f"plain: {len(TYPED_ATTN)} cases (primal, logsumexp, dq, dk/dv; Dh "
+          f"10 to 512, B * H up to 65,536); " + "; ".join(
+              f"{k} max abs err {a:.3e}, over max |ref| {r:.3e}"
+              for k, (a, r) in typed_err.items())
           + f" (limit {ATTN_GRAD_TOL} of max |ref| plus one ulp of the "
           "dtype)")
+    for kind in ("dq", "dkv"):
+        for variant in ("simt", "wgmma", "wide"):
+            check(typed_variants.get((kind, variant)), f"no case reached the "
+                  f"{variant} {kind} kernel")
+    check(typed_variants.get(("lse", "wide")), "no case reached the wide "
+          "forward")
+
+    # each backward variant gives the same bits run to run (no atomics)
+    for dt, B, T, H, Dh_ in (("float32", LM_TRAIN_B, LM_SEQ, LM_HEADS, 64),
+                             ("bfloat16", LM_TRAIN_B, LM_SEQ, LM_HEADS, 64),
+                             ("float32", 2, 70, 2, 320)):
+        dtype = getattr(torch, dt)
+        q, k, v, do = (t.to(dtype) for t in attention_inputs(
+            torch, B, T, T, H, Dh_, seed=31) + attention_inputs(
+                torch, B, T, T, H, Dh_, seed=32)[:1])
+        o, lse = attention.attention_reference_heads_lse(q, k, v, True)
+        attention.reset_launches()
+        first = attention.flash_attention_bwd_heads(q, k, v, o, lse, do, True)
+        variant = [n for n, c in attention.variant_counts()["dq"].items()
+                   if c]
+        for _ in range(2):
+            again = attention.flash_attention_bwd_heads(q, k, v, o, lse, do,
+                                                        True)
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"attention backward ({variant}, {dt}, Dh {Dh_}) differs "
+                  "run to run")
+        print(f"attention backward {variant[0]} ({dt}, B={B} H={H} T={T} "
+              f"Dh={Dh_}): bit-equal over 3 runs")
 
     # the reduction: the same bits run to run (a fixed summation order)
     args = lstm_inputs(torch, TRAIN_TBPTT, TRAIN_B, VOCAB, HIDDEN, seed=21)
@@ -1244,6 +1323,7 @@ def main():
     torch.cuda.synchronize()
     lm_fit_s = time.perf_counter() - t0
     lm_counts = attention.launch_counts()
+    lm_variants = attention.variant_counts()
     lm_steps = gpu_lm.iteration_count
     check(lm_steps == LM_STEPS, f"{lm_steps} LM optimizer steps, want "
           f"{LM_STEPS}")
@@ -1253,12 +1333,18 @@ def main():
           f"LM training launches {lm_counts} for {lm_steps} steps (want "
           f"{LM_BLOCKS} logsumexp forwards, dq and dk/dv per step and no "
           "primal forward)")
+    for kind in ("dq", "dkv"):
+        check(lm_variants[kind] == {"simt": LM_BLOCKS * lm_steps, "wgmma": 0,
+                                    "wide": 0},
+              f"f32 LM training {kind} launches by variant "
+              f"{lm_variants[kind]} (want only simt)")
     check(set(lstm.launch_counts().values()) == {0},
           f"LM training launched LSTM kernels: {lstm.launch_counts()}")
     check_no_bn_launches("LM training")
     lm_scores = [float(v) for v in lm_log.scores]
     print(f"LM training: {lm_steps} steps of {LM_TRAIN_B} x {LM_SEQ} "
           f"tokens in {lm_fit_s:.2f} s on the card; launches {lm_counts}; "
+          f"by variant dq {lm_variants['dq']}, dk/dv {lm_variants['dkv']}; "
           f"score {lm_scores[0]:.4f} -> {lm_scores[-1]:.4f}; first-step "
           f"gradients card vs CPU {lm_grad_err:.3e} of max (limit "
           f"{GRAD_TOL}; key bias {bk_grad:.3e} of its W_k's max on either "
@@ -1322,6 +1408,35 @@ def main():
     check(cmp_scores[0][-1] < cmp_scores[0][0], "the LM score did not fall "
           f"at batch {LM_CMP_B}: {cmp_scores[0]}")
     check_key_bias(cmp_nets, LM_STEPS, "LM comparison")
+
+    # the same LM and batches with nanoGPT's warm-up: card against CPU
+    warm_zip = os.path.join(tmp, "lm_train_warm.zip")
+    pt.ModelSerializer.write_model(
+        make_lm(pt, torch, 5, pt.Adam(LM_LR, beta2=0.99),
+                Distribution(kind="normal", std=0.02), warmup=True), warm_zip)
+    warm_nets = [pt.ModelSerializer.restore(warm_zip),
+                 pt.ModelSerializer.restore(warm_zip, device="cpu")]
+    warm_logs = [StepLog(), StepLog()]
+    for n, log in zip(warm_nets, warm_logs):
+        n.set_listeners(log)
+        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+    warm_scores = [[float(v) for v in log.scores] for log in warm_logs]
+    lm_warm_err = float(np.abs(np.subtract(*warm_scores)).max())
+    lm_warm_param = param_rel_l2(*warm_nets, skip=("b_k",))
+    print(f"LM card vs CPU at batch {LM_CMP_B} with nanoGPT's warm-up "
+          f"({LM_WARMUP} iterations): score {warm_scores[0][0]:.4f} -> "
+          f"{warm_scores[0][-1]:.4f}; scores max abs err {lm_warm_err:.3e} "
+          f"(limit {LM_WARM_SCORE_TOL}); final parameters relative L2 "
+          f"{lm_warm_param:.3e} (limit {PARAM_TOL}); without the warm-up "
+          f"{lm_score_err:.3e} (limit {LM_SCORE_TOL})")
+    print(json.dumps({"lm_warm_scores_card": warm_scores[0],
+                      "lm_warm_scores_cpu": warm_scores[1]}))
+    check(lm_warm_err <= LM_WARM_SCORE_TOL, f"LM step scores with the "
+          f"warm-up, card vs CPU: max abs err {lm_warm_err} > "
+          f"{LM_WARM_SCORE_TOL}")
+    check(lm_warm_param <= PARAM_TOL, f"LM parameters after {LM_STEPS} "
+          f"warm-up steps: relative L2 {lm_warm_param} > {PARAM_TOL}")
+    check_key_bias(warm_nets, LM_STEPS, "LM warm-up comparison")
 
     # the trained zip with its updater state: one more step on both
     # devices, then served against the CPU
@@ -1596,6 +1711,7 @@ def main():
     torch.cuda.synchronize()
     bf16_fit_s = time.perf_counter() - t0
     bf16_counts = attention.launch_counts()
+    bf16_variants = attention.variant_counts()
     bf16_steps = bf16_lm.iteration_count
     check(bf16_steps == LM_STEPS, f"{bf16_steps} bf16 LM steps, want "
           f"{LM_STEPS}")
@@ -1605,6 +1721,12 @@ def main():
                           "dkv_launches": LM_BLOCKS * bf16_steps},
           f"bf16 LM training launches {bf16_counts} for {bf16_steps} steps "
           f"(want {LM_BLOCKS} logsumexp forwards, dq and dk/dv per step)")
+    for kind in ("dq", "dkv"):
+        check(bf16_variants[kind] == {"simt": 0,
+                                      "wgmma": LM_BLOCKS * bf16_steps,
+                                      "wide": 0},
+              f"bf16 LM training {kind} launches by variant "
+              f"{bf16_variants[kind]} (want only wgmma)")
     check(set(lstm.launch_counts().values()) == {0},
           f"bf16 LM training launched LSTM kernels: {lstm.launch_counts()}")
     check_no_bn_launches("bf16 LM training")
@@ -1658,7 +1780,9 @@ def main():
     bf16_serve_err = (out.float().cpu() - ref.float()).abs().max().item()
     print(f"bf16 LM (compute_dtype bfloat16, float32 masters): {bf16_steps} "
           f"steps of {LM_TRAIN_B} x {LM_SEQ} tokens in {bf16_fit_s:.2f} s on "
-          f"the card; launches {bf16_counts}; score {bf16_scores[0]:.4f} -> "
+          f"the card; launches {bf16_counts}; by variant dq "
+          f"{bf16_variants['dq']}, dk/dv {bf16_variants['dkv']}; score "
+          f"{bf16_scores[0]:.4f} -> "
           f"{bf16_scores[-1]:.4f}; card vs CPU: first-step gradients at "
           f"batch {LM_CMP_B} {bf16_grad_err:.3e} of max (limit "
           f"{BF16_GRAD_TOL}; key bias {bf16_bk:.3e} of its W_k's max), "
@@ -1715,17 +1839,19 @@ def main():
           f"{nowarm['cpu'][-1]:.4f}, max {max(nowarm['cpu']):.4f}")
     print(json.dumps({"bf16_lm_nowarm_scores": nowarm}))
 
-    # the wide-head LM: one block at Dh = 256, one training step and one
-    # forward on the card against the CPU, in float32 and in bf16 compute
-    wide = {}
-    for cd in (None, "bfloat16"):
+    # the wide-head LMs: one block at Dh = 256 (the tiled kernels' widest)
+    # and at Dh = 512 (the wide kernels), one training step and one forward
+    # on the card against the CPU, in float32 and in bf16 compute
+    wide, wide_variants = {}, {}
+    for width, cd in ((w, cd) for w in WIDE_WIDTHS
+                      for cd in (None, "bfloat16")):
         limits = ((GRAD_TOL, SCORE_TOL, LM_SCORE_TOL) if cd is None
                   else (BF16_GRAD_TOL, BF16_SCORE_TOL, BF16_SCORE_TOL))
-        wide_zip = os.path.join(tmp, f"lm_wide_{cd}.zip")
+        wide_zip = os.path.join(tmp, f"lm_wide_{width}_{cd}.zip")
         pt.ModelSerializer.write_model(
             make_lm(pt, torch, 10, pt.Adam(LM_LR, beta2=0.99),
                     Distribution(kind="normal", std=0.02), compute_dtype=cd,
-                    width=WIDE_WIDTH, heads=WIDE_HEADS, blocks=1), wide_zip)
+                    width=width, heads=WIDE_HEADS, blocks=1), wide_zip)
         nets = [pt.ModelSerializer.restore(wide_zip),
                 pt.ModelSerializer.restore(wide_zip, device="cpu")]
         batch = pt.DataSet(lm_x[:4], lm_y[:4])
@@ -1738,16 +1864,28 @@ def main():
         outs = [n.output(lm_x[4:8]) for n in nets]
         torch.cuda.synchronize()
         counts = attention.launch_counts()
+        variants = attention.variant_counts()
         check(counts == {"launches": 1, "lse_launches": 1, "dq_launches": 1,
                          "dkv_launches": 1},
               f"wide-head LM ({cd or 'float32'}) launches {counts}")
+        Dh_ = width // WIDE_HEADS
+        want = ("wide" if Dh_ > attention.TILED_HEAD_DIM else
+                "simt" if cd is None else "wgmma")
+        check(variants["dq"][want] == variants["dkv"][want] == 1
+              and (want == "wide") == (variants["lse"]["wide"] == 1),
+              f"wide-head LM (Dh {Dh_}, {cd or 'float32'}) launches by "
+              f"variant {variants} (want {want})")
+        for kind, c in variants.items():
+            for variant, n in c.items():
+                wide_variants[(kind, variant)] = \
+                    wide_variants.get((kind, variant), 0) + n
         s_err = abs(nets[0].score() - nets[1].score())
         o_err = (outs[0].float().cpu() - outs[1].float()).abs().max().item()
-        wide[cd or "float32"] = {"grad": g_err, "score": s_err,
-                                 "output": o_err}
-        print(f"wide-head LM (width {WIDE_WIDTH}, {WIDE_HEADS} heads, Dh "
-              f"{WIDE_WIDTH // WIDE_HEADS}, one block, {cd or 'float32'}): "
-              f"launches {counts}; card vs CPU: first-step gradients "
+        wide[f"dh{Dh_}_{cd or 'float32'}"] = {"grad": g_err, "score": s_err,
+                                              "output": o_err}
+        print(f"wide-head LM (width {width}, {WIDE_HEADS} heads, Dh "
+              f"{Dh_}, one block, {cd or 'float32'}): launches {counts}, "
+              f"the backward by {want}; card vs CPU: first-step gradients "
               f"{g_err:.3e} of max (limit {limits[0]}), step score "
               f"{s_err:.3e} (limit {limits[1]}), next forward {o_err:.3e} "
               f"(limit {limits[2]})")
@@ -1955,61 +2093,16 @@ def main():
           f"{train_times['reduction']['bound_ms']:.6f} ms")
     print(json.dumps({"training": training}))
 
-    # the attention training kernels per launch at the LM's training shape,
-    # the primal forward beside the logsumexp one (two instantiations of
-    # one template), and SDPA as the yardstick (f32, its own backend)
-    B, T, H = LM_TRAIN_B, LM_SEQ, LM_HEADS
-    q, k, v = attention_inputs(torch, B, T, T, H, Dh, seed=7)
-    do = attention_inputs(torch, B, T, T, H, Dh, seed=8)[0]
-    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, True)
-    dsum = attention.attention_bwd_dq(q, k, v, o, lse, do, True)[1]
-    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
-                       for t in (q, k, v, do))
-    sdpa_fwd = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-    sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
-    attn_train = {
-        "lse": (lambda: attention.flash_attention_fwd_lse_heads(q, k, v,
-                                                                True),
-                lambda: attention.attention_reference_heads_lse(q, k, v,
-                                                                True),
-                sdpa_fwd, lse_bound_ms(B, T, T, H, Dh, True)),
-        "dq": (lambda: attention.attention_bwd_dq(q, k, v, o, lse, do, True),
-               lambda: attention.attention_bwd_dq_reference(q, k, v, o, lse,
-                                                            do, True),
-               sdpa_both - sdpa_fwd, dq_bound_ms(B, T, T, H, Dh, True)),
-        "dkv": (lambda: attention.attention_bwd_dkv(q, k, v, do, lse, dsum,
-                                                    True),
-                lambda: attention.attention_bwd_dkv_reference(
-                    q, k, v, do, lse, dsum, True),
-                sdpa_both - sdpa_fwd, dkv_bound_ms(B, T, T, H, Dh, True))}
-    attn_train_times = {}
-    for name, (kern, plain, lib, (bnd, by)) in attn_train.items():
-        kms, pms = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
-        attn_train_times[name] = (kms, pms, lib, bnd, by)
-        sdpa_what = ("forward" if name == "lse"
-                     else "backward (dq, dk, dv together)")
-        print(f"{tag} attention {name} B={B} H={H} T=S={T} Dh={Dh} causal, "
-              f"per launch: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
-              f"{sdpa_what} {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
-    for Bp in (32, LM_TRAIN_B):
-        qp, kp, vp = attention_inputs(torch, Bp, T, T, H, Dh, seed=Bp)
-        kp_ms = cuda_ms(torch, lambda: attention.flash_attention_heads(
-            qp, kp, vp, True))
-        kl_ms = cuda_ms(torch, lambda: attention.flash_attention_fwd_lse_heads(
-            qp, kp, vp, True))
-        print(f"{tag} attention forward B={Bp} H={H} T=S={T} Dh={Dh}: "
-              f"primal {kp_ms:.4f} ms, logsumexp {kl_ms:.4f} ms")
-    lse_dev = device_ms(torch, attn_train["lse"][0])
-    sdpa_fwd_dev = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-    print(f"{tag} attention lse B={B} device time: kernel {lse_dev:.4f} ms, "
-          f"SDPA forward {sdpa_fwd_dev:.4f} ms")
-
-    def attn_typed_times(dt, B, H, Dh_):
+    def attn_times(dt, B, H, Dh_):
         """Per launch at [B, 256, H, Dh_] causal in dtype `dt`: {kernel:
-        (ms, plain ms, SDPA ms, bound ms, bound by)}, SDPA forward beside
-        the two forwards and its backward (forward subtracted) beside dq
-        and dk/dv."""
+        {ms, plain_ms, library_ms, bound_ms, bound_by, device_ms,
+        library_device_ms, variant}} for the primal and logsumexp forwards
+        (SDPA's forward beside them) and dq and dk/dv (SDPA's backward
+        beside each, rerun on one saved graph: neither the forward nor the
+        graph's build is in it). Per call: CUDA events around
+        back-to-back calls; device: the kernels' own time (torch.profiler).
+        The bound is in the working dtype."""
+        T = LM_SEQ
         dtype = getattr(torch, dt)
         q, k, v = (t.to(dtype) for t in attention_inputs(
             torch, B, T, T, H, Dh_, seed=Dh_))
@@ -2019,45 +2112,95 @@ def main():
         dsum = attention.attention_bwd_dq(q, k, v, o, lse, do, True)[1]
         qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
                            for t in (q, k, v, do))
-        f = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-        fb = cuda_ms(torch, lambda: torch.autograd.grad(
-            sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
+        fwd = lambda: sdpa(qt, kt, vt, is_causal=True)
+        # SDPA's backward alone on one saved graph: its fused backward node
+        # called directly (the aten backward op, without autograd's engine),
+        # or, where SDPA ran its unfused math path, autograd's backward
+        graph = fwd()
+        node = graph.grad_fn
+        if "ScaledDotProduct" in type(node).__name__:
+            lib_call = type(node).__name__
+            bwd = lambda: node(dot)
+        else:
+            lib_call = "autograd.grad of the math path"
+            bwd = lambda: torch.autograd.grad(graph, (qt, kt, vt), dot,
+                                              retain_graph=True)
+        f, lib_b = cuda_ms(torch, fwd), cuda_ms(torch, bwd)
+        f_dev, lib_b_dev = device_ms(torch, fwd), device_ms(torch, bwd)
         size = dtype.itemsize
         rows = {
             "primal": (lambda: attention.flash_attention_heads(q, k, v, True),
                        lambda: attention.attention_reference_heads(q, k, v,
                                                                    True),
-                       f, attention_bound_ms(B, T, T, H, Dh_, True, size)),
+                       f, f_dev,
+                       attention_bound_ms(B, T, T, H, Dh_, True, size)),
             "lse": (lambda: attention.flash_attention_fwd_lse_heads(
                         q, k, v, True),
                     lambda: attention.attention_reference_heads_lse(
                         q, k, v, True),
-                    f, lse_bound_ms(B, T, T, H, Dh_, True, size)),
+                    f, f_dev, lse_bound_ms(B, T, T, H, Dh_, True, size)),
             "dq": (lambda: attention.attention_bwd_dq(q, k, v, o, lse, do,
                                                       True),
                    lambda: attention.attention_bwd_dq_reference(
                        q, k, v, o, lse, do, True),
-                   fb - f, dq_bound_ms(B, T, T, H, Dh_, True, size)),
+                   lib_b, lib_b_dev,
+                   dq_bound_ms(B, T, T, H, Dh_, True, size)),
             "dkv": (lambda: attention.attention_bwd_dkv(q, k, v, do, lse,
                                                         dsum, True),
                     lambda: attention.attention_bwd_dkv_reference(
                         q, k, v, do, lse, dsum, True),
-                    fb - f, dkv_bound_ms(B, T, T, H, Dh_, True, size))}
+                    lib_b, lib_b_dev,
+                    dkv_bound_ms(B, T, T, H, Dh_, True, size))}
         out = {}
-        for name, (kern, plain, lib, (bnd, by)) in rows.items():
-            out[name] = (cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5),
-                         lib, bnd, by)
-            print(f"{tag} attention {name} {dt} B={B} H={H} T=S={T} "
-                  f"Dh={Dh_} causal, per launch: kernel {out[name][0]:.4f} "
-                  f"ms, plain {out[name][1]:.4f} ms, SDPA "
+        for name, (kern, plain, lib, lib_dev, (bnd, by)) in rows.items():
+            attention.reset_launches()
+            kern()
+            kind = "fwd" if name == "primal" else name
+            variant = [n for n, c in attention.variant_counts()[kind].items()
+                       if c][0]
+            out[name] = {"ms": cuda_ms(torch, kern),
+                         "plain_ms": cuda_ms(torch, plain, reps=5),
+                         "library_ms": lib, "bound_ms": bnd,
+                         "bound_by": by, "device_ms": device_ms(torch, kern),
+                         "library_device_ms": lib_dev, "variant": variant,
+                         "library_call": (lib_call if name in ("dq", "dkv")
+                                          else "scaled_dot_product_attention")}
+            r = out[name]
+            print(f"{tag} attention {name} ({variant}) {dt} B={B} H={H} "
+                  f"T=S={T} Dh={Dh_} causal, per launch: kernel "
+                  f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ms, SDPA "
                   f"{'forward' if name in ('primal', 'lse') else 'backward'}"
-                  f" {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
+                  f" {lib:.4f} ms (device {lib_dev:.4f}), bound "
+                  f"{bnd:.6f} ms ({by})")
+        pair, pair_dev = (out["dq"][k] + out["dkv"][k]
+                          for k in ("ms", "device_ms"))
+        print(f"{tag} attention backward pair dq + dk/dv {dt} B={B} H={H} "
+              f"Dh={Dh_}: {pair:.4f} ms per call, {pair_dev:.4f} ms device; "
+              f"SDPA backward ({lib_call}) {lib_b:.4f} ms, device "
+              f"{lib_b_dev:.4f} "
+              f"ms; bound {out['dq']['bound_ms'] + out['dkv']['bound_ms']:.6f}"
+              " ms")
         return out
 
-    attn_bf16 = {"b32": attn_typed_times("bfloat16", 32, H, Dh),
-                 "b64": attn_typed_times("bfloat16", LM_TRAIN_B, H, Dh)}
-    attn_dh256 = {dt: attn_typed_times(dt, 8, WIDE_HEADS, 256)
-                  for dt in ("float32", "bfloat16")}
+    # the attention kernels per launch at the LM's training shape (B = 64)
+    # in f32 and bf16, the primal forward also at the serving bucket 32, and
+    # at Dh = 256 and 512 (B = 8, 2 heads), SDPA as the yardstick
+    H = LM_HEADS
+    attn_f32 = attn_times("float32", LM_TRAIN_B, H, Dh)
+    attn_bf16 = {"b32": attn_times("bfloat16", 32, H, Dh),
+                 "b64": attn_times("bfloat16", LM_TRAIN_B, H, Dh)}
+    attn_wide = {(Dh_, dt): attn_times(dt, 8, WIDE_HEADS, Dh_)
+                 for Dh_ in (256, 512) for dt in ("float32", "bfloat16")}
+    for Bp in (32, LM_TRAIN_B):
+        qp, kp, vp = attention_inputs(torch, Bp, LM_SEQ, LM_SEQ, H, Dh,
+                                      seed=Bp)
+        kp_ms = cuda_ms(torch, lambda: attention.flash_attention_heads(
+            qp, kp, vp, True))
+        kl_ms = cuda_ms(torch, lambda: attention.flash_attention_fwd_lse_heads(
+            qp, kp, vp, True))
+        print(f"{tag} attention forward B={Bp} H={H} T=S={LM_SEQ} Dh={Dh}: "
+              f"primal {kp_ms:.4f} ms, logsumexp {kl_ms:.4f} ms")
 
     # LM training: step p50 and tokens/s at batch 64, then one step's
     # device time by kind
@@ -2096,7 +2239,7 @@ def main():
         "profiled_idle_share": 1 - busy / wall,
         "profiled_ms_per_step_by_kind": kinds,
         "attention_kernel_ms_per_step": LM_BLOCKS * sum(
-            attn_train_times[n][0] for n in ("lse", "dq", "dkv"))})
+            attn_f32[n]["ms"] for n in ("lse", "dq", "dkv"))})
     print(f"{tag} LM training (B={LM_TRAIN_B}, T={LM_SEQ}, {n_params} "
           f"parameters): step p50 {lm_training['step_p50_ms']:.3f} ms over "
           f"{len(step_ms)} steps, {lm_training['tokens_per_s']:.1f} tokens/s; "
@@ -2104,7 +2247,26 @@ def main():
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"lm_training": lm_training}))
+    # one bf16 LM step's device time by kind (the trained bf16 network)
+    events, busy, wall = profile_device(
+        torch, lambda: bf16_lm.fit(batch), "bf16 LM training step (batch "
+        "64)", tag, reps=3)
+    bf16_kinds = {"gemm": 0.0, "attention": 0.0, "copies": 0.0, "other": 0.0}
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("attention" if "flash_" in low else
+                "gemm" if "gemm" in low else
+                "copies" if "memcpy" in low or "memset" in low else "other")
+        bf16_kinds[kind] += ms
+    print(f"{tag} bf16 LM training step (B={LM_TRAIN_B}, T={LM_SEQ}) device "
+          f"time: " + ", ".join(f"{k} {ms:.3f} ms"
+                                for k, ms in bf16_kinds.items())
+          + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f}); "
+          f"attention kernels per step by call {LM_BLOCKS * sum(attn_bf16['b64'][n]['ms'] for n in ('lse', 'dq', 'dkv')):.3f} ms")
     bf16_training = {"card": card, "steps": bf16_steps,
+                     "profiled_ms_per_step_by_kind": bf16_kinds,
+                     "profiled_device_busy_ms_per_step": busy,
+                     "profiled_wall_ms_per_step": wall,
                      "fit_s": bf16_fit_s,
                      "tokens_per_s_incl_first_step":
                          bf16_steps * LM_TRAIN_B * LM_SEQ / bf16_fit_s,
@@ -2112,7 +2274,7 @@ def main():
                                      "score": bf16_score_err,
                                      "param": bf16_param_err,
                                      "served": bf16_serve_err},
-                     "wide_head_dh256": wide,
+                     "wide_head": wide,
                      "card_vs_cpu_without_warmup": {
                          k: float(g.max()) for k, g in nowarm_gap.items()}}
     print(f"{tag} bf16 LM training (B={LM_TRAIN_B}, T={LM_SEQ}): "
@@ -2123,8 +2285,8 @@ def main():
     # the BN+ReLU kernels per launch at the BN-MLP's shape (N = MLP_B) and
     # at N = 4096, C = 1024, bf16, beside their plain versions and the
     # library call (F.batch_norm in training mode + relu, bf16 input with
-    # float32 weight and bias; its backward through autograd, the forward's
-    # time subtracted), timed here as the yardstick only; each both per
+    # float32 weight and bias; its backward through autograd, rerun on one
+    # saved graph), timed here as the yardstick only; each both per
     # call (CUDA events around back-to-back calls, as every other row) and
     # in device time (torch.profiler), since at N = 128 a call is
     # microseconds of device work behind tens of host microseconds
@@ -2136,11 +2298,12 @@ def main():
         xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
         lib_fwd = lambda: fn.relu(fn.batch_norm(xl, None, None, gl, bl,
                                                 training=True))
-        lib_grad = lambda: torch.autograd.grad(lib_fwd(), (xl, gl, bl), dy)
-        lib_f, lib_both = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_grad)
-        lib_dev_f = device_ms(torch, lib_fwd)
-        lib_dev = {"fwd": lib_dev_f,
-                   "bwd": device_ms(torch, lib_grad) - lib_dev_f}
+        graph = lib_fwd()   # the backward alone, rerun on one saved graph
+        lib_grad = lambda: torch.autograd.grad(graph, (xl, gl, bl), dy,
+                                               retain_graph=True)
+        lib_f, lib_b = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_grad)
+        lib_dev = {"fwd": device_ms(torch, lib_fwd),
+                   "bwd": device_ms(torch, lib_grad)}
         rows = {
             "fwd": (lambda: bn_relu.bn_relu_forward(x, g, b),
                     lambda: bn_relu.bn_relu_reference(x, g, b), lib_f,
@@ -2148,7 +2311,7 @@ def main():
             "bwd": (lambda: bn_relu.bn_relu_backward(x, g, b, mean, var, dy),
                     lambda: bn_relu.bn_relu_backward_reference(
                         x, g, b, mean, var, dy),
-                    lib_both - lib_f, bn_bwd_bound_ms(N, MLP_WIDTH, 2))}
+                    lib_b, bn_bwd_bound_ms(N, MLP_WIDTH, 2))}
         for name, (kern, plain, lib, (bnd, by)) in rows.items():
             kms, pms = cuda_ms(torch, kern), cuda_ms(torch, plain)
             dev = (device_ms(torch, kern), device_ms(torch, plain),
@@ -2205,19 +2368,21 @@ def main():
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"bn_mlp_training": bn_mlp}))
 
+    def timing(r):
+        """The timing keys of one `attn_times` row."""
+        return {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "device_ms",
+                                  "library_device_ms")}
+
     def typed_entry(key, launches):
-        """A kernel's bf16 numbers (the LM's shapes: B=32 for the primal,
-        B=64 for the training kernels; launches from main path 6) and its
-        Dh = 256 numbers (B=8, 2 heads) in float32 and bf16."""
+        """A tiled forward's bf16 numbers (the LM's shapes: B=32 for the
+        primal, B=64 for the logsumexp mode; launches from main path 6) and
+        its Dh = 256 numbers (B=8, 2 heads) in float32 and bf16."""
         b = attn_bf16["b32" if key == "primal" else "b64"][key]
-        entry = {"launches": launches, "max_abs_err": typed_err["bfloat16"][0],
-                 "ms": b[0], "plain_ms": b[1], "library_ms": b[2],
-                 "bound_ms": b[3], "bound_by": b[4]}
-        for dt, rows in attn_dh256.items():
-            r = rows[key]
-            entry[f"dh256_{dt}"] = {"ms": r[0], "plain_ms": r[1],
-                                    "library_ms": r[2], "bound_ms": r[3],
-                                    "bound_by": r[4]}
+        entry = {"launches": launches,
+                 "max_abs_err": typed_err["bfloat16"][0], **timing(b)}
+        for dt in ("float32", "bfloat16"):
+            entry[f"dh256_{dt}"] = timing(attn_wide[(256, dt)][key])
         return entry
 
     red_json = {"device_ms": red_extra["device_ms"],
@@ -2298,42 +2463,91 @@ def main():
          "dpeep accumulation :179-186 via _bwd_impl :219)",
          "torch.matmul of the [F+H, T*B] x [T*B, 4H] product (dW only)"))]
         + [{
-            "name": name,
+            "name": "flash_attention_fwd_lse_heads",
             "route": "cuda",
             "source": "deeplearning4j_tpu_torch/kernels/csrc/attention.cu",
-            "replaces": replaces,
-            "launches": lm_counts[counter],
-            "max_abs_err": attn_train_err[key][0],
-            "max_err_over_max_ref": attn_train_err[key][1],
+            "replaces": "deeplearning4j_tpu/kernels/attention.py:81 "
+                        "(_make_kernel via _flash_fwd_impl :168, "
+                        "emit_lse=True, for _flash_fwd :350)",
+            "launches": lm_counts["lse_launches"],
+            "max_abs_err": attn_train_err["lse"][0],
+            "max_err_over_max_ref": attn_train_err["lse"][1],
             "per": f"one launch (one block's attention) at B={LM_TRAIN_B}, "
                    f"H={LM_HEADS}, T=S={LM_SEQ}, Dh={Dh}, causal; "
                    f"{LM_BLOCKS} per LM training step",
-            "ms": attn_train_times[key][0],
-            "plain_ms": attn_train_times[key][1],
-            "bound_ms": attn_train_times[key][3],
-            "bound_by": attn_train_times[key][4],
-            "library_ms": attn_train_times[key][2],
-            "library": library,
-            **({"device_ms": lse_dev, "library_device_ms": sdpa_fwd_dev}
-               if key == "lse" else {}),
-            "bf16": typed_entry(key, bf16_counts[counter]),
+            **timing(attn_f32["lse"]),
+            "library": "scaled_dot_product_attention forward (f32, "
+                       "is_causal, inputs requiring grad)",
+            "bf16": typed_entry("lse", bf16_counts["lse_launches"]),
             "card": card,
-        } for name, key, counter, replaces, library in (
-            ("flash_attention_fwd_lse_heads", "lse", "lse_launches",
-             "deeplearning4j_tpu/kernels/attention.py:81 (_make_kernel via "
-             "_flash_fwd_impl :168, emit_lse=True, for _flash_fwd :350)",
-             "scaled_dot_product_attention forward (f32, is_causal, inputs "
-             "requiring grad)"),
-            ("attention_bwd_dq", "dq", "dq_launches",
+        }] + [{
+            "name": base if variant == "simt" else f"{base}_{variant}",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "variant": variant,
+            "launches": launches,
+            "max_abs_err": typed_err.get(f"{kind} {variant}", [0.0])[0]
+                           if variant != "simt" else
+                           max(attn_train_err[kind][0],
+                               typed_err.get(f"{kind} simt", [0.0])[0]),
+            "per": per,
+            **timing(rows[kind]),
+            "library": "scaled_dot_product_attention backward (is_causal, "
+                       f"{dt}): dq, dk and dv together, its backward node "
+                       f"({rows[kind]['library_call']}) called on one saved "
+                       "graph, the same time on the dq and dk/dv entries",
+            **extra(kind),
+            "card": card,
+        } for kind, base, replaces in (
+            ("dq", "attention_bwd_dq",
              "deeplearning4j_tpu/kernels/attention.py:206 (_make_dq_kernel "
-             "via _flash_bwd_impl :312)",
-             "scaled_dot_product_attention backward (f32, is_causal): dq, dk "
-             "and dv together, the same time on both backward entries"),
-            ("attention_bwd_dkv", "dkv", "dkv_launches",
+             "via _flash_bwd_impl :312)"),
+            ("dkv", "attention_bwd_dkv",
              "deeplearning4j_tpu/kernels/attention.py:244 (_make_dkv_kernel "
-             "via _flash_bwd_impl :329)",
-             "scaled_dot_product_attention backward (f32, is_causal): dq, dk "
-             "and dv together, the same time on both backward entries"))]
+             "via _flash_bwd_impl :329)"))
+          for variant, source, launches, rows, dt, per, extra in (
+            ("simt", "deeplearning4j_tpu_torch/kernels/csrc/attention_bwd.cu",
+             lm_variants[kind]["simt"], attn_f32, "f32",
+             f"one launch at B={LM_TRAIN_B}, H={LM_HEADS}, T=S={LM_SEQ}, "
+             f"Dh={Dh}, causal, float32; {LM_BLOCKS} per f32 LM training "
+             "step (main path 4)",
+             lambda kind: {"dh256": timing(attn_wide[(256, "float32")][kind])}),
+            ("wgmma",
+             "deeplearning4j_tpu_torch/kernels/csrc/attention_wgmma.cu",
+             bf16_variants[kind]["wgmma"], attn_bf16["b64"], "bf16",
+             f"one launch at B={LM_TRAIN_B}, H={LM_HEADS}, T=S={LM_SEQ}, "
+             f"Dh={Dh}, causal, bfloat16; {LM_BLOCKS} per bf16 LM training "
+             "step (main path 6)",
+             lambda kind: {"dh256": timing(
+                 attn_wide[(256, "bfloat16")][kind])}),
+            ("wide", "deeplearning4j_tpu_torch/kernels/csrc/attention.cu",
+             wide_variants[(kind, "wide")], attn_wide[(512, "float32")],
+             "f32",
+             "one launch at B=8, H=2, T=S=256, Dh=512, causal, float32; one "
+             "per step of the Dh = 512 LMs (main path 6)",
+             lambda kind: {"bf16": timing(
+                 attn_wide[(512, "bfloat16")][kind])}))] + [{
+            "name": "flash_attention_fwd_wide",
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/attention.cu",
+            "replaces": "deeplearning4j_tpu/kernels/attention.py:81 "
+                        "(_make_kernel via _flash_fwd_impl :168, both modes, "
+                        "head dimensions past 256)",
+            "variant": "wide",
+            "launches": wide_variants[("fwd", "wide")]
+                        + wide_variants[("lse", "wide")],
+            "max_abs_err": max(typed_err["lse wide"][0],
+                               typed_err["fwd wide"][0]),
+            "per": "one logsumexp-mode launch at B=8, H=2, T=S=256, Dh=512, "
+                   "causal, float32",
+            **timing(attn_wide[(512, "float32")]["lse"]),
+            "library": "scaled_dot_product_attention forward (f32, "
+                       "is_causal)",
+            "primal": timing(attn_wide[(512, "float32")]["primal"]),
+            "bf16": timing(attn_wide[(512, "bfloat16")]["lse"]),
+            "card": card,
+        }]
         + [{
             "name": name,
             "route": "cuda",
@@ -2367,8 +2581,8 @@ def main():
             ("bn_relu_backward", "bwd", "bwd_launches",
              "deeplearning4j_tpu/kernels/bn_relu.py:50 (_bwd_kernel via "
              "_bwd_call's pallas_call :123)",
-             "autograd backward of F.batch_norm(training=True) + relu "
-             "(forward time subtracted)"))]}))
+             "autograd backward of F.batch_norm(training=True) + relu, "
+             "rerun on one saved graph (per call: autograd's host path)"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,7 +26,15 @@ says what bounds each and how its design answers that. The decode plane's
     account. The backward ones are written out as the TPU kernels' math
     (p from the saved logsumexp), not as autograd of the forward.
   * Launch counts, one per kernel: `launches` (primal forward),
-    `lse_launches`, `dq_launches`, `dkv_launches` (`launch_counts()`).
+    `lse_launches`, `dq_launches`, `dkv_launches` (`launch_counts()`), and
+    the same launches by kernel variant (`variant_counts()`).
+  * `backward_variant`, `forward_variant` — which kernel variant a launch
+    takes (`csrc/attention.cu`'s header describes them): the backward
+    runs "wgmma" (tensor cores) for bfloat16 / float16 at head dimensions
+    that are multiples of 16 up to 256 with 16-byte aligned rows and
+    pointers, "simt" (CUDA cores) for any other dtype or layout up to 256,
+    and "wide" above 256; the forward runs "tiled" up to 256 and "wide"
+    above.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Both compute in float32 and write o, dq, dk
@@ -34,8 +42,7 @@ and dv in q's dtype, as the TPU kernels do (`preferred_element_type=
 jnp.float32`, outputs in the inputs' dtype); the row statistics L and D are
 float32 [B, H, T]. q, k, v (and o, do) must share one dtype. The plain
 versions take any floating dtype; the kernels take float32, bfloat16 or
-float16 and contiguous tensors. Both take head dimensions up to 256
-(`MAX_HEAD_DIM`).
+float16 and contiguous tensors. Neither caps the head dimension or B * H.
 """
 from __future__ import annotations
 
@@ -52,18 +59,23 @@ __all__ = ["flash_attention", "flash_attention_heads",
            "attention_bwd_dq_reference", "attention_bwd_dkv_reference",
            "attention_bwd_reference_heads", "launches", "lse_launches",
            "dq_launches", "dkv_launches", "reset_launches", "launch_counts",
-           "MAX_HEAD_DIM"]
+           "variant_counts", "backward_variant", "forward_variant",
+           "TILED_HEAD_DIM"]
 
-MAX_HEAD_DIM = 256       # the head sizes of public configs, up to Gemma's;
-                         # beyond it: ROADMAP C1
+TILED_HEAD_DIM = 256     # the widest head the tiled kernels take (Gemma's);
+                         # above it the "wide" kernels run
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_GRID_Y = 65535      # the kernels' grids are (tiles, B * H)
+_VARIANTS = {"fwd": ("tiled", "wide"), "lse": ("tiled", "wide"),
+             "dq": ("simt", "wgmma", "wide"),
+             "dkv": ("simt", "wgmma", "wide")}
 
 launches = 0             # primal forward
 lse_launches = 0         # forward that writes the logsumexp
 dq_launches = 0          # backward: dq (and D)
 dkv_launches = 0         # backward: dk and dv
 _COUNTS = ("launches", "lse_launches", "dq_launches", "dkv_launches")
+_by_variant = {kind: dict.fromkeys(names, 0)
+               for kind, names in _VARIANTS.items()}
 _launch_lock = threading.Lock()
 _fns = {}
 
@@ -74,6 +86,8 @@ def reset_launches() -> int:
         n = launches
         for name in _COUNTS:
             globals()[name] = 0
+        for counts in _by_variant.values():
+            counts.update(dict.fromkeys(counts, 0))
     return n
 
 
@@ -81,6 +95,34 @@ def launch_counts() -> dict:
     """{count name: launches} for the four kernels."""
     with _launch_lock:
         return {name: globals()[name] for name in _COUNTS}
+
+
+def variant_counts() -> dict:
+    """{"fwd" | "lse" | "dq" | "dkv": {variant: launches}}; each kind's
+    variants add up to its total in `launch_counts()`."""
+    with _launch_lock:
+        return {kind: dict(counts) for kind, counts in _by_variant.items()}
+
+
+def forward_variant(head_dim: int) -> str:
+    """The forward kernel a head dimension takes: "tiled" up to
+    TILED_HEAD_DIM, "wide" above."""
+    return "wide" if head_dim > TILED_HEAD_DIM else "tiled"
+
+
+def backward_variant(dtype, head_dim: int, row_stride: int,
+                     aligned: bool) -> str:
+    """The dq and dk/dv kernel variant: "wide" above TILED_HEAD_DIM;
+    "wgmma" (tensor cores) for bfloat16 or float16 at a head dimension that
+    is a multiple of 16, a row stride that is a multiple of 8 elements and
+    16-byte aligned pointers (`aligned`), as its TMA tiles need; "simt"
+    (CUDA cores) otherwise."""
+    if head_dim > TILED_HEAD_DIM:
+        return "wide"
+    if (dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0
+            and row_stride % 8 == 0 and aligned):
+        return "wgmma"
+    return "simt"
 
 
 def _scale(q, sm_scale):
@@ -184,15 +226,14 @@ def attention_reference(q, k, v, causal: bool = False,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [_INT] * 5 + [_I64] + [_INT, ctypes.c_float, _INT]
 _SIGNATURES = {   # entry point -> argument types before the stream
     "dl4j_flash_attn_fwd": [_PTR] * 4 + [_INT] * 5 + [_I64] * 4
                            + [_INT, ctypes.c_float, _INT],
-    "dl4j_flash_attn_fwd_lse": [_PTR] * 5 + [_INT] * 5 + [_I64]
-                               + [_INT, ctypes.c_float, _INT],
-    "dl4j_flash_attn_bwd_dq": [_PTR] * 8 + [_INT] * 5 + [_I64]
-                              + [_INT, ctypes.c_float, _INT],
-    "dl4j_flash_attn_bwd_dkv": [_PTR] * 8 + [_INT] * 5 + [_I64]
-                               + [_INT, ctypes.c_float, _INT],
+    "dl4j_flash_attn_fwd_lse": [_PTR] * 5 + _TAIL,
+    "dl4j_flash_attn_fwd_wide": [_PTR] * 5 + _TAIL,
+    **{f"dl4j_flash_attn_bwd_{kind}_{variant}": [_PTR] * 8 + _TAIL
+       for kind in ("dq", "dkv") for variant in _VARIANTS[kind]},
 }
 
 
@@ -207,9 +248,10 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _launch(name: str, counter: str, device, *args):
-    """Launch `name` on the current stream of `device`; tensors are passed
-    by pointer."""
+def _launch(name: str, counter: str, variant, device, *args):
+    """Launch `name` on the current stream of `device`, counted under
+    `counter` and `variant` = (kind, variant name); tensors are passed by
+    pointer (None is a null pointer)."""
     fn = _kernel_fn(name)
     ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
     with torch.cuda.device(device):
@@ -220,6 +262,7 @@ def _launch(name: str, counter: str, device, *args):
                            f"error {err}")
     with _launch_lock:
         globals()[counter] += 1
+        _by_variant[variant[0]][variant[1]] += 1
 
 
 def _check_placed(tensors, device, dtype):
@@ -256,12 +299,6 @@ def _check(q, k, v):
     if min(B, T, S, H, Dh) < 1:
         raise ValueError(f"empty attention problem: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if Dh > MAX_HEAD_DIM:
-        raise ValueError(f"head dimension {Dh} > {MAX_HEAD_DIM}, the most "
-                         "the attention kernels take (ROADMAP C1)")
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"B * H = {B * H} > {_MAX_GRID_Y} (the kernels' "
-                         "grid)")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
 
@@ -290,9 +327,15 @@ def _primal(q, k, v, causal, scale):
     B, T, H, Dh = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ld = _ld(q)
-    _launch("dl4j_flash_attn_fwd", "launches", q.device, q, k, v, o, B, T,
-            k.shape[1], H, Dh, ld, ld, ld, ld, int(bool(causal)), scale,
-            _DTYPE_CODES[q.dtype])
+    variant = forward_variant(Dh)
+    if variant == "wide":
+        _launch("dl4j_flash_attn_fwd_wide", "launches", ("fwd", variant),
+                q.device, q, k, v, o, None, B, T, k.shape[1], H, Dh, ld,
+                int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
+    else:
+        _launch("dl4j_flash_attn_fwd", "launches", ("fwd", variant),
+                q.device, q, k, v, o, B, T, k.shape[1], H, Dh, ld, ld, ld,
+                ld, int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
     return o
 
 
@@ -307,7 +350,10 @@ def flash_attention_fwd_lse_heads(q, k, v, causal: bool = False,
         return attention_reference_heads_lse(q, k, v, causal, scale)
     B, T, H, Dh = q.shape
     o, lse = _new(q.shape, q.device, q.dtype), _new((B, H, T), q.device)
-    _launch("dl4j_flash_attn_fwd_lse", "lse_launches", q.device, q, k, v, o,
+    variant = forward_variant(Dh)
+    name = ("dl4j_flash_attn_fwd_wide" if variant == "wide"
+            else "dl4j_flash_attn_fwd_lse")
+    _launch(name, "lse_launches", ("lse", variant), q.device, q, k, v, o,
             lse, B, T, k.shape[1], H, Dh, _ld(q), int(bool(causal)), scale,
             _DTYPE_CODES[q.dtype])
     return o, lse
@@ -326,6 +372,12 @@ def _check_bwd(q, k, v, rows, **like_q):
     _check_rows(T, B, H, q.device, **rows)
 
 
+def _backward_variant(q, *tensors):
+    """`backward_variant` for these inputs and outputs."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q,) + tensors)
+    return backward_variant(q.dtype, q.shape[-1], _ld(q), aligned)
+
+
 def attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
                      sm_scale: Optional[float] = None):
     """dq and D = rowsum(do * o) (`_make_dq_kernel`, with D folded into its
@@ -337,9 +389,11 @@ def attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
         return attention_bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
     B, T, H, Dh = q.shape
     dq, dsum = _new(q.shape, q.device, q.dtype), _new((B, H, T), q.device)
-    _launch("dl4j_flash_attn_bwd_dq", "dq_launches", q.device, q, k, v, o,
-            do, lse, dq, dsum, B, T, k.shape[1], H, Dh, _ld(q),
-            int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
+    variant = _backward_variant(q, k, v, o, do, dq)
+    _launch(f"dl4j_flash_attn_bwd_dq_{variant}", "dq_launches",
+            ("dq", variant), q.device, q, k, v, o, do, lse, dq, dsum, B, T,
+            k.shape[1], H, Dh, _ld(q), int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype])
     return dq, dsum
 
 
@@ -355,9 +409,11 @@ def attention_bwd_dkv(q, k, v, do, lse, dsum, causal: bool = False,
         return attention_bwd_dkv_reference(q, k, v, do, lse, dsum, causal,
                                            scale)
     dk, dv = (_new(k.shape, q.device, q.dtype) for _ in range(2))
-    _launch("dl4j_flash_attn_bwd_dkv", "dkv_launches", q.device, q, k, v,
-            do, lse, dsum, dk, dv, B, T, k.shape[1], H, Dh, _ld(q),
-            int(bool(causal)), scale, _DTYPE_CODES[q.dtype])
+    variant = _backward_variant(q, k, v, do, dk, dv)
+    _launch(f"dl4j_flash_attn_bwd_dkv_{variant}", "dkv_launches",
+            ("dkv", variant), q.device, q, k, v, do, lse, dsum, dk, dv, B, T,
+            k.shape[1], H, Dh, _ld(q), int(bool(causal)), scale,
+            _DTYPE_CODES[q.dtype])
     return dk, dv
 
 

@@ -1,21 +1,29 @@
 // Flash attention for Hopper (sm_90a): softmax attention over [B, T, H, Dh]
 // query and [B, S, H, Dh] key/value tensors, every head in one launch,
 // forward and backward, in float32, bfloat16 or float16 (q, k, v, o and do
-// all of one type), head dimensions up to 256. Three kernels:
+// all of one type), at any head dimension. Three files:
 //
-//   flash_fwd_kernel<T, kLse, R, C, NV>  the forward; with kLse it also
-//                                        writes the per-row logsumexp the
-//                                        backward reads
-//   flash_bwd_dq_kernel<T, NC, RB>       dq, and D = rowsum(do * o) on the
-//                                        way
-//   flash_bwd_dkv_kernel<T, NC, RB>      dk and dv
+//   attention.cu         the forward flash_fwd_kernel<T, kLse, R, C, NV>
+//                        (Dh <= 256; with kLse it also writes the per-row
+//                        logsumexp the backward reads), and the "wide"
+//                        kernels for Dh > 256: flash_fwd_wide_kernel,
+//                        flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel
+//   attention_bwd.cu     the "simt" backward: flash_bwd_dq_simt and
+//                        flash_bwd_dkv_simt, on the CUDA cores, any type,
+//                        Dh <= 256
+//   attention_wgmma.cu   the "wgmma" backward: flash_bwd_dq_wgmma and
+//                        flash_bwd_dkv_wgmma, on the tensor cores, bfloat16
+//                        and float16 at Dh a multiple of 16 up to 256 with
+//                        16-byte aligned rows and pointers
 //
-// They replace the TPU kernels of deeplearning4j_tpu/kernels/attention.py:
-// `_make_kernel` through `_flash_fwd_impl`'s pl.pallas_call (kLse = false
-// is its primal mode, emit_lse=False; kLse = true is emit_lse=True, what
-// `_flash_fwd` runs under jax.grad), and `_make_dq_kernel` /
-// `_make_dkv_kernel` through `_flash_bwd_impl`'s two pallas_calls. Same
-// math per (batch, head):
+// `kernels/attention.py:backward_variant` picks the backward variant from
+// the dtype, the head dimension, the row stride and the pointers'
+// alignment. They replace the TPU kernels of
+// deeplearning4j_tpu/kernels/attention.py: `_make_kernel` through
+// `_flash_fwd_impl`'s pl.pallas_call (kLse = false is its primal mode,
+// emit_lse=False; kLse = true is emit_lse=True, what `_flash_fwd` runs
+// under jax.grad), and `_make_dq_kernel` / `_make_dkv_kernel` through
+// `_flash_bwd_impl`'s two pallas_calls. Same math per (batch, head):
 //
 //   s   = (q @ k^T) * sm_scale, masked to -inf where kv >= S (ragged tail)
 //         or, when causal, where kv > q (top-left diagonal)
@@ -29,85 +37,79 @@
 //   dq = ds @ k,  dk = ds^T @ q,  dv = p^T @ do
 //
 // Types, as the TPU kernels' `preferred_element_type=jnp.float32`: every
-// input is converted to f32 as it is read, all arithmetic is f32, and o,
-// dq, dk and dv are written in the inputs' type. The logsumexp and D are
-// f32 [B, H, T] (row (b * H + h) * T + t): one float per query row, where
-// the TPU kernel keeps a lane-replicated [B, Tp, 128] block and slices
-// lane 0.
+// product is summed in f32, p and ds are f32, and o, dq, dk and dv are
+// written in the inputs' type. The logsumexp and D are f32 [B, H, T] (row
+// (b * H + h) * T + t): one float per query row, where the TPU kernel keeps
+// a lane-replicated [B, Tp, 128] block and slices lane 0. Every kernel puts
+// B * H on gridDim.x (up to 2^31 - 1) and its tiles on gridDim.y; causal
+// q-tile walks run in reverse so the longest rows start first. Each kernel
+// runs base-2 exponentials (log2 e folded into the scale and into L once
+// per row) and tests the mask only on tiles that cross the causal diagonal
+// or a ragged tail. No atomics: every output element is summed by one
+// thread of one block in a fixed order, so reruns are bit-equal. D =
+// rowsum(do * o) is formed in the dq kernel's preamble and written out for
+// the dk/dv kernel, which runs after it on the same stream; dk/dv recompute
+// s and do v^T rather than share them with dq, as the TPU kernel's two
+// grids do.
 //
-// What bounds them: operations. At the LM's training shapes (B = 64, H = 6,
-// T = S = 256, Dh = 64, causal: 32,896 live (q, kv) pairs per (b, h)) the
-// forward does 4 Dh FLOPs per live pair (3.2 GFLOP), dq 6 Dh (4.9 GFLOP:
-// s, do v^T, ds k) and dk/dv 8 Dh (6.5 GFLOP: s, do v^T, p^T do, ds^T q),
-// against about 126 MB of f32 q/k/v/o/do, so each is above the float32
-// ridge of the card (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte). The
-// arithmetic runs on the CUDA cores in f32: TF32 tensor-core products keep
-// about three decimal digits, too few for the comparison of the trained
-// model with the CPU. bf16 inputs take the same f32 path (correct, not
-// fast); a bf16 wgmma design is later work.
+// What bounds them, at the LM's training shape (B = 64, H = 6, T = S = 256,
+// Dh = 64, causal: 32,896 live (q, kv) pairs per (b, h)): the forward does
+// 4 Dh FLOPs per live pair (3.2 GFLOP), dq 6 Dh (4.9 GFLOP: s, do v^T,
+// ds k) and dk/dv 8 Dh (6.5 GFLOP), against 75-126 MB of q/k/v/o/do.
+//   * f32: operations (the card's f32 ridge is 20 FLOP/byte). They run on
+//     the CUDA cores: TF32 tensor-core products keep about three decimal
+//     digits, too few for the trained model's comparison with the CPU.
+//   * bf16 / f16 on the tensor cores: bytes (989 TFLOP/s over 3.35 TB/s is
+//     295 FLOP/byte; dq and dk/dv do about 90 per byte).
 //
-// The forward (redesigned): what held the first design back was shared-
-// memory traffic (12 scalar loads per 32 FMAs in q k^T), synchronous K/V
-// loads, and 24 blocks on 132 SMs at one sequence. Now:
-//   * 256 threads as 16 row groups (ty) x 16 lanes (tx): a thread owns R
-//     query rows (ty + 16 i), C kv columns of the score tile (tx + 16 c)
-//     and NV packs of 4 output columns (4 (tx + 16 n)). A tile is BQ = 16 R
-//     queries by BK = 16 C keys. Q, K and V sit row-major in shared memory
-//     in the input type, rows padded so that a row stride in 4-element
-//     packs is odd: the 8 (f32, 16-byte reads) or 16 (2-byte types, 8-byte
-//     reads) lanes of one shared-memory phase read 8 or 16 neighbouring K
-//     rows on distinct banks, and Q is a broadcast. Every operand is read
-//     as a pack of 4 along the head dimension, so q k^T does R C 4 FMAs per
-//     R + C pack loads (R = C = 4: 64 per 8), and p v the same.
-//   * K/V tiles are double-buffered with cp.async (16 bytes a copy for f32,
-//     8 for 2-byte types, zero-filled past S): tile j + 1 is in flight while
-//     tile j is computed. Rows whose packs are not aligned (a head
-//     dimension not a multiple of 4, or an unaligned pointer) are copied
-//     element by element instead, with the same tile order.
-//   * Base-2 softmax: log2 e is folded into the scale, exp2f throughout,
-//     and L is turned back to the natural log on write (m_safe ln 2 +
-//     log(max(l, 1e-30))), so the backward, the plain version and the JAX
-//     contract are unchanged.
-//   * P goes through shared memory once per tile (the thread that owns a
-//     probability is not the one that needs it in p v on the CUDA cores),
-//     written as scalars on distinct banks and read back as packs of 4.
-//   * The q-tile height is picked at launch: BQ = 64 where that gives at
-//     least two blocks per SM, else 32 or 16, so a bucket of one sequence
-//     spreads over 96 blocks instead of 24. q-tile indices run in reverse
-//     so the longest causal rows start first; the causal loop stops at the
-//     diagonal, so dead tiles are never loaded (the TPU kernel's `live`).
-//   * Head dimensions up to 64, 128 and 256 take NV = 1, 2 and 4; above 128
-//     the key tile is 32 rows and the query tile at most 32, so f32 tiles
-//     fit the 227 KB a block may use (172,544 bytes at Dh = 256).
+// The forward: 256 threads as 16 row groups (ty) x 16 lanes
+// (tx); a thread owns R query rows (ty + 16 i), C kv columns of the score
+// tile (tx + 16 c) and NV packs of 4 output columns. Q, K and V sit
+// row-major in shared memory in the input type, rows padded so that a row
+// stride in 4-element packs is odd (neighbouring rows on distinct banks),
+// and every operand is read as a pack of 4 along the head dimension (R C 4
+// FMAs per R + C pack loads). K/V tiles are double-buffered with cp.async
+// (16 bytes a copy for f32, 8 for 2-byte types, zero-filled past S); rows
+// whose packs are not aligned are copied element by element in the same
+// tile order. P goes through shared memory once per tile. The q-tile
+// height is picked at launch (BQ = 64 where that gives two blocks per SM,
+// else 32 or 16); Dh up to 64, 128 and 256 takes NV = 1, 2 and 4.
 //
-// The backward (the PR 4 design, now typed and up to Dh = 256):
-//   * Tiles of 64 rows. The dq grid is (ceil(T / BQ), B * H): a block owns a
-//     q tile of one (batch, head) and loops over kv tiles, stopping at the
-//     causal diagonal. The dk/dv grid is (ceil(S / BK), B * H), kv-major as
-//     the TPU's second grid: a block owns a kv tile and loops over q tiles
-//     from the diagonal on. The TPU's sequential grid axis that carried the
-//     accumulators in VMEM becomes this loop, and the accumulators live in
-//     registers.
-//   * No atomics: every output element is summed by one thread of one
-//     block in a fixed order, so the gradients are the same run to run.
-//     dk/dv recompute s and do v^T rather than share them with dq, as the
-//     TPU kernel's two grids do.
-//   * 128 threads as a 16 x 8 grid: a thread owns RB rows (ty + 16 i) and 8
-//     columns (tx + 8 j) of the score tile, and the same RB rows times Dh / 8
-//     columns (tx + 8 c) of its accumulators. The 8 threads that share a
-//     row are 8 neighbouring lanes of one warp.
-//   * Tiles are converted to f32 as they are staged, in dynamic shared
-//     memory with rows padded to an odd stride (8 NC + 1, the padding
-//     columns zero), so a warp's column reads hit distinct banks. The own
-//     tile is 16 RB rows: RB = 4 (64 rows) up to Dh = 128, where the four
-//     [64][8 NC + 1] tiles plus the probability tiles take 150,784 bytes
-//     (dq) and 169,472 bytes (dk/dv); RB = 2 (32 rows) above, where 64-row
-//     own tiles would need 263 KB: 206,720 and 216,320 bytes at Dh = 256.
-//     Above 48 KB a launch first raises the kernel's limit with
-//     cudaFuncSetAttribute (a block may use 232,448 bytes).
-//   * D = rowsum(do * o) is folded into the dq kernel's preamble (a warp
-//     per row, lanes over Dh) and written out for the dk/dv kernel, which
-//     runs after it on the same stream.
+// The "simt" backward (attention_bwd.cu) follows the forward: the same
+// thread grid, R x C register micro-tiles of the score tile, operands read
+// as packs of 4 from rows padded to an odd pack stride, tiles staged in the
+// input type through a two-stage cp.async ring over the looped-over axis
+// (kv tiles in dq; q, do, L and D tiles in dk/dv) while the block's own
+// tile is loaded once, and P and dS through shared memory once per tile.
+// Own-tile heights keep two blocks (16 warps) resident on an SM at Dh <=
+// 128. What bounds it: the f32 CUDA cores, and shared-memory operand
+// traffic (12 pack loads per 64 FMAs in s and do v^T, 8 per 64 in the
+// accumulating products).
+//
+// The "wgmma" backward (attention_wgmma.cu): one consumer warpgroup owns 64
+// rows and runs wgmma.mma_async m64n64k16 with f32 accumulators in
+// registers; a producer warp keeps TMA loads of the looped-over tiles in
+// flight through a two-stage mbarrier ring. Tiles land in the 128-byte
+// swizzled layout the matrix descriptors name, as 64-column panels, through
+// 4-D tensor maps over [B, T, H, Dh] (a ragged tail and the head columns
+// past Dh read zeros). p and ds enter their products as hi + lo pairs in
+// the input type (hi = round(x), lo = round(x - hi): two wgmmas, about
+// 2^-16 relative), so the kernel keeps the f32 variant's limits. dq: S = Q
+// K^T and dP = dO V^T from shared memory, then dQ += dS K with dS as the
+// register A operand and K as an MN-major B. dk/dv: S^T = K Q^T and dP^T =
+// V dO^T, so P^T and dS^T come out in the accumulator layout and feed dV
+// += P^T dO and dK += dS^T Q as register A operands (FlashAttention-3's
+// arrangement). Above 64 (dk/dv) or 128 (dq) head columns a block owns one
+// slice of the output columns and recomputes the scores. What bounds it:
+// the tensor cores issue one warpgroup's chain at a time, so latency
+// between the score products, the exponentials and the accumulating
+// products; the mbarrier ring hides the loads.
+//
+// The "wide" kernels (Dh > 256, in this file): a simple path. Each block
+// owns 32 rows and a slice of at most 256 output columns (gridDim.z), and
+// recomputes the scores it needs over the whole head dimension, streamed
+// through shared memory 32 columns at a time as f32; ceil(Dh / 256) blocks
+// recompute the same scores. No public configuration has such heads.
 //
 // q/k/v/o/do and the gradients are read and written with their row stride
 // (H * Dh for the layer's contiguous [B, T, H, Dh] projections), so no head
@@ -117,168 +119,20 @@
 // point takes the element type as a code (0 float32, 1 bfloat16, 2
 // float16), launches on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
+
+using namespace dl4j_attn;
 
 namespace {
 
-constexpr int BQ = 64;        // backward: rows of the looped-over q tile
-constexpr int BK = 64;        // backward: rows of the looped-over kv tile
-constexpr int NTHREADS = 128; // backward
-constexpr int PS = BK + 8;    // backward probability-tile row stride
-constexpr int kFwdThreads = 256;
-constexpr int TX = 16;        // forward: lanes that share a query row
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// ---- element types --------------------------------------------------------
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-// Four consecutive elements of shared memory (a 4-element-aligned pack) as
-// f32.
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 ld4(const __half* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// ---- cp.async ---------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy kBytes (16 or 8) from global to shared memory asynchronously; when
-// !ok nothing is read and the destination is zero-filled.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool ok) {
-  const int n = ok ? kBytes : 0;
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(kBytes), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float row_max8(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-  v = row_max8(v);
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  return v + __shfl_xor_sync(0xffffffffu, v, 8);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
-// The forward's padded head dimension (a multiple of 4) and its shared-
-// memory row stride in elements: a multiple of 4 whose count of packs is
-// odd, so neighbouring rows start on other banks.
-__host__ __device__ __forceinline__ int fwd_dpad(int Dh) {
-  return (Dh + 3) & ~3;
-}
-__host__ __device__ __forceinline__ int fwd_stride(int Dh) {
-  const int dpad = fwd_dpad(Dh);
-  return dpad + ((dpad & 7) == 0 ? 4 : 0);
-}
-
-// Stage rows [r0, r0 + rows) of a source with n rows of Dh elements (row
-// stride ld) into a shared tile with row stride DP. `vec`: one cp.async per
-// pack of 4 elements, zero-filled past n. Otherwise element by element,
-// zero-filled past n and in the columns [Dh, Dpad).
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0,
-                                           int rows, int n, long long ld,
-                                           int Dh, int DP, bool vec) {
-  const int dpad = fwd_dpad(Dh);
-  if (vec) {
-    const int packs = dpad >> 2;
-    for (int e = threadIdx.x; e < rows * packs; e += kFwdThreads) {
-      const int r = e / packs;
-      const int c = (e - r * packs) << 2;
-      const int t = r0 + r;
-      const bool ok = t < n;
-      cp_async<4 * sizeof(T)>(dst + r * DP + c, ok ? src + t * ld + c : src,
-                              ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * dpad; e += kFwdThreads) {
-      const int r = e / dpad;
-      const int c = e - r * dpad;
-      const int t = r0 + r;
-      dst[r * DP + c] =
-          (t < n && c < Dh) ? src[t * ld + c] : from_f32<T>(0.0f);
-    }
-  }
-}
-
 // The forward for one query tile of BQ = 16 R rows of one (batch, head),
-// looping over key tiles of BK = 16 C rows. The head dimension is at most
-// 64 NV. kLse: also write the row logsumexp to lse[(b * H + h) * T + t].
-// The primal instantiation never touches `lse` (the last parameter, so the
-// others keep their places). scale2 = sm_scale * log2 e.
+// looping over key tiles of BK = 16 C rows; grid (B * H, q tiles). The
+// head dimension is at most 64 NV. kLse: also write the row logsumexp to
+// lse[(b * H + h) * T + t]. The primal instantiation never touches `lse`
+// (the last parameter, so the others keep their places). scale2 = sm_scale
+// * log2 e.
 template <typename T, bool kLse, int R, int C, int NV>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Tq, int S,
                  int H, int Dh, long long ldq, long long ldk, long long ldv,
@@ -299,9 +153,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & (TX - 1);
   const int ty = tid / TX;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TBQ;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TBQ;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
   const T* qb = q + (long long)b * Tq * ldq + (long long)h * Dh;
   const T* kb = k + (long long)b * S * ldk + (long long)h * Dh;
   const T* vb = v + (long long)b * S * ldv + (long long)h * Dh;
@@ -448,318 +302,300 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the 16 lanes of a row hold the same m and l; m is in base 2
       if (tx == 0) {
         const float m_safe = m[i] == -INFINITY ? 0.0f : m[i];
-        lse[(long long)blockIdx.y * Tq + t] = m_safe * kLn2 + logf(denom);
+        lse[(long long)blockIdx.x * Tq + t] = m_safe * kLn2 + logf(denom);
       }
     }
   }
 }
 
-// Rows [r0, r0 + rows) of a row-major tile source (row stride ld, head
-// offset applied) into shared memory as f32 with row stride DP = 8 NC + 1:
-// rows >= n and columns >= Dh are zero (the padding column 8 NC is never
-// read).
-template <int NC, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int rows, int n, long long ld,
+// ---- the wide kernels (Dh > 256) -------------------------------------------
+constexpr int kWR = 32;     // rows a block owns, and rows of a looped tile
+constexpr int kWS = 33;     // row stride of the [32][32] f32 tiles
+constexpr int kWOut = 256;  // output columns a block owns (gridDim.z)
+// static shared memory of the wide forward, dq and dk/dv kernels
+constexpr size_t kWFwdStatic = 3 * sizeof(float) * kWR * kWS;
+constexpr size_t kWDqStatic = 5 * sizeof(float) * kWR * kWS;
+constexpr size_t kWDkvStatic = sizeof(float) * (6 * kWR * kWS + 2 * kWR);
+
+// Columns [d0, d0 + 32) of rows [r0, r0 + 32) of a source with n rows
+// (row stride ld) into a [32][kWS] f32 tile; zero past n and past Dh.
+template <typename T>
+__device__ __forceinline__ void wide_chunk(float* dst, const T* src, int r0,
+                                           int n, long long ld, int d0,
+                                           int Dh) {
+  for (int e = threadIdx.x; e < kWR * 32; e += kThreads) {
+    const int r = e >> 5, c = e & 31, t = r0 + r, d = d0 + c;
+    dst[r * kWS + c] = (t < n && d < Dh) ? to_f32(src[t * ld + d]) : 0.0f;
+  }
+}
+
+// The block's output columns [oc0, oc0 + kWOut) of rows [r0, r0 + 32) into
+// a [32][kWOut] f32 slab; zero past n and past Dh.
+template <typename T>
+__device__ __forceinline__ void wide_slab(float* dst, const T* src, int r0,
+                                          int n, long long ld, int oc0,
                                           int Dh) {
-  constexpr int DP = 8 * NC + 1;
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += NTHREADS / 32) {
-    const int t = r0 + r;
-    for (int d = lane; d < 8 * NC; d += 32)
-      dst[r * DP + d] = (t < n && d < Dh) ? to_f32(src[t * ld + d]) : 0.0f;
+  for (int e = threadIdx.x; e < kWR * kWOut; e += kThreads) {
+    const int r = e / kWOut, c = e % kWOut, t = r0 + r, d = oc0 + c;
+    dst[e] = (t < n && d < Dh) ? to_f32(src[t * ld + d]) : 0.0f;
   }
 }
 
-// dq (and D) for one q tile of 16 RB rows of one (batch, head), looping
-// over 64-row kv tiles up to the causal diagonal.
-template <typename T, int NC, int RB>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq,
-                    float* __restrict__ dsum, int Tq, int S, int H, int Dh,
-                    long long ld, int causal, float sm_scale) {
-  constexpr int DP = 8 * NC + 1;
-  constexpr int OWN = 16 * RB;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [OWN][DP]
-  float* dOs = Qs + OWN * DP;   // [OWN][DP]
-  float* Ks = dOs + OWN * DP;   // [BK][DP]
-  float* Vs = Ks + BK * DP;     // [BK][DP]
-  float* dSs = Vs + BK * DP;    // [OWN][PS]
-  float* Ds = dSs + OWN * PS;   // [OWN]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * OWN;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
+// The forward at any head dimension: a thread owns row r = tid / 8 of a
+// 32-row q tile, score columns l + 8 c (l = tid % 8) and output columns
+// oc0 + l + 8 j of the block's slice. scale2 = sm_scale * log2 e.
+template <typename T, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int S, int H, int Dh,
+                      long long ld, int causal, float scale2) {
+  __shared__ float Qc[kWR * kWS], Kc[kWR * kWS], Ps[kWR * kWS];
+  extern __shared__ float slab[];   // [32][kWOut] of V
+  const int r = threadIdx.x >> 3, l = threadIdx.x & 7;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWR;
+  const int oc0 = blockIdx.z * kWOut;
   const long long qoff = (long long)b * Tq * ld + (long long)h * Dh;
   const long long koff = (long long)b * S * ld + (long long)h * Dh;
-  const long long roff = (long long)bh * Tq;
+  const int tq = q0 + r;
+  int n_tiles = (S + kWR - 1) / kWR;
+  if (causal) n_tiles = min(n_tiles, (q0 + kWR - 1) / kWR + 1);
 
-  load_rows<NC>(Qs, q + qoff, q0, OWN, Tq, ld, Dh);
-  load_rows<NC>(dOs, dout + qoff, q0, OWN, Tq, ld, Dh);
-  __syncthreads();
-  // D = rowsum(do * o): a warp per row, lanes over the head dimension
-  for (int r = warp; r < OWN; r += NTHREADS / 32) {
-    const int t = q0 + r;
-    float part = 0.0f;
-    if (t < Tq)
-      for (int d = lane; d < Dh; d += 32)
-        part = fmaf(dOs[r * DP + d], to_f32(o[qoff + t * ld + d]), part);
-    part = warp_sum(part);
-    if (lane == 0) {
-      Ds[r] = part;
-      if (t < Tq) dsum[roff + t] = part;
-    }
-  }
-  __syncthreads();
-
-  float Lr[RB], Dr[RB], acc[RB][NC];
+  float m = -INFINITY, lsum = 0.0f, acc[32];
 #pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const int t = q0 + ty + 16 * i;
-    Lr[i] = t < Tq ? lse[roff + t] : 0.0f;
-    Dr[i] = Ds[ty + 16 * i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-
-  int n_tiles = (S + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + OWN - 1) / BK + 1);
-
+  for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
   for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // the last tile's readers are done with Ks/Vs/dSs
-    load_rows<NC>(Ks, k + koff, k0, BK, S, ld, Dh);
-    load_rows<NC>(Vs, v + koff, k0, BK, S, ld, Dh);
-    __syncthreads();
-
-    float sc[RB][8], dp[RB][8];
+    const int k0 = jt * kWR;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d0 = 0; d0 < Dh; d0 += 32) {
+      __syncthreads();   // the last readers of Qc/Kc (and Ps, slab) are done
+      wide_chunk(Qc, q + qoff, q0, Tq, ld, d0, Dh);
+      wide_chunk(Kc, k + koff, k0, S, ld, d0, Dh);
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < 32; ++dd) {
+        const float qv = Qc[r * kWS + dd];
 #pragma unroll
-    for (int i = 0; i < RB; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < Dh; ++d) {
-      float qv[RB], gv[RB], kv[8], vv[8];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * DP + d];
-        gv[i] = dOs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kv[j] = Ks[(tx + 8 * j) * DP + d];
-        vv[j] = Vs[(tx + 8 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int row = ty + 16 * i;
-      const int tq = q0 + row;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kv_idx = k0 + tx + 8 * j;
-        const bool ok = tq < Tq && kv_idx < S && (!causal || kv_idx <= tq);
-        const float p = ok ? expf(sc[i][j] * sm_scale - Lr[i]) : 0.0f;
-        dSs[row * PS + tx + 8 * j] = p * (dp[i][j] - Dr[i]) * sm_scale;
+        for (int c = 0; c < 4; ++c)
+          s[c] = fmaf(qv, Kc[(l + 8 * c) * kWS + dd], s[c]);
       }
     }
+    bool ok[4];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kv = k0 + l + 8 * c;
+      ok[c] = kv < S && (!causal || kv <= tq);
+      s[c] = ok[c] ? s[c] * scale2 : -INFINITY;
+      mx = fmaxf(mx, s[c]);
+    }
+    const float m_new = fmaxf(m, row_max8(mx));
+    const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
+    float rs = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = ok[c] ? exp2f(s[c] - m_safe) : 0.0f;
+      Ps[r * kWS + l + 8 * c] = p;
+      rs += p;
+    }
+    const float corr = m == -INFINITY ? 0.0f : exp2f(m - m_safe);
+    m = m_new;
+    lsum = lsum * corr + row_sum8(rs);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] *= corr;
+    wide_slab(slab, v + koff, k0, S, ld, oc0, Dh);
     __syncthreads();
-
 #pragma unroll 4
-    for (int s = 0; s < BK; ++s) {
-      float dsv[RB];
+    for (int t = 0; t < kWR; ++t) {
+      const float pv = Ps[r * kWS + t];
 #pragma unroll
-      for (int i = 0; i < RB; ++i) dsv[i] = dSs[(ty + 16 * i) * PS + s];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kk = Ks[s * DP + tx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < RB; ++i) acc[i][c] = fmaf(dsv[i], kk, acc[i][c]);
-      }
+      for (int j = 0; j < 32; ++j)
+        acc[j] = fmaf(pv, slab[t * kWOut + l + 8 * j], acc[j]);
     }
   }
-
+  if (tq >= Tq) return;
+  const float denom = fmaxf(lsum, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= Tq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 8 * c;
-      if (d < Dh) dq[qoff + t * ld + d] = from_f32<T>(acc[i][c]);
+  for (int j = 0; j < 32; ++j) {
+    const int d = oc0 + l + 8 * j;
+    if (d < Dh) o[qoff + tq * ld + d] = from_f32<T>(acc[j] / denom);
+  }
+  if constexpr (kLse) {
+    if (blockIdx.z == 0 && l == 0) {
+      const float m_safe = m == -INFINITY ? 0.0f : m;
+      lse[(long long)bh * Tq + tq] = m_safe * kLn2 + logf(denom);
     }
   }
 }
 
-// dk and dv for one kv tile of 16 RB rows of one (batch, head), looping
-// over 64-row q tiles from the causal diagonal on (the TPU kernel's live =
-// i bq + bq - 1 >= j bk).
-template <typename T, int NC, int RB>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dsum, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int S, int H, int Dh,
-                     long long ld, int causal, float sm_scale) {
-  constexpr int DP = 8 * NC + 1;
-  constexpr int OWN = 16 * RB;
-  extern __shared__ float smem[];
-  float* Ks = smem;             // [OWN][DP]
-  float* Vs = Ks + OWN * DP;    // [OWN][DP]
-  float* Qs = Vs + OWN * DP;    // [BQ][DP]
-  float* dOs = Qs + BQ * DP;    // [BQ][DP]
-  float* Ps = dOs + BQ * DP;    // [OWN][PS]  p^T
-  float* dSs = Ps + OWN * PS;   // [OWN][PS]  ds^T
-  float* Ls = dSs + OWN * PS;   // [BQ]
-  float* Ds = Ls + BQ;          // [BQ]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;     // q columns tx + 8 j, output columns tx + 8 c
-  const int ty = tid >> 3;    // kv rows ty + 16 i
-  const int k0 = blockIdx.x * OWN;   // low tiles have the most causal work
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
+// dq (and D) at any head dimension: rows as the wide forward; D over the
+// whole head (written by the first column slice).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ o,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse, T* __restrict__ dq,
+                         float* __restrict__ dsum, int Tq, int S, int H,
+                         int Dh, long long ld, int causal, float sm_scale) {
+  __shared__ float Qc[kWR * kWS], dOc[kWR * kWS], Kc[kWR * kWS],
+      Vc[kWR * kWS], dSs[kWR * kWS];
+  extern __shared__ float slab[];   // [32][kWOut] of K
+  const int r = threadIdx.x >> 3, l = threadIdx.x & 7;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWR;
+  const int oc0 = blockIdx.z * kWOut;
   const long long qoff = (long long)b * Tq * ld + (long long)h * Dh;
   const long long koff = (long long)b * S * ld + (long long)h * Dh;
   const long long roff = (long long)bh * Tq;
+  const int tq = q0 + r;
+  const float scale2 = sm_scale * kLog2e;
 
-  load_rows<NC>(Ks, k + koff, k0, OWN, S, ld, Dh);
-  load_rows<NC>(Vs, v + koff, k0, OWN, S, ld, Dh);
+  float part = 0.0f;
+  if (tq < Tq)
+    for (int d = l; d < Dh; d += 8)
+      part = fmaf(to_f32(dout[qoff + tq * ld + d]),
+                  to_f32(o[qoff + tq * ld + d]), part);
+  const float Dr = row_sum8(part);
+  if (blockIdx.z == 0 && l == 0 && tq < Tq) dsum[roff + tq] = Dr;
+  const float L2 = tq < Tq ? lse[roff + tq] * kLog2e : 0.0f;
 
-  float gk[RB][NC], gv[RB][NC];
+  int n_tiles = (S + kWR - 1) / kWR;
+  if (causal) n_tiles = min(n_tiles, (q0 + kWR - 1) / kWR + 1);
+  float acc[32];
 #pragma unroll
-  for (int i = 0; i < RB; ++i)
+  for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kWR;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d0 = 0; d0 < Dh; d0 += 32) {
+      __syncthreads();
+      wide_chunk(Qc, q + qoff, q0, Tq, ld, d0, Dh);
+      wide_chunk(dOc, dout + qoff, q0, Tq, ld, d0, Dh);
+      wide_chunk(Kc, k + koff, k0, S, ld, d0, Dh);
+      wide_chunk(Vc, v + koff, k0, S, ld, d0, Dh);
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < 32; ++dd) {
+        const float qv = Qc[r * kWS + dd], gv = dOc[r * kWS + dd];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.0f;
-
-  const int n_q = (Tq + BQ - 1) / BQ;
-  for (int it = causal ? k0 / BQ : 0; it < n_q; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // the last tile's readers are done with Qs/dOs/Ps/...
-    load_rows<NC>(Qs, q + qoff, q0, BQ, Tq, ld, Dh);
-    load_rows<NC>(dOs, dout + qoff, q0, BQ, Tq, ld, Dh);
-    for (int r = tid; r < BQ; r += NTHREADS) {
-      const int t = q0 + r;
-      Ls[r] = t < Tq ? lse[roff + t] : 0.0f;
-      Ds[r] = t < Tq ? dsum[roff + t] : 0.0f;
-    }
-    __syncthreads();
-
-    float st[RB][8], dpt[RB][8];
-#pragma unroll
-    for (int i = 0; i < RB; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) st[i][j] = dpt[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < Dh; ++d) {
-      float kv[RB], vv[RB], qv[8], gq[8];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        kv[i] = Ks[(ty + 16 * i) * DP + d];
-        vv[i] = Vs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        qv[j] = Qs[(tx + 8 * j) * DP + d];
-        gq[j] = dOs[(tx + 8 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
-          dpt[i][j] = fmaf(gq[j], vv[i], dpt[i][j]);
+        for (int c = 0; c < 4; ++c) {
+          s[c] = fmaf(qv, Kc[(l + 8 * c) * kWS + dd], s[c]);
+          dp[c] = fmaf(gv, Vc[(l + 8 * c) * kWS + dd], dp[c]);
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int row = ty + 16 * i;
-      const int skv = k0 + row;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 8 * j;
-        const int tq = q0 + col;
-        const bool ok = tq < Tq && skv < S && (!causal || skv <= tq);
-        const float p = ok ? expf(st[i][j] * sm_scale - Ls[col]) : 0.0f;
-        Ps[row * PS + col] = p;
-        dSs[row * PS + col] = p * (dpt[i][j] - Ds[col]) * sm_scale;
       }
     }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kv = k0 + l + 8 * c;
+      const bool ok = tq < Tq && kv < S && (!causal || kv <= tq);
+      const float p = ok ? exp2f(fmaf(s[c], scale2, -L2)) : 0.0f;
+      dSs[r * kWS + l + 8 * c] = p * (dp[c] - Dr) * sm_scale;
+    }
+    wide_slab(slab, k + koff, k0, S, ld, oc0, Dh);
     __syncthreads();
-
 #pragma unroll 4
-    for (int t = 0; t < BQ; ++t) {
-      float pv[RB], dsv[RB];
+    for (int t = 0; t < kWR; ++t) {
+      const float dsv = dSs[r * kWS + t];
 #pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        pv[i] = Ps[(ty + 16 * i) * PS + t];
-        dsv[i] = dSs[(ty + 16 * i) * PS + t];
+      for (int j = 0; j < 32; ++j)
+        acc[j] = fmaf(dsv, slab[t * kWOut + l + 8 * j], acc[j]);
+    }
+  }
+  if (tq >= Tq) return;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int d = oc0 + l + 8 * j;
+    if (d < Dh) dq[qoff + tq * ld + d] = from_f32<T>(acc[j]);
+  }
+}
+
+// dk and dv at any head dimension: a block owns 32 kv rows (row r of the
+// thread) and a slice of output columns, looping over 32-row q tiles from
+// the causal diagonal on.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum, T* __restrict__ dk,
+                          T* __restrict__ dv, int Tq, int S, int H, int Dh,
+                          long long ld, int causal, float sm_scale) {
+  __shared__ float Kc[kWR * kWS], Vc[kWR * kWS], Qc[kWR * kWS],
+      dOc[kWR * kWS], Ps[kWR * kWS], dSs[kWR * kWS], Ls[kWR], Ds[kWR];
+  extern __shared__ float slab[];   // [32][kWOut] of Q, then of dO
+  float* Qo = slab;
+  float* dOo = slab + kWR * kWOut;
+  const int r = threadIdx.x >> 3, l = threadIdx.x & 7;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kWR;
+  const int oc0 = blockIdx.z * kWOut;
+  const long long qoff = (long long)b * Tq * ld + (long long)h * Dh;
+  const long long koff = (long long)b * S * ld + (long long)h * Dh;
+  const long long roff = (long long)bh * Tq;
+  const int skv = k0 + r;
+  const float scale2 = sm_scale * kLog2e;
+
+  float gk[32], gv[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) gk[j] = gv[j] = 0.0f;
+  const int n_q = (Tq + kWR - 1) / kWR;
+  for (int it = causal ? k0 / kWR : 0; it < n_q; ++it) {
+    const int q0 = it * kWR;
+    float st[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d0 = 0; d0 < Dh; d0 += 32) {
+      __syncthreads();
+      wide_chunk(Kc, k + koff, k0, S, ld, d0, Dh);
+      wide_chunk(Vc, v + koff, k0, S, ld, d0, Dh);
+      wide_chunk(Qc, q + qoff, q0, Tq, ld, d0, Dh);
+      wide_chunk(dOc, dout + qoff, q0, Tq, ld, d0, Dh);
+      if (d0 == 0 && threadIdx.x < kWR) {
+        const int t = q0 + threadIdx.x;
+        Ls[threadIdx.x] = t < Tq ? lse[roff + t] * kLog2e : 0.0f;
+        Ds[threadIdx.x] = t < Tq ? dsum[roff + t] : 0.0f;
       }
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < 32; ++dd) {
+        const float kv = Kc[r * kWS + dd], vv = Vc[r * kWS + dd];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float g = dOs[t * DP + tx + 8 * c];
-        const float qq = Qs[t * DP + tx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          gv[i][c] = fmaf(pv[i], g, gv[i][c]);
-          gk[i][c] = fmaf(dsv[i], qq, gk[i][c]);
+        for (int c = 0; c < 4; ++c) {
+          st[c] = fmaf(kv, Qc[(l + 8 * c) * kWS + dd], st[c]);
+          dpt[c] = fmaf(vv, dOc[(l + 8 * c) * kWS + dd], dpt[c]);
         }
       }
     }
-  }
-
 #pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    const int s = k0 + ty + 16 * i;
-    if (s >= S) continue;
+    for (int c = 0; c < 4; ++c) {
+      const int col = l + 8 * c, tq = q0 + col;
+      const bool ok = tq < Tq && skv < S && (!causal || skv <= tq);
+      const float p = ok ? exp2f(fmaf(st[c], scale2, -Ls[col])) : 0.0f;
+      Ps[r * kWS + col] = p;
+      dSs[r * kWS + col] = p * (dpt[c] - Ds[col]) * sm_scale;
+    }
+    wide_slab(Qo, q + qoff, q0, Tq, ld, oc0, Dh);
+    wide_slab(dOo, dout + qoff, q0, Tq, ld, oc0, Dh);
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < kWR; ++t) {
+      const float pv = Ps[r * kWS + t], dsv = dSs[r * kWS + t];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 8 * c;
-      if (d < Dh) {
-        dk[koff + s * ld + d] = from_f32<T>(gk[i][c]);
-        dv[koff + s * ld + d] = from_f32<T>(gv[i][c]);
+      for (int j = 0; j < 32; ++j) {
+        gv[j] = fmaf(pv, dOo[t * kWOut + l + 8 * j], gv[j]);
+        gk[j] = fmaf(dsv, Qo[t * kWOut + l + 8 * j], gk[j]);
       }
     }
   }
-}
-
-// Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 132;
-  return n;
+  if (skv >= S) return;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int d = oc0 + l + 8 * j;
+    if (d < Dh) {
+      dk[koff + skv * ld + d] = from_f32<T>(gk[j]);
+      dv[koff + skv * ld + d] = from_f32<T>(gv[j]);
+    }
+  }
 }
 
 // Query rows per thread for the forward: the tallest q tile (16 R rows,
@@ -769,12 +605,6 @@ int pick_rows(int Tq, int BH, int max_r) {
   for (int r = max_r; r > 1; r >>= 1)
     if ((long long)((Tq + 16 * r - 1) / (16 * r)) * BH >= want) return r;
   return 1;
-}
-
-template <typename T>
-bool packs_aligned(int Dh, long long ld, const void* p) {
-  const uintptr_t a = 4 * sizeof(T);
-  return Dh % 4 == 0 && ld % 4 == 0 && (uintptr_t)p % a == 0;
 }
 
 template <typename T, bool kLse, int R, int C, int NV>
@@ -788,10 +618,10 @@ int launch_fwd_cfg(const T* q, const T* k, const T* v, T* o, float* lse,
   auto kernel = flash_fwd_kernel<T, kLse, R, C, NV>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Tq + TBQ - 1) / TBQ, B * H);
-  kernel<<<grid, kFwdThreads, smem, stream>>>(q, k, v, o, Tq, S, H, Dh, ldq,
-                                              ldk, ldv, ldo, causal,
-                                              sm_scale * kLog2e, vec, lse);
+  dim3 grid(B * H, (Tq + TBQ - 1) / TBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, Tq, S, H, Dh, ldq,
+                                           ldk, ldv, ldo, causal,
+                                           sm_scale * kLog2e, vec, lse);
   return (int)cudaGetLastError();
 }
 
@@ -826,74 +656,22 @@ int launch_fwd(const void* q_, const void* k_, const void* v_, void* o_,
 #undef DL4J_FWD
 }
 
-template <typename T, int NC, int RB>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const float* lse, void* dq, float* dsum,
-              int B, int Tq, int S, int H, int Dh, long long ld, int causal,
-              float sm_scale, cudaStream_t stream) {
-  constexpr int OWN = 16 * RB;
-  const size_t smem =
-      sizeof(float) * ((size_t)(2 * OWN + 2 * BK) * (8 * NC + 1) +
-                       (size_t)OWN * PS + OWN);
-  auto kernel = flash_bwd_dq_kernel<T, NC, RB>;
-  cudaError_t e = allow_smem(kernel, smem);
+template <typename T, bool kLse>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int Tq, int S, int H, int Dh,
+                    long long ld, int causal, float sm_scale,
+                    cudaStream_t stream) {
+  auto kernel = flash_fwd_wide_kernel<T, kLse>;
+  const size_t smem = sizeof(float) * kWR * kWOut;
+  cudaError_t e = allow_smem(kernel, smem, kWFwdStatic);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Tq + OWN - 1) / OWN, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(B * H, (Tq + kWR - 1) / kWR, (Dh + kWOut - 1) / kWOut);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq), dsum, Tq, S, H,
-      Dh, ld, causal, sm_scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Tq, S, H, Dh, ld,
+      causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
-
-template <typename T, int NC, int RB>
-int launch_dkv(const void* q, const void* k, const void* v,
-               const void* dout, const float* lse, const float* dsum,
-               void* dk, void* dv, int B, int Tq, int S, int H, int Dh,
-               long long ld, int causal, float sm_scale,
-               cudaStream_t stream) {
-  constexpr int OWN = 16 * RB;
-  const size_t smem =
-      sizeof(float) * ((size_t)(2 * OWN + 2 * BQ) * (8 * NC + 1) +
-                       (size_t)2 * OWN * PS + 2 * BQ);
-  auto kernel = flash_bwd_dkv_kernel<T, NC, RB>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + OWN - 1) / OWN, B * H);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, Dh, ld, causal,
-      sm_scale);
-  return (int)cudaGetLastError();
-}
-
-bool bad_shape(int B, int T, int S, int H, int Dh) {
-  return B < 1 || T < 1 || S < 1 || H < 1 || Dh < 1 || Dh > 256 ||
-         B * H > 65535;
-}
-
-// The backward instantiation for a head dimension: NC = ceil(Dh / 8)
-// rounded up to 1, 2, 4, 8, 16 or 32; 64-row own tiles up to Dh = 128,
-// 32-row ones above.
-#define DL4J_BY_HEAD_DIM(CALL)       \
-  if (Dh <= 8) return CALL(1, 4);    \
-  if (Dh <= 16) return CALL(2, 4);   \
-  if (Dh <= 32) return CALL(4, 4);   \
-  if (Dh <= 64) return CALL(8, 4);   \
-  if (Dh <= 128) return CALL(16, 4); \
-  return CALL(32, 2);
-
-// The element type for a dtype code: 0 float32, 1 bfloat16, 2 float16.
-// Every CALL returns.
-#define DL4J_BY_DTYPE(CALL)                       \
-  switch (dtype) {                                \
-    case 0: CALL(float)                           \
-    case 1: CALL(__nv_bfloat16)                   \
-    case 2: CALL(__half)                          \
-    default: return (int)cudaErrorInvalidValue;   \
-  }
 
 }  // namespace
 
@@ -906,7 +684,8 @@ extern "C" int dl4j_flash_attn_fwd(const void* q, const void* k,
                                    long long ldk, long long ldv,
                                    long long ldo, int causal, float sm_scale,
                                    int dtype, void* stream) {
-  if (bad_shape(B, T, S, H, Dh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, T, S, H, Dh) || Dh > 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define DL4J_FWD(TYPE)                                                     \
   return launch_fwd<TYPE, false>(q, k, v, o, nullptr, B, T, S, H, Dh, ldq, \
@@ -922,7 +701,8 @@ extern "C" int dl4j_flash_attn_fwd_lse(const void* q, const void* k,
                                        long long ld, int causal,
                                        float sm_scale, int dtype,
                                        void* stream) {
-  if (bad_shape(B, T, S, H, Dh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, T, S, H, Dh) || Dh > 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define DL4J_FWD_LSE(TYPE)                                                \
   return launch_fwd<TYPE, true>(q, k, v, o, lse, B, T, S, H, Dh, ld, ld, \
@@ -931,51 +711,83 @@ extern "C" int dl4j_flash_attn_fwd_lse(const void* q, const void* k,
 #undef DL4J_FWD_LSE
 }
 
-// dq [B, T, H, Dh] (in the inputs' type) and dsum = rowsum(do * o)
-// [B, H, T] (f32) from q, o, do [B, T, H, Dh], k, v [B, S, H, Dh] and lse
-// [B, H, T]; every row stride ld.
-extern "C" int dl4j_flash_attn_bwd_dq(const void* q, const void* k,
-                                      const void* v, const void* o,
-                                      const void* dout, const float* lse,
-                                      void* dq, float* dsum, int B, int T,
-                                      int S, int H, int Dh, long long ld,
-                                      int causal, float sm_scale, int dtype,
-                                      void* stream) {
+// The wide forward (any Dh; the caller takes it above 256), every row
+// stride ld; with lse non-null it also writes the logsumexp.
+extern "C" int dl4j_flash_attn_fwd_wide(const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int B, int T, int S, int H, int Dh,
+                                        long long ld, int causal,
+                                        float sm_scale, int dtype,
+                                        void* stream) {
   if (bad_shape(B, T, S, H, Dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define DL4J_DQ_NC(NC, RB)                                                  \
-  launch_dq<TYPE_, NC, RB>(q, k, v, o, dout, lse, dq, dsum, B, T, S, H, Dh, \
-                           ld, causal, sm_scale, st)
-#define DL4J_DQ(TYPE) \
-  {                   \
-    using TYPE_ = TYPE; \
-    DL4J_BY_HEAD_DIM(DL4J_DQ_NC) \
-  }
-  DL4J_BY_DTYPE(DL4J_DQ)
-#undef DL4J_DQ
-#undef DL4J_DQ_NC
+#define DL4J_FWD_WIDE(TYPE)                                               \
+  return lse ? launch_fwd_wide<TYPE, true>(q, k, v, o, lse, B, T, S, H,  \
+                                           Dh, ld, causal, sm_scale, st) \
+             : launch_fwd_wide<TYPE, false>(q, k, v, o, lse, B, T, S, H, \
+                                            Dh, ld, causal, sm_scale, st);
+  DL4J_BY_DTYPE(DL4J_FWD_WIDE)
+#undef DL4J_FWD_WIDE
 }
 
-// dk, dv [B, S, H, Dh] (in the inputs' type) from q, do [B, T, H, Dh], k, v
-// [B, S, H, Dh], lse and dsum [B, H, T]; every row stride ld.
-extern "C" int dl4j_flash_attn_bwd_dkv(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const float* lse, const float* dsum,
-                                       void* dk, void* dv, int B, int T,
-                                       int S, int H, int Dh, long long ld,
-                                       int causal, float sm_scale, int dtype,
-                                       void* stream) {
+// The wide dq: dq [B, T, H, Dh] (in the inputs' type) and dsum = rowsum(do
+// * o) [B, H, T] (f32) from q, o, do [B, T, H, Dh], k, v [B, S, H, Dh] and
+// lse [B, H, T]; every row stride ld.
+extern "C" int dl4j_flash_attn_bwd_dq_wide(const void* q, const void* k,
+                                           const void* v, const void* o,
+                                           const void* dout, const float* lse,
+                                           void* dq, float* dsum, int B,
+                                           int T, int S, int H, int Dh,
+                                           long long ld, int causal,
+                                           float sm_scale, int dtype,
+                                           void* stream) {
   if (bad_shape(B, T, S, H, Dh)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define DL4J_DKV_NC(NC, RB)                                                 \
-  launch_dkv<TYPE_, NC, RB>(q, k, v, dout, lse, dsum, dk, dv, B, T, S, H,   \
-                            Dh, ld, causal, sm_scale, st)
-#define DL4J_DKV(TYPE) \
-  {                    \
-    using TYPE_ = TYPE; \
-    DL4J_BY_HEAD_DIM(DL4J_DKV_NC) \
+  const size_t smem = sizeof(float) * kWR * kWOut;
+  dim3 grid(B * H, (T + kWR - 1) / kWR, (Dh + kWOut - 1) / kWOut);
+#define DL4J_DQ_WIDE(TYPE)                                                 \
+  {                                                                        \
+    auto kernel = flash_bwd_dq_wide_kernel<TYPE>;                          \
+    cudaError_t e = allow_smem(kernel, smem, kWDqStatic);                  \
+    if (e != cudaSuccess) return (int)e;                                   \
+    kernel<<<grid, kThreads, smem, st>>>(                                  \
+        static_cast<const TYPE*>(q), static_cast<const TYPE*>(k),          \
+        static_cast<const TYPE*>(v), static_cast<const TYPE*>(o),          \
+        static_cast<const TYPE*>(dout), lse, static_cast<TYPE*>(dq), dsum, \
+        T, S, H, Dh, ld, causal, sm_scale);                                \
+    return (int)cudaGetLastError();                                        \
   }
-  DL4J_BY_DTYPE(DL4J_DKV)
-#undef DL4J_DKV
-#undef DL4J_DKV_NC
+  DL4J_BY_DTYPE(DL4J_DQ_WIDE)
+#undef DL4J_DQ_WIDE
+}
+
+// The wide dk/dv: dk, dv [B, S, H, Dh] (in the inputs' type) from q, do
+// [B, T, H, Dh], k, v [B, S, H, Dh], lse and dsum [B, H, T]; every row
+// stride ld.
+extern "C" int dl4j_flash_attn_bwd_dkv_wide(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const float* lse,
+                                            const float* dsum, void* dk,
+                                            void* dv, int B, int T, int S,
+                                            int H, int Dh, long long ld,
+                                            int causal, float sm_scale,
+                                            int dtype, void* stream) {
+  if (bad_shape(B, T, S, H, Dh)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = 2 * sizeof(float) * kWR * kWOut;
+  dim3 grid(B * H, (S + kWR - 1) / kWR, (Dh + kWOut - 1) / kWOut);
+#define DL4J_DKV_WIDE(TYPE)                                                \
+  {                                                                        \
+    auto kernel = flash_bwd_dkv_wide_kernel<TYPE>;                         \
+    cudaError_t e = allow_smem(kernel, smem, kWDkvStatic);                 \
+    if (e != cudaSuccess) return (int)e;                                   \
+    kernel<<<grid, kThreads, smem, st>>>(                                  \
+        static_cast<const TYPE*>(q), static_cast<const TYPE*>(k),          \
+        static_cast<const TYPE*>(v), static_cast<const TYPE*>(dout), lse,  \
+        dsum, static_cast<TYPE*>(dk), static_cast<TYPE*>(dv), T, S, H, Dh, \
+        ld, causal, sm_scale);                                             \
+    return (int)cudaGetLastError();                                        \
+  }
+  DL4J_BY_DTYPE(DL4J_DKV_WIDE)
+#undef DL4J_DKV_WIDE
 }

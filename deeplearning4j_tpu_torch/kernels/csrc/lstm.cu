@@ -48,7 +48,11 @@
 // TPU grid's sequential time axis becomes a loop in the block), one block
 // per batch row, so a sequence is one launch and the carries never leave
 // shared memory. The forward's threads own gate columns (neighbouring
-// threads read neighbouring columns of a row of W); the adjoint's product
+// threads read neighbouring columns of a row of W); it stages x_t in
+// shared memory whole where it fits beside h, c and the gates, and in
+// chunks where it does not, so it takes any input width (the TPU kernel
+// gives way to the layer's scan past its VMEM rule; this one needs only
+// the 6H floats of a row's state to fit a block). The adjoint's product
 // with W^T reads W by rows, so a warp takes one row at a time, its lanes
 // over the 4H columns (coalesced), with a shuffle reduction. The TPU kernel
 // accumulates dW in VMEM across its grid; dW (0.9-1.3 MB) does not fit a
@@ -99,6 +103,14 @@ __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
+// Dynamic shared memory a block may use on Hopper (232,448 bytes), in floats.
+constexpr int kMaxSharedFloats = 227 * 1024 / 4;
+
+// One block per batch row walks t = 0 .. T-1. x_t is staged through shared
+// memory in chunks of FC features: all of it in one chunk wherever
+// (F + 6H) floats fit a block (every layer the TPU kernel's VMEM rule
+// takes), else in chunks of what is left beside h, the gates and c, so a
+// layer of any input width (a word-level one-hot vocabulary) runs here.
 template <bool kSave>
 __global__ void lstm_seq_fwd_kernel(const float* __restrict__ x,
                                     const float* __restrict__ W,
@@ -114,12 +126,13 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ x,
                                     float* __restrict__ ff,
                                     float* __restrict__ oo,
                                     float* __restrict__ gg,
-                                    int T, int B, int F, int H, float offs) {
+                                    int T, int B, int F, int H, int FC,
+                                    float offs) {
   extern __shared__ float smem[];
-  const int K = F + H;
   const int G = 4 * H;
-  float* z = smem;          // [K]: x_t in [0, F), h in [F, F + H)
-  float* gates = z + K;     // [4H] pre-activations
+  float* xs = smem;         // [FC]: features [f0, f0 + FC) of x_t
+  float* h = xs + FC;       // [H], right after x_t when FC = F
+  float* gates = h + H;     // [4H] pre-activations
   float* c = gates + G;     // [H] cell state
 
   const int row = blockIdx.x;
@@ -127,21 +140,42 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ x,
   const int nt = blockDim.x;
 
   for (int j = tid; j < H; j += nt) {
-    z[F + j] = h0[(size_t)row * H + j];
+    h[j] = h0[(size_t)row * H + j];
     c[j] = c0[(size_t)row * H + j];
   }
 
   for (int t = 0; t < T; ++t) {
     const float* xt = x + ((size_t)t * B + row) * F;
-    for (int k = tid; k < F; k += nt) z[k] = xt[k];
-    __syncthreads();
-
-    for (int col = tid; col < G; col += nt) {
-      const float* wc = W + col;
-      float acc = b[col];
+    if (FC >= F) {   // x_t whole: [x_t | h] is contiguous, one loop over it
+      for (int k = tid; k < F; k += nt) xs[k] = xt[k];
+      __syncthreads();
+      for (int col = tid; col < G; col += nt) {
+        const float* wc = W + col;
+        float acc = b[col];
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) acc = fmaf(z[k], wc[(size_t)k * G], acc);
-      gates[col] = acc;
+        for (int k = 0; k < F + H; ++k)
+          acc = fmaf(xs[k], wc[(size_t)k * G], acc);
+        gates[col] = acc;
+      }
+    } else {   // x_t in chunks, then h after the last
+      for (int f0 = 0; f0 < F; f0 += FC) {
+        const int n = min(FC, F - f0);
+        if (f0 > 0) __syncthreads();   // every thread is done with the chunk
+        for (int k = tid; k < n; k += nt) xs[k] = xt[f0 + k];
+        __syncthreads();
+        for (int col = tid; col < G; col += nt) {
+          const float* wc = W + (size_t)f0 * G + col;
+          float acc = f0 == 0 ? b[col] : gates[col];
+          for (int k = 0; k < n; ++k)
+            acc = fmaf(xs[k], wc[(size_t)k * G], acc);
+          if (f0 + FC >= F) {
+            const float* wh = W + (size_t)F * G + col;
+            for (int j = 0; j < H; ++j)
+              acc = fmaf(h[j], wh[(size_t)j * G], acc);
+          }
+          gates[col] = acc;   // a thread reads back only its own columns
+        }
+      }
     }
     __syncthreads();
 
@@ -153,10 +187,10 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ x,
       const float g = tanhf(gates[3 * H + j]);
       const float cn = f * cp + i * g;
       const float o = sigmoid_f32(gates[2 * H + j] + cn * peep[2 * H + j]);
-      const float h = o * tanhf(cn);
+      const float hn = o * tanhf(cn);
       c[j] = cn;
-      z[F + j] = h;
-      hs[base + j] = h;
+      h[j] = hn;
+      hs[base + j] = hn;
       if (kSave) {
         cs[base + j] = cn;
         ii[base + j] = i;
@@ -169,7 +203,7 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ x,
   }
 
   for (int j = tid; j < H; j += nt) {
-    hT[(size_t)row * H + j] = z[F + j];
+    hT[(size_t)row * H + j] = h[j];
     cT[(size_t)row * H + j] = c[j];
   }
 }
@@ -182,7 +216,9 @@ int launch_fwd(const float* x, const float* W, const float* b,
                float offs, void* stream) {
   int threads = (4 * H + 31) / 32 * 32;  // one thread per gate column
   if (threads > 1024) threads = 1024;    // wider layers stride over columns
-  const size_t smem = (size_t)(F + 6 * H) * sizeof(float);
+  const int FC = min(F, kMaxSharedFloats - 6 * H);   // x_t chunk
+  if (FC < 1 && F > 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(FC + 6 * H) * sizeof(float);
   auto kernel = &lstm_seq_fwd_kernel<kSave>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -190,7 +226,7 @@ int launch_fwd(const float* x, const float* W, const float* b,
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      x, W, b, peep, h0, c0, hs, hT, cT, cs, ii, ff, oo, gg, T, B, F, H,
+      x, W, b, peep, h0, c0, hs, hT, cT, cs, ii, ff, oo, gg, T, B, F, H, FC,
       offs);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@ __all__ = ["fused_lstm_sequence", "lstm_sequence", "lstm_residual_forward",
            "lstm_adjoint_reference", "lstm_param_grads_reference",
            "lstm_sequence_backward_reference", "launches",
            "residual_launches", "adjoint_launches", "reduction_launches",
-           "reset_launches", "launch_counts", "MAX_SHARED_BYTES"]
+           "reset_launches", "launch_counts", "lstm_x_chunk",
+           "MAX_SHARED_BYTES"]
 
 # dynamic shared memory a block may use on Hopper (232,448 bytes)
 MAX_SHARED_BYTES = 227 * 1024
@@ -216,15 +217,25 @@ def _launch(name: str, counter: str, device, *args):
     _count(counter)
 
 
+def lstm_x_chunk(n_in: int, n_out: int) -> int:
+    """Input features the forward kernel stages in shared memory at once:
+    all of x_t where (F + 6 H) * 4 bytes fit a block's MAX_SHARED_BYTES,
+    else chunks of what is left beside the 6 H floats of h, c and the
+    gates. Below 1 (n_out above 9,685) no chunk fits: a CUDA tensor
+    raises."""
+    return min(n_in, MAX_SHARED_BYTES // 4 - 6 * n_out)
+
+
 def _check(x, W, b, peep, h0, c0):
     tensors = {"x": x, "W": W, "b": b, "peep": peep, "h0": h0, "c0": c0}
     if x.dim() != 3:
         raise ValueError(f"x must be [T, B, F], got shape {tuple(x.shape)}")
     T, B, F = x.shape
     H = h0.shape[-1] if h0.dim() == 2 else -1
-    if (F + 6 * H) * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"F={F}, H={H} needs {(F + 6 * H) * 4} bytes of "
-                         f"shared memory; a block has {MAX_SHARED_BYTES}")
+    if x.device.type == "cuda" and F > 0 and lstm_x_chunk(F, H) < 1:
+        raise ValueError(f"H={H} needs {6 * H * 4} bytes of shared memory "
+                         f"and a chunk of x; a block has {MAX_SHARED_BYTES} "
+                         "(the plain version on the CPU has no such limit)")
     want = {"W": (F + H, 4 * H), "b": (4 * H,), "peep": (3 * H,),
             "h0": (B, H), "c0": (B, H)}
     for name, shape in want.items():

@@ -16,8 +16,10 @@ the layer calls `kernels.lstm.lstm_sequence`, the autograd Function whose
 forward saves residuals and whose backward runs the adjoint and reduction
 kernels; otherwise (serving, `rnn_time_step`, scoring) it calls the primal
 `fused_lstm_sequence`. On a CPU tensor both run their plain versions. The
-TPU's VMEM size rule is not copied: the CUDA kernels read W from global
-memory and have no such limit.
+JAX layer also takes its scan on the TPU where `lstm_fits_vmem` says its
+kernel does not fit; the port has no such rule: the forward kernel streams
+x_t through shared memory in chunks, so a layer of any input width (a
+word-level one-hot vocabulary) runs the kernels on a GPU tensor.
 
 Carry protocol (stateful `rnn_time_step`): `init_carry(batch, dtype,
 device)` and `apply(..., carry=..., return_carry=True)`.

@@ -117,7 +117,11 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(bad):
     elif bad == "kv_shape":
         v = v[:, :-1].contiguous()
     elif bad == "head_dim":
-        q = k = v = torch.zeros((1, 2, 1, attention.MAX_HEAD_DIM + 1))
+        # no head-dimension cap: Dh = 257 answers as the plain version does
+        q = k = v = torch.ones((1, 2, 1, attention.TILED_HEAD_DIM + 1))
+        out = attention.flash_attention_heads(q, k, v, True)
+        assert out.shape == q.shape and torch.equal(out, q)
+        return
     elif bad == "empty":
         k, v = k[:, :0], v[:, :0]
     elif bad == "non_contiguous":

@@ -1,12 +1,14 @@
 """PyTorch port, attention at wide heads and in bf16: the port's plain
 versions of the forward (primal and with the logsumexp) and of the dq and
 dk/dv kernels against the JAX package's Pallas kernels in interpret mode
-(`_flash_fwd_impl`, `_flash_bwd_impl`) at head dimensions 160 and 256, in
-float32 and bfloat16, on the same numpy inputs; and the wrapper's
-dtype contract (o, dq, dk, dv in q's dtype; L and D float32).
+(`_flash_fwd_impl`, `_flash_bwd_impl`) at head dimensions 160 and 256,
+and past the tiled kernels' 256 at 257, 320 and 512 (the CUDA "wide"
+kernels' range, which no cap refuses), in float32 and bfloat16, on the same
+numpy inputs; and the wrapper's dtype contract (o, dq, dk, dv in q's
+dtype; L and D float32).
 
 Tolerances: float32 1e-5 absolute (softmax over at most 24 keys of O(1)
-logits, sums of up to 256 products in another order than the TPU kernel's
+logits, sums of up to 512 products in another order than the TPU kernel's
 blocks); bfloat16 2e-2 absolute, PR 5's bf16 limit (both sides compute in
 float32 from the same bf16 inputs and round the outputs to bf16, whose
 spacing is 2^-8 relative, so a value on a rounding boundary lands one ulp
@@ -58,7 +60,7 @@ def _close(got, want, tol, name):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Dh", [160, 256])
+@pytest.mark.parametrize("Dh", [160, 256, 257, 320, 512])
 @pytest.mark.parametrize("T,S,causal", CASES)
 def test_forward_matches_jax_pallas_kernel(T, S, causal, Dh, dtype):
     q, k, v, _ = _arrays(T, S, Dh, dtype, seed=T + S + Dh)
@@ -78,7 +80,7 @@ def test_forward_matches_jax_pallas_kernel(T, S, causal, Dh, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Dh", [160, 256])
+@pytest.mark.parametrize("Dh", [160, 256, 257, 320, 512])
 @pytest.mark.parametrize("T,S,causal", CASES)
 def test_backward_matches_jax_pallas_kernels(T, S, causal, Dh, dtype):
     """The same q, k, v, o, logsumexp and cotangent into both backwards."""

@@ -49,7 +49,8 @@ def _lstm_args(T, B, F, H, device, seed=0):
 
 @pytest.mark.parametrize("T,B,F,H", [
     (64, 32, 77, 200), (64, 8, 200, 200), (1, 1, 77, 200),   # char-RNN
-    (7, 3, 5, 6), (5, 2, 33, 300), (3, 2, 1000, 257)])       # ragged, wide
+    (7, 3, 5, 6), (5, 2, 33, 300), (3, 2, 1000, 257),        # ragged, wide
+    (2, 3, 58200, 2), (2, 2, 120000, 40)])   # x_t in two and three chunks
 def test_lstm_kernel_matches_plain(cuda, T, B, F, H):
     args = _lstm_args(T, B, F, H, cuda)
     before = lstm.launches
@@ -123,14 +124,37 @@ def test_attention_kernel_refuses_what_it_cannot_take(cuda):
         attention.flash_attention_heads(q.bfloat16(), k, v)
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         attention.flash_attention_heads(q.double(), k.double(), v.double())
-    wide = torch.zeros((1, 4, 1, attention.MAX_HEAD_DIM + 1), device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP C1"):
-        attention.flash_attention_heads(wide, wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention_heads(
             q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="on cpu"):
         attention.flash_attention_heads(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_257_runs_the_wide_kernels(cuda, dtype):
+    """No head-dimension cap: Dh = 257 takes the wide forward and backward
+    (one launch each) and matches the plain version within the limits of
+    test_attention_kernels_take_dtypes_and_wide_heads."""
+    q, k, v = (t.to(dtype) for t in _qkv(2, 40, 40, 1, 257, cuda, seed=3))
+    do = _qkv(2, 40, 40, 1, 257, cuda, seed=4)[0].to(dtype)
+    attention.reset_launches()
+    out = attention.flash_attention_heads(q, k, v, True)
+    o, lse = attention.flash_attention_fwd_lse_heads(q, k, v, True)
+    dq, dk, dv = attention.flash_attention_bwd_heads(q, k, v, o, lse, do,
+                                                     True)
+    torch.cuda.synchronize()
+    assert attention.variant_counts() == {
+        "fwd": {"tiled": 0, "wide": 1}, "lse": {"tiled": 0, "wide": 1},
+        "dq": {"simt": 0, "wgmma": 0, "wide": 1},
+        "dkv": {"simt": 0, "wgmma": 0, "wide": 1}}
+    want_o, want_lse = attention.attention_reference_heads_lse(q, k, v, True)
+    want = attention.attention_bwd_reference_heads(q, k, v, o, lse, do, True)
+    for name, g, w in (("o", out, want_o), ("o (lse)", o, want_o),
+                       ("L", lse, want_lse), ("dq", dq, want[0]),
+                       ("dk", dk, want[1]), ("dv", dv, want[2])):
+        ok, err = _close(g, w, g.dtype, ATTN_GRAD_TOL)
+        assert ok and g.dtype == w.dtype, f"{name}: max abs err {err}"
 
 
 def _lm(device, width=384, heads=6, blocks=6, t=256, vocab=65, seed=1,
@@ -210,7 +234,8 @@ def _cotangents(T, B, H, device, seed):
 @pytest.mark.parametrize("T,B,F,H", [
     (64, 64, 77, 200), (64, 64, 200, 200),      # the char-RNN's training
     (1, 64, 77, 200), (64, 1, 200, 200),        # one step, one row
-    (9, 3, 5, 37)])                             # a column tail
+    (9, 3, 5, 37),                              # a column tail
+    (2, 3, 58200, 2)])                          # x_t in two chunks
 def test_lstm_residual_forward_matches_plain(cuda, T, B, F, H):
     args = _lstm_args(T, B, F, H, cuda, seed=T + B + F)
     before = lstm.launch_counts()
@@ -231,7 +256,8 @@ def test_lstm_residual_forward_matches_plain(cuda, T, B, F, H):
 
 @pytest.mark.parametrize("T,B,F,H,need_dx", [
     (64, 64, 77, 200, False), (64, 64, 200, 200, True),
-    (1, 64, 77, 200, True), (64, 1, 200, 200, True), (9, 3, 5, 37, True)])
+    (1, 64, 77, 200, True), (64, 1, 200, 200, True), (9, 3, 5, 37, True),
+    (2, 3, 58200, 2, True)])                    # past one chunk of x_t
 def test_lstm_backward_kernels_match_plain(cuda, T, B, F, H, need_dx):
     args = _lstm_args(T, B, F, H, cuda, seed=T * B + F)
     x, W, b, peep, h0, c0 = args
@@ -611,7 +637,15 @@ TYPED_CASES = [
     (torch.float32, 2, 100, 100, 2, 160, True),    # wide heads
     (torch.float32, 2, 70, 50, 2, 256, False),
     (torch.bfloat16, 2, 100, 100, 2, 256, True),
-    (torch.float16, 2, 70, 70, 2, 160, True)]
+    (torch.float16, 2, 70, 70, 2, 160, True),
+    (torch.bfloat16, 2, 70, 70, 4, 16, True),      # wgmma head sizes
+    (torch.float16, 2, 70, 50, 2, 128, False),
+    (torch.float32, 2, 24, 24, 2, 257, True),      # the wide kernels
+    (torch.bfloat16, 2, 20, 13, 2, 320, False),
+    (torch.float32, 2, 70, 70, 2, 512, True),
+    (torch.bfloat16, 2, 64, 64, 2, 512, True),
+    (torch.float32, 16384, 8, 8, 4, 16, True),     # B * H = 65,536
+    (torch.bfloat16, 16384, 8, 8, 4, 16, True)]
 
 
 @pytest.mark.parametrize("dtype,B,T,S,H,Dh,causal", TYPED_CASES)
@@ -647,6 +681,82 @@ def test_attention_kernels_take_dtypes_and_wide_heads(cuda, dtype, B, T, S,
         assert g.shape == w.shape and g.dtype == w.dtype, name
         ok, err = _close(g, w, g.dtype, tol)
         assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype,Dh,variant", [
+    (torch.float32, 64, "simt"), (torch.bfloat16, 64, "wgmma"),
+    (torch.float16, 128, "wgmma"), (torch.bfloat16, 10, "simt"),
+    (torch.float32, 320, "wide")])
+def test_attention_backward_variants_are_bit_equal_run_to_run(cuda, dtype,
+                                                               Dh, variant):
+    q, k, v, do = (t.to(dtype) for t in _qkv(4, 200, 200, 2, Dh, cuda,
+                                             seed=21) +
+                   _qkv(4, 200, 200, 2, Dh, cuda, seed=22)[:1])
+    o, lse = attention.attention_reference_heads_lse(q, k, v, True)
+    attention.reset_launches()
+    first = attention.flash_attention_bwd_heads(q, k, v, o, lse, do, True)
+    again = attention.flash_attention_bwd_heads(q, k, v, o, lse, do, True)
+    assert attention.variant_counts()["dq"][variant] == 2
+    assert attention.variant_counts()["dkv"][variant] == 2
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compute,variant", [(None, "simt"),
+                                             ("bfloat16", "wgmma")])
+def test_lm_step_launches_one_backward_variant(cuda, compute, variant):
+    """One training step of a 2-block LM (Dh 64): the f32 network's
+    backward runs only the simt kernels, the bf16 network's only wgmma."""
+    net = _lm(cuda, blocks=2, seed=7, compute_dtype=compute)
+    r = np.random.default_rng(7)
+    idx = r.integers(0, 65, (2, 257))
+    attention.reset_launches()
+    net.fit(idx[:, :-1, None].astype(np.float32),
+            np.eye(65, dtype=np.float32)[idx[:, 1:]])
+    torch.cuda.synchronize()
+    counts = attention.variant_counts()
+    for kind in ("dq", "dkv"):
+        assert counts[kind] == {n: 2 if n == variant else 0
+                                for n in ("simt", "wgmma", "wide")}
+    assert counts["lse"] == {"tiled": 2, "wide": 0}
+    assert np.isfinite(net.score())
+
+
+def test_wide_graves_lstm_runs_the_kernels_and_matches_the_cpu(cuda,
+                                                                tmp_path):
+    """A GravesLSTM past one shared-memory chunk of x_t (n_in 58,200): on
+    the card its forward and training steps launch the sequence kernels,
+    x_t streamed in chunks, and answer as the CPU does."""
+    vocab, hidden = 58200, 2
+    conf = (pt.NeuralNetConfiguration.builder().seed(5).list()
+            .layer(pt.GravesLSTM(n_out=hidden))
+            .layer(pt.RnnOutputLayer(n_out=3, activation="softmax"))
+            .set_input_type(pt.InputType.recurrent(vocab, 2)).build())
+    cpu = pt.MultiLayerNetwork(conf, device="cpu").init()
+    path = str(tmp_path / "wide.zip")
+    pt.ModelSerializer.write_model(cpu, path)
+    nets = [pt.ModelSerializer.restore(path, device=cuda), cpu]
+    assert lstm.lstm_x_chunk(vocab, hidden) < vocab
+    r = np.random.default_rng(5)
+    x = np.eye(vocab, dtype=np.float32)[r.integers(0, vocab, (3, 2))]
+    y = np.eye(3, dtype=np.float32)[r.integers(0, 3, (3, 2))]
+    lstm.reset_launches()
+    got = nets[0].output(x)
+    torch.cuda.synchronize()
+    assert lstm.launch_counts()["launches"] == 1
+    want = nets[1].output(x)
+    assert (got.cpu() - want).abs().max().item() <= TOL
+    lstm.reset_launches()
+    for net in nets:
+        net.fit(x, y)
+    torch.cuda.synchronize()
+    assert lstm.launch_counts() == {"launches": 0, "residual_launches": 1,
+                                    "adjoint_launches": 1,
+                                    "reduction_launches": 1}
+    for name in ("W", "b", "peep"):
+        err = (nets[0].params[0][name].detach().cpu()
+               - nets[1].params[0][name].detach()).abs().max().item()
+        assert err <= TOL, f"{name} after one step: max abs err {err}"
 
 
 def test_attention_forward_is_bit_equal_run_to_run(cuda):
