@@ -11,10 +11,13 @@ Phases:
      at the shapes the main paths give it (and ragged and other head-size
      cases for attention and its backward: every backward variant, simt,
      wgmma and wide, at head dimensions 10 to 512, in f32 / bf16 / f16, at
-     B * H = 65,536, each variant also rerun bit-equal; one step, one row
-     and a column tail for the LSTM training kernels; N in {128, 4096,
-     4097} x C in {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for
-     the BN+ReLU forward and backward);
+     B * H = 65,536, each variant also rerun bit-equal; the LSTM sequence
+     kernels in both variants, "cluster" at the char-RNN's buckets 1, 8 and
+     32 and training batch 64, one step, one row and a column tail, dx
+     asked and not, "streamed" at H = 512 and at a 58,200-wide one-hot
+     input, each variant rerun bit-equal; N in {128, 4096, 4097} x C in
+     {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for the BN+ReLU
+     forward and backward);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -27,19 +30,23 @@ Phases:
   6. main path 3: train the full-width char-RNN (BASELINE config 3's
      training bench: vocab 77, 2 x GravesLSTM(200), Adam 2e-3, batch 64,
      sequence 128, TBPTT 64) for 20 optimizer steps with `fit` over an
-     ArrayDataSetIterator of the repository's README.md, from a zip of
-     seeded random weights; the same zip and batches on the CPU; per-step
-     scores, first-step gradients and final parameters compared; the zip
-     with its updater state restored on both devices for one more step;
+     ArrayDataSetIterator of the training text (chip_smoke_text.txt), from
+     a zip of seeded random weights; the same zip and batches on the CPU;
+     per-step scores, first-step gradients and final parameters compared;
+     the zip with its updater state restored on both devices for one more
+     step; then a word-level GravesLSTM(200) on a one-hot vocabulary of
+     58,200 (the LSTM kernels' streamed variant) from one zip: one forward
+     and one training step on the card and the CPU;
   7. main path 4: train the transformer LM of phase 5 (nanoGPT's
      shakespeare-char widths, Adam 1e-3 with beta2 0.99, dropout 0) for 20
      optimizer steps at batch 64 x 256 with `fit` over an
-     ArrayDataSetIterator of overlapping windows of README.md, from a zip
-     of seeded random weights; first-step gradients at batch 64 and a
-     20-step trajectory at batch 16 held against the same zip and batches
-     on the CPU, and the same trajectory with nanoGPT's lr warm-up; the
-     trained zip with its updater state restored on both devices for one
-     more step, then registered and served at bucket 32 against the CPU;
+     ArrayDataSetIterator of overlapping windows of the training text,
+     from a zip of seeded random weights; first-step gradients at batch 64
+     and a 20-step trajectory at batch 16 held against the same zip and
+     batches on the CPU, and the same trajectory with nanoGPT's lr warm-up;
+     the trained zip with its updater state restored on both devices for
+     one more step, then registered and served at bucket 32 against the
+     CPU;
   8. main path 5: train the repository's `mlp_mnist` (784 -> 1024 -> 1024
      -> 10, Adam 1e-3) with a BatchNormalization(relu) after each hidden
      Dense(identity) layer, in bf16 compute (`compute_dtype("bfloat16")`,
@@ -64,7 +71,8 @@ Phases:
      1024, 2 heads), one step and one forward each in float32 and in bf16,
      against the CPU;
  10. times: each kernel, its plain version, the PyTorch library call where
-     there is one, and its bound (also in bf16 and at Dh = 256 and 512 for
+     there is one, and its bound (the LSTM sequence kernels also per step,
+     in both variants; also in bf16 and at Dh = 256 and 512 for
      the attention kernels, per call and on the device, SDPA's backward
      beside dq and dk/dv, and
      the LSTM reduction's whole function in PyTorch calls beside
@@ -78,7 +86,9 @@ Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
 (phases 3-4), six primal attention launches per LM forward (phase 5), two
 residual-forward, two adjoint and two reduction launches per char-RNN
-training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
+training step (phase 6), the LSTM sequence kernels all of the "cluster"
+variant (phases 3, 4 and 6), one of each "streamed" for the word-level
+layer's forward and training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
 launches per LM training step, the backward all of the "simt" variant
 (phase 7), and one BN+ReLU forward and one backward launch per BN layer
 and bf16 training step (phase 8: 40 and 40 over 20 steps, none in
@@ -112,6 +122,13 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 / fp16 tensor cores, dense
 # char-RNN (BASELINE config 3)
 SEQ, VOCAB, HIDDEN = 64, 77, 200
 LSTM_TOL = 5e-5     # f32 sums of up to 400 terms in another order, x 64 steps
+# a word-level GravesLSTM(200) on a one-hot vocabulary of 58,200 (the
+# wide layer the card tests hold): a cluster CTA's 7,275 input rows of W do
+# not fit its shared memory, so its kernels take the "streamed" variant
+WORD_VOCAB, WORD_CLASSES, WORD_T, WORD_B = 58200, 16, 8, 4
+# shapes that take the LSTM kernels' "streamed" variant: a layer of 512
+# units, and the word-level layer
+STREAMED_SHAPES = [(SEQ, 4, VOCAB, 512), (WORD_T, WORD_B, WORD_VOCAB, HIDDEN)]
 ALPHABET = string.ascii_letters + string.digits + " .,;:!?'\"-()&/\n"
 
 # char-RNN training (deeplearning4j_tpu/models/zoo.py:bench_char_rnn)
@@ -299,10 +316,16 @@ def rel_err(got, want):
 
 
 def text_windows(root, alphabet, n, length):
-    """The repository's README.md as ids of `alphabet` (anything else
-    becomes a space), cut into `n` evenly spaced windows of `length`
-    characters (overlapping where the text is shorter than n * length)."""
-    with open(os.path.join(root, "README.md"), encoding="utf-8") as fh:
+    """The training text of phases 6, 7 and 9 as ids of `alphabet`
+    (anything else becomes a space), cut into `n` evenly spaced windows of
+    `length` characters (overlapping where the text is shorter than n *
+    length). The text is the repository's README.md as it stood before the
+    port's eighth slice, kept in chip_smoke_text.txt: the LM's no-warm-up
+    trajectory amplifies f32 rounding through its loss spikes by an amount
+    that depends on the text, so an edit of the README must not move these
+    runs."""
+    with open(os.path.join(root, "chip_smoke_text.txt"),
+              encoding="utf-8") as fh:
         text = fh.read()
     index = {c: i for i, c in enumerate(alphabet)}
     ids = np.array([index.get(c, index[" "]) for c in text])
@@ -847,62 +870,128 @@ def main():
     print(f"kernel build: {kernels.build_seconds:.3f} s (nvcc, sm_90a)")
 
     # ---- 2. kernels vs plain on the card --------------------------------
-    lstm_err = 0.0
+    # the LSTM sequence kernels: each shape takes the variant its plan
+    # picks (lstm.sequence_plan): "cluster" at the char-RNN's widths,
+    # "streamed" past a cluster CTA's shared memory (H = 512, or a
+    # 58,200-wide one-hot input)
+    def variant_launched(kind, B, F, H, before):
+        want = lstm.sequence_variant(B, F, H)
+        after = lstm.variant_counts()[kind]
+        check(after[want] == before[kind][want] + 1
+              and sum(after.values()) == sum(before[kind].values()) + 1,
+              f"LSTM {kind} B={B} F={F} H={H}: launched {after} after "
+              f"{before[kind]}, want one {want} launch")
+        return want
+
+    lstm_err = {"cluster": 0.0, "streamed": 0.0}
     shapes = [(SEQ, b, f, HIDDEN) for b in BUCKETS for f in (VOCAB, HIDDEN)]
     shapes += [(1, 1, f, HIDDEN) for f in (VOCAB, HIDDEN)]
+    shapes += STREAMED_SHAPES
     for T, B, F, H in shapes:
         args = lstm_inputs(torch, T, B, F, H, seed=T * 1000 + B * 10 + F)
+        before = lstm.variant_counts()
         got = lstm.fused_lstm_sequence(*args, 1.0)
         want = lstm.lstm_sequence_reference(*args, 1.0)
         torch.cuda.synchronize()
+        variant = variant_launched("fwd", B, F, H, before)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        check(err <= LSTM_TOL, f"LSTM kernel T={T} B={B} F={F} H={H}: "
-              f"max abs err {err} > {LSTM_TOL}")
-        lstm_err = max(lstm_err, err)
+        check(err <= LSTM_TOL, f"LSTM kernel ({variant}) T={T} B={B} F={F} "
+              f"H={H}: max abs err {err} > {LSTM_TOL}")
+        lstm_err[variant] = max(lstm_err[variant], err)
     print(f"LSTM kernel vs plain: {len(shapes)} shapes, max abs err "
-          f"{lstm_err:.3e} (limit {LSTM_TOL})")
+          f"{lstm_err} (limit {LSTM_TOL})")
 
     # the training kernels: residual forward, adjoint, reduction
-    res_err = adj_err = red_err = adj_rel = red_rel = 0.0
+    res_err = {"cluster": 0.0, "streamed": 0.0}
+    adj_err = {"cluster": [0.0, 0.0], "streamed": [0.0, 0.0]}
+    red_err = red_rel = 0.0
     train_shapes = [(TRAIN_TBPTT, TRAIN_B, f, HIDDEN) for f in (VOCAB, HIDDEN)]
+    train_shapes += [(SEQ, b, f, HIDDEN)                    # the buckets
+                     for b, f in ((1, VOCAB), (8, HIDDEN), (32, VOCAB))]
     train_shapes += [(1, TRAIN_B, VOCAB, HIDDEN),          # one step
                      (TRAIN_TBPTT, 1, HIDDEN, HIDDEN),     # one row
                      (9, 3, 5, 37)]                        # a column tail
+    train_shapes += STREAMED_SHAPES
     for T, B, F, H in train_shapes:
         args = lstm_inputs(torch, T, B, F, H, seed=T * 7 + B * 3 + F)
         x, W, b, peep, h0, c0 = args
+        before = lstm.variant_counts()
         got = lstm.lstm_residual_forward(*args, 1.0)
         ref = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
         torch.cuda.synchronize()
+        variant = variant_launched("residual", B, F, H, before)
         err = max((g - w).abs().max().item() for g, w in zip(
             got, (ref[0], ref[0][-1], ref[1][-1]) + ref[1:]))
-        check(err <= LSTM_TOL, f"LSTM residual forward T={T} B={B} F={F} "
-              f"H={H}: max abs err {err} > {LSTM_TOL}")
-        res_err = max(res_err, err)
+        check(err <= LSTM_TOL, f"LSTM residual forward ({variant}) T={T} "
+              f"B={B} F={F} H={H}: max abs err {err} > {LSTM_TOL}")
+        res_err[variant] = max(res_err[variant], err)
         dhs, dhT, dcT = cotangents(torch, T, B, H, seed=F + H + T)
         want = lstm.lstm_sequence_backward_reference(
             x, W, peep, h0, c0, *ref, dhs, dhT, dcT)
-        for need_dx in ((False, True) if F == VOCAB else (True,)):
+        for need_dx in (False, True):
+            before = lstm.variant_counts()
             got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, *ref, dhs,
                                               dhT, dcT, need_dx=need_dx)
             torch.cuda.synchronize()
+            variant_launched("adjoint", B, F, H, before)
             check((got[0] is None) == (not need_dx), "dx returned unasked")
             for name, g, w in zip(GRADS, got, want):
                 if g is None:
                     continue
                 rel = rel_err(g, w)
-                check(rel <= BWD_TOL, f"LSTM backward {name} T={T} B={B} "
-                      f"F={F} H={H}: max err / max |ref| {rel} > {BWD_TOL}")
+                check(rel <= BWD_TOL, f"LSTM backward ({variant}) {name} "
+                      f"T={T} B={B} F={F} H={H} dx={need_dx}: max err / max "
+                      f"|ref| {rel} > {BWD_TOL}")
                 err = (g - w).abs().max().item()
                 if name in ("dx", "dh0", "dc0"):
-                    adj_err, adj_rel = max(adj_err, err), max(adj_rel, rel)
+                    e = adj_err[variant]
+                    e[0], e[1] = max(e[0], err), max(e[1], rel)
                 else:
                     red_err, red_rel = max(red_err, err), max(red_rel, rel)
-    print(f"LSTM training kernels vs plain: {len(train_shapes)} shapes; "
-          f"residual forward max abs err {res_err:.3e} (limit {LSTM_TOL}); "
-          f"adjoint (dx, dh0, dc0) max abs err {adj_err:.3e}, over max "
-          f"|ref| {adj_rel:.3e}; reduction (dW, db, dpeep) max abs err "
+    print(f"LSTM training kernels vs plain: {len(train_shapes)} shapes, dx "
+          f"asked and not; residual forward max abs err {res_err} (limit "
+          f"{LSTM_TOL}); adjoint (dx, dh0, dc0) [max abs err, over max "
+          f"|ref|] {adj_err}; reduction (dW, db, dpeep) max abs err "
           f"{red_err:.3e}, over max |ref| {red_rel:.3e} (limit {BWD_TOL})")
+
+    # each variant of the sequence kernels: the same bits run to run (a
+    # fixed summation order)
+    for T, B, F, H in ((SEQ, 32, HIDDEN, HIDDEN),
+                       (TRAIN_TBPTT, TRAIN_B, HIDDEN, HIDDEN),
+                       STREAMED_SHAPES[0]):
+        args = lstm_inputs(torch, T, B, F, H, seed=5)
+        x, W, b, peep, h0, c0 = args
+        dhs, dhT, dcT = cotangents(torch, T, B, H, seed=6)
+        runs = []
+        for _ in range(3):
+            res = lstm.lstm_residual_forward(*args, 1.0)
+            runs.append((lstm.fused_lstm_sequence(*args, 1.0), res,
+                         lstm.lstm_adjoint(W, peep, c0, *res[3:], dhs, dhT,
+                                           dcT, F)))
+        for what, i in (("forward", 0), ("residual forward", 1),
+                        ("adjoint", 2)):
+            check(all(torch.equal(p, q) for r in runs[1:]
+                      for p, q in zip(r[i], runs[0][i]) if p is not None),
+                  f"LSTM {what} ({lstm.sequence_variant(B, F, H)}, B={B} "
+                  f"F={F} H={H}) differs run to run")
+        print(f"LSTM {lstm.sequence_variant(B, F, H)} forward, residual "
+              f"forward and adjoint (T={T} B={B} F={F} H={H}): bit-equal "
+              "over 3 runs")
+    # the clusters of each char-RNN plan run side by side (one wave): the
+    # card holds at least plan.groups of them at once, in both kernels
+    max_active = kernels.library().dl4j_lstm_cluster_max_active
+    held = {}
+    for B in BUCKETS + (TRAIN_B,):
+        for F in (VOCAB, HIDDEN):
+            plan = lstm.sequence_plan(B, F, HIDDEN)
+            held[(B, F)] = (plan.groups, min(
+                max_active(F, HIDDEN, plan.units, plan.x_rows, plan.group,
+                           adjoint) for adjoint in (0, 1)))
+            check(held[(B, F)][1] >= plan.groups, f"LSTM plan B={B} F={F}: "
+                  f"{plan.groups} clusters, the card holds "
+                  f"{held[(B, F)][1]} at once")
+    print("LSTM cluster plans, (B, F): (clusters, the card holds at once): "
+          f"{held}")
 
     attn_err = 0.0
     attn_shapes = [(b, LM_SEQ, LM_SEQ, LM_HEADS, LM_WIDTH // LM_HEADS, True)
@@ -1120,9 +1209,14 @@ def main():
     check(serve_launches == 2 * forwards,
           f"LSTM kernel launched {serve_launches} times for {forwards} "
           "forwards (want 2 per forward)")
+    check(lstm.variant_counts()["fwd"] == {"cluster": serve_launches,
+                                           "streamed": 0},
+          f"char-RNN serving LSTM variants {lstm.variant_counts()['fwd']} "
+          "(want cluster only)")
     print(f"char-RNN serving: {n_batched} batched requests in {flushes} "
           f"flushes + swap; {forwards} forwards, {serve_launches} LSTM "
-          f"kernel launches; max abs err vs CPU {serve_err:.3e}")
+          f"kernel launches {lstm.variant_counts()['fwd']}; max abs err vs "
+          f"CPU {serve_err:.3e}")
 
     # ---- 4. stateful sampling ------------------------------------------
     sampler = pt.ModelSerializer.restore(rnn_zips[0])
@@ -1149,12 +1243,16 @@ def main():
     check(sample_launches == 2 * len(steps),
           f"{sample_launches} launches for {len(steps)} rnn_time_step calls")
     lstm_launches = lstm.launches
+    check(lstm.variant_counts()["fwd"] == {"cluster": lstm_launches,
+                                           "streamed": 0},
+          f"char-RNN serving and sampling LSTM variants "
+          f"{lstm.variant_counts()['fwd']} (want cluster only)")
     check(attention.launches == 0,
           f"the char-RNN path launched attention {attention.launches} times")
     check_no_training_launches("char-RNN serving")
     print(f"sampling: {len(steps)} rnn_time_step calls, {sample_launches} "
-          f"LSTM kernel launches, max abs err vs CPU {sample_err:.3e}, "
-          f"text {text!r}")
+          f"LSTM kernel launches (cluster), max abs err vs CPU "
+          f"{sample_err:.3e}, text {text!r}")
 
     # ---- 5. main path 2: serve the transformer LM -----------------------
     lm_zips = []
@@ -1214,6 +1312,7 @@ def main():
     torch.cuda.synchronize()
     gpu_fit_s = time.perf_counter() - t0
     train_counts = lstm.launch_counts()
+    train_variants = lstm.variant_counts()
     steps = gpu_net.iteration_count
     check(steps == 2 * TRAIN_BATCHES, f"{steps} optimizer steps, want "
           f"{2 * TRAIN_BATCHES}")
@@ -1223,6 +1322,12 @@ def main():
           f"training launches {train_counts} for {steps} steps (want 2 "
           "residual forwards, 2 adjoints, 2 reductions and no primal "
           "forward per step)")
+    check(train_variants == {
+        "fwd": {"cluster": 0, "streamed": 0},
+        "residual": {"cluster": 2 * steps, "streamed": 0},
+        "adjoint": {"cluster": 2 * steps, "streamed": 0}},
+          f"char-RNN training LSTM variants {train_variants} (want cluster "
+          "only)")
     check(set(attention.launch_counts().values()) == {0},
           f"char-RNN training launched attention kernels: "
           f"{attention.launch_counts()}")
@@ -1278,6 +1383,59 @@ def main():
     print(f"zip with updater state -> restore on card and CPU -> one more "
           f"step: score err {resume_err:.3e}, parameters relative L2 "
           f"{resume_param_err:.3e}")
+
+    # the streamed variant on a path: the word-level GravesLSTM from one
+    # zip, one forward and one training step on the card and the CPU
+    check(lstm.sequence_variant(WORD_B, WORD_VOCAB, HIDDEN) == "streamed",
+          "the word-level layer does not take the streamed variant")
+    word_conf = (pt.NeuralNetConfiguration.builder().seed(5).list()
+                 .layer(pt.GravesLSTM(n_out=HIDDEN))
+                 .layer(pt.RnnOutputLayer(n_out=WORD_CLASSES,
+                                          activation="softmax"))
+                 .set_input_type(pt.InputType.recurrent(WORD_VOCAB, WORD_T))
+                 .build())
+    word_zip = os.path.join(tmp, "word_lstm.zip")
+    pt.ModelSerializer.write_model(
+        pt.MultiLayerNetwork(word_conf, device="cpu").init(), word_zip)
+    word_nets = [pt.ModelSerializer.restore(word_zip),
+                 pt.ModelSerializer.restore(word_zip, device="cpu")]
+    r = np.random.default_rng(7)
+    word_x = np.zeros((WORD_B, WORD_T, WORD_VOCAB), np.float32)
+    word_x[np.arange(WORD_B)[:, None], np.arange(WORD_T)[None],
+           r.integers(0, WORD_VOCAB, (WORD_B, WORD_T))] = 1.0
+    word_y = np.eye(WORD_CLASSES, dtype=np.float32)[
+        r.integers(0, WORD_CLASSES, (WORD_B, WORD_T))]
+    word_ds = pt.DataSet(word_x, word_y)
+    g_gpu, g_cpu = (first_chunk_grads(torch, n, word_ds, steps=None)
+                    for n in word_nets)
+    word_grad_err = max(rel_err(g_gpu[k], g_cpu[k]) for k in g_cpu)
+    reset_counts()
+    word_out = word_nets[0].output(word_x)
+    word_nets[0].fit(word_ds)
+    torch.cuda.synchronize()
+    word_counts, word_variants = lstm.launch_counts(), lstm.variant_counts()
+    check(word_counts == dict.fromkeys(word_counts, 1),
+          f"word-level LSTM launches {word_counts} (want one of each)")
+    check(all(v == {"cluster": 0, "streamed": 1}
+              for v in word_variants.values()),
+          f"word-level LSTM variants {word_variants} (want streamed only)")
+    word_out_err = (word_out.cpu() - word_nets[1].output(word_x)).abs().max(
+        ).item()
+    word_nets[1].fit(word_ds)
+    word_score_err = abs(word_nets[0].score() - word_nets[1].score())
+    word_param_err = param_rel_l2(*word_nets)
+    check(word_out_err <= SERVE_TOL and word_grad_err <= GRAD_TOL
+          and word_score_err <= SCORE_TOL and word_param_err <= PARAM_TOL,
+          f"word-level LSTM card vs CPU: output {word_out_err}, gradients "
+          f"{word_grad_err}, score {word_score_err}, parameters "
+          f"{word_param_err}")
+    print(f"word-level GravesLSTM (one-hot {WORD_VOCAB}, H {HIDDEN}, B "
+          f"{WORD_B}, T {WORD_T}): launches {word_counts}, variants "
+          f"{word_variants}; card vs CPU: output max abs err "
+          f"{word_out_err:.3e} (limit {SERVE_TOL}), gradients "
+          f"{word_grad_err:.3e} of max (limit {GRAD_TOL}), score after one "
+          f"step {word_score_err:.3e} (limit {SCORE_TOL}), parameters "
+          f"relative L2 {word_param_err:.3e} (limit {PARAM_TOL})")
 
     # ---- 7. main path 4: train the transformer LM ------------------------
     lm_x, lm_y = lm_text_batches(root)
@@ -1894,28 +2052,66 @@ def main():
               "card vs CPU beyond its limits")
 
     # ---- 10. times (counted launches end above) --------------------------
+    # the LSTM sequence kernels: per launch and per step (ms / T of one
+    # layer), the cluster variant at the char-RNN's shapes, the streamed one
+    # at the word-level layer's
     kernel_ms = plain_ms = bound_ms = 0.0
     bound_by = set()
+    fwd_per_step = {}
     for F in (VOCAB, HIDDEN):
         args = lstm_inputs(torch, SEQ, 32, F, HIDDEN, seed=F)
         k = cuda_ms(torch, lambda: lstm.fused_lstm_sequence(*args, 1.0))
         p = cuda_ms(torch, lambda: lstm.lstm_sequence_reference(*args, 1.0),
                     reps=5)
         b, by = lstm_bound_ms(SEQ, 32, F, HIDDEN)
-        print(f"{tag} LSTM layer B=32 T={SEQ} F={F} H={HIDDEN}: kernel "
-              f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.6f} ms ({by})")
+        print(f"{tag} LSTM layer ({lstm.sequence_variant(32, F, HIDDEN)}) "
+              f"B=32 T={SEQ} F={F} H={HIDDEN}: kernel {k:.4f} ms "
+              f"({1e3 * k / SEQ:.3f} us a step), plain {p:.4f} ms, bound "
+              f"{b:.6f} ms ({1e3 * b / SEQ:.4f} us a step, {by})")
         kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + p, bound_ms + b
         bound_by.add(by)
-    # the primal and residual forwards side by side at the serving and the
-    # training batch (per-step time of one block depends on both)
-    for B in (32, TRAIN_B):
+        fwd_per_step[f"F={F}"] = k / SEQ
+    # the primal and residual forwards side by side at each bucket and the
+    # training batch (the plan's rows a cluster grow with B)
+    for B in BUCKETS + (TRAIN_B,):
         for F in (VOCAB, HIDDEN):
             args = lstm_inputs(torch, SEQ, B, F, HIDDEN, seed=F)
             kp = cuda_ms(torch, lambda: lstm.fused_lstm_sequence(*args, 1.0))
             kr = cuda_ms(torch, lambda: lstm.lstm_residual_forward(*args,
                                                                    1.0))
-            print(f"{tag} LSTM forward B={B} T={SEQ} F={F} H={HIDDEN}: "
-                  f"primal {kp:.4f} ms, residual {kr:.4f} ms")
+            plan = lstm.sequence_plan(B, F, HIDDEN)
+            print(f"{tag} LSTM forward ({plan.variant}, {plan.group} rows x "
+                  f"{plan.groups} clusters) B={B} T={SEQ} F={F} H={HIDDEN}: "
+                  f"primal {kp:.4f} ms ({1e3 * kp / SEQ:.3f} us a step), "
+                  f"residual {kr:.4f} ms ({1e3 * kr / SEQ:.3f} us a step)")
+    # the streamed variant at the word-level layer (no dx: a one-hot input)
+    T, B, F, H = WORD_T, WORD_B, WORD_VOCAB, HIDDEN
+    args = lstm_inputs(torch, T, B, F, H, seed=9)
+    x, W, b, peep, h0, c0 = args
+    res = lstm.lstm_residual_forward(*args, 1.0)
+    ref = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+    dhs, dhT, dcT = cotangents(torch, T, B, H, seed=10)
+    streamed_times = {}
+    for kind, kern, plain, (bnd, by) in (
+            ("fwd", lambda: lstm.fused_lstm_sequence(*args, 1.0),
+             lambda: lstm.lstm_sequence_reference(*args, 1.0),
+             lstm_bound_ms(T, B, F, H)),
+            ("residual", lambda: lstm.lstm_residual_forward(*args, 1.0),
+             lambda: lstm.lstm_sequence_reference(*args, 1.0,
+                                                  save_residuals=True),
+             residual_forward_bound_ms(T, B, F, H)),
+            ("adjoint", lambda: lstm.lstm_adjoint(W, peep, c0, *res[3:], dhs,
+                                                  dhT, dcT, F, False),
+             lambda: lstm.lstm_adjoint_reference(W, peep, c0, *ref[1:], dhs,
+                                                 dhT, dcT, F),
+             adjoint_bound_ms(T, B, F, H, False))):
+        k, p = cuda_ms(torch, kern), cuda_ms(torch, plain, reps=5)
+        streamed_times[kind] = {"ms": k, "per_step_ms": k / T,
+                                "plain_ms": p, "bound_ms": bnd,
+                                "bound_by": by, "library_ms": None}
+        print(f"{tag} LSTM {kind} (streamed) B={B} T={T} F={F} H={H}: "
+              f"kernel {k:.4f} ms ({1e3 * k / T:.3f} us a step), plain "
+              f"{p:.4f} ms, bound {bnd:.6f} ms ({by})")
 
     Dh = LM_WIDTH // LM_HEADS
     q, k, v = attention_inputs(torch, 32, LM_SEQ, LM_SEQ, LM_HEADS, Dh, seed=3)
@@ -2008,7 +2204,7 @@ def main():
     # the training kernels per launch, at one TBPTT chunk of both layers
     T, B, H = TRAIN_TBPTT, TRAIN_B, HIDDEN
     train_times = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                          "library_ms": 0.0, "by": set()}
+                          "library_ms": 0.0, "by": set(), "per_step_ms": {}}
                    for name in ("residual", "adjoint", "reduction")}
     red_extra = {"device_ms": 0.0, "library_device_ms": 0.0,
                  "same_work_ms": 0.0, "same_work_device_ms": 0.0}
@@ -2071,10 +2267,12 @@ def main():
                     red_extra[key] += val
             print(f"{tag} LSTM {name} B={B} T={T} F={F} H={H}"
                   f"{'' if name != 'adjoint' else f' dx={need_dx}'}: kernel "
-                  f"{k:.4f} ms, plain {p:.4f} ms, "
+                  f"{k:.4f} ms ({1e3 * k / T:.3f} us a step), plain "
+                  f"{p:.4f} ms, "
                   + ("" if l is None else f"torch.matmul {l:.4f} ms, ")
                   + f"bound {bnd:.6f} ms ({by})")
             e = train_times[name]
+            e["per_step_ms"][f"F={F}"] = k / T
             e["ms"] += k
             e["plain_ms"] += p
             e["bound_ms"] += bnd
@@ -2391,14 +2589,27 @@ def main():
                 "same_work_device_ms": red_extra["same_work_device_ms"],
                 "same_work": "torch.cat of [x | h_{t-1}] + torch.matmul + "
                              "the db and dpeep sums"}
+    lstm_replaces = {
+        "fwd": "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via "
+               "_fwd_impl :121, fused_lstm_sequence :252)",
+        "residual": "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via "
+                    "_fwd_impl :121, save_residuals=True, for _vjp_fwd :265)",
+        "adjoint": "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's "
+                   "per-step chain via _bwd_impl :219, for _vjp_bwd :273)"}
+    no_library = ("none: cuDNN's LSTM behind torch.nn.LSTM has no peepholes "
+                  "and no forget offset")
+    streamed_err = {"fwd": lstm_err["streamed"],
+                    "residual": res_err["streamed"],
+                    "adjoint": adj_err["streamed"][0]}
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_sequence",
         "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm.cu",
-        "replaces": "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via "
-                    "_fwd_impl :121, fused_lstm_sequence :252)",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm_cluster.cu",
+        "replaces": lstm_replaces["fwd"],
+        "variant": "cluster",
         "launches": lstm_launches,
-        "max_abs_err": lstm_err,
+        "max_abs_err": lstm_err["cluster"],
+        "per_step_ms": fwd_per_step,
         "per": "char-RNN forward at bucket 32 (2 launches: F=77 and "
                "F=200, H=200, T=64)",
         "ms": kernel_ms,
@@ -2429,8 +2640,12 @@ def main():
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm.cu",
+        "source": "deeplearning4j_tpu_torch/kernels/csrc/"
+                  + ("lstm.cu" if key == "reduction" else "lstm_cluster.cu"),
         "replaces": replaces,
+        **({} if key == "reduction" else {
+            "variant": "cluster",
+            "per_step_ms": train_times[key]["per_step_ms"]}),
         "launches": train_counts[counter],
         "max_abs_err": err,
         "max_err_over_max_ref": rel,
@@ -2446,22 +2661,33 @@ def main():
         **(red_json if key == "reduction" else {}),
         "card": card,
     } for name, key, counter, err, rel, replaces, library in (
-        ("lstm_residual_forward", "residual", "residual_launches", res_err,
-         None,
-         "deeplearning4j_tpu/kernels/lstm.py:57 (_fwd_kernel via _fwd_impl "
-         ":121, save_residuals=True, for _vjp_fwd :265)",
-         "none: cuDNN's LSTM behind torch.nn.LSTM has no peepholes and no "
-         "forget offset"),
-        ("lstm_adjoint", "adjoint", "adjoint_launches", adj_err, adj_rel,
-         "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's per-step "
-         "chain via _bwd_impl :219, for _vjp_bwd :273)",
-         "none: cuDNN's LSTM behind torch.nn.LSTM has no peepholes and no "
-         "forget offset"),
+        ("lstm_residual_forward", "residual", "residual_launches",
+         res_err["cluster"], None, lstm_replaces["residual"], no_library),
+        ("lstm_adjoint", "adjoint", "adjoint_launches",
+         adj_err["cluster"][0], adj_err["cluster"][1],
+         lstm_replaces["adjoint"], no_library),
         ("lstm_param_grads", "reduction", "reduction_launches", red_err,
          red_rel,
          "deeplearning4j_tpu/kernels/lstm.py:137 (_bwd_kernel's dW, db and "
          "dpeep accumulation :179-186 via _bwd_impl :219)",
          "torch.matmul of the [F+H, T*B] x [T*B, 4H] product (dW only)"))]
+        + [{
+            "name": f"{name}_streamed",
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm.cu",
+            "replaces": lstm_replaces[kind],
+            "variant": "streamed",
+            "launches": word_variants[kind]["streamed"],
+            "max_abs_err": streamed_err[kind],
+            "per": f"one launch at the word-level layer (T={WORD_T}, "
+                   f"B={WORD_B}, F={WORD_VOCAB}, H={HIDDEN}"
+                   + (", no dx)" if kind == "adjoint" else ")"),
+            **streamed_times[kind],
+            "library": no_library,
+            "card": card,
+        } for name, kind in (("fused_lstm_sequence", "fwd"),
+                             ("lstm_residual_forward", "residual"),
+                             ("lstm_adjoint", "adjoint"))]
         + [{
             "name": "flash_attention_fwd_lse_heads",
             "route": "cuda",

@@ -25,7 +25,7 @@ __all__ = ["library", "BUILD_DIR", "CUDA_FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -36,15 +36,33 @@
 //   dW = sum [x_t, h_{t-1}]^T [di, df, do, dg];  db = sum [di, df, do, dg]
 //   dpeep = (sum di * c_{t-1}, sum df * c_{t-1}, sum do * c_t)
 //
+// Two variants of the forward and the adjoint; kernels/lstm.py:
+// sequence_plan picks one from the shapes alone (never by trying one and
+// catching its failure):
+//   * "cluster" (lstm_cluster.cu, whose header has the design): a
+//     thread-block cluster of 8 CTAs per group of Bg batch rows, each CTA
+//     holding its slice of W in shared memory for the whole sequence, one
+//     cluster barrier per step. Taken wherever a CTA's slice and step
+//     buffers fit its 227 KB (the char-RNN's H = 200, and H up to about 330
+//     at small input widths);
+//   * "streamed" (this file): one block per batch row that reads W from
+//     global memory (L2) every step. Taken for wider layers (up to H =
+//     9,685, where a row's 6H floats of state still fit a block) and for
+//     input widths whose slice of W does not fit (a word-level one-hot
+//     vocabulary of 58,200 or 120,000).
+//
 // What bounds them: the forward and the adjoint are serial chains of T
 // dependent steps; at the char-RNN's widths (F = 77 or 200, H = 200, B <=
 // 64) a step is at most 2 * 64 * 400 * 800 = 41 MFLOP over a 0.9-1.3 MB W,
 // so neither the arithmetic nor the HBM bytes come close to the card's
-// rates: each step waits on the previous one. The reduction is a plain
-// [F+H, T*B] x [T*B, 4H] product (1.8-2.6 GFLOP at T*B = 4096), bound by
-// the f32 rate of the CUDA cores.
+// rates: each step waits on the previous one. The streamed kernels are
+// bound by what one SM pulls from L2 (every block rereads W every step, B
+// blocks on B SMs); the cluster kernels read W from L2 once and are bound
+// per step by shared-memory reads of the resident slice and the cluster
+// barrier. The reduction is a plain [F+H, T*B] x [T*B, 4H] product
+// (1.8-2.6 GFLOP at T*B = 4096), bound by the f32 rate of the CUDA cores.
 //
-// What the designs do about it: the time loops run inside the kernels (the
+// What the streamed designs do: the time loops run inside the kernels (the
 // TPU grid's sequential time axis becomes a loop in the block), one block
 // per batch row, so a sequence is one launch and the carries never leave
 // shared memory. The forward's threads own gate columns (neighbouring
@@ -56,13 +74,10 @@
 // with W^T reads W by rows, so a warp takes one row at a time, its lanes
 // over the 4H columns (coalesced), with a shuffle reduction. The TPU kernel
 // accumulates dW in VMEM across its grid; dW (0.9-1.3 MB) does not fit a
-// block's 227 KB of shared memory, and 64 row-blocks adding into it with
-// atomics would serialise and give a different sum each run. So the adjoint
-// writes the gate gradients of every step to a [T, B, 4H] buffer and a
-// second launch reduces them. W is read from global memory every step and
-// stays resident in the 50 MB L2. A persistent cluster kernel with W slices
-// resident in shared memory, and wgmma for the dz product, are left for
-// later work.
+// block's 227 KB of shared memory, and blocks adding into it with atomics
+// would serialise and give a different sum each run. So both adjoint
+// variants write the gate gradients of every step to a [T, B, 4H] buffer
+// and a second launch reduces them.
 //
 // The reduction (redesigned; the first design walked all T*B rows serially
 // in each of 65-91 blocks of 64 x 64 tiles, with synchronous loads, a 4 x 4
@@ -97,14 +112,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lstm_common.cuh"
+
+using namespace dl4j_lstm;
+
 namespace {
-
-__device__ __forceinline__ float sigmoid_f32(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// Dynamic shared memory a block may use on Hopper (232,448 bytes), in floats.
-constexpr int kMaxSharedFloats = 227 * 1024 / 4;
 
 // One block per batch row walks t = 0 .. T-1. x_t is staged through shared
 // memory in chunks of FC features: all of it in one chunk wherever
@@ -219,12 +231,10 @@ int launch_fwd(const float* x, const float* W, const float* b,
   const int FC = min(F, kMaxSharedFloats - 6 * H);   // x_t chunk
   if (FC < 1 && F > 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(FC + 6 * H) * sizeof(float);
+  static std::atomic<size_t> granted[kMaxDevices];
   auto kernel = &lstm_seq_fwd_kernel<kSave>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = grant_smem(kernel, smem, granted);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       x, W, b, peep, h0, c0, hs, hT, cT, cs, ii, ff, oo, gg, T, B, F, H, FC,
       offs);
@@ -337,15 +347,9 @@ constexpr int kStages = 3;    // cp.async ring depth
 constexpr int kMaxSplit = 8;  // slices of the T*B axis: a portable cluster
 constexpr int kRedFloats = kStages * kChunk * (kTileK + 2 * kTileG);
 
-// Copy 4 or 16 bytes from global to shared memory asynchronously; when !ok
-// nothing is read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
+// Copy 16 bytes from global to shared memory asynchronously (cp_async4 in
+// lstm_common.cuh copies 4); when !ok nothing is read and the destination
+// is zero-filled.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -664,12 +668,9 @@ extern "C" int dl4j_lstm_seq_bwd(const float* W, const float* peep,
                                  float* dh0, float* dc0, int T, int B, int F,
                                  int H, void* stream) {
   const size_t smem = (size_t)(6 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static std::atomic<size_t> granted[kMaxDevices];
+  cudaError_t e = grant_smem(lstm_seq_bwd_kernel, smem, granted);
+  if (e != cudaSuccess) return (int)e;
   lstm_seq_bwd_kernel<<<B, kBwdThreads, smem, (cudaStream_t)stream>>>(
       W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT, dcT, dgates, dx, dh0, dc0,
       T, B, F, H);

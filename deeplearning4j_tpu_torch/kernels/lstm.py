@@ -1,8 +1,9 @@
 """Whole-sequence Graves-LSTM: forward and backward as CUDA kernel launches.
 
 Counterpart of `deeplearning4j_tpu/kernels/lstm.py:fused_lstm_sequence`,
-its custom VJP included. The kernels are in `csrc/lstm.cu`; its header says
-what bounds each and how its design answers that.
+its custom VJP included. The kernels are in `csrc/lstm.cu` and
+`csrc/lstm_cluster.cu`; their headers say what bounds each and how its
+design answers that.
 
   * `fused_lstm_sequence` — the primal (inference) forward: hs, h_T, c_T.
   * `lstm_sequence` — the same forward as a `torch.autograd.Function`: it
@@ -18,7 +19,15 @@ what bounds each and how its design answers that.
     plain PyTorch versions: step loops of the same equations, for the CPU
     and for holding the kernels to account.
   * Launch counts, one per kernel: `launches` (primal forward),
-    `residual_launches`, `adjoint_launches`, `reduction_launches`.
+    `residual_launches`, `adjoint_launches`, `reduction_launches`
+    (`launch_counts()`), and the sequence kernels' launches by variant
+    (`variant_counts()`).
+  * `sequence_plan`, `sequence_variant` — which variant of the forward and
+    adjoint kernels a shape takes, and how it is launched: "cluster"
+    (`csrc/lstm_cluster.cu`: clusters of CLUSTER_SIZE CTAs, each holding a
+    slice of W in shared memory for the whole sequence) wherever a CTA's
+    slice and step buffers fit MAX_SHARED_BYTES, "streamed" (`csrc/lstm.cu`:
+    one block per batch row, W read from L2 every step) otherwise.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Everything is computed in float32 (the TPU
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,11 +47,23 @@ __all__ = ["fused_lstm_sequence", "lstm_sequence", "lstm_residual_forward",
            "lstm_adjoint_reference", "lstm_param_grads_reference",
            "lstm_sequence_backward_reference", "launches",
            "residual_launches", "adjoint_launches", "reduction_launches",
-           "reset_launches", "launch_counts", "lstm_x_chunk",
-           "MAX_SHARED_BYTES"]
+           "reset_launches", "launch_counts", "variant_counts",
+           "lstm_x_chunk", "SequencePlan", "sequence_plan",
+           "sequence_variant", "cluster_bytes", "MAX_SHARED_BYTES",
+           "CLUSTER_SIZE", "CLUSTER_THREADS", "CLUSTER_GROUPS", "GROUP_ROWS"]
 
 # dynamic shared memory a block may use on Hopper (232,448 bytes)
 MAX_SHARED_BYTES = 227 * 1024
+CLUSTER_SIZE = 8         # CTAs of a cluster: the portable maximum
+CLUSTER_THREADS = 256    # threads of a cluster CTA
+# clusters of 8 CTAs (one an SM) an H100 runs side by side: 15 of them on
+# its 132 SMs (cudaOccupancyMaxActiveClusters on an H100 80GB HBM3 at the
+# char-RNN's plans, printed by chip_smoke.py), not 132 / 8
+CLUSTER_GROUPS = 15
+GROUP_ROWS = tuple(range(1, 9))   # batch rows a cluster may take
+_VARIANTS = ("cluster", "streamed")
+_KINDS = {"launches": "fwd", "residual_launches": "residual",
+          "adjoint_launches": "adjoint"}
 
 launches = 0              # primal forward
 residual_launches = 0     # residual-saving forward
@@ -50,6 +71,7 @@ adjoint_launches = 0      # reverse-time adjoint
 reduction_launches = 0    # dW / db / dpeep reduction
 _COUNTS = ("launches", "residual_launches", "adjoint_launches",
            "reduction_launches")
+_by_variant = {kind: dict.fromkeys(_VARIANTS, 0) for kind in _KINDS.values()}
 _launch_lock = threading.Lock()
 _fns = {}
 
@@ -60,6 +82,8 @@ def reset_launches() -> int:
         n = launches
         for name in _COUNTS:
             globals()[name] = 0
+        for counts in _by_variant.values():
+            counts.update(dict.fromkeys(counts, 0))
     return n
 
 
@@ -69,9 +93,85 @@ def launch_counts() -> dict:
         return {name: globals()[name] for name in _COUNTS}
 
 
-def _count(name: str):
+def variant_counts() -> dict:
+    """{"fwd" | "residual" | "adjoint": {variant: launches}}; each kind's
+    variants add up to its total in `launch_counts()`."""
+    with _launch_lock:
+        return {kind: dict(counts) for kind, counts in _by_variant.items()}
+
+
+def _count(name: str, variant: Optional[str] = None):
     with _launch_lock:
         globals()[name] += 1
+        if variant is not None:
+            _by_variant[_KINDS[name]][variant] += 1
+
+
+class SequencePlan(NamedTuple):
+    """How the forward and adjoint kernels run a (B, F, H) problem."""
+    variant: str     # "cluster" or "streamed"
+    units: int       # hidden units a cluster CTA owns (the last may own fewer)
+    x_rows: int      # input rows of W a cluster CTA holds in the adjoint
+    group: int       # batch rows a cluster (or a streamed block) takes
+    groups: int      # clusters (cluster) or blocks (streamed)
+    fwd_bytes: int   # shared memory of a forward cluster CTA (0: streamed)
+    bwd_bytes: int   # shared memory of an adjoint cluster CTA (0: streamed)
+
+
+def _up4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def cluster_bytes(F: int, H: int, units: int, x_rows: int, group: int,
+                  adjoint: bool) -> int:
+    """Dynamic shared memory of one cluster CTA, in bytes; the same carve-up
+    as `fwd_layout` / `bwd_layout` in csrc/lstm_cluster.cu. Forward: the
+    [F+H, 4 units] W slice, two [F+H, group] input buffers, the k-slices'
+    partial sums, c, b and peep. Adjoint: the [4H, units + x_rows] W^T
+    slice, two [4H, group] gate-gradient buffers, the partial sums, dc,
+    peep and two residual stages of 7 [group, units] arrays."""
+    U, Bg = units, group
+    part = 4 * CLUSTER_THREADS * Bg
+    if adjoint:
+        K = 4 * H
+        floats = (K * _up4(U + x_rows) + _up4(2 * K * Bg) + part
+                  + _up4(Bg * U) + _up4(3 * U) + _up4(14 * Bg * U))
+    else:
+        K = F + H
+        floats = (_up4(K * 4 * U) + _up4(2 * K * Bg) + part + _up4(Bg * U)
+                  + _up4(4 * U) + _up4(3 * U))
+    return 4 * floats
+
+
+def sequence_plan(B: int, F: int, H: int) -> SequencePlan:
+    """The variant and launch plan of the forward (both modes) and the
+    adjoint kernels for batch B, input width F and H hidden units; a
+    function of the shape alone.
+
+    "cluster": CLUSTER_SIZE CTAs per group of `group` batch rows, CTA r
+    owning hidden units [r U, r U + U) with U = ceil(H / 8) (and input rows
+    [r Fr, r Fr + Fr) of W in the adjoint, Fr = ceil(F / 8)). `group` is
+    the fewest rows (at most 8) for which the ceil(B / group) clusters run
+    side by side (CLUSTER_GROUPS), so a batch spreads over many SMs in one
+    wave; where that group's buffers do not fit a CTA's MAX_SHARED_BYTES,
+    the largest smaller one that does. "streamed": where no group fits
+    (wide H, or a slice of W too large: a one-hot input tens of thousands
+    wide), one block per row."""
+    U = -(-H // CLUSTER_SIZE)
+    Fr = -(-F // CLUSTER_SIZE)
+    want = min(GROUP_ROWS[-1], -(-B // CLUSTER_GROUPS))
+    if U <= CLUSTER_THREADS and _up4(U + Fr) // 4 <= CLUSTER_THREADS:
+        for g in range(want, 0, -1):
+            fwd = cluster_bytes(F, H, U, Fr, g, adjoint=False)
+            bwd = cluster_bytes(F, H, U, Fr, g, adjoint=True)
+            if max(fwd, bwd) <= MAX_SHARED_BYTES:
+                return SequencePlan("cluster", U, Fr, g, -(-B // g), fwd, bwd)
+    return SequencePlan("streamed", 0, 0, 1, B, 0, 0)
+
+
+def sequence_variant(B: int, F: int, H: int) -> str:
+    """"cluster" or "streamed": see `sequence_plan`."""
+    return sequence_plan(B, F, H).variant
 
 
 def _canon(x, W, b, peep, h0, c0):
@@ -185,6 +285,9 @@ _SIGNATURES = {   # entry point -> (pointers, ints, trailing float offs)
     "dl4j_lstm_seq_fwd": (9, 4, True),
     "dl4j_lstm_seq_fwd_res": (14, 4, True),
     "dl4j_lstm_seq_bwd": (15, 4, False),
+    "dl4j_lstm_cluster_fwd": (9, 7, True),
+    "dl4j_lstm_cluster_fwd_res": (14, 7, True),
+    "dl4j_lstm_cluster_bwd": (15, 7, False),
     "dl4j_lstm_param_grad": (9, 4, False),
 }
 
@@ -202,7 +305,8 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _launch(name: str, counter: str, device, *args):
+def _launch(name: str, counter: str, device, *args,
+            variant: Optional[str] = None):
     """Launch `name` on the current stream of `device`; tensors are passed
     by pointer (None is a null pointer)."""
     fn = _kernel_fn(name)
@@ -214,15 +318,29 @@ def _launch(name: str, counter: str, device, *args):
     if err != 0:
         raise RuntimeError(f"LSTM kernel {name} launch failed: CUDA error "
                            f"{err}")
-    _count(counter)
+    _count(counter, variant)
+
+
+def _launch_sequence(kind: str, counter: str, device, pointers, T, B, F, H,
+                     *offs):
+    """Launch the sequence kernel `kind` ("fwd", "fwd_res" or "bwd") in
+    the variant `sequence_plan(B, F, H)` picks."""
+    plan = sequence_plan(B, F, H)
+    if plan.variant == "cluster":
+        _launch(f"dl4j_lstm_cluster_{kind}", counter, device, *pointers, T,
+                B, F, H, plan.units, plan.x_rows, plan.group, *offs,
+                variant="cluster")
+    else:
+        _launch(f"dl4j_lstm_seq_{kind}", counter, device, *pointers, T, B,
+                F, H, *offs, variant="streamed")
 
 
 def lstm_x_chunk(n_in: int, n_out: int) -> int:
-    """Input features the forward kernel stages in shared memory at once:
-    all of x_t where (F + 6 H) * 4 bytes fit a block's MAX_SHARED_BYTES,
-    else chunks of what is left beside the 6 H floats of h, c and the
-    gates. Below 1 (n_out above 9,685) no chunk fits: a CUDA tensor
-    raises."""
+    """Input features the streamed forward kernel stages in shared memory
+    at once: all of x_t where (F + 6 H) * 4 bytes fit a block's
+    MAX_SHARED_BYTES, else chunks of what is left beside the 6 H floats of
+    h, c and the gates. Below 1 (n_out above 9,685) no chunk fits: a CUDA
+    tensor raises."""
     return min(n_in, MAX_SHARED_BYTES // 4 - 6 * n_out)
 
 
@@ -283,8 +401,8 @@ def fused_lstm_sequence(x, W, b, peep, h0, c0, offs: float
         H = h0f.shape[-1]
         hs, hT, cT = (torch.empty(s, dtype=torch.float32, device=xf.device)
                       for s in ((T, B, H), (B, H), (B, H)))
-        _launch("dl4j_lstm_seq_fwd", "launches", xf.device, *args, hs, hT,
-                cT, *xf.shape, H, float(offs))
+        _launch_sequence("fwd", "launches", xf.device, (*args, hs, hT, cT),
+                         *xf.shape, H, float(offs))
     return hs.to(x.dtype), hT.to(x.dtype), cT.to(x.dtype)
 
 
@@ -303,8 +421,9 @@ def lstm_residual_forward(x, W, b, peep, h0, c0, offs: float):
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=xf.device)
     hs, hT, cT = new(T, B, H), new(B, H), new(B, H)
     res = [new(T, B, H) for _ in range(5)]
-    _launch("dl4j_lstm_seq_fwd_res", "residual_launches", xf.device, *args,
-            hs, hT, cT, *res, T, B, xf.shape[-1], H, float(offs))
+    _launch_sequence("fwd_res", "residual_launches", xf.device,
+                     (*args, hs, hT, cT, *res), T, B, xf.shape[-1], H,
+                     float(offs))
     return (hs, hT, cT, *res)
 
 
@@ -344,9 +463,9 @@ def lstm_adjoint(W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT=None, dcT=None,
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=cs.device)
     dgates, dh0, dc0 = new(T, B, 4 * H), new(B, H), new(B, H)
     dx = new(T, B, F) if need_dx else None
-    _launch("dl4j_lstm_seq_bwd", "adjoint_launches", cs.device, W, peep, c0,
-            cs, ii, ff, oo, gg, dhs, dhT, dcT, dgates, dx, dh0, dc0, T, B, F,
-            H)
+    _launch_sequence("bwd", "adjoint_launches", cs.device,
+                     (W, peep, c0, cs, ii, ff, oo, gg, dhs, dhT, dcT, dgates,
+                      dx, dh0, dc0), T, B, F, H)
     return dgates, dx, dh0, dc0
 
 

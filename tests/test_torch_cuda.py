@@ -4,7 +4,9 @@ and residual mode, its adjoint and its parameter-gradient reduction, the
 attention forward and backward, the BN+ReLU forward and backward in
 float32, bfloat16 and float16), the autograd Functions against autograd of
 the plain forwards, bit-equal reruns, the launch counts of training steps,
-and full-width networks on the card against the CPU.
+and full-width networks on the card against the CPU. Every LSTM sequence
+kernel test runs both kernel variants ("cluster" and "streamed"), each at
+shapes that `lstm.sequence_plan` sends to it.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs on a machine without it. On the card:
@@ -47,16 +49,32 @@ def _lstm_args(T, B, F, H, device, seed=0):
             for a in arrays]
 
 
+def _variant_launched(kind, B, F, H, before):
+    """The sequence kernel `kind` launched once since `before`
+    (`lstm.variant_counts()`), in the variant the plan picks."""
+    want = lstm.sequence_variant(B, F, H)
+    after = lstm.variant_counts()[kind]
+    assert after[want] == before[kind][want] + 1, (kind, want, after)
+    assert sum(after.values()) == sum(before[kind].values()) + 1
+    return want
+
+
+# (T, B, F, H) that take the streamed variant: a slice of W past a cluster
+# CTA's shared memory
+STREAMED = [(4, 2, 9, 320), (3, 2, 1000, 257)]
+
+
 @pytest.mark.parametrize("T,B,F,H", [
     (64, 32, 77, 200), (64, 8, 200, 200), (1, 1, 77, 200),   # char-RNN
     (7, 3, 5, 6), (5, 2, 33, 300), (3, 2, 1000, 257),        # ragged, wide
     (2, 3, 58200, 2), (2, 2, 120000, 40)])   # x_t in two and three chunks
 def test_lstm_kernel_matches_plain(cuda, T, B, F, H):
     args = _lstm_args(T, B, F, H, cuda)
-    before = lstm.launches
+    before, variants = lstm.launches, lstm.variant_counts()
     got = lstm.fused_lstm_sequence(*args, 1.0)
     torch.cuda.synchronize()
     assert lstm.launches == before + 1
+    _variant_launched("fwd", B, F, H, variants)
     want = lstm.lstm_sequence_reference(*args, 1.0)
     for name, g, w in zip(("hs", "h_T", "c_T"), got, want):
         assert g.shape == w.shape and g.device == w.device
@@ -65,23 +83,27 @@ def test_lstm_kernel_matches_plain(cuda, T, B, F, H):
 
 
 def test_lstm_kernel_keeps_input_dtype(cuda):
-    args = _lstm_args(4, 2, 9, 16, cuda)
-    x16 = args[0].to(torch.bfloat16)
-    hs, hT, cT = lstm.fused_lstm_sequence(x16, *args[1:], 1.0)
-    assert hs.dtype == hT.dtype == cT.dtype == torch.bfloat16
-    want, _, _ = lstm.lstm_sequence_reference(x16, *args[1:], 1.0)
-    assert (hs.float() - want).abs().max().item() <= 1e-2
+    for T, B, F, H in [(4, 2, 9, 16)] + STREAMED[:1]:
+        args = _lstm_args(T, B, F, H, cuda)
+        x16 = args[0].to(torch.bfloat16)
+        hs, hT, cT = lstm.fused_lstm_sequence(x16, *args[1:], 1.0)
+        assert hs.dtype == hT.dtype == cT.dtype == torch.bfloat16
+        want, _, _ = lstm.lstm_sequence_reference(x16, *args[1:], 1.0)
+        assert (hs.float() - want).abs().max().item() <= 1e-2
 
 
 def test_lstm_kernel_refuses_what_it_cannot_take(cuda):
+    for T, B, F, H in [(4, 2, 9, 16)] + STREAMED[:1]:
+        x, W, b, peep, h0, c0 = _lstm_args(T, B, F, H, cuda)
+        with pytest.raises(ValueError, match="contiguous"):
+            lstm.fused_lstm_sequence(x.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), W, b, peep, h0, c0,
+                                     1.0)
+        with pytest.raises(ValueError, match="on cpu"):
+            lstm.fused_lstm_sequence(x, W.cpu(), b, peep, h0, c0, 1.0)
+        with pytest.raises(ValueError, match="shape"):
+            lstm.fused_lstm_sequence(x, W[:-1], b, peep, h0, c0, 1.0)
     x, W, b, peep, h0, c0 = _lstm_args(4, 2, 9, 16, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        lstm.fused_lstm_sequence(x.transpose(0, 1).contiguous()
-                                 .transpose(0, 1), W, b, peep, h0, c0, 1.0)
-    with pytest.raises(ValueError, match="on cpu"):
-        lstm.fused_lstm_sequence(x, W.cpu(), b, peep, h0, c0, 1.0)
-    with pytest.raises(ValueError, match="shape"):
-        lstm.fused_lstm_sequence(x, W[:-1], b, peep, h0, c0, 1.0)
     wide = torch.zeros((1, 10000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         lstm.fused_lstm_sequence(x[:, :1], W, b, peep, wide, wide, 1.0)
@@ -235,12 +257,14 @@ def _cotangents(T, B, H, device, seed):
     (64, 64, 77, 200), (64, 64, 200, 200),      # the char-RNN's training
     (1, 64, 77, 200), (64, 1, 200, 200),        # one step, one row
     (9, 3, 5, 37),                              # a column tail
-    (2, 3, 58200, 2)])                          # x_t in two chunks
+    (2, 3, 58200, 2),                           # x_t in two chunks
+    (4, 2, 9, 320)])                            # streamed: wide H
 def test_lstm_residual_forward_matches_plain(cuda, T, B, F, H):
     args = _lstm_args(T, B, F, H, cuda, seed=T + B + F)
-    before = lstm.launch_counts()
+    before, variants = lstm.launch_counts(), lstm.variant_counts()
     got = lstm.lstm_residual_forward(*args, 1.0)
     torch.cuda.synchronize()
+    _variant_launched("residual", B, F, H, variants)
     after = lstm.launch_counts()
     assert after["residual_launches"] == before["residual_launches"] + 1
     assert after["launches"] == before["launches"]
@@ -257,17 +281,19 @@ def test_lstm_residual_forward_matches_plain(cuda, T, B, F, H):
 @pytest.mark.parametrize("T,B,F,H,need_dx", [
     (64, 64, 77, 200, False), (64, 64, 200, 200, True),
     (1, 64, 77, 200, True), (64, 1, 200, 200, True), (9, 3, 5, 37, True),
-    (2, 3, 58200, 2, True)])                    # past one chunk of x_t
+    (2, 3, 58200, 2, True),                     # past one chunk of x_t
+    (9, 3, 5, 37, False), (4, 2, 9, 320, True), (4, 2, 9, 320, False)])
 def test_lstm_backward_kernels_match_plain(cuda, T, B, F, H, need_dx):
     args = _lstm_args(T, B, F, H, cuda, seed=T * B + F)
     x, W, b, peep, h0, c0 = args
     hs, cs, ii, ff, oo, gg = lstm.lstm_sequence_reference(
         *args, 1.0, save_residuals=True)
     dhs, dhT, dcT = _cotangents(T, B, H, cuda, seed=F + H)
-    before = lstm.launch_counts()
+    before, variants = lstm.launch_counts(), lstm.variant_counts()
     got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, hs, cs, ii, ff, oo,
                                       gg, dhs, dhT, dcT, need_dx=need_dx)
     torch.cuda.synchronize()
+    _variant_launched("adjoint", B, F, H, variants)
     after = lstm.launch_counts()
     assert after["adjoint_launches"] == before["adjoint_launches"] + 1
     assert after["reduction_launches"] == before["reduction_launches"] + 1
@@ -284,44 +310,95 @@ def test_lstm_backward_kernels_match_plain(cuda, T, B, F, H, need_dx):
 
 
 def test_lstm_backward_kernels_take_missing_cotangents(cuda):
-    args = _lstm_args(6, 4, 5, 37, cuda, seed=3)
-    x, W, b, peep, h0, c0 = args
-    res = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
-    dhs, _, _ = _cotangents(6, 4, 37, cuda, seed=4)
-    got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, *res, dhs)
-    want = lstm.lstm_sequence_backward_reference(x, W, peep, h0, c0, *res,
-                                                 dhs)
-    for g, w in zip(got, want):
-        assert _rel_err(g, w) <= BWD_REL_TOL
+    for T, B, F, H in [(6, 4, 5, 37)] + STREAMED[:1]:
+        args = _lstm_args(T, B, F, H, cuda, seed=3)
+        x, W, b, peep, h0, c0 = args
+        res = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+        dhs, _, _ = _cotangents(T, B, H, cuda, seed=4)
+        variants = lstm.variant_counts()
+        got = lstm.lstm_sequence_backward(x, W, peep, h0, c0, *res, dhs)
+        _variant_launched("adjoint", B, F, H, variants)
+        want = lstm.lstm_sequence_backward_reference(x, W, peep, h0, c0,
+                                                     *res, dhs)
+        for g, w in zip(got, want):
+            assert _rel_err(g, w) <= BWD_REL_TOL
 
 
 def test_lstm_function_matches_autograd_of_plain_forward(cuda):
-    T, B, F, H = 16, 8, 77, 200
-    leaves = [a.requires_grad_() for a in _lstm_args(T, B, F, H, cuda)]
-    w = _cotangents(T, B, H, cuda, seed=5)
-    mix = lambda outs: sum((o * c).sum() for o, c in zip(outs, w))
-    got = torch.autograd.grad(mix(lstm.lstm_sequence(*leaves, 1.0)), leaves)
-    want = torch.autograd.grad(
-        mix(lstm.lstm_sequence_reference(*leaves, 1.0)), leaves)
-    for name, g, r in zip(("dx", "dW", "db", "dpeep", "dh0", "dc0"), got,
-                          want):
-        err = _rel_err(g, r)
-        assert err <= BWD_REL_TOL, f"{name}: max err / max |ref| {err}"
+    for T, B, F, H in [(16, 8, 77, 200)] + STREAMED[:1]:
+        leaves = [a.requires_grad_() for a in _lstm_args(T, B, F, H, cuda)]
+        w = _cotangents(T, B, H, cuda, seed=5)
+        mix = lambda outs: sum((o * c).sum() for o, c in zip(outs, w))
+        got = torch.autograd.grad(mix(lstm.lstm_sequence(*leaves, 1.0)),
+                                  leaves)
+        want = torch.autograd.grad(
+            mix(lstm.lstm_sequence_reference(*leaves, 1.0)), leaves)
+        for name, g, r in zip(("dx", "dW", "db", "dpeep", "dh0", "dc0"),
+                              got, want):
+            err = _rel_err(g, r)
+            assert err <= BWD_REL_TOL, \
+                f"H={H} {name}: max err / max |ref| {err}"
 
 
 def test_tbptt_step_launches_two_of_each_training_kernel(cuda):
-    net = pt.char_rnn(vocab_size=11, lstm_size=16, seq_len=8, tbptt=8,
-                      device=cuda).init()
-    r = np.random.default_rng(0)
-    idx = r.integers(0, 11, (4, 9))
-    eye = np.eye(11, dtype=np.float32)
-    lstm.reset_launches()
-    net.fit(eye[idx[:, :-1]], eye[idx[:, 1:]])
-    torch.cuda.synchronize()
-    assert lstm.launch_counts() == {"launches": 0, "residual_launches": 2,
-                                    "adjoint_launches": 2,
-                                    "reduction_launches": 2}
-    assert net.iteration_count == 1 and np.isfinite(net.score())
+    # 16 hidden units take the cluster variant, 400 the streamed one
+    for hidden, variant in ((16, "cluster"), (400, "streamed")):
+        net = pt.char_rnn(vocab_size=11, lstm_size=hidden, seq_len=8,
+                          tbptt=8, device=cuda).init()
+        r = np.random.default_rng(0)
+        idx = r.integers(0, 11, (4, 9))
+        eye = np.eye(11, dtype=np.float32)
+        lstm.reset_launches()
+        net.fit(eye[idx[:, :-1]], eye[idx[:, 1:]])
+        torch.cuda.synchronize()
+        assert lstm.launch_counts() == {"launches": 0,
+                                        "residual_launches": 2,
+                                        "adjoint_launches": 2,
+                                        "reduction_launches": 2}
+        other = "streamed" if variant == "cluster" else "cluster"
+        assert lstm.variant_counts() == {
+            "fwd": {"cluster": 0, "streamed": 0},
+            "residual": {variant: 2, other: 0},
+            "adjoint": {variant: 2, other: 0}}
+        assert net.iteration_count == 1 and np.isfinite(net.score())
+
+
+# Each variant of the sequence kernels sums in a fixed order: reruns give
+# the same bits (the cluster forward at a bucket-32 and a training shape,
+# its adjoint with and without dx; the streamed ones past a CTA).
+@pytest.mark.parametrize("T,B,F,H", [(64, 32, 200, 200), (64, 64, 77, 200),
+                                     (4, 2, 9, 320)])
+def test_lstm_sequence_kernels_are_bit_equal_run_to_run(cuda, T, B, F, H):
+    args = _lstm_args(T, B, F, H, cuda, seed=13)
+    x, W, b, peep, h0, c0 = args
+    dhs, dhT, dcT = _cotangents(T, B, H, cuda, seed=14)
+    runs = []
+    for _ in range(3):
+        res = lstm.lstm_residual_forward(*args, 1.0)
+        runs.append([lstm.fused_lstm_sequence(*args, 1.0), res]
+                    + [lstm.lstm_adjoint(W, peep, c0, *res[3:], dhs, dhT,
+                                         dcT, F, need_dx)
+                       for need_dx in (True, False)])
+    for run in runs[1:]:
+        for got, first in zip(run, runs[0]):
+            assert all(g is None and f is None or torch.equal(g, f)
+                       for g, f in zip(got, first))
+
+
+def test_cluster_plan_bytes_match_the_kernels(cuda):
+    """`lstm.cluster_bytes` (what the plan checks against a CTA's shared
+    memory) is what the kernels' own layouts take."""
+    import ctypes
+    from deeplearning4j_tpu_torch.kernels import library
+    fn = library().dl4j_lstm_cluster_bytes
+    fn.restype = ctypes.c_longlong
+    for B, F, H in [(1, 77, 200), (32, 200, 200), (64, 200, 200),
+                    (2, 5, 312), (3, 5, 37), (2, 33, 300)]:
+        plan = lstm.sequence_plan(B, F, H)
+        assert plan.variant == "cluster"
+        for adjoint, want in ((0, plan.fwd_bytes), (1, plan.bwd_bytes)):
+            assert fn(F, H, plan.units, plan.x_rows, plan.group,
+                      adjoint) == want
 
 
 # The attention backward against its plain version, relative to the
