@@ -17,7 +17,9 @@ Phases:
      asked and not, "streamed" at H = 512 and at a 58,200-wide one-hot
      input, each variant rerun bit-equal; N in {128, 4096, 4097} x C in
      {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for the BN+ReLU
-     forward and backward);
+     forward and backward, "resident" there, "streamed" at N = 28,673 and
+     57,345, unaligned views through both, each variant rerun
+     bit-equal);
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -58,7 +60,11 @@ Phases:
      and running statistics compared; `evaluate` on the 64 held-out
      digits; the zip with updater and layer state restored on both devices
      for one more step; then the same network in float32 (no
-     compute_dtype), which must launch no BN kernel, against the CPU;
+     compute_dtype), which must launch no BN kernel, against the CPU; then
+     one step of the BN-MLP at batch 4096 and of a narrow BN network
+     (784 -> 8 -> BatchNormalization(relu) -> 10) at batch 65,536, the
+     largest batches JAX's tier sends to its kernel at those widths, each
+     first-step gradient against the CPU;
   9. main path 6: the LM of phase 7 in bf16 compute
      (`compute_dtype("bfloat16")`, float32 masters) with nanoGPT's lr
      warm-up, through the bf16 instantiations of the attention kernels:
@@ -78,9 +84,12 @@ Phases:
      the LSTM reduction's whole function in PyTorch calls beside
      torch.matmul); predict and HTTP p50 per bucket and tokens/s at bucket
      32 for both models; training tokens/s and step p50 for both models
-     and samples/s for the BN-MLP; where the LM's bucket-32 forward, a
-     char-RNN training batch, an LM training step in f32 and in bf16 and a
-     BN-MLP step spend their device time (torch.profiler).
+     and samples/s for the BN-MLP; the BN+ReLU kernels at N in {128,
+     4096} x C in {1024, 200, 48} through the wrapper and each variant's
+     entry point alone, a call at N = 128 split into entry point, wrapper
+     and autograd Function; where the LM's bucket-32 forward, a char-RNN
+     training batch, an LM training step in f32 and in bf16 and a BN-MLP
+     step at batch 128 and 4096 spend their device time (torch.profiler).
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -88,18 +97,21 @@ path and read after it: two primal LSTM launches per char-RNN forward
 residual-forward, two adjoint and two reduction launches per char-RNN
 training step (phase 6), the LSTM sequence kernels all of the "cluster"
 variant (phases 3, 4 and 6), one of each "streamed" for the word-level
-layer's forward and training step (phase 6), and six logsumexp-forward, six dq and six dk/dv
-launches per LM training step, the backward all of the "simt" variant
-(phase 7), and one BN+ReLU forward and one backward launch per BN layer
-and bf16 training step (phase 8: 40 and 40 over 20 steps, none in
-evaluation or in float32), six bf16 logsumexp-forward, dq and dk/dv
-launches per bf16 LM training step, the backward all of the "wgmma"
-variant, and six primal ones per bf16 LM forward, one of each per step or
-forward of the wide-head LMs, at Dh = 512 of the "wide" variants (phase
-9), each path launching none of the others' kernels. The last two lines
-are a `{"kernels": [...]}` object and `{"ok": true, "device": {...}}`. Any failed check, or a machine without a
-CUDA device, exits non-zero before either.
+layer's forward and training step (phase 6), and six logsumexp-forward, six
+dq and six dk/dv launches per LM training step, the backward all of the
+"simt" variant (phase 7), and one BN+ReLU forward and one backward launch
+per BN layer and bf16 training step (phase 8: 40 and 40 over 20 steps, all
+"resident", none in evaluation or in float32; 4 and 4 "resident" for the
+batch-4096 gradients and step, 2 and 2 "streamed" for the narrow network's),
+six bf16 logsumexp-forward, dq and dk/dv launches per bf16 LM training step,
+the backward all of the "wgmma" variant, and six primal ones per bf16 LM
+forward, one of each per step or forward of the wide-head LMs, at Dh = 512
+of the "wide" variants (phase 9), each path launching none of the others'
+kernels. The last two lines are a `{"kernels": [...]}` object and `{"ok":
+true, "device": {...}}`. Any failed check, or a machine without a CUDA
+device, exits non-zero before either.
 """
+import contextlib
 import json
 import os
 import string
@@ -194,6 +206,17 @@ LM_WARM_SCORE_TOL = SCORE_TOL
 MLP_WIDTH, MLP_B, MLP_EPOCHS, MLP_LR = 1024, 128, 10, 1e-3
 MLP_STEPS = 2 * MLP_EPOCHS          # 320 digits, batch 128, drop_last
 BN_SHAPES = [(n, c) for n in (MLP_B, 4096, 4097) for c in (1024, 200, 48)]
+# Shapes past the BN kernels' resident slabs (csrc/bn_relu.cu's header):
+# N = 28,673 at C = 10 takes the streamed backward (and the resident
+# forward), N = 57,345 at C = 8 the streamed forward and backward
+BN_STREAMED = [(28673, 10), (57345, 8)]
+# The BN-MLP also takes one step at batch 4096, the largest batch JAX's
+# _block_c sends to its kernel at width 1024 (resident, N split over
+# clusters of 2); and a narrow BN network (Dense(8) + BatchNormalization
+# (relu) + softmax output) one step at batch 65,536, the largest _block_c
+# sends at width 8: past both resident slabs, the streamed kernels' path
+MLP_BIG_B = 4096
+NARROW_C, NARROW_B = 8, 65536
 # The BN+ReLU kernels against their plain versions: statistics, dgamma and
 # dbeta are float32 sums of up to 4097 terms in another order (1e-5 of the
 # largest plain magnitude); y and dx are compared in float32 after both are
@@ -313,6 +336,24 @@ def rel_err(got, want):
     """max |got - want| over max |want|."""
     return ((got - want).abs().max()
             / want.abs().max().clamp_min(1e-30)).item()
+
+
+def l2_err(got, want):
+    """|got - want| over |want|, in L2."""
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def plain_bn(bn_relu):
+    """The BN+ReLU kernels' plain versions in their place on the card, for
+    a comparison only: the launch counts do not move."""
+    fwd, bwd = bn_relu._forward_kernel, bn_relu._backward_kernel
+    bn_relu._forward_kernel = bn_relu.bn_relu_reference
+    bn_relu._backward_kernel = bn_relu.bn_relu_backward_reference
+    try:
+        yield
+    finally:
+        bn_relu._forward_kernel, bn_relu._backward_kernel = fwd, bwd
 
 
 def text_windows(root, alphabet, n, length):
@@ -564,6 +605,19 @@ def bn_mlp_json(pt):
             .set_input_type(pt.InputType.feed_forward(784)).build().to_json())
 
 
+def bn_narrow_json(pt):
+    """A narrow BN network: Dense(identity) of NARROW_C units +
+    BatchNormalization(relu) + softmax output on 784 inputs, in bf16
+    compute, Adam as the BN-MLP."""
+    return (pt.NeuralNetConfiguration.builder().seed(42)
+            .updater(pt.Adam(MLP_LR)).compute_dtype("bfloat16").list()
+            .layer(pt.DenseLayer(n_out=NARROW_C, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(784)).build().to_json())
+
+
 class BiasLog(StepLog):
     """StepLog that also keeps, before each step, the biases of the Dense
     layers feeding a BN layer (`pre_bn`): their gradient is 0 in exact
@@ -630,6 +684,43 @@ def device_ms(torch, fn, reps=20):
             break
     check(total > 0, "torch.profiler recorded no device time")
     return total / 1e3 / reps
+
+
+def device_ms_by_kind(events):
+    """A profile's device ms (profile_device's events) by kind: GEMMs, the
+    BN+ReLU kernels, copies and the rest."""
+    kinds = {"gemm": 0.0, "bn_relu": 0.0, "copies": 0.0, "other": 0.0}
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("bn_relu" if "bn_relu" in low else
+                "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass"))
+                else "copies" if "memcpy" in low or "memset" in low
+                else "other")
+        kinds[kind] += ms
+    return kinds
+
+
+def bn_bare_call(torch, bn_relu, kind, variant, x, g, b, mean, var, dy):
+    """A call of the BN+ReLU `kind` ("fwd" / "bwd") kernel's `variant`
+    entry point alone, on outputs made here (the ctypes call: no checks, no
+    allocation, no launch count), and those outputs (y or dx, then the two
+    [C] results). The resident variant runs the plan bn_plan gives the
+    shape; the streamed one takes any N. x and dy are aligned and C a
+    multiple of the 16-byte pack."""
+    N, C = x.shape
+    plan = bn_relu.bn_plan(N, C, x.element_size(), kind == "bwd")
+    check(variant == "streamed" or plan.variant == "resident",
+          f"N={N} C={C} has no resident {kind} plan")
+    out = torch.empty_like(x)
+    sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    tensors = ((x, g, b, out, sums[0], sums[1]) if kind == "fwd" else
+               (x, g, b, mean, var, dy, out, sums[0], sums[1]))
+    dims = (N, C, plan.rows, plan.cluster) if variant == "resident" else (N, C)
+    entry = bn_relu._kernel_fn(bn_relu._ENTRY_POINTS[kind, variant])
+    args = ([t.data_ptr() for t in tensors] + list(dims)
+            + [1e-5, bn_relu.KERNEL_DTYPES[x.dtype], 1,
+               torch.cuda.current_stream().cuda_stream])
+    return (lambda: entry(*args)), (out, sums[0], sums[1])
 
 
 def make_lm(pt, torch, seed, updater=None, dist=None, compute_dtype=None,
@@ -1153,15 +1244,28 @@ def main():
     print("LSTM reduction: bit-equal over 4 runs at the char-RNN's "
           "training shape")
 
-    # the BN+ReLU forward and backward
-    bn_max = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
-    bn_cases = [(N, C, dt, False) for N, C in BN_SHAPES
+    # the BN+ReLU forward and backward, each case through the variants
+    # bn_plan picks (BN_STREAMED: past the resident slabs), unaligned views
+    # through the one-element copies of both
+    bn_max = {(k, v): [0.0, 0.0] for k in ("fwd", "bwd")
+              for v in ("resident", "streamed")}
+    bn_reached = set()
+    bn_cases = [(N, C, dt, "") for N, C in BN_SHAPES
                 for dt in ("bfloat16", "float16", "float32")]
-    bn_cases.append((2 * 14 * 14, 64, "bfloat16", True))      # NHWC
-    for N, C, dt, nhwc in bn_cases:
-        x, g, b, dy = bn_args(torch, N, C, dt, seed=N + C)
-        what = f"N={N} C={C} {dt}{' NHWC' if nhwc else ''}"
-        if nhwc:        # [2, 14, 14, C] through the layer's entry point
+    bn_cases.append((2 * 14 * 14, 64, "bfloat16", "NHWC"))
+    bn_cases += [(N, C, dt, "") for N, C in BN_STREAMED
+                 for dt in ("bfloat16", "float32")]
+    bn_cases += [(2 * 21 * 7, 64, "bfloat16", "unaligned"),
+                 (BN_STREAMED[1][0], 16, "bfloat16", "unaligned")]
+    for N, C, dt, how in bn_cases:
+        x, g, b, dy = bn_args(torch, N + (how == "unaligned"), C, dt,
+                              seed=N + C)
+        if how == "unaligned":   # a storage offset of 3 elements (6 bytes)
+            x, dy = (t.reshape(-1)[3:3 + N * C].reshape(N, C)
+                     for t in (x, dy))
+        what = f"N={N} C={C} {dt} {how}".rstrip()
+        before = bn_relu.variant_counts()
+        if how == "NHWC":       # [2, 14, 14, C] through the layer's entry
             y, mean, var = bn_relu.fused_bn_relu(x.reshape(2, 14, 14, C), g,
                                                  b)
             y = y.reshape(N, C)
@@ -1172,21 +1276,48 @@ def main():
         want_dx, want_dg, want_db = bn_relu.bn_relu_backward_reference(
             x, g, b, mean, var, dy)
         torch.cuda.synchronize()
+        after = bn_relu.variant_counts()
         for key, pairs in (("fwd", ((y, want_y, dt), (mean, want_m, "float32"),
                                     (var, want_v, "float32"))),
-                           ("bwd", ((dx, want_dx, dt), (dg, want_dg, "float32"),
+                           ("bwd", ((dx, want_dx, dt),
+                                    (dg, want_dg, "float32"),
                                     (db, want_db, "float32")))):
+            variant = bn_relu.bn_plan(N, C, x.element_size(),
+                                      key == "bwd").variant
+            check(after[key][variant] == before[key][variant] + 1
+                  and sum(after[key].values())
+                  == sum(before[key].values()) + 1,
+                  f"BN+ReLU {key} {what}: launches {after[key]}, want one "
+                  f"{variant}")
+            bn_reached.add((key, variant))
             for got, want, kind in pairs:
                 ok, err, rel = ulp_err(got, want, kind)
                 check(ok and got.dtype == want.dtype,
-                      f"BN+ReLU {key} {what}: max abs err {err}, over max "
-                      f"|ref| {rel} ({got.dtype} vs {want.dtype})")
-                m = bn_max[key]
+                      f"BN+ReLU {key} {variant} {what}: max abs err {err}, "
+                      f"over max |ref| {rel} ({got.dtype} vs {want.dtype})")
+                m = bn_max[(key, variant)]
                 m[0], m[1] = max(m[0], err), max(m[1], rel)
+    check(bn_reached == set(bn_max), f"phase 2 reached only the BN+ReLU "
+          f"kernels {sorted(bn_reached)}")
     print(f"BN+ReLU kernels vs plain: {len(bn_cases)} cases; "
-          + "; ".join(f"{k} max abs err {a:.3e}, over max |ref| {r:.3e}"
-                      for k, (a, r) in bn_max.items())
+          + "; ".join(f"{k} {v} max abs err {a:.3e}, over max |ref| {r:.3e}"
+                      for (k, v), (a, r) in bn_max.items())
           + f" (limit {BN_TOL} of max |ref| plus one ulp of x's dtype)")
+    # each variant rerun bit-equal
+    for N, C in ((4096, MLP_WIDTH), BN_STREAMED[1]):
+        x, g, b, dy = bn_args(torch, N, C, "bfloat16", seed=3)
+        runs = []
+        for _ in range(4):
+            out = bn_relu.bn_relu_forward(x, g, b)
+            runs.append(out + bn_relu.bn_relu_backward(x, g, b, out[1],
+                                                       out[2], dy))
+        check(all(torch.equal(a, c) for run in runs[1:]
+                  for a, c in zip(run, runs[0])),
+              f"BN+ReLU N={N} C={C} differs run to run")
+        print(f"BN+ReLU N={N} C={C} bf16 "
+              f"({bn_relu.bn_plan(N, C, 2, False).variant} forward, "
+              f"{bn_relu.bn_plan(N, C, 2, True).variant} backward): "
+              "bit-equal over 4 runs")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     rng = np.random.default_rng(0)
@@ -1716,6 +1847,11 @@ def main():
                         "bwd_launches": 2 * mlp_steps},
           f"BN-MLP training launches {bn_counts} for {mlp_steps} steps "
           "(want 2 forward and 2 backward BN launches per step)")
+    bn_variants = bn_relu.variant_counts()
+    check(bn_variants == {k: {"resident": 2 * mlp_steps, "streamed": 0}
+                          for k in ("fwd", "bwd")},
+          f"BN-MLP training launches by variant {bn_variants} (want "
+          "resident only)")
     check(set(lstm.launch_counts().values()) == {0}
           and set(attention.launch_counts().values()) == {0},
           f"BN-MLP training launched LSTM or attention kernels: "
@@ -1739,7 +1875,8 @@ def main():
               "BN-MLP masters or layer state not float32 and detached")
     print(f"BN-MLP training (bf16 compute): {mlp_steps} steps of {MLP_B} "
           f"digits in {mlp_fit_s:.2f} s on the card, {mlp_cpu_s:.2f} s on "
-          f"the CPU; launches {bn_counts}; score {mlp_scores[0][0]:.4f} -> "
+          f"the CPU; launches {bn_counts}, by variant {bn_variants}; score "
+          f"{mlp_scores[0][0]:.4f} -> "
           f"{mlp_scores[0][-1]:.4f}; card vs CPU: scores max abs err "
           f"{mlp_score_err:.3e} (limit {BF16_SCORE_TOL}), first-step "
           f"gradients {mlp_grad_err:.3e} of max (limit {BF16_GRAD_TOL}; "
@@ -1832,6 +1969,72 @@ def main():
     check(f32_score_err <= SCORE_TOL and f32_param <= PARAM_TOL
           and f32_state <= PARAM_TOL and f32_bias <= MLP_LR * MLP_STEPS + 1e-6,
           "float32 BN-MLP card vs CPU beyond the float32 limits")
+
+    def large_batch_step(zip_path, rows, pre_bn_biases, want, what):
+        """One bf16 training step of the zip's network at `rows` rows of
+        seeded random normal inputs with random labels (as
+        deeplearning4j_tpu/models/zoo.py's benches make them), on the card
+        and the CPU: the first step's gradients held against the CPU per
+        tensor in relative L2 (BF16_GRAD_TOL, the pre-BN biases apart),
+        then one `fit` step on the card; the BN launches by variant must be
+        `want`. The largest entry's error over the largest entry is
+        printed, not held, beside the same with the plain BN versions on
+        the card: it is set by the few entries where a ReLU mask flips
+        between two bf16 roundings of the GEMMs, through the kernels and
+        the plain versions alike."""
+        r = np.random.default_rng(0)
+        batch = pt.DataSet(
+            r.normal(size=(rows, 784)).astype(np.float32),
+            np.eye(10, dtype=np.float32)[r.integers(0, 10, rows)])
+        nets = [pt.ModelSerializer.restore(zip_path),
+                pt.ModelSerializer.restore(zip_path, device="cpu")]
+        reset_counts()
+        grads = [first_chunk_grads(torch, n, batch, steps=None) for n in nets]
+        nets[0].fit(batch)
+        torch.cuda.synchronize()
+        variants = bn_relu.variant_counts()
+        check(variants == want, f"{what}: launches by variant {variants}, "
+              f"want {want}")
+        check(set(lstm.launch_counts().values()) == {0}
+              and set(attention.launch_counts().values()) == {0},
+              f"{what} launched LSTM or attention kernels")
+        with plain_bn(bn_relu):
+            plain = first_chunk_grads(torch, pt.ModelSerializer.restore(
+                zip_path), batch, steps=None)
+        keys = [k for k in grads[1] if k not in pre_bn_biases]
+        l2 = {k: l2_err(grads[0][k], grads[1][k]) for k in keys}
+        worst = {k: (rel_err(grads[0][k], grads[1][k]),
+                     rel_err(plain[k], grads[1][k])) for k in keys}
+        check(max(l2.values()) <= BF16_GRAD_TOL, f"{what}: first-step "
+              f"gradients card vs CPU, relative L2 {l2} > {BF16_GRAD_TOL}")
+        check(np.isfinite(nets[0].score()), f"{what}: step score")
+        print(f"{what}: first-step gradients card vs CPU, relative L2 per "
+              f"tensor at most {max(l2.values()):.3e} (limit "
+              f"{BF16_GRAD_TOL}); largest entry's error over the largest "
+              f"(printed: through the kernels / the plain BN on the card) "
+              + ", ".join(f"{k} {a:.2e} / {b:.2e}"
+                          for k, (a, b) in worst.items())
+              + f"; one step, score {nets[0].score():.4f}; launches by "
+              f"variant {variants}")
+        return nets[0], batch, variants
+
+    # the BN-MLP at batch 4096 (MLP_BIG_B): every BN launch resident
+    big_net, big_batch, big_variants = large_batch_step(
+        mlp_zip, MLP_BIG_B, ("0/b", "2/b"),
+        {k: {"resident": 4, "streamed": 0} for k in ("fwd", "bwd")},
+        f"BN-MLP at batch {MLP_BIG_B} (bf16)")
+
+    # the narrow BN network at batch 65,536: both BN kernels streamed
+    narrow_zip = os.path.join(tmp, "bn_narrow.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(bn_narrow_json(pt)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(7)),
+        narrow_zip)
+    _, _, narrow_variants = large_batch_step(
+        narrow_zip, NARROW_B, ("0/b",),
+        {k: {"resident": 0, "streamed": 2} for k in ("fwd", "bwd")},
+        f"narrow BN network (784 -> {NARROW_C} -> BN(relu) -> 10, bf16) at "
+        f"batch {NARROW_B}")
 
     # ---- 9. main path 6: the LM in bf16 compute --------------------------
     # the LM of phase 7 under compute_dtype("bfloat16") (float32 masters),
@@ -2480,78 +2683,176 @@ def main():
           f"{bf16_training['tokens_per_s_incl_first_step']:.1f} tokens/s")
     print(json.dumps({"bf16_lm_training": bf16_training}))
 
-    # the BN+ReLU kernels per launch at the BN-MLP's shape (N = MLP_B) and
-    # at N = 4096, C = 1024, bf16, beside their plain versions and the
-    # library call (F.batch_norm in training mode + relu, bf16 input with
-    # float32 weight and bias; its backward through autograd, rerun on one
-    # saved graph), timed here as the yardstick only; each both per
-    # call (CUDA events around back-to-back calls, as every other row) and
-    # in device time (torch.profiler), since at N = 128 a call is
-    # microseconds of device work behind tens of host microseconds
+    # BN-MLP training: step p50 and samples/s, before the BN kernels'
+    # profiles below
+    def time_mlp_steps():
+        """Step p50 (ms) and samples/s of the BN-MLP over MLP_EPOCHS - 1
+        epochs after a warm-up epoch."""
+        net = pt.ModelSerializer.restore(mlp_zip)
+        clock = StepLog(torch)
+        net.set_listeners(clock)
+        source = mlp_batches(x_tr, y_tr)
+        net.fit(source)                         # warm-up epoch, 2 steps
+        clock.times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(source, epochs=MLP_EPOCHS - 1)
+        fit_s = time.perf_counter() - t0
+        step_ms = 1e3 * np.diff([t0] + clock.times)
+        timed_nets.append(net)
+        return float(np.median(step_ms)), len(step_ms) * MLP_B / fit_s
+
+    timed_nets = []
+    p50, rate = time_mlp_steps()
+    bn_mlp = {"card": card, "steps_timed": (MLP_EPOCHS - 1) * 2,
+              "step_p50_ms": p50, "samples_per_s": rate}
+    timed_mlp = timed_nets[0]
+    timed_mlp.set_listeners()
+
+    # the BN+ReLU kernels at N in {MLP_B, 4096} x C in {1024, 200, 48},
+    # bf16: the wrapper (the variant bn_plan picks), each variant's entry
+    # point called bare on pre-made outputs (so the plan's choice hides
+    # neither), the plain versions and the library call (F.batch_norm in
+    # training mode + relu, bf16 input with float32 weight and bias; its
+    # backward through autograd, rerun on one saved graph), timed here as
+    # the yardstick only; each per call (CUDA events around back-to-back
+    # calls) and in device time (torch.profiler): at N = 128 a call is
+    # microseconds of device work behind the host's launch path
     fn = torch.nn.functional
     bn_times = {}
     for N in (MLP_B, 4096):
-        x, g, b, dy = bn_args(torch, N, MLP_WIDTH, "bfloat16", seed=N)
-        _, mean, var = bn_relu.bn_relu_forward(x, g, b)
+        for C in (MLP_WIDTH, 200, 48):
+            x, g, b, dy = bn_args(torch, N, C, "bfloat16", seed=N + C)
+            _, mean, var = bn_relu.bn_relu_forward(x, g, b)
+            xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
+            lib_fwd = lambda: fn.relu(fn.batch_norm(xl, None, None, gl, bl,
+                                                    training=True))
+            graph = lib_fwd()   # the backward alone, on one saved graph
+            lib_grad = lambda: torch.autograd.grad(graph, (xl, gl, bl), dy,
+                                                   retain_graph=True)
+            for kind, wrapper, plain, lib, (bnd, by) in (
+                    ("fwd", lambda: bn_relu.bn_relu_forward(x, g, b),
+                     lambda: bn_relu.bn_relu_reference(x, g, b), lib_fwd,
+                     bn_fwd_bound_ms(N, C, 2)),
+                    ("bwd",
+                     lambda: bn_relu.bn_relu_backward(x, g, b, mean, var, dy),
+                     lambda: bn_relu.bn_relu_backward_reference(
+                         x, g, b, mean, var, dy), lib_grad,
+                     bn_bwd_bound_ms(N, C, 2))):
+                row = {"variant": bn_relu.bn_plan(N, C, 2,
+                                                  kind == "bwd").variant,
+                       "bound_ms": bnd, "bound_by": by,
+                       "ms": cuda_ms(torch, wrapper),
+                       "device_ms": device_ms(torch, wrapper),
+                       "plain_ms": cuda_ms(torch, plain),
+                       "plain_device_ms": device_ms(torch, plain),
+                       "library_ms": cuda_ms(torch, lib),
+                       "library_device_ms": device_ms(torch, lib)}
+                want = plain()
+                for variant in ("resident", "streamed"):
+                    call, outs = bn_bare_call(torch, bn_relu, kind, variant,
+                                              x, g, b, mean, var, dy)
+                    check(call() == 0, f"BN+ReLU {kind} {variant} entry "
+                          f"point failed at N={N} C={C}")
+                    torch.cuda.synchronize()
+                    for got, ref, dt in zip(outs, want, ("bfloat16",
+                                                         "float32",
+                                                         "float32")):
+                        check(ulp_err(got, ref, dt)[0], f"BN+ReLU {kind} "
+                              f"{variant} entry point at N={N} C={C} "
+                              "disagrees with plain")
+                    row[variant] = {"ms": cuda_ms(torch, call),
+                                    "device_ms": device_ms(torch, call)}
+                if (N, C) == (MLP_B, MLP_WIDTH):
+                    # a call's host path in three parts: the entry point
+                    # alone (above), the wrapper, the autograd Function
+                    if kind == "fwd":
+                        func = lambda: bn_relu.fused_bn_relu(xl, gl, bl)
+                    else:
+                        saved = bn_relu.fused_bn_relu(xl, gl, bl)[0]
+                        func = lambda: torch.autograd.grad(
+                            saved, (xl, gl, bl), dy, retain_graph=True)
+                    row["function_ms"] = cuda_ms(torch, func)
+                bn_times[(kind, N, C)] = row
+                print(f"{tag} BN+ReLU {kind} N={N} C={C} bf16 "
+                      f"({row['variant']}), per call: wrapper "
+                      f"{row['ms']:.4f} ms, entry point "
+                      f"resident {row['resident']['ms']:.4f} / streamed "
+                      f"{row['streamed']['ms']:.4f}, plain "
+                      f"{row['plain_ms']:.4f}, library "
+                      f"{row['library_ms']:.4f}; device time: wrapper "
+                      f"{row['device_ms']:.4f} ms, resident "
+                      f"{row['resident']['device_ms']:.4f}, streamed "
+                      f"{row['streamed']['device_ms']:.4f}, plain "
+                      f"{row['plain_device_ms']:.4f}, library "
+                      f"{row['library_device_ms']:.4f}; bound {bnd:.6f} ms "
+                      f"({by})")
+    for kind in ("fwd", "bwd"):
+        row = bn_times[(kind, MLP_B, MLP_WIDTH)]
+        print(f"{tag} BN+ReLU {kind} N={MLP_B} C={MLP_WIDTH}, a call's host "
+              f"path: entry point alone {row['resident']['ms']:.4f} ms, the "
+              f"wrapper {row['ms']:.4f}, through the autograd Function "
+              f"{row['function_ms']:.4f} (device {row['device_ms']:.4f})")
+    # the streamed kernels at their main path's shape (the narrow network)
+    x, g, b, dy = bn_args(torch, NARROW_B, NARROW_C, "bfloat16", seed=11)
+    _, mean, var = bn_relu.bn_relu_forward(x, g, b)
+    for kind, wrapper, plain, (bnd, by) in (
+            ("fwd", lambda: bn_relu.bn_relu_forward(x, g, b),
+             lambda: bn_relu.bn_relu_reference(x, g, b),
+             bn_fwd_bound_ms(NARROW_B, NARROW_C, 2)),
+            ("bwd", lambda: bn_relu.bn_relu_backward(x, g, b, mean, var, dy),
+             lambda: bn_relu.bn_relu_backward_reference(x, g, b, mean, var,
+                                                        dy),
+             bn_bwd_bound_ms(NARROW_B, NARROW_C, 2))):
+        check(bn_relu.bn_plan(NARROW_B, NARROW_C, 2,
+                              kind == "bwd").variant == "streamed",
+              "the narrow shape does not take the streamed kernels")
         xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
-        lib_fwd = lambda: fn.relu(fn.batch_norm(xl, None, None, gl, bl,
-                                                training=True))
-        graph = lib_fwd()   # the backward alone, rerun on one saved graph
-        lib_grad = lambda: torch.autograd.grad(graph, (xl, gl, bl), dy,
-                                               retain_graph=True)
-        lib_f, lib_b = cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_grad)
-        lib_dev = {"fwd": device_ms(torch, lib_fwd),
-                   "bwd": device_ms(torch, lib_grad)}
-        rows = {
-            "fwd": (lambda: bn_relu.bn_relu_forward(x, g, b),
-                    lambda: bn_relu.bn_relu_reference(x, g, b), lib_f,
-                    bn_fwd_bound_ms(N, MLP_WIDTH, 2)),
-            "bwd": (lambda: bn_relu.bn_relu_backward(x, g, b, mean, var, dy),
-                    lambda: bn_relu.bn_relu_backward_reference(
-                        x, g, b, mean, var, dy),
-                    lib_b, bn_bwd_bound_ms(N, MLP_WIDTH, 2))}
-        for name, (kern, plain, lib, (bnd, by)) in rows.items():
-            kms, pms = cuda_ms(torch, kern), cuda_ms(torch, plain)
-            dev = (device_ms(torch, kern), device_ms(torch, plain),
-                   lib_dev[name])
-            bn_times[(name, N)] = (kms, pms, lib, bnd, by) + dev
-            print(f"{tag} BN+ReLU {name} N={N} C={MLP_WIDTH} bf16, per "
-                  f"call: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
-                  f"F.batch_norm + relu "
-                  f"{'forward' if name == 'fwd' else 'backward'} {lib:.4f} "
-                  f"ms; device time: kernel {dev[0]:.4f} ms, plain "
-                  f"{dev[1]:.4f} ms, library {dev[2]:.4f} ms; bound "
-                  f"{bnd:.6f} ms ({by})")
+        graph = fn.relu(fn.batch_norm(xl, None, None, gl, bl, training=True))
+        lib = ((lambda: fn.relu(fn.batch_norm(xl, None, None, gl, bl,
+                                              training=True)))
+               if kind == "fwd" else
+               (lambda: torch.autograd.grad(graph, (xl, gl, bl), dy,
+                                            retain_graph=True)))
+        row = {"variant": "streamed", "bound_ms": bnd, "bound_by": by,
+               "ms": cuda_ms(torch, wrapper),
+               "device_ms": device_ms(torch, wrapper),
+               "plain_ms": cuda_ms(torch, plain),
+               "plain_device_ms": device_ms(torch, plain),
+               "library_ms": cuda_ms(torch, lib),
+               "library_device_ms": device_ms(torch, lib)}
+        bn_times[(kind, NARROW_B, NARROW_C)] = row
+        print(f"{tag} BN+ReLU {kind} N={NARROW_B} C={NARROW_C} bf16 "
+              f"(streamed), per call {row['ms']:.4f} ms, device "
+              f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f} "
+              f"(device {row['plain_device_ms']:.4f}); library "
+              f"{row['library_ms']:.4f} (device "
+              f"{row['library_device_ms']:.4f}); bound {bnd:.6f} ms ({by})")
 
-    # BN-MLP training: step p50 and samples/s, then one step's device time
-    # by kind
-    timed_mlp = pt.ModelSerializer.restore(mlp_zip)
-    mlp_clock = StepLog(torch)
-    timed_mlp.set_listeners(mlp_clock)
-    source = mlp_batches(x_tr, y_tr)
-    timed_mlp.fit(source)                       # warm-up epoch, 2 steps
-    mlp_clock.times.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    timed_mlp.fit(source, epochs=MLP_EPOCHS - 1)
-    mlp_fit_s = time.perf_counter() - t0
-    step_ms = 1e3 * np.diff([t0] + mlp_clock.times)
-    bn_mlp = {"card": card, "steps_timed": len(step_ms),
-              "step_p50_ms": float(np.median(step_ms)),
-              "samples_per_s": len(step_ms) * MLP_B / mlp_fit_s}
-    timed_mlp.set_listeners()
+    # BN-MLP training: step p50 again after the BN kernels' profiles (two
+    # readings of one run show the spread of the host's clock, which the
+    # host-bound step follows), then one step's device time by kind
+    bn_mlp["step_p50_ms_after_kernel_profiles"] = time_mlp_steps()[0]
+    print(f"{tag} BN-MLP training step p50 after the BN kernels' profiles: "
+          f"{bn_mlp['step_p50_ms_after_kernel_profiles']:.3f} ms")
     batch = pt.DataSet(x_tr[:MLP_B], y_tr[:MLP_B])
     events, busy, wall = profile_device(
         torch, lambda: timed_mlp.fit(batch),
         f"BN-MLP training step (batch {MLP_B}, bf16)", tag, reps=5)
-    kinds = {"gemm": 0.0, "bn_relu": 0.0, "copies": 0.0, "other": 0.0}
-    for key, ms, _ in events:
-        low = key.lower()
-        kind = ("bn_relu" if "bn_relu" in low else
-                "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass"))
-                else "copies" if "memcpy" in low or "memset" in low
-                else "other")
-        kinds[kind] += ms
+    kinds = device_ms_by_kind(events)
+    big_events, big_busy, big_wall = profile_device(
+        torch, lambda: big_net.fit(big_batch),
+        f"BN-MLP training step (batch {MLP_BIG_B}, bf16)", tag, reps=5)
+    big_kinds = device_ms_by_kind(big_events)
+    print(f"{tag} BN-MLP training step at batch {MLP_BIG_B}: device time "
+          + ", ".join(f"{k} {ms:.4f} ms" for k, ms in big_kinds.items())
+          + f" of {big_wall:.3f} ms wall (idle share "
+          f"{1 - big_busy / big_wall:.3f})")
+    bn_mlp.update({
+        "batch_4096": {"profiled_wall_ms_per_step": big_wall,
+                       "profiled_device_busy_ms_per_step": big_busy,
+                       "profiled_idle_share": 1 - big_busy / big_wall,
+                       "profiled_ms_per_step_by_kind": big_kinds}})
     bn_mlp.update({
         "profiled_wall_ms_per_step": wall,
         "profiled_device_busy_ms_per_step": busy,
@@ -2560,11 +2861,24 @@ def main():
         "accuracy_held_out_card": evs[0].accuracy(),
         "accuracy_held_out_cpu": evs[1].accuracy()})
     print(f"{tag} BN-MLP training (batch {MLP_B}, bf16 compute): step p50 "
-          f"{bn_mlp['step_p50_ms']:.3f} ms over {len(step_ms)} steps, "
+          f"{bn_mlp['step_p50_ms']:.3f} ms over {bn_mlp['steps_timed']} "
+          f"steps, "
           f"{bn_mlp['samples_per_s']:.1f} samples/s; one step's device "
           f"time: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"bn_mlp_training": bn_mlp}))
+
+    launches = {"resident": bn_variants, "streamed": narrow_variants}
+    launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
+                for v, c in launches.items()}
+
+    def bn_timing(r):
+        """The timing keys of one `bn_times` row (each variant's entry
+        point alone beside the wrapper where it was timed)."""
+        keys = ("variant", "ms", "device_ms", "plain_ms", "plain_device_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                "resident", "streamed", "function_ms")
+        return {k: r[k] for k in keys if k in r}
 
     def timing(r):
         """The timing keys of one `attn_times` row."""
@@ -2775,40 +3089,42 @@ def main():
             "card": card,
         }]
         + [{
-            "name": name,
+            "name": name if variant == "resident" else f"{name}_streamed",
             "route": "cuda",
             "source": "deeplearning4j_tpu_torch/kernels/csrc/bn_relu.cu",
             "replaces": replaces,
-            "launches": bn_counts[counter],
-            "max_abs_err": bn_max[key][0],
-            "max_err_over_max_ref": bn_max[key][1],
-            "per": f"one launch at the BN-MLP's N={MLP_B}, C={MLP_WIDTH}, "
-                   f"bf16 (2 per training step)",
-            "ms": bn_times[(key, MLP_B)][0],
-            "plain_ms": bn_times[(key, MLP_B)][1],
-            "bound_ms": bn_times[(key, MLP_B)][3],
-            "bound_by": bn_times[(key, MLP_B)][4],
-            "library_ms": bn_times[(key, MLP_B)][2],
+            "variant": variant,
+            "launches": launches[variant][key],
+            "max_abs_err": bn_max[(key, variant)][0],
+            "max_err_over_max_ref": bn_max[(key, variant)][1],
+            "per": per,
+            **bn_timing(bn_times[(key, *shape)]),
             "library": library,
-            "device_ms": bn_times[(key, MLP_B)][5],
-            "plain_device_ms": bn_times[(key, MLP_B)][6],
-            "library_device_ms": bn_times[(key, MLP_B)][7],
-            "at_n4096": {k: v for k, v in zip(
-                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                 "device_ms", "plain_device_ms", "library_device_ms"),
-                bn_times[(key, 4096)])},
+            "by_shape": {f"N={n} C={c}": bn_timing(bn_times[(key, n, c)])
+                         for n in (MLP_B, 4096)
+                         for c in (MLP_WIDTH, 200, 48)},
             "card": card,
-        } for name, key, counter, replaces, library in (
-            ("bn_relu_forward", "fwd", "fwd_launches",
+        } for name, key, replaces, library in (
+            ("bn_relu_forward", "fwd",
              "deeplearning4j_tpu/kernels/bn_relu.py:38 (_fwd_kernel via "
              "_fwd_call's pallas_call :88)",
              "F.batch_norm(training=True) + relu forward (bf16 input, f32 "
              "weight and bias)"),
-            ("bn_relu_backward", "bwd", "bwd_launches",
+            ("bn_relu_backward", "bwd",
              "deeplearning4j_tpu/kernels/bn_relu.py:50 (_bwd_kernel via "
              "_bwd_call's pallas_call :123)",
              "autograd backward of F.batch_norm(training=True) + relu, "
-             "rerun on one saved graph (per call: autograd's host path)"))]}))
+             "rerun on one saved graph (per call: autograd's host path)"))
+          for variant, shape, per in (
+            ("resident", (MLP_B, MLP_WIDTH),
+             f"one launch at the BN-MLP's N={MLP_B}, C={MLP_WIDTH}, bf16 (2 "
+             "per training step; launches: main path 5); by_shape: its "
+             "entry point alone beside the streamed one's"),
+            ("streamed", (NARROW_B, NARROW_C),
+             f"one launch at the narrow BN network's N={NARROW_B}, "
+             f"C={NARROW_C}, bf16 (1 per step; launches: its step and "
+             "first-step gradients); by_shape: its entry point alone, at "
+             "shapes its plan gives the resident variant"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,11 @@ launches.
 
 Counterpart of `deeplearning4j_tpu/kernels/bn_relu.py:fused_bn_relu`, its
 custom VJP included. The kernels are in `csrc/bn_relu.cu`; its header says
-what bounds each and how its design answers that.
+what bounds each and how its design answers that. Each half runs one of
+two variants, picked from the shape alone by `bn_plan`: "resident" (the
+[rows, 32-byte] slab of a CTA in shared memory, N split across a
+thread-block cluster) wherever a slab fits a cluster of 8, "streamed" (one
+block per 32 channels looping over N) past that.
 
   * `fused_bn_relu(x, gamma, beta, eps)` — x [N, C] or channels-last
     [..., C]; returns (y, batch mean, batch biased var), y in x's dtype, the
@@ -17,7 +21,10 @@ what bounds each and how its design answers that.
     versions (`bn_relu_reference` and `_bwd_kernel`'s math), for the CPU and
     for holding the kernels to account; `bn_relu_inference` — the running-
     stats expression (no kernel, as in JAX).
-  * Launch counts: `fwd_launches`, `bwd_launches`.
+  * `bn_plan`, `resident_bytes` — the launch plan of a shape and the
+    shared memory it takes.
+  * Launch counts: `fwd_launches`, `bwd_launches` (`launch_counts()`), and
+    by variant (`variant_counts()`).
 
 A wrapper given CPU tensors runs the plain version, in any float dtype;
 given CUDA tensors it launches the kernel (x in float32, bfloat16 or
@@ -26,33 +33,65 @@ computes them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .lstm import MAX_SHARED_BYTES
 
 __all__ = ["fused_bn_relu", "bn_relu_forward", "bn_relu_backward",
            "bn_relu_reference", "bn_relu_backward_reference",
            "bn_relu_inference", "fwd_launches", "bwd_launches",
-           "reset_launches", "launch_counts", "KERNEL_DTYPES"]
+           "reset_launches", "launch_counts", "variant_counts", "bn_plan",
+           "BnPlan", "resident_bytes", "KERNEL_DTYPES"]
 
 # dtype -> the kernels' dtype code
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# The resident variant (csrc/bn_relu.cu's constants): a CTA owns one
+# 32-byte row segment of channels and reserves slab rows in multiples of
+# 128; a cluster has at most 8 CTAs (the portable maximum). Its scratch is
+# red [2][8][16], part [2][16] and tot [2][16] floats.
+SEGMENT_BYTES = 32
+ROW_QUANTUM = 128
+MAX_CLUSTER = 8
+_SCRATCH_BYTES = (2 * 8 * 16 + 4 * 16) * 4
+# SMs of an H100 SXM: the plan sizes its grid to about one wave of these
+CARD_SMS = 132
+# N is split across a cluster only while each CTA keeps at least this many
+# rows (4 packs a thread): below it a cluster barrier costs more than the
+# rows it spreads
+MIN_SPLIT_ROWS = 512
+# The streamed variant: 32 channels a block, static shared memory only
+# (red [8][32] + tot [32] floats forward, twice that backward)
+STREAMED_CHANNELS = 32
+STREAMED_BYTES = {False: (8 * 32 + 32) * 4, True: 2 * (8 * 32 + 32) * 4}
+_VARIANTS = ("resident", "streamed")
+_ENTRY_POINTS = {("fwd", "resident"): "dl4j_bn_relu_fwd_resident",
+                 ("fwd", "streamed"): "dl4j_bn_relu_fwd",
+                 ("bwd", "resident"): "dl4j_bn_relu_bwd_resident",
+                 ("bwd", "streamed"): "dl4j_bn_relu_bwd"}
+
 fwd_launches = 0     # forward: stats, normalise, ReLU
 bwd_launches = 0     # backward: mask, dgamma / dbeta, dx
 _COUNTS = ("fwd_launches", "bwd_launches")
+_by_variant = {kind: dict.fromkeys(_VARIANTS, 0) for kind in ("fwd", "bwd")}
 _launch_lock = threading.Lock()
 _fns = {}
 
 
 def reset_launches() -> int:
-    """Set both launch counts to 0; returns the forward's count."""
+    """Set every launch count to 0; returns the forward's count."""
     with _launch_lock:
         n = fwd_launches
         for name in _COUNTS:
             globals()[name] = 0
+        for counts in _by_variant.values():
+            counts.update(dict.fromkeys(counts, 0))
     return n
 
 
@@ -62,16 +101,76 @@ def launch_counts() -> dict:
         return {name: globals()[name] for name in _COUNTS}
 
 
-def _count(name: str):
+def variant_counts() -> dict:
+    """{"fwd" | "bwd": {variant: launches}}; each kind's variants add up to
+    its total in `launch_counts()`."""
     with _launch_lock:
-        globals()[name] += 1
+        return {kind: dict(counts) for kind, counts in _by_variant.items()}
+
+
+def _count(kind: str, variant: str):
+    with _launch_lock:
+        globals()[kind + "_launches"] += 1
+        _by_variant[kind][variant] += 1
+
+
+class BnPlan(NamedTuple):
+    """How the forward (or the backward) kernel runs an [N, C] problem."""
+    variant: str      # "resident" or "streamed"
+    channels: int     # channels a CTA owns (the last CTA's may be fewer)
+    cluster: int      # CTAs of a cluster, splitting N (1: no cluster)
+    rows: int         # rows a CTA holds (the last rank's may be fewer)
+    ctas: int         # CTAs in the grid
+    smem_bytes: int   # shared memory of a CTA
+
+
+def resident_bytes(rows: int, backward: bool) -> int:
+    """Dynamic shared memory of one resident CTA holding `rows` rows, in
+    bytes; `resident_bytes` in csrc/bn_relu.cu computes the same: the
+    scratch, then one slab (x) or two (x, dy) of the rows rounded up to
+    ROW_QUANTUM, SEGMENT_BYTES a row."""
+    slab = -(-rows // ROW_QUANTUM) * ROW_QUANTUM * SEGMENT_BYTES
+    return _SCRATCH_BYTES + (2 if backward else 1) * slab
+
+
+@functools.lru_cache(maxsize=1024)
+def bn_plan(N: int, C: int, itemsize: int, backward: bool) -> BnPlan:
+    """The variant and launch plan of the forward (backward = False) or
+    the backward kernel for an [N, C] batch of `itemsize`-byte values; a
+    function of the shape alone.
+
+    "resident": a CTA owns SEGMENT_BYTES of channels (16 bf16 / f16 or 8
+    f32: one sector a row), so ceil(C / channels) channel groups; a
+    cluster of `cluster` CTAs (a power of two up to MAX_CLUSTER) splits N
+    into `rows`-row slabs. The cluster doubles while the grid stays within
+    about one wave of CARD_SMS and each CTA keeps MIN_SPLIT_ROWS rows (so
+    N = 128 runs without a cluster), then further until a slab fits
+    MAX_SHARED_BYTES. "streamed": where no slab fits a cluster of 8 (N
+    above 57,344 forward, 28,672 backward)."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"no BN+ReLU kernel for {itemsize}-byte values")
+    channels = SEGMENT_BYTES // itemsize
+    groups = -(-C // channels)
+    n = 1
+    while (n < MAX_CLUSTER and groups * 2 * n <= CARD_SMS
+           and -(-N // (2 * n)) >= MIN_SPLIT_ROWS):
+        n *= 2
+    while n <= MAX_CLUSTER:
+        rows = -(-N // n)
+        nbytes = resident_bytes(rows, backward)
+        if nbytes <= MAX_SHARED_BYTES:
+            return BnPlan("resident", channels, n, rows, groups * n, nbytes)
+        n *= 2
+    return BnPlan("streamed", STREAMED_CHANNELS, 1, N,
+                  -(-C // STREAMED_CHANNELS), STREAMED_BYTES[backward])
 
 
 def _block_c(C: int, N: int) -> Optional[int]:
     """The TPU kernel's channel tile, or None when one tile's whole batch
     would exceed its ~2 MB VMEM budget. It has no meaning on the card (the
-    CUDA kernel loops over N); it is kept so that `BatchNormalization._helper`
-    selects this kernel for exactly the batches JAX sends to its kernel."""
+    CUDA kernels take any N: `bn_plan` picks how); it is kept so that
+    `BatchNormalization._helper` selects these kernels for exactly the
+    batches JAX sends to its kernel."""
     bc = 128 if C >= 128 else C
     if N * bc * 4 > 2 * 1024 * 1024:
         return None
@@ -123,10 +222,12 @@ def bn_relu_inference(x, gamma, beta, mean, var, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {   # entry point -> pointers before (N, C, eps, dtype, wide)
-    "dl4j_bn_relu_fwd": 6,
-    "dl4j_bn_relu_bwd": 9,
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {   # entry point -> (pointers, ints before eps)
+    "dl4j_bn_relu_fwd": (6, 2),             # N, C
+    "dl4j_bn_relu_bwd": (9, 2),
+    "dl4j_bn_relu_fwd_resident": (6, 4),    # N, C, rows, cluster
+    "dl4j_bn_relu_bwd_resident": (9, 4),
 }
 
 
@@ -135,31 +236,45 @@ def _kernel_fn(name: str):
     if fn is None:
         from . import library
         fn = getattr(library(), name)
-        fn.argtypes = ([_PTR] * _SIGNATURES[name]
-                       + [_INT, _INT, ctypes.c_float, _INT, _INT, _PTR])
+        pointers, ints = _SIGNATURES[name]
+        fn.argtypes = ([_PTR] * pointers + [_INT] * ints
+                       + [_FLOAT, _INT, _INT, _PTR])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _launch(name: str, counter: str, x, *args, eps: float):
-    """Launch `name` on the current stream of x's device. The 16-byte pack
-    (4 f32 or 8 bf16 / f16 channels a load) is used where C and every [N, C]
-    tensor allow it."""
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device `index`, as an address."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(kind: str, x, pointers, aligned: bool, eps: float):
+    """Launch the `kind` ("fwd" or "bwd") kernel of the variant `bn_plan`
+    picks for x [N, C], on the current stream of x's device. `pointers`
+    are the entry point's addresses; `aligned` says every [N, C] one is
+    16-byte aligned, so the 16-byte pack (4 f32 or 8 bf16 / f16 channels)
+    is taken where C is a multiple of it."""
     N, C = x.shape
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    wide = (C % (16 // x.element_size()) == 0
-            and all(t.data_ptr() % 16 == 0 for t in tensors + [x]
-                    if t.dim() == 2))
-    fn = _kernel_fn(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), *(a.data_ptr() for a in args), N, C,
-                 float(eps), KERNEL_DTYPES[x.dtype], int(wide), stream)
+    size = x.element_size()
+    plan = bn_plan(N, C, size, kind == "bwd")
+    wide = int(aligned and C % (16 // size) == 0)
+    fn = _kernel_fn(_ENTRY_POINTS[kind, plan.variant])
+    dims = ((N, C, plan.rows, plan.cluster) if plan.variant == "resident"
+            else (N, C))
+    index = x.device.index
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        err = fn(*pointers, *dims, eps, KERNEL_DTYPES[x.dtype], wide,
+                 _raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"BN+ReLU kernel {name} launch failed: CUDA error "
-                           f"{err}")
-    _count(counter)
+        raise RuntimeError(f"BN+ReLU kernel "
+                           f"{_ENTRY_POINTS[kind, plan.variant]} launch "
+                           f"failed: CUDA error {err}")
+    _count(kind, plan.variant)
 
 
 def _check(x, **vectors):
@@ -187,7 +302,40 @@ def _check(x, **vectors):
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
     return t.to(torch.float32).contiguous()
+
+
+def _forward_kernel(x, gamma, beta, eps: float):
+    """The forward launch on checked CUDA tensors. The temporaries stay
+    referenced until the launch is queued."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    g, b = _f32(gamma), _f32(beta)
+    # two [C] tensors like g: on the host, cheaper than one [2, C] tensor
+    # and its two row views
+    y, mean, var = (torch.empty_like(x), torch.empty_like(g),
+                    torch.empty_like(g))
+    xp, yp = x.data_ptr(), y.data_ptr()
+    _launch("fwd", x, (xp, g.data_ptr(), b.data_ptr(), yp, mean.data_ptr(),
+                       var.data_ptr()), (xp | yp) % 16 == 0, eps)
+    return y, mean, var
+
+
+def _backward_kernel(x, gamma, beta, mean, var, dy, eps: float):
+    """The backward launch on checked CUDA tensors."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if dy.dtype != x.dtype or not dy.is_contiguous():
+        dy = dy.to(x.dtype).contiguous()
+    g, b, m, v = _f32(gamma), _f32(beta), _f32(mean), _f32(var)
+    dx, dg, db = torch.empty_like(x), torch.empty_like(g), torch.empty_like(g)
+    xp, dyp, dxp = x.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    _launch("bwd", x, (xp, g.data_ptr(), b.data_ptr(), m.data_ptr(),
+                       v.data_ptr(), dyp, dxp, dg.data_ptr(), db.data_ptr()),
+            (xp | dyp | dxp) % 16 == 0, eps)
+    return dx, dg, db
 
 
 def bn_relu_forward(x, gamma, beta, eps: float = 1e-5
@@ -197,14 +345,7 @@ def bn_relu_forward(x, gamma, beta, eps: float = 1e-5
     _check(x, gamma=gamma, beta=beta)
     if x.device.type == "cpu":
         return bn_relu_reference(x, gamma, beta, eps)
-    x, gamma, beta = x.contiguous(), _f32(gamma), _f32(beta)
-    N, C = x.shape
-    y = torch.empty_like(x)
-    mean, var = (torch.empty(C, dtype=torch.float32, device=x.device)
-                 for _ in range(2))
-    _launch("dl4j_bn_relu_fwd", "fwd_launches", x, gamma, beta, y, mean, var,
-            eps=eps)
-    return y, mean, var
+    return _forward_kernel(x, gamma, beta, float(eps))
 
 
 def bn_relu_backward(x, gamma, beta, mean, var, dy, eps: float = 1e-5
@@ -212,30 +353,28 @@ def bn_relu_backward(x, gamma, beta, mean, var, dy, eps: float = 1e-5
     """The backward from the saved stats: (dx in x's dtype, dg, db float32).
     One kernel launch on a CUDA device; the plain version on the CPU."""
     _check(x, gamma=gamma, beta=beta, mean=mean, var=var)
-    if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
+    if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"dy must match x {tuple(x.shape)} on {x.device}, "
                          f"got {tuple(dy.shape)} on {dy.device}")
     if x.device.type == "cpu":
         return bn_relu_backward_reference(x, gamma, beta, mean, var, dy, eps)
-    x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
-    C = x.shape[1]
-    dx = torch.empty_like(x)
-    dg, db = (torch.empty(C, dtype=torch.float32, device=x.device)
-              for _ in range(2))
-    _launch("dl4j_bn_relu_bwd", "bwd_launches", x, _f32(gamma), _f32(beta),
-            _f32(mean), _f32(var), dy, dx, dg, db, eps=eps)
-    return dx, dg, db
+    return _backward_kernel(x, gamma, beta, mean, var, dy, float(eps))
 
 
 class _BnRelu(torch.autograd.Function):
-    """`bn_relu_forward` with its custom VJP (`_bn_relu_fwd` /
-    `_bn_relu_bwd`): the forward saves (x, gamma, beta, mean, var); the stats
-    are outputs without a gradient (running-average semantics); backward is
-    `bn_relu_backward`, dgamma and dbeta cast to their parameters' dtypes."""
+    """The forward with its custom VJP (`_bn_relu_fwd` / `_bn_relu_bwd`):
+    the forward saves (x, gamma, beta, mean, var); the stats are outputs
+    without a gradient (running-average semantics); backward is the
+    backward kernel (the plain version on the CPU), dgamma and dbeta cast
+    to their parameters' dtypes. `fused_bn_relu` checks the inputs once,
+    so neither half checks them again."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        y, mean, var = bn_relu_forward(x, gamma, beta, eps)
+        if x.is_cuda:
+            y, mean, var = _forward_kernel(x, gamma, beta, eps)
+        else:
+            y, mean, var = bn_relu_reference(x, gamma, beta, eps)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps = eps
         ctx.mark_non_differentiable(mean, var)
@@ -244,7 +383,12 @@ class _BnRelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
-        dx, dg, db = bn_relu_backward(x, gamma, beta, mean, var, dy, ctx.eps)
+        if x.is_cuda:
+            dx, dg, db = _backward_kernel(x, gamma, beta, mean, var, dy,
+                                          ctx.eps)
+        else:
+            dx, dg, db = bn_relu_backward_reference(x, gamma, beta, mean,
+                                                    var, dy, ctx.eps)
         return dx, dg.to(gamma.dtype), db.to(beta.dtype), None
 
 
@@ -256,6 +400,7 @@ def fused_bn_relu(x, gamma, beta, eps: float = 1e-5):
     shape = x.shape
     if x.dim() < 2:
         raise ValueError(f"x must be [N, C] or [..., C], got {tuple(shape)}")
-    y, mean, var = _BnRelu.apply(x.reshape(-1, shape[-1]), gamma, beta,
-                                 float(eps))
-    return y.reshape(shape), mean, var
+    flat = x if x.dim() == 2 else x.reshape(-1, shape[-1])
+    _check(flat, gamma=gamma, beta=beta)
+    y, mean, var = _BnRelu.apply(flat, gamma, beta, float(eps))
+    return (y if x.dim() == 2 else y.reshape(shape)), mean, var

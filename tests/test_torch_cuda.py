@@ -6,7 +6,9 @@ float32, bfloat16 and float16), the autograd Functions against autograd of
 the plain forwards, bit-equal reruns, the launch counts of training steps,
 and full-width networks on the card against the CPU. Every LSTM sequence
 kernel test runs both kernel variants ("cluster" and "streamed"), each at
-shapes that `lstm.sequence_plan` sends to it.
+shapes that `lstm.sequence_plan` sends to it; every BN+ReLU kernel test
+both of its variants ("resident" and "streamed"), each at shapes that
+`bn_relu.bn_plan` sends to it.
 
 Marked `cuda`; each test skips without a CUDA device. This file imports no
 JAX, so it also runs on a machine without it. On the card:
@@ -548,19 +550,42 @@ def _bn_close(got, want, dtype):
     return bool(((got - want).abs() <= limit).all())
 
 
+def _bn_variants_launched(N, C, dtype, before):
+    """The forward and the backward launched once each since `before`
+    (`bn_relu.variant_counts()`), each in the variant `bn_plan` picks;
+    returns the two variants."""
+    after = bn_relu.variant_counts()
+    size = torch.tensor([], dtype=dtype).element_size()
+    picked = []
+    for kind in ("fwd", "bwd"):
+        want = bn_relu.bn_plan(N, C, size, kind == "bwd").variant
+        assert after[kind][want] == before[kind][want] + 1, (kind, after)
+        assert sum(after[kind].values()) == sum(before[kind].values()) + 1
+        picked.append(want)
+    return tuple(picked)
+
+
+# Shapes past the resident slabs (N above 28,672 backward, 57,344
+# forward) take the streamed variant; the rest the resident one
+BN_STREAMED = [(28673, 10), (57345, 8)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("N,C", [(128, 1024), (4096, 1024), (4097, 200),
-                                 (1, 48), (33, 10), (64, 7)])
+                                 (1, 48), (33, 10), (64, 7)] + BN_STREAMED)
 def test_bn_relu_kernels_match_plain(cuda, N, C, dtype):
     x, g, b, dy = _bn_args(N, C, dtype, cuda, seed=N + C)
     before = bn_relu.launch_counts()
+    variants = bn_relu.variant_counts()
     y, mean, var = bn_relu.bn_relu_forward(x, g, b)
     dx, dg, db = bn_relu.bn_relu_backward(x, g, b, mean, var, dy)
     torch.cuda.synchronize()
     after = bn_relu.launch_counts()
     assert after["fwd_launches"] == before["fwd_launches"] + 1
     assert after["bwd_launches"] == before["bwd_launches"] + 1
+    picked = _bn_variants_launched(N, C, dtype, variants)
+    assert ("streamed" in picked) == ((N, C) in BN_STREAMED)
     want_y, want_m, want_v = bn_relu.bn_relu_reference(x, g, b)
     want = bn_relu.bn_relu_backward_reference(x, g, b, mean, var, dy)
     assert y.dtype == dx.dtype == dtype
@@ -571,19 +596,35 @@ def test_bn_relu_kernels_match_plain(cuda, N, C, dtype):
         assert _bn_close(got, ref, torch.float32)
 
 
-def test_bn_relu_takes_nhwc_and_unaligned_rows(cuda):
-    x, g, b, _ = _bn_args(2 * 21 * 7 + 1, 64, torch.bfloat16, cuda)
-    # a storage offset of 3 elements (6 bytes): the one-element loads
-    nhwc = x.reshape(-1)[3:3 + 2 * 21 * 7 * 64].reshape(2, 21, 7, 64)
+@pytest.mark.parametrize("lead,C", [((2, 21, 7), 64),       # resident
+                                    ((5, 3, 3823), 16)])    # streamed
+def test_bn_relu_takes_nhwc_and_unaligned_rows(cuda, lead, C):
+    N = int(np.prod(lead))
+    x, g, b, dy = _bn_args(N + 1, C, torch.bfloat16, cuda)
+    # a storage offset of 3 elements (6 bytes): the one-element copies
+    nhwc = x.reshape(-1)[3:3 + N * C].reshape(*lead, C)
+    dy = dy.reshape(-1)[3:3 + N * C].reshape(N, C)
+    variants = bn_relu.variant_counts()
     y, mean, var = bn_relu.fused_bn_relu(nhwc, g, b)
-    want = bn_relu.bn_relu_reference(nhwc.reshape(-1, 64), g, b)
+    dx, dg, db = bn_relu.bn_relu_backward(nhwc.reshape(N, C), g, b, mean,
+                                          var, dy)
+    torch.cuda.synchronize()
+    _bn_variants_launched(N, C, torch.bfloat16, variants)
+    want = bn_relu.bn_relu_reference(nhwc.reshape(-1, C), g, b)
+    want_b = bn_relu.bn_relu_backward_reference(nhwc.reshape(N, C), g, b,
+                                                mean, var, dy)
     assert tuple(y.shape) == tuple(nhwc.shape)
-    assert _bn_close(y.reshape(-1, 64), want[0], torch.bfloat16)
+    assert _bn_close(y.reshape(-1, C), want[0], torch.bfloat16)
     assert _bn_close(mean, want[1], torch.float32)
+    assert _bn_close(var, want[2], torch.float32)
+    assert _bn_close(dx, want_b[0], torch.bfloat16)
+    assert _bn_close(dg, want_b[1], torch.float32)
+    assert _bn_close(db, want_b[2], torch.float32)
 
 
-def test_bn_relu_kernels_are_bit_equal_run_to_run(cuda):
-    x, g, b, dy = _bn_args(4096, 1024, torch.bfloat16, cuda, seed=3)
+@pytest.mark.parametrize("N,C", [(4096, 1024), (4096, 48)] + BN_STREAMED)
+def test_bn_relu_kernels_are_bit_equal_run_to_run(cuda, N, C):
+    x, g, b, dy = _bn_args(N, C, torch.bfloat16, cuda, seed=3)
     first = bn_relu.bn_relu_forward(x, g, b)
     first += bn_relu.bn_relu_backward(x, g, b, first[1], first[2], dy)
     for _ in range(3):
@@ -600,17 +641,43 @@ def test_bn_relu_refuses_float64_on_the_card(cuda):
         bn_relu.bn_relu_forward(x.float(), g.cpu(), b)
 
 
-def test_bn_relu_function_matches_autograd_of_plain_forward(cuda):
-    x, g, b, w = _bn_args(256, 96, torch.float32, cuda, seed=5)
+@pytest.mark.parametrize("N,C", [(256, 96), (30000, 8), (57345, 8)])
+def test_bn_relu_function_matches_autograd_of_plain_forward(cuda, N, C):
+    """Resident both halves; a resident forward with a streamed backward;
+    streamed both."""
+    x, g, b, w = _bn_args(N, C, torch.float32, cuda, seed=5)
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in (x, g, b)]
         return torch.autograd.grad((fn(*leaves) * w).sum(), leaves)
 
+    variants = bn_relu.variant_counts()
     got = grads(lambda *a: bn_relu.fused_bn_relu(*a)[0])
+    _bn_variants_launched(N, C, torch.float32, variants)
     want = grads(lambda *a: bn_relu.bn_relu_reference(*a)[0])
     for a, c in zip(got, want):
         assert _bn_close(a, c, torch.float32)
+
+
+def test_bn_plan_bytes_match_the_kernels(cuda):
+    """`bn_plan`'s shared memory (what it checks against a CTA's 227 KB) is
+    what the kernels take: the resident carve-up, or the streamed
+    kernels' static arrays."""
+    import ctypes
+    from deeplearning4j_tpu_torch.kernels import library
+    fn = library().dl4j_bn_relu_plan_bytes
+    fn.restype = ctypes.c_longlong
+    seen = set()
+    for N, C in [(128, 1024), (4096, 1024), (4097, 200), (4096, 48),
+                 (1, 10), (52428, 10), (28672, 16), (57344, 8),
+                 (57345, 8)]:
+        for size in (2, 4):
+            for backward in (False, True):
+                plan = bn_relu.bn_plan(N, C, size, backward)
+                seen.add(plan.variant)
+                assert fn(int(plan.variant == "resident"), plan.rows,
+                          int(backward)) == plan.smem_bytes
+    assert seen == {"resident", "streamed"}
 
 
 def _bn_mlp(device, compute_dtype="bfloat16", width=64):
@@ -642,6 +709,8 @@ def test_bn_mlp_step_launches_bn_kernels_only_in_bf16(cuda, compute):
     want = 2 if compute else 0
     assert bn_relu.launch_counts() == {"fwd_launches": want,
                                        "bwd_launches": want}
+    assert bn_relu.variant_counts() == {
+        kind: {"resident": want, "streamed": 0} for kind in ("fwd", "bwd")}
     nets[0].output(x[128:192])
     nets[0].score(pt.DataSet(x[:64], y[:64]))
     assert bn_relu.launch_counts()["fwd_launches"] == want
