@@ -89,7 +89,28 @@ Phases:
      entry point alone, a call at N = 128 split into entry point, wrapper
      and autograd Function; where the LM's bucket-32 forward, a char-RNN
      training batch, an LM training step in f32 and in bf16 and a BN-MLP
-     step at batch 128 and 4096 spend their device time (torch.profiler).
+     step at batch 128 and 4096 spend their device time (torch.profiler);
+ 11. main path 7, the convolutional path (no hand kernel; conv, pool and
+     LRN through torch.nn.functional, cuDNN on the card): AlexNet's SAME
+     11x11/4 conv (padding split 3 / 4), 3x3 SAME and 5x5 convs, LRN and
+     the four pooling types (TRUNCATE, uneven SAME, padding past half a
+     kernel) on the card against the CPU, outputs and gradients; LeNet-MNIST
+     (BASELINE config 1, full width, 431,080 parameters) built from one
+     JSON and trained 20 Nesterovs steps with `fit` over an
+     ArrayDataSetIterator of the 320 bundled digits (batch 128, shuffled,
+     drop_last) from a zip of seeded random weights, on the card and the
+     CPU (scores, first-step gradients, final parameters), evaluated on
+     the 64 held-out digits, its zip with updater state restored on both
+     devices for one more step, and served over HTTP in buckets 1, 8 and
+     32 with a swap; VGG-16 at ImageNet widths (224 x 224 x 3, 1000
+     classes, 138,357,544 parameters): forward and first-step gradients at
+     batch 2 against the CPU, then 5 Nesterovs steps at batch 32 on the
+     card; AlexNet (62,378,344 parameters) registered and served in
+     process at buckets 1, 8 and 32 against the CPU; then LeNet's step
+     p50 and samples/s at batch 512, VGG-16's step p50, images/s and share
+     of the f32 peak at batch 32, both steps' device busy time and idle
+     share (torch.profiler), AlexNet's predict p50 per bucket, and the
+     run's total seconds.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -107,7 +128,7 @@ six bf16 logsumexp-forward, dq and dk/dv launches per bf16 LM training step,
 the backward all of the "wgmma" variant, and six primal ones per bf16 LM
 forward, one of each per step or forward of the wide-head LMs, at Dh = 512
 of the "wide" variants (phase 9), each path launching none of the others'
-kernels. The last two lines are a `{"kernels": [...]}` object and `{"ok":
+kernels, and none at all on the convolutional path (phase 11). The last two lines are a `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
 """
@@ -285,6 +306,56 @@ LM_WARMUP = 100
 # the wide-head LMs: one block at Dh = 256 and 512 (widths 512 and 1024, 2
 # heads)
 WIDE_WIDTHS, WIDE_HEADS = (512, 1024), 2
+
+# the convolutional path (main path 7): LeNet-MNIST (BASELINE config 1,
+# deeplearning4j_tpu/models/zoo.py:25) trained as the BN-MLP is, on the
+# bundled digits (batch 128, shuffled, drop_last: 20 steps in 10 epochs),
+# held to the char-RNN's float32 limits (GRAD_TOL, SCORE_TOL, PARAM_TOL)
+LENET_PARAMS, LENET_B, LENET_EPOCHS = 431_080, 128, 10
+LENET_STEPS = 2 * LENET_EPOCHS
+LENET_BENCH_B = 512             # bench_lenet's batch (zoo.py:255)
+# LeNet's final biases (norms 0.06-0.1 after 20 steps) are held per tensor
+# to 1e-2 relative L2, its weights to PARAM_TOL: the 20 Nesterovs steps
+# pass rounding on through max-pool choices and ReLU masks, and the CPU
+# alone, against itself in float64 or at another thread count, leaves its
+# hidden layers' biases 2.2e-3 to 3.0e-3 apart (the output bias 2.7e-4 to
+# 4.4e-4) and its weights 2.6e-5 to 4.4e-4 (`python
+# tests/test_torch_lenet.py` prints them); the card read 4.6e-3 on one
+# bias against 1e-3 (NVIDIA H100 80GB HBM3, 700.00 W)
+LENET_BIAS_TOL = 1e-2
+# VGG-16 at ImageNet widths (zoo.py:246): forward and first-step gradients
+# at batch 2 against the CPU. Each conv output sums up to 3 x 3 x 512 =
+# 4608 f32 products and a dense one up to 25,088, in another order on cuDNN
+# / cuBLAS than on the CPU's oneDNN: about 4608^0.5 x 2^-24 x 16 layers ~
+# 7e-5 for independent roundings, which the output and the score show
+# (output relative to its largest entry held at 1e-3, score at 1e-4
+# relative). The gradients do not: where two values of a 2 x 2 max-pool
+# window lie within rounding of each other (or a pre-activation within
+# rounding of 0), the two sides route a gradient to different entries, and
+# one such flip moves a gradient tensor below it by up to ~1e-2 in relative
+# L2 (two entries of ~25,000 live ones: (2 / 25,000)^0.5). So they are held
+# per tensor in relative L2 at 1e-2, and the same gaps of the CPU's own
+# float32 against its float64 are printed beside the card's: the first
+# runs read 4.3e-3 card vs CPU and 4.8e-3 CPU float32 vs float64 (worst
+# tensors; NVIDIA H100 80GB HBM3, 700.00 W), after a largest-entry limit of
+# 1e-3 and then a relative-L2 one of 1e-3, each set before that
+# measurement, had failed there.
+IMAGE, CLASSES = 224, 1000       # ImageNet widths, VGG-16's and AlexNet's
+VGG_PARAMS, VGG_CMP_B, VGG_B, VGG_STEPS = 138_357_544, 2, 32, 5
+VGG_TOL = 1e-3
+VGG_GRAD_TOL = 1e-2
+# The zoo's Nesterovs at lr 0.01 (momentum 0.9) diverges to NaN within a
+# few steps on seeded normal images with random labels (on the CPU at
+# smaller images, the same math in either package), and 1e-3 can still
+# jump; the card's steps take lr 1e-4, whose scores fall. A step's time
+# does not depend on the rate.
+VGG_LR = 1e-4
+ALEX_PARAMS = 62_378_344        # zoo.py:510, image 224, 1000 classes
+# one conv / pool / LRN layer on the card against the CPU, outputs and
+# gradients relative to the largest magnitude: sums of up to 25,088 f32
+# terms (a weight gradient) in another order, and cuDNN may pick FFT or
+# Winograd algorithms, whose f32 rounding exceeds a direct sum's
+CNN_LAYER_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -914,7 +985,425 @@ def profile_device(torch, fn, what, tag, reps=5):
     return events, busy, wall
 
 
+
+def forward_flops(net):
+    """A network's forward FLOPs per example: 2 x the multiply-adds of
+    every convolution and dense layer, from the input types `init` carries
+    through the preprocessors."""
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    DenseLayer, OutputLayer)
+    it, flops = net.conf.input_type, 0
+    for i, layer in enumerate(net.layers):
+        if i in net.conf.preprocessors:
+            it = net.conf.preprocessors[i].output_type(it)
+        out = layer.output_type(it)
+        if isinstance(layer, ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            flops += 2 * out.height * out.width * kh * kw * it.channels \
+                * out.channels
+        elif isinstance(layer, (DenseLayer, OutputLayer)):
+            flops += 2 * it.flat_size() * layer.n_out
+        it = out
+    return flops
+
+
+def cnn_ms_by_kind(events):
+    """A profile's device ms (profile_device's events) by kind for a conv
+    net: cuDNN's direct / implicit-GEMM convolutions, its FFT convolutions
+    (transforms, complex GEMMs, pointwise products), its layout transposes
+    between NHWC and NCHW, other GEMMs (the dense layers; some may be
+    convolutions cuDNN runs as a GEMM), pooling, and elementwise work and
+    the rest (bias, ReLU, updater, loss)."""
+    kinds = dict.fromkeys(("conv", "conv_fft", "layout", "gemm", "pool",
+                           "other"), 0.0)
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("layout" if "nhwctonchw" in low or "nchwtonhwc" in low else
+                "conv_fft" if any(w in low for w in ("fft", "cf32",
+                                                     "complex")) else
+                "conv" if any(w in low for w in ("fprop", "dgrad", "wgrad",
+                                                 "convolve", "implicit",
+                                                 "winograd", "cudnn")) else
+                "gemm" if "gemm" in low else
+                "pool" if "pool" in low else "other")
+        kinds[kind] += ms
+    return kinds
+
+
+def cnn_path(pt, torch, tag, tmp, reset_counts, counts):
+    """Main path 7 (phase 11): the convolutional path. LeNet-MNIST trained
+    20 steps on the card and the CPU from one zip, evaluated, resumed from
+    its zip and served over HTTP; VGG-16 at ImageNet widths held to the CPU
+    at batch 2, then trained and timed at batch 32; AlexNet registered and
+    served in process at buckets 1, 8 and 32 against the CPU; the conv,
+    pool and LRN layers of these paths on the card against the CPU; times
+    and device profiles. No hand kernel launches on this path: `counts()`
+    stays all 0. Returns the phase's numbers."""
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf.base import conf_from_dict
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()     # TF32 off for the bare layers, as a network sets it
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+    reset_counts()
+
+    # -- the layers at these paths' shapes, card against CPU ------------
+    def layer_case(spec, shape, seed):
+        layer = conf_from_dict({"__layer__": {"type": spec[0],
+                                              "fields": spec[1]}})
+        r = np.random.default_rng(seed)
+        x = r.normal(size=shape).astype(np.float32)
+        params = {}
+        if layer.has_params:
+            params = layer.init_params(torch.Generator().manual_seed(seed),
+                                       pt.InputType.convolutional(
+                                           *shape[1:]), "cpu")
+        ys = []
+        for dev in (DEVICE, "cpu"):
+            p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+            xt = torch.tensor(x, device=dev, requires_grad=True)
+            y, _ = layer.apply(p, {}, xt)
+            ct = torch.tensor(np.random.default_rng(seed + 1).normal(
+                size=tuple(y.shape)).astype(np.float32), device=dev)
+            grads = torch.autograd.grad(y, [xt] + list(p.values()), ct)
+            ys.append([y.detach().cpu()] + [g.cpu() for g in grads])
+            if dev == DEVICE:
+                contiguous = y.is_contiguous()
+        return max(rel_err(a, b) for a, b in zip(*ys)), contiguous
+
+    cases = [
+        (("ConvolutionLayer", {"n_in": 3, "n_out": 96,
+                               "kernel_size": [11, 11], "stride": [4, 4],
+                               "convolution_mode": "same"}),
+         (8, 224, 224, 3)),          # AlexNet's conv 1: SAME pads (3, 4)
+        (("ConvolutionLayer", {"n_in": 64, "n_out": 64,
+                               "kernel_size": [3, 3],
+                               "convolution_mode": "same"}),
+         (8, 56, 56, 64)),
+        (("ConvolutionLayer", {"n_in": 1, "n_out": 20,
+                               "kernel_size": [5, 5]}), (64, 28, 28, 1)),
+        (("LocalResponseNormalization", {}), (8, 27, 27, 256)),
+    ] + [(("SubsamplingLayer", {"pooling_type": pool, **kw}), shape)
+         for pool in ("max", "avg", "sum", "pnorm")
+         for kw, shape in (
+             ({"kernel_size": [3, 3], "stride": [2, 2]}, (8, 55, 55, 96)),
+             ({"kernel_size": [2, 2], "stride": [2, 2],
+               "convolution_mode": "same"}, (8, 27, 27, 64)),
+             ({"kernel_size": [3, 3], "stride": [1, 1],
+               "padding": [2, 2]}, (8, 13, 13, 32)))]
+    layer_err = 0.0
+    for i, (spec, shape) in enumerate(cases):
+        err, contiguous = layer_case(spec, shape, seed=40 + i)
+        check(err <= CNN_LAYER_TOL, f"{spec[0]} {spec[1]} at {shape}: "
+              f"output or gradient err / max |ref| {err} > {CNN_LAYER_TOL}")
+        check(spec[0] != "ConvolutionLayer" or contiguous,
+              f"{spec[0]} {spec[1]}: output not contiguous NHWC")
+        layer_err = max(layer_err, err)
+    print(f"conv / pool / LRN layers on the card vs the CPU: {len(cases)} "
+          f"cases (AlexNet's SAME 11x11/4 conv, 3x3 SAME and LeNet's 5x5 "
+          f"convs, LRN, 4 pooling types x TRUNCATE / uneven SAME / padding "
+          f"past half a kernel): output and gradients max err / max |ref| "
+          f"{layer_err:.3e} (limit {CNN_LAYER_TOL}); conv outputs contiguous NHWC "
+          "(cuDNN returned channels_last)")
+    out["layers_max_err_over_max_ref"] = layer_err
+
+    # -- LeNet: 20 steps on the card and the CPU from one zip -----------
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    lenet_json = zoo.lenet_mnist(device="cpu").conf.to_json()
+    zips = []
+    for seed in (7, 8):
+        path = os.path.join(tmp, f"lenet_{seed}.zip")
+        pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+            pt.MultiLayerConfiguration.from_json(lenet_json),
+            device=DEVICE).init(generator=torch.Generator().manual_seed(
+                seed)), path)
+        zips.append(path)
+    nets = [pt.ModelSerializer.restore(zips[0]),
+            pt.ModelSerializer.restore(zips[0], device="cpu")]
+    check(nets[0].num_params() == LENET_PARAMS, f"LeNet has "
+          f"{nets[0].num_params()} parameters, want {LENET_PARAMS}")
+    batches = lambda: pt.ArrayDataSetIterator(
+        x_tr, y_tr, batch_size=LENET_B, shuffle=True, seed=13,
+        drop_last=True)
+    first = batches().next()
+    g = [first_chunk_grads(torch, n, first, steps=None) for n in nets]
+    grad_err = max(rel_err(g[0][k], g[1][k]) for k in g[1])
+    check(grad_err <= GRAD_TOL, f"LeNet first-step gradients: max err / "
+          f"max |ref| {grad_err} > {GRAD_TOL}")
+    logs = [StepLog(), StepLog()]
+    for n, log in zip(nets, logs):
+        n.set_listeners(log)
+    t0 = time.perf_counter()
+    nets[0].fit(batches(), epochs=LENET_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nets[1].fit(batches(), epochs=LENET_EPOCHS)
+    cpu_s = time.perf_counter() - t0
+    scores = [[float(v) for v in log.scores] for log in logs]
+    check(len(scores[0]) == len(scores[1]) == LENET_STEPS,
+          f"LeNet took {len(scores[0])} / {len(scores[1])} steps, want "
+          f"{LENET_STEPS}")
+    check(np.isfinite(scores[0]).all() and scores[0][-1] < scores[0][0],
+          f"LeNet scores {scores[0]}")
+    score_err = float(np.abs(np.subtract(*scores)).max())
+    param_gaps = {f"{i}/{k}": l2_err(p[k].detach().cpu(), q[k])
+                  for i, (p, q) in enumerate(zip(nets[0].params,
+                                                 nets[1].params))
+                  for k in q}
+    param_err = max(v for k, v in param_gaps.items() if k.endswith("/W"))
+    bias_err = max(v for k, v in param_gaps.items() if k.endswith("/b"))
+    print(f"LeNet training ({LENET_PARAMS} parameters, Nesterovs 0.01 / "
+          f"0.9, l2 5e-4): {LENET_STEPS} steps of {LENET_B} digits in "
+          f"{fit_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; score "
+          f"{scores[0][0]:.4f} -> {scores[0][-1]:.4f}; card vs CPU: scores "
+          f"max abs err {score_err:.3e} (limit {SCORE_TOL}), first-step "
+          f"gradients {grad_err:.3e} of max (limit {GRAD_TOL}), final "
+          f"weights {param_err:.3e} relative L2 (limit {PARAM_TOL}), "
+          f"biases {bias_err:.3e} (limit {LENET_BIAS_TOL}); per tensor "
+          + ", ".join(f"{k} {v:.2e}" for k, v in param_gaps.items()))
+    print(json.dumps({"lenet_scores_card": scores[0],
+                      "lenet_scores_cpu": scores[1]}))
+    check(score_err <= SCORE_TOL, f"LeNet scores card vs CPU: {score_err} "
+          f"> {SCORE_TOL}")
+    check(param_err <= PARAM_TOL and bias_err <= LENET_BIAS_TOL,
+          f"LeNet parameters after {LENET_STEPS} steps: {param_gaps}")
+    # evaluate on the 64 held-out digits; a digit whose two top
+    # probabilities are within rounding may go either way, so the two
+    # accuracies may differ by one digit in 64
+    evs = [n.evaluate(pt.ArrayDataSetIterator(x_te, y_te, batch_size=64))
+           for n in nets]
+    accs = [ev.accuracy() for ev in evs]
+    check(abs(accs[0] - accs[1]) <= 1 / 64 + 1e-9, f"LeNet held-out "
+          f"accuracy {accs[0]} on the card, {accs[1]} on the CPU")
+    print(f"LeNet evaluate (64 held-out digits): accuracy {accs[0]:.4f} on "
+          f"the card, {accs[1]:.4f} on the CPU")
+    # the zip with its updater state, restored on both devices, one more
+    # step on each
+    trained = os.path.join(tmp, "lenet_trained.zip")
+    pt.ModelSerializer.write_model(nets[0], trained)
+    resumed = [pt.ModelSerializer.restore(trained),
+               pt.ModelSerializer.restore(trained, device="cpu")]
+    check(all(n.iteration_count == LENET_STEPS for n in resumed)
+          and all(float(v.abs().max()) > 0 for n in resumed
+                  for u in n.updater_state for v in u["v"].values()),
+          "the LeNet zip lost its iteration count or Nesterovs' velocity")
+    for n in resumed:
+        n.fit(first)
+    resume_score = abs(float(resumed[0].score()) - float(resumed[1].score()))
+    resume_param = max(l2_err(p[k].detach().cpu(), q[k])
+                       for p, q in zip(*(n.params for n in resumed))
+                       for k in q)
+    check(resume_score <= SCORE_TOL and resume_param <= PARAM_TOL,
+          f"LeNet resumed step: score err {resume_score}, parameters "
+          f"{resume_param}")
+    print(f"LeNet zip (with updater state) restored on both devices, one "
+          f"more step: score err {resume_score:.3e}, parameters "
+          f"{resume_param:.3e} relative L2")
+    # served over HTTP in buckets 1, 8 and 32: the trained zip, then a
+    # swap to the seed-8 zip
+    serve_cpu = [pt.ModelSerializer.restore(z, device="cpu")
+                 for z in (trained, zips[1])]
+    v1, v2, flushes, n_batched, serve_err = serve_and_check(
+        pt, "lenet", [trained, zips[1]], serve_cpu,
+        lambda r, rows: r.random((rows, 784)).astype(np.float32), (10,),
+        np.random.default_rng(30))
+    print(f"LeNet serving: {n_batched} batched requests in {flushes} "
+          f"flushes + swap, {v1.forwards + v2.forwards} forwards; max abs "
+          f"err vs CPU {serve_err:.3e} (limit {SERVE_TOL})")
+    out["lenet"] = {"scores_card": scores[0], "score_err": score_err,
+                    "grad_err": grad_err, "param_err": param_gaps,
+                    "accuracy_card": accs[0], "accuracy_cpu": accs[1],
+                    "resume_score_err": resume_score,
+                    "serve_err": serve_err}
+
+    # -- VGG-16 at ImageNet widths ---------------------------------------
+    t0 = time.perf_counter()
+    gen = lambda: torch.Generator().manual_seed(11)
+    vggs = [zoo.vgg16(CLASSES, IMAGE, updater=Nesterovs(VGG_LR, 0.9),
+                      device=dev).init(generator=gen())
+            for dev in (DEVICE, "cpu")]
+    check(vggs[0].num_params() == VGG_PARAMS, f"VGG-16 has "
+          f"{vggs[0].num_params()} parameters, want {VGG_PARAMS}")
+    r = np.random.default_rng(21)
+    xv = r.normal(size=(VGG_B * (VGG_STEPS + 1), IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    yv = np.eye(CLASSES, dtype=np.float32)[r.integers(0, CLASSES, len(xv))]
+    small = pt.DataSet(xv[:VGG_CMP_B], yv[:VGG_CMP_B])
+    probs = [n.output(small.features).cpu() for n in vggs]
+    vgg_out_err = rel_err(probs[0], probs[1])
+    g = [first_chunk_grads(torch, n, small, steps=None) for n in vggs]
+    s = [n.score(small) for n in vggs]
+    vgg_score_err = abs(s[0] - s[1]) / abs(s[1])
+    # the CPU's own rounding: the same gradients in float64
+    del vggs[1]
+    f64 = zoo.vgg16(CLASSES, IMAGE, device="cpu").init(generator=gen())
+    f64.conf.conf.dtype = "float64"
+    f64.params = tuple({k: v.double() for k, v in p.items()}
+                       for p in f64.params)
+    g.append(first_chunk_grads(torch, f64, small, steps=None))
+    del f64
+    gaps = {pair: {k: (l2_err(g[a][k].double(), g[b][k].double()),
+                       rel_err(g[a][k].double(), g[b][k].double()))
+                   for k in g[b]}
+            for pair, (a, b) in (("card_vs_cpu", (0, 1)),
+                                 ("cpu_f32_vs_f64", (1, 2)),
+                                 ("card_vs_cpu_f64", (0, 2)))}
+    del g
+    worst = {pair: [max(v[i] for v in d.values()) for i in (0, 1)]
+             for pair, d in gaps.items()}
+    vgg_grad_err = worst["card_vs_cpu"][0]
+    print(f"VGG-16 ({VGG_PARAMS} parameters, {IMAGE} x {IMAGE} x 3, "
+          f"{CLASSES} classes) at batch {VGG_CMP_B}: output card vs CPU "
+          f"{vgg_out_err:.3e} of max (limit {VGG_TOL}); first-step "
+          f"gradients, worst tensor, relative L2 / largest-entry error over "
+          f"largest: card vs CPU {worst['card_vs_cpu'][0]:.3e} (limit "
+          f"{VGG_GRAD_TOL}) / {worst['card_vs_cpu'][1]:.3e}, the CPU's float32 "
+          f"vs its float64 {worst['cpu_f32_vs_f64'][0]:.3e} / "
+          f"{worst['cpu_f32_vs_f64'][1]:.3e}, card vs float64 "
+          f"{worst['card_vs_cpu_f64'][0]:.3e} / "
+          f"{worst['card_vs_cpu_f64'][1]:.3e}; score {s[0]:.5f} vs "
+          f"{s[1]:.5f} ({vgg_score_err:.3e} relative, limit 1e-4); "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"vgg16_grad_gaps": gaps}))
+    check(vgg_out_err <= VGG_TOL and vgg_grad_err <= VGG_GRAD_TOL
+          and vgg_score_err <= 1e-4, "VGG-16 card vs CPU past its limits")
+    vgg = vggs[0]
+    log = StepLog(torch)
+    vgg.set_listeners(log)
+    xg = torch.as_tensor(xv, device=DEVICE)
+    yg = torch.as_tensor(yv, device=DEVICE)
+    for i in range(VGG_STEPS):
+        vgg.fit(pt.DataSet(xg[i * VGG_B:(i + 1) * VGG_B],
+                           yg[i * VGG_B:(i + 1) * VGG_B]))
+    vgg_scores = [float(v) for v in log.scores]
+    check(len(vgg_scores) == VGG_STEPS and np.isfinite(vgg_scores).all(),
+          f"VGG-16 scores at batch {VGG_B}: {vgg_scores}")
+    print(f"VGG-16 training at batch {VGG_B} (Nesterovs {VGG_LR} / 0.9, "
+          f"seeded normal images on the card): scores {vgg_scores}")
+    out["vgg16"] = {"output_err": vgg_out_err, "grad_gaps_worst": worst,
+                    "score_err": vgg_score_err, "scores_b32": vgg_scores}
+
+    # -- AlexNet served in process ---------------------------------------
+    alex = [zoo.alexnet(CLASSES, IMAGE, device=dev).init(
+        generator=torch.Generator().manual_seed(12))
+        for dev in (DEVICE, "cpu")]
+    check(alex[0].num_params() == ALEX_PARAMS, f"AlexNet has "
+          f"{alex[0].num_params()} parameters, want {ALEX_PARAMS}")
+    reg = pt.ModelRegistry(buckets=BUCKETS)
+    v = reg.register("alexnet", alex[0])
+    check(v.example_shape == (IMAGE, IMAGE, 3)
+          and v.forwards == len(BUCKETS),
+          f"AlexNet registered as {v.example_shape}, {v.forwards} warm-ups")
+    r = np.random.default_rng(22)
+    alex_err = 0.0
+    for rows in (1, 5, 32):
+        x = r.normal(size=(rows, IMAGE, IMAGE, 3)).astype(np.float32)
+        got, version = reg.predict("alexnet", x)
+        want = alex[1].output(x).numpy()
+        check(got.shape == (rows, CLASSES) and np.isfinite(got).all()
+              and np.abs(got.sum(-1) - 1).max() <= 1e-4,
+              f"AlexNet {rows}-row output")
+        alex_err = max(alex_err, float(np.abs(got - want).max()))
+    check(alex_err <= SERVE_TOL, f"AlexNet served vs CPU: {alex_err} > "
+          f"{SERVE_TOL}")
+    print(f"AlexNet ({ALEX_PARAMS} parameters) registered and served in "
+          f"process at buckets {BUCKETS} (1, 5 and 32 rows): max abs err vs "
+          f"the CPU {alex_err:.3e} (limit {SERVE_TOL})")
+    out["alexnet"] = {"serve_err": alex_err}
+    c = counts()
+    check(all(n == 0 for n in c.values()), f"the convolutional path "
+          f"launched hand kernels: {c}")
+    print(f"convolutional path: hand-kernel launches {c} (all 0); "
+          f"{time.perf_counter() - t_phase:.1f} s so far")
+
+    # -- times -------------------------------------------------------------
+    def step_p50(net, ds, steps, warm=3):
+        clock = StepLog(torch)
+        net.set_listeners(clock)
+        for _ in range(warm):
+            net.fit(ds)
+        clock.times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit(ds)
+        fit_s = time.perf_counter() - t0
+        net.set_listeners()
+        step_ms = 1e3 * np.diff([t0] + clock.times)
+        return float(np.median(step_ms)), steps / fit_s
+
+    r = np.random.default_rng(23)
+    lenet = zoo.lenet_mnist(device=DEVICE).init(
+        generator=torch.Generator().manual_seed(9))
+    lb = pt.DataSet(torch.as_tensor(r.normal(size=(LENET_BENCH_B, 784))
+                                    .astype(np.float32), device=DEVICE),
+                    torch.as_tensor(np.eye(10, dtype=np.float32)[
+                        r.integers(0, 10, LENET_BENCH_B)], device=DEVICE))
+    p50, rate = step_p50(lenet, lb, 30)
+    lenet_t = {"batch": LENET_BENCH_B, "step_p50_ms": p50,
+               "samples_per_s": rate * LENET_BENCH_B}
+    events, busy, wall = profile_device(
+        torch, lambda: lenet.fit(lb),
+        f"LeNet training step (batch {LENET_BENCH_B})", tag, reps=5)
+    lenet_t.update(device_busy_ms=busy, profiled_wall_ms=wall,
+                   idle_share=1 - busy / wall,
+                   device_ms_by_kind=cnn_ms_by_kind(events))
+    print(f"{tag} LeNet training (batch {LENET_BENCH_B}, seeded normal "
+          f"inputs on the card): step p50 {p50:.3f} ms, "
+          f"{lenet_t['samples_per_s']:.1f} samples/s; device busy "
+          f"{busy:.3f} of {wall:.3f} ms (idle share {1 - busy / wall:.3f})")
+
+    vb = pt.DataSet(xg[:VGG_B], yg[:VGG_B])
+    p50, rate = step_p50(vgg, vb, 10, warm=1)
+    fwd = forward_flops(vgg)
+    step_flop = 3 * fwd * VGG_B
+    bound = 1e3 * step_flop / F32_FLOP_PER_S
+    vgg_t = {"batch": VGG_B, "step_p50_ms": p50,
+             "images_per_s": rate * VGG_B,
+             "forward_gflop_per_image": fwd / 1e9,
+             "step_tflop": step_flop / 1e12, "bound_ms": bound,
+             "share_of_f32_peak": bound / p50}
+    events, busy, wall = profile_device(
+        torch, lambda: vgg.fit(vb), f"VGG-16 training step (batch {VGG_B})",
+        tag, reps=3)
+    kinds = cnn_ms_by_kind(events)
+    vgg_t.update(device_busy_ms=busy, profiled_wall_ms=wall,
+                 idle_share=1 - busy / wall, device_ms_by_kind=kinds)
+    print(f"{tag} VGG-16 training (batch {VGG_B}, f32, no TF32): step p50 "
+          f"{p50:.3f} ms, {vgg_t['images_per_s']:.1f} images/s; forward "
+          f"{fwd / 1e9:.2f} GFLOP an image, a step 3 x {fwd / 1e9:.2f} x "
+          f"{VGG_B} = {step_flop / 1e12:.3f} TFLOP, bound {bound:.1f} ms at "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s: {100 * bound / p50:.1f} % "
+          f"of the f32 peak; device busy {busy:.3f} of {wall:.3f} ms (idle "
+          f"share {1 - busy / wall:.3f}; the kernels' sum can pass the wall "
+          "where cuDNN overlaps them): " + ", ".join(
+              f"{k} {ms:.3f} ms" for k, ms in kinds.items()))
+
+    alex_t = {}
+    for b in BUCKETS:
+        x = r.normal(size=(b, IMAGE, IMAGE, 3)).astype(np.float32)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            reg.predict("alexnet", x)
+            times.append(time.perf_counter() - t0)
+        alex_t[f"predict_p50_ms_b{b}"] = 1e3 * float(np.median(times))
+    print(f"{tag} AlexNet registry.predict p50: " + ", ".join(
+        f"bucket {b} {alex_t[f'predict_p50_ms_b{b}']:.3f} ms"
+        for b in BUCKETS))
+    c = counts()
+    check(all(n == 0 for n in c.values()), f"the convolutional path's "
+          f"timed runs launched hand kernels: {c}")
+    out.update(lenet_times=lenet_t, vgg16_times=vgg_t, alexnet_times=alex_t,
+               seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"cnn_path": out}))
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -955,8 +1444,9 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card)
     tag = f"[{card}]"
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} cudnn "
+          f"{torch.backends.cudnn.version()} device "
+          f"{torch.cuda.get_device_name(0)}")
     kernels.library()
     print(f"kernel build: {kernels.build_seconds:.3f} s (nvcc, sm_90a)")
 
@@ -2867,6 +3357,14 @@ def main():
           f"time: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items())
           + f" of {wall:.3f} ms wall (idle share {1 - busy / wall:.3f})")
     print(json.dumps({"bn_mlp_training": bn_mlp}))
+
+    # ---- 11. main path 7: the convolutional path -----------------------
+    cnn_path(pt, torch, tag, tmp, reset_counts, lambda: {
+        f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
+        for mod in (lstm, attention, bn_relu)
+        for k, n in mod.launch_counts().items()})
+    print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
+          "(kernel build included)")
 
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}

@@ -34,26 +34,38 @@ running statistics, carried through training and the zip), the
 `BatchNormalization` layer with JAX's tier selection, and its training-mode
 BN+ReLU forward and backward as hand-written CUDA kernels in
 `kernels/csrc/bn_relu.cu`.
+
+The tenth slice is the convolutional path: convolution, pooling, zero
+padding, local response normalization, global pooling, the input
+preprocessors and all 21 activations, so LeNet-MNIST and VGG-16 train and
+AlexNet serves. Activations stay NHWC and conv weights HWIO, as in the JAX
+package; conv, pool and LRN map to `torch.nn.functional` (cuDNN on the
+card), as the JAX package's map to XLA ops. This path launches no hand
+kernel.
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
                        ListDataSetIterator, bundled_mnist_subset)
 from .eval import Evaluation
-from .models import char_rnn, mlp_mnist, sample_characters
+from .models import (alexnet, char_rnn, lenet_mnist, mlp_mnist,
+                     sample_characters, vgg16, vgg19)
 from .nn import (BackpropType, InputType, MultiLayerConfiguration,
                  MultiLayerNetwork, NeuralNetConfiguration)
-from .nn.layers import (BatchNormalization, DenseLayer,
-                        EmbeddingSequenceLayer, GravesLSTM, OutputLayer,
-                        RnnOutputLayer, TransformerBlock)
+from .nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
+                        EmbeddingSequenceLayer, GravesLSTM,
+                        LocalResponseNormalization, OutputLayer,
+                        RnnOutputLayer, SubsamplingLayer, TransformerBlock)
 from .nn.updaters import Adam, Nesterovs, Sgd
 from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
            "ListDataSetIterator", "bundled_mnist_subset", "Evaluation",
-           "char_rnn", "mlp_mnist", "sample_characters", "BackpropType",
+           "alexnet", "char_rnn", "lenet_mnist", "mlp_mnist",
+           "sample_characters", "vgg16", "vgg19", "BackpropType",
            "InputType", "MultiLayerConfiguration", "MultiLayerNetwork",
-           "NeuralNetConfiguration", "BatchNormalization", "DenseLayer",
-           "EmbeddingSequenceLayer", "GravesLSTM", "OutputLayer",
-           "RnnOutputLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
+           "NeuralNetConfiguration", "BatchNormalization",
+           "ConvolutionLayer", "DenseLayer", "EmbeddingSequenceLayer",
+           "GravesLSTM", "LocalResponseNormalization", "OutputLayer",
+           "RnnOutputLayer", "SubsamplingLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
            "InferenceServer", "ModelRegistry", "ModelSerializer",
            "from_jax_params"]

@@ -1,3 +1,5 @@
-from .zoo import char_rnn, mlp_mnist, sample_characters
+from .zoo import (alexnet, char_rnn, lenet_mnist, mlp_mnist,
+                  sample_characters, vgg16, vgg19)
 
-__all__ = ["char_rnn", "mlp_mnist", "sample_characters"]
+__all__ = ["alexnet", "char_rnn", "lenet_mnist", "mlp_mnist",
+           "sample_characters", "vgg16", "vgg19"]

@@ -3,8 +3,9 @@
 writing the same `configuration.json` as `deeplearning4j_tpu/nn/conf`.
 
 Training settings (updater, regularization, TBPTT lengths, remat, ...) are
-carried as configuration data only. Input preprocessors are not in the port
-yet: a configuration that needs one raises a named ValueError.
+carried as configuration data only. `build()` inserts the input
+preprocessors that JAX's builder infers (`preprocessors.infer_preprocessor`)
+between layer families, and the JSON carries them both ways.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict, List, Optional
 
 from .base import LayerConf, conf_from_dict, conf_to_dict
 from .input_type import InputType
+from .preprocessors import infer_preprocessor
 from .. import updaters as _updaters
 from ..schedules import Schedule
 from ..weights import Distribution, WeightInit
@@ -258,14 +260,12 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         d = json.loads(s)
-        if d.get("preprocessors"):
-            raise ValueError(
-                "input preprocessors are not in the PyTorch port yet; this "
-                f"configuration declares {sorted(d['preprocessors'])}")
         return MultiLayerConfiguration(
             conf=NeuralNetConfiguration.from_dict(d["conf"]),
             layers=[conf_from_dict(l) for l in d["layers"]],
             input_type=conf_from_dict(d.get("input_type")),
+            preprocessors={int(k): conf_from_dict(v)
+                           for k, v in d.get("preprocessors", {}).items()},
             backprop=d.get("backprop", True),
             pretrain=d.get("pretrain", False),
             backprop_type=d.get("backprop_type", BackpropType.STANDARD),
@@ -281,6 +281,7 @@ class ListBuilder:
         self._conf = conf
         self._layers: List[LayerConf] = []
         self._input_type: Optional[InputType] = None
+        self._preprocessors: Dict[int, object] = {}
         self._backprop = True
         self._pretrain = False
         self._bp_type = BackpropType.STANDARD
@@ -301,6 +302,9 @@ class ListBuilder:
     def set_input_type(self, it: InputType):
         self._input_type = it; return self
 
+    def input_pre_processor(self, index: int, pp):
+        self._preprocessors[int(index)] = pp; return self
+
     def backprop(self, b: bool):
         self._backprop = bool(b); return self
 
@@ -320,33 +324,28 @@ class ListBuilder:
         if any(l is None for l in self._layers):
             raise ValueError("Layer list has gaps")
         layers = [self._conf.resolve_layer(l) for l in self._layers]
+        preprocessors = dict(self._preprocessors)
+        # shape inference: a preprocessor where the layer family changes
         if self._input_type is not None:
             it = self._input_type
             inferred = []
             for i, l in enumerate(layers):
-                _check_no_preprocessor(i, it, l)
+                if i not in preprocessors:
+                    pp = infer_preprocessor(it, l)
+                    if pp is not None:
+                        preprocessors[i] = pp
+                if i in preprocessors:
+                    it = preprocessors[i].output_type(it)
                 l = _fill_n_in(l, it)
                 inferred.append(l)
                 it = l.output_type(it)
             layers = inferred
         return MultiLayerConfiguration(
             conf=self._conf, layers=layers, input_type=self._input_type,
-            backprop=self._backprop, pretrain=self._pretrain,
-            backprop_type=self._bp_type, tbptt_fwd_length=self._tbptt_fwd,
-            tbptt_back_length=self._tbptt_back,
+            preprocessors=preprocessors, backprop=self._backprop,
+            pretrain=self._pretrain, backprop_type=self._bp_type,
+            tbptt_fwd_length=self._tbptt_fwd, tbptt_back_length=self._tbptt_back,
         )
-
-
-def _check_no_preprocessor(i: int, it: InputType, layer: LayerConf):
-    """Raise where the JAX builder would insert an input preprocessor."""
-    want, kind = layer.input_kind, it.kind
-    if (want == "any" or kind == want or (want == "ff" and kind == "cnn_flat")
-            or (want == "rnn" and kind == "cnn1d")):
-        return
-    raise ValueError(
-        f"layer {i} ({type(layer).__name__}) takes '{want}' input but gets "
-        f"'{kind}': that needs an input preprocessor, which the PyTorch port "
-        "does not have yet")
 
 
 def _fill_n_in(layer: LayerConf, input_type: InputType) -> LayerConf:

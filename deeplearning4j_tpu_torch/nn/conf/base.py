@@ -21,16 +21,26 @@ from .. import updaters as _updaters
 from ..schedules import Schedule
 from ..weights import Distribution, WeightInit, init_weight
 
-__all__ = ["LayerConf", "register_layer", "conf_to_dict", "conf_from_dict",
-           "LAYER_REGISTRY", "cast_floating"]
+__all__ = ["LayerConf", "register_layer", "register_aux_dataclass",
+           "conf_to_dict", "conf_from_dict", "LAYER_REGISTRY",
+           "cast_floating"]
 
 LAYER_REGISTRY: Dict[str, type] = {}
+_AUX_DATACLASSES: Dict[str, type] = {}
 
 
 def register_layer(cls):
     """Class decorator: registers a layer config under its class name for
     the JSON round-trip."""
     LAYER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def register_aux_dataclass(cls):
+    """Class decorator: registers a plain (non-layer) dataclass used inside
+    configs, such as an input preprocessor, for the JSON round-trip (the
+    `__dataclass__` form)."""
+    _AUX_DATACLASSES[cls.__name__] = cls
     return cls
 
 
@@ -60,6 +70,10 @@ def conf_to_dict(obj: Any) -> Any:
         return {"__layer__": {"type": type(obj).__name__,
                               "fields": {f.name: conf_to_dict(getattr(obj, f.name))
                                          for f in dataclasses.fields(obj)}}}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {"__dataclass__": {"type": type(obj).__name__,
+                                  "fields": {f.name: conf_to_dict(getattr(obj, f.name))
+                                             for f in dataclasses.fields(obj)}}}
     if isinstance(obj, (list, tuple)):
         return [conf_to_dict(x) for x in obj]
     if isinstance(obj, dict):
@@ -92,8 +106,13 @@ def conf_from_dict(obj: Any) -> Any:
             known = {f.name for f in dataclasses.fields(cls)}
             return cls(**{k: v for k, v in fields.items() if k in known})
         if "__dataclass__" in obj:
-            raise ValueError(f"Unknown aux dataclass "
-                             f"'{obj['__dataclass__']['type']}' in config")
+            spec = obj["__dataclass__"]
+            cls = _AUX_DATACLASSES.get(spec["type"])
+            if cls is None:
+                raise ValueError(f"Unknown aux dataclass '{spec['type']}' "
+                                 "in config")
+            fields = {k: conf_from_dict(v) for k, v in spec["fields"].items()}
+            return cls(**fields)
         return {k: conf_from_dict(v) for k, v in obj.items()}
     raise TypeError(f"Cannot deserialize config value {obj!r}")
 

@@ -1,4 +1,5 @@
-"""Feed-forward layers: DenseLayer, OutputLayer (forward and loss of
+"""Feed-forward layers: DenseLayer, OutputLayer, LossLayer, ActivationLayer,
+DropoutLayer and EmbeddingLayer (forward and loss of
 `deeplearning4j_tpu/nn/layers/feedforward.py`; backward through autograd).
 W is [n_in, n_out] as in the JAX package, so parameters cross unchanged.
 """
@@ -13,7 +14,29 @@ from .. import losses as _losses
 from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
 
-__all__ = ["DenseLayer", "OutputLayer", "BaseOutputLayerConf"]
+__all__ = ["DenseLayer", "OutputLayer", "BaseOutputLayerConf", "LossLayer",
+           "ActivationLayer", "DropoutLayer", "EmbeddingLayer", "take_rows"]
+
+# float ids saturate to int32 on the way to an index, as XLA's convert does
+_INT32_MIN, _INT32_MAX = -2.0 ** 31, 2.0 ** 31 - 1
+
+
+def take_rows(W, idx):
+    """`jnp.take(W, idx.astype(int32), axis=0)`: a float id is truncated
+    toward zero (NaN gives 0, out-of-range values saturate), an id in
+    [-rows, -1] wraps to rows + id, and any other out-of-range id gives a NaN
+    row. The gather never sees an out-of-range index: on the GPU that is a
+    device-side assert, which leaves the process's CUDA context unusable."""
+    if idx.is_floating_point():
+        idx = torch.nan_to_num(idx, nan=0.0).clamp(_INT32_MIN, _INT32_MAX)
+    idx = idx.to(torch.int64)
+    rows = W.shape[0]
+    idx = torch.where(idx < 0, idx + rows, idx)
+    ok = (idx >= 0) & (idx < rows)
+    z = W[idx.clamp(0, rows - 1)]
+    return torch.where(ok[..., None], z, torch.full((), float("nan"),
+                                                    dtype=z.dtype,
+                                                    device=z.device))
 
 
 def _affine(params, x, has_bias: bool):
@@ -138,3 +161,72 @@ class OutputLayer(BaseOutputLayerConf):
                mask=None):
         x = self.maybe_dropout_input(x, train, generator)
         return _affine(params, x, self.has_bias)
+
+
+@register_layer
+@dataclass
+class LossLayer(BaseOutputLayerConf):
+    """Parameter-free loss head: the loss of its input, activated."""
+
+    def __post_init__(self):
+        if self.activation is None:
+            self.activation = "identity"
+
+
+@register_layer
+@dataclass
+class ActivationLayer(LayerConf):
+    """Applies its activation only."""
+
+    input_kind = "any"
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        return self._act(x), state
+
+
+@register_layer
+@dataclass
+class DropoutLayer(LayerConf):
+    """Standalone inverted dropout while training (`dropout` is the retain
+    probability, 0.5 when unset); the identity at inference."""
+
+    input_kind = "any"
+
+    def __post_init__(self):
+        if self.dropout is None:
+            self.dropout = 0.5
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        return self.maybe_dropout_input(x, train, generator), state
+
+
+@register_layer
+@dataclass
+class EmbeddingLayer(LayerConf):
+    """Index -> vector lookup: class indices [B] or [B, 1] (as floats, the
+    way the network feeds them) -> [B, n_out], a gather of W's rows with
+    `jnp.take`'s index rules (`take_rows`)."""
+
+    n_in: int = 0   # vocab size
+    n_out: int = 0
+    has_bias: bool = True
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    @property
+    def has_params(self) -> bool:
+        return True
+
+    def init_params(self, gen, input_type: InputType, device):
+        return _affine_params(self, gen, self.n_in, device)
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        idx = x[:, 0] if x.dim() == 2 and x.shape[-1] == 1 else x
+        z = take_rows(params["W"], idx)
+        if self.has_bias:
+            z = z + params["b"]
+        return self._act(z), state

@@ -1,6 +1,6 @@
-"""BatchNormalization (the forward of `deeplearning4j_tpu/nn/layers/
-normalization.py`; the same dataclass fields and `__layer__` name, so the
-configuration JSON is identical both ways).
+"""BatchNormalization and LocalResponseNormalization (the forward of
+`deeplearning4j_tpu/nn/layers/normalization.py`; the same dataclass fields
+and `__layer__` names, so the configuration JSON is identical both ways).
 
 The layer picks an implementation at apply time by JAX's rule
 (`_helper`), whose tier names it keeps:
@@ -16,6 +16,10 @@ The layer picks an implementation at apply time by JAX's rule
 
 Running mean and var live in the layer state (`init_state`), updated with
 `decay` from the batch statistics, detached.
+
+LocalResponseNormalization is cross-channel, JAX's `x / (k + alpha *
+sum_window x^2)^beta` with no division by n: `F.local_response_norm` (which
+divides alpha by n) on the NCHW view, given `alpha * n`.
 """
 from __future__ import annotations
 
@@ -23,11 +27,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
 
-__all__ = ["BatchNormalization"]
+__all__ = ["BatchNormalization", "LocalResponseNormalization"]
 
 
 @register_layer
@@ -147,3 +152,34 @@ class BatchNormalization(LayerConf):
             # channels (Sterbenz) where the folded form loses digits
             y = ((xc - mean) * (inv * gamma) + beta).to(x.dtype)
         return self._act(y), new_state
+
+
+@register_layer
+@dataclass
+class LocalResponseNormalization(LayerConf):
+    """Cross-channel LRN: y = x / (k + alpha * sum_{n nearby channels}
+    x^2)^beta, NHWC. Defaults as the reference's (k=2, n=5, alpha=1e-4,
+    beta=0.75)."""
+
+    input_kind = "cnn"
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        if self.n % 2 == 0:
+            # JAX's window (n // 2 each side) gives C + 1 sums for an even
+            # n, which then fail to broadcast against x
+            raise ValueError(
+                f"LocalResponseNormalization needs an odd window n, got "
+                f"n={self.n}")
+        xc = x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+        y = F.local_response_norm(xc, self.n, alpha=self.alpha * self.n,
+                                  beta=self.beta, k=self.k)
+        return y.permute(0, *range(2, y.dim()), 1), state

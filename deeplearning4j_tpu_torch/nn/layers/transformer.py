@@ -29,6 +29,7 @@ import torch
 
 from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
+from .feedforward import take_rows
 
 __all__ = ["TransformerBlock", "EmbeddingSequenceLayer"]
 
@@ -130,22 +131,13 @@ class TransformerBlock(LayerConf):
         return x, state
 
 
-# float ids saturate to int32 on the way to an index, as XLA's convert does
-_INT32_MIN, _INT32_MAX = -2.0 ** 31, 2.0 ** 31 - 1
-
-
 @register_layer
 @dataclass
 class EmbeddingSequenceLayer(LayerConf):
     """Token + learned-position embedding for sequences: indices [B, T] or
     [B, T, 1] (floats, as the network feeds them) -> [B, T, n_out].
 
-    Ids follow `jnp.take` on the JAX layer's int32 cast: a float id is
-    truncated toward zero (NaN gives 0, out-of-range values saturate), an
-    id in [-vocab, -1] wraps to vocab + id, and any other out-of-range id
-    gives a NaN row. The gather never sees an out-of-range index: on the
-    GPU that is a device-side assert, which leaves the process's CUDA
-    context unusable."""
+    Ids follow `jnp.take` on the JAX layer's int32 cast (`take_rows`)."""
 
     input_kind = "rnn"
 
@@ -180,16 +172,6 @@ class EmbeddingSequenceLayer(LayerConf):
     def apply(self, params, state, x, *, train=False, generator=None,
               mask=None):
         idx = x[..., 0] if x.dim() == 3 and x.shape[-1] == 1 else x
-        if idx.is_floating_point():
-            idx = torch.nan_to_num(idx, nan=0.0).clamp(_INT32_MIN, _INT32_MAX)
-        idx = idx.to(torch.int64)
-        W = params["W"]
-        vocab = W.shape[0]
-        idx = torch.where(idx < 0, idx + vocab, idx)
-        ok = (idx >= 0) & (idx < vocab)
-        z = W[idx.clamp(0, vocab - 1)]
-        z = torch.where(ok[..., None], z, torch.full((), float("nan"),
-                                                     dtype=z.dtype,
-                                                     device=z.device))
+        z = take_rows(params["W"], idx)
         t = z.shape[1]
         return z + params["P"][:t][None], state

@@ -2,6 +2,11 @@
 `deeplearning4j_tpu/nn/multilayer.py`'s inference and per-batch training
 surface.
 
+The configuration's input preprocessors (`conf.preprocessors[i]`, a reshape
+of the input to layer i) run wherever JAX runs them: in the forward, before
+the output layer in the loss and `score_examples`, in `feed_forward`, and on
+the input types at `init`.
+
 Parameters are a tuple with one dict of tensors per layer (keys as in JAX:
 `W`, `b`, `peep`, `gamma`), held on the network's device; `state` is a tuple
 with one layer-state dict per layer (BatchNormalization's running `mean` and
@@ -129,6 +134,8 @@ class MultiLayerNetwork:
         self._input_types = []
         params, state = [], []
         for i, layer in enumerate(self.layers):
+            if i in self.conf.preprocessors and it is not None:
+                it = self.conf.preprocessors[i].output_type(it)
             if it is None:
                 n_in = getattr(layer, "n_in", None)
                 if layer.has_params and not n_in:
@@ -191,6 +198,7 @@ class MultiLayerNetwork:
             # dtype, so the logits and the loss are float32
             if cdt is not None and not isinstance(layer, BaseOutputLayerConf):
                 p_i = cast_floating(p_i, cdt)
+            x, mask = self._preprocess(i, x, mask)
             if carries is not None and getattr(layer, "is_recurrent", False):
                 (x, new_carries[i]), new_state[i] = layer.apply(
                     p_i, state[i], x, carry=carries[i], return_carry=True,
@@ -199,6 +207,14 @@ class MultiLayerNetwork:
                 x, new_state[i] = layer.apply(p_i, state[i], x, **kw)
             mask = layer.output_mask(mask)
         return x, tuple(new_state), mask, tuple(new_carries)
+
+    def _preprocess(self, i, x, mask):
+        """The input preprocessor of layer i, if the configuration has one,
+        applied to the activations and the mask."""
+        pp = self.conf.preprocessors.get(i)
+        if pp is None:
+            return x, mask
+        return pp.apply(x), pp.apply_mask(mask)
 
     # ------------------------------------------------------------------
     # Loss and update
@@ -222,6 +238,7 @@ class MultiLayerNetwork:
         h, new_state, mask, new_carries = self._forward(
             params, state, x, train, generator, fmask=fmask, upto=n - 1,
             carries=carries)
+        h, mask = self._preprocess(n - 1, h, mask)
         eff_lmask = lmask if lmask is not None else mask
         loss = out_layer.loss_score(params[-1], state[-1], h, y, train=train,
                                     generator=generator, mask=eff_lmask)
@@ -339,7 +356,7 @@ class MultiLayerNetwork:
 
     def _check_input_width(self, x):
         """Named errors for inputs that do not match the configured
-        InputType, instead of a raw matmul shape error."""
+        InputType, instead of a raw matmul or convolution shape error."""
         it = self.conf.input_type
         if it is None:
             return
@@ -355,6 +372,17 @@ class MultiLayerNetwork:
                     "recurrent network input must be 3-D [batch, time, "
                     f"features]; got 2-D {tuple(x.shape)} (use "
                     "rnn_time_step for single-step inference)")
+        if it.kind == "cnn" and x.dim() == 4 and tuple(x.shape[1:]) != (
+                it.height, it.width, it.channels):
+            raise ValueError(
+                f"input shape {tuple(x.shape[1:])} != configured "
+                f"InputType.convolutional({it.height}, {it.width}, "
+                f"{it.channels}) (NHWC)")
+        if (it.kind in ("cnn_flat", "cnn1d") and x.dim() == 2
+                and x.shape[-1] != it.flat_size()):
+            raise ValueError(
+                f"input width {x.shape[-1]} != configured "
+                f"{it.kind} InputType flat size {it.flat_size()}")
 
     def _batch(self, ds: DataSet):
         """(features, labels, features mask, labels mask) of a DataSet as
@@ -477,6 +505,7 @@ class MultiLayerNetwork:
         acts = [x]
         with torch.inference_mode():
             for i, layer in enumerate(self.layers):
+                x, _ = self._preprocess(i, x, None)
                 x, _ = layer.apply(self.params[i], self.state[i], x)
                 acts.append(x)
         return acts
@@ -530,6 +559,7 @@ class MultiLayerNetwork:
         with torch.no_grad():
             h, _, mask, _ = self._forward(self.params, self.state, x,
                                           fmask=fm, upto=n - 1)
+            h, mask = self._preprocess(n - 1, h, mask)
             per = self.layers[-1].loss_per_example(
                 self.params[-1], self.state[-1], h, y,
                 mask=lm if lm is not None else mask)

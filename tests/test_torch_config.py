@@ -81,14 +81,29 @@ def test_unknown_updater_raises_named_error():
         NeuralNetConfiguration.builder().updater("nadamax")
 
 
-def test_preprocessor_configs_raise_named_error():
-    """The port has no input preprocessors yet; a config that needs one is
-    refused by name rather than mis-built."""
-    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
-    with pytest.raises(ValueError, match="preprocessor"):
-        (NeuralNetConfiguration.builder().list()
-         .layer(GravesLSTM(n_out=4))
-         .set_input_type(InputType.feed_forward(3)).build())
+@pytest.mark.parametrize("layer,input_type", [
+    ("GravesLSTM", ("feed_forward", 3)),
+    ("GravesLSTM", ("convolutional_flat", 2, 2, 1)),
+    ("ConvolutionLayer", ("feed_forward", 4)),
+    ("ConvolutionLayer", ("recurrent", 4, 3))])
+def test_preprocessor_configs_raise_named_error(layer, input_type):
+    """Where JAX's builder cannot infer an input preprocessor (a recurrent
+    layer after feed-forward input needs static timesteps, a convolution
+    after feed-forward or recurrent input needs spatial dims), the port
+    raises the same ValueError with the same words."""
+    import deeplearning4j_tpu.nn.layers as jax_layers
+    import deeplearning4j_tpu_torch.nn.layers as port_layers
+    kind, *dims = input_type
+
+    def build(nnc, layers, it_cls):
+        return (nnc.builder().list()
+                .layer(getattr(layers, layer)(n_out=4))
+                .set_input_type(getattr(it_cls, kind)(*dims)).build())
+    with pytest.raises(ValueError) as jerr:
+        build(JaxNNC, jax_layers, JaxInputType)
+    with pytest.raises(ValueError) as err:
+        build(NeuralNetConfiguration, port_layers, InputType)
+    assert str(err.value) == str(jerr.value)
 
 
 def test_default_device_is_the_gpu(monkeypatch):

@@ -975,3 +975,131 @@ def test_bf16_lm_step_on_the_card_matches_the_cpu(cuda, width, heads):
             assert err.max().item() <= 2 * lr + 1e-7, k
             if k != "b_k" and clear.any():   # b_k's gradient is all noise
                 assert err[clear].max().item() <= 1e-5, k
+
+
+# ---------------------------------------------------------------------------
+# the convolutional path: no hand kernel, conv / pool / LRN through
+# torch.nn.functional (cuDNN), NHWC at every boundary
+# ---------------------------------------------------------------------------
+def _hand_kernel_launches():
+    return {f"{m.__name__}/{k}": n for m in (lstm, attention, bn_relu)
+            for k, n in m.launch_counts().items()}
+
+
+def _layer_on(device, spec, x, ct, seed):
+    """A layer's output and its gradients (input, then parameters) on
+    `device`, from the same CPU-drawn parameters, in full float32 (TF32
+    off, as a network sets it when it is built)."""
+    from deeplearning4j_tpu_torch.nn.conf.base import conf_from_dict
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()
+    layer = conf_from_dict({"__layer__": {"type": spec[0],
+                                          "fields": spec[1]}})
+    params = {}
+    if layer.has_params:
+        params = layer.init_params(torch.Generator().manual_seed(seed),
+                                   pt.InputType.convolutional(*x.shape[1:]),
+                                   "cpu")
+    p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    y, _ = layer.apply(p, {}, xt)
+    grads = torch.autograd.grad(y, [xt] + list(p.values()),
+                                torch.tensor(ct, device=device))
+    return [y.detach().cpu()] + [g.cpu() for g in grads]
+
+
+CNN_LAYER_CASES = [
+    (("ConvolutionLayer", {"n_in": 3, "n_out": 8, "kernel_size": [11, 11],
+                           "stride": [4, 4], "convolution_mode": "same"}),
+     (2, 32, 32, 3)),                          # SAME padding split (3, 4)
+    (("ConvolutionLayer", {"n_in": 3, "n_out": 8, "kernel_size": [4, 4],
+                           "stride": [2, 2], "convolution_mode": "same"}),
+     (2, 9, 9, 3)),                            # even kernel, split (1, 2)
+    (("ConvolutionLayer", {"n_in": 4, "n_out": 6, "kernel_size": [3, 3],
+                           "dilation": [2, 2], "padding": [1, 1]}),
+     (2, 12, 12, 4)),
+    (("LocalResponseNormalization", {}), (2, 5, 5, 16)),
+] + [(("SubsamplingLayer", {"pooling_type": pool, **kw}), shape)
+     for pool in ("max", "avg", "sum", "pnorm")
+     for kw, shape in (({"kernel_size": [3, 3], "stride": [2, 2]},
+                        (2, 13, 13, 8)),
+                       ({"kernel_size": [2, 2], "stride": [2, 2],
+                         "convolution_mode": "same"}, (2, 7, 7, 8)),
+                       ({"kernel_size": [3, 3], "stride": [1, 1],
+                         "padding": [2, 2]}, (2, 7, 7, 8)))]
+
+
+@pytest.mark.parametrize("spec,shape", CNN_LAYER_CASES,
+                         ids=[f"{c[0][0]}-{i}"
+                              for i, c in enumerate(CNN_LAYER_CASES)])
+def test_conv_pool_lrn_on_the_card_match_the_cpu(cuda, spec, shape):
+    """The SAME-asymmetric convolution, each pooling type (TRUNCATE, an
+    uneven SAME split, padding past half a kernel) and LRN on the card
+    against the CPU: output and gradients within 1e-4 of each tensor's
+    largest entry (f32 sums in another order; cuDNN may take FFT or
+    Winograd algorithms). No hand kernel launches."""
+    from deeplearning4j_tpu_torch.nn.conf.base import conf_from_dict
+    r = np.random.default_rng(len(shape) + shape[1])
+    x = r.normal(size=shape).astype(np.float32)
+    out = conf_from_dict({"__layer__": {"type": spec[0], "fields": spec[1]}}
+                         ).output_type(pt.InputType.convolutional(*shape[1:]))
+    ct = r.normal(size=(shape[0], out.height, out.width,
+                        out.channels)).astype(np.float32)
+    before = _hand_kernel_launches()
+    got = _layer_on(cuda, spec, x, ct, 3)
+    torch.cuda.synchronize()
+    want = _layer_on("cpu", spec, x, ct, 3)
+    assert _hand_kernel_launches() == before
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= 1e-4
+
+
+def test_conv_nhwc_round_trip_is_contiguous_without_a_copy(cuda):
+    """The layer hands cuDNN the NCHW view of the contiguous NHWC input
+    (channels_last memory, the same storage) and permutes the result back:
+    cuDNN returns channels_last, so the NHWC output is contiguous and is the
+    convolution's own storage, no copy on either side."""
+    from deeplearning4j_tpu_torch.nn.layers import convolution as conv
+    x = torch.randn(4, 17, 19, 8, device=cuda)
+    W = torch.randn(3, 3, 8, 16, device=cuda)
+    xc = conv._to_nc(x)
+    assert xc.data_ptr() == x.data_ptr()
+    assert xc.is_contiguous(memory_format=torch.channels_last)
+    yc = conv._conv_nc(xc, conv._weight_nc(W), (1, 1), [(1, 1), (1, 1)],
+                       (1, 1))
+    assert yc.is_contiguous(memory_format=torch.channels_last)
+    y = conv._to_nlast(yc)
+    assert y.is_contiguous() and y.data_ptr() == yc.data_ptr()
+    layer = pt.ConvolutionLayer(n_in=8, n_out=16, kernel_size=(3, 3),
+                                convolution_mode="same")
+    out, _ = layer.apply({"W": W, "b": torch.zeros(16, device=cuda)}, {}, x)
+    assert tuple(out.shape) == (4, 17, 19, 16) and out.is_contiguous()
+
+
+def test_lenet_step_on_the_card_matches_the_cpu(cuda):
+    """LeNet-MNIST (full width) from one set of seeded weights: the first
+    step's gradients within 1e-4 of each tensor's largest entry, one
+    Nesterovs step's score within 1e-4 and parameters within 1e-3 relative
+    L2 of the CPU's (the char-RNN's float32 limits); no hand kernel
+    launches; the card's output contiguous and finite."""
+    from deeplearning4j_tpu_torch.models import zoo
+    nets = [zoo.lenet_mnist(device=d).init(
+        generator=torch.Generator().manual_seed(4)) for d in (cuda, "cpu")]
+    x, y, _, _ = pt.bundled_mnist_subset()
+    x, y = x[:128], y[:128]
+    before = _hand_kernel_launches()
+    grads = [_first_grads(n, x, y) for n in nets]
+    for name, want in grads[1].items():
+        assert _rel_err(grads[0][name], want) <= 1e-4, name
+    for n in nets:
+        n.fit(x, y)
+    out = nets[0].output(x)
+    torch.cuda.synchronize()
+    assert _hand_kernel_launches() == before
+    assert abs(nets[0].score() - nets[1].score()) <= 1e-4
+    for p, q in zip(*(n.params for n in nets)):
+        for k in q:
+            a, b = p[k].cpu(), q[k]
+            assert ((a - b).norm() / b.norm()).item() <= 1e-3, k
+    assert out.is_contiguous() and bool(torch.isfinite(out).all())
