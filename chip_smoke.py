@@ -109,8 +109,31 @@ Phases:
      process at buckets 1, 8 and 32 against the CPU; then LeNet's step
      p50 and samples/s at batch 512, VGG-16's step p50, images/s and share
      of the f32 peak at batch 32, both steps' device busy time and idle
-     share (torch.profiler), AlexNet's predict p50 per bucket, and the
-     run's total seconds.
+     share (torch.profiler), AlexNet's predict p50 per bucket;
+ 12. main path 8: a stacked bidirectional LSTM at the char-RNN's widths
+     (one-hot 77 characters, window 64, batch 64, 2 x
+     GravesBidirectionalLSTM(200), LastTimeStep, softmax output over the
+     next character, Adam 2e-3) trained 20 steps with `fit` over an
+     ArrayDataSetIterator of chip_smoke_text.txt windows on the card and
+     the CPU from one zip (first-step gradients, scores, final
+     parameters); the trained zip registered and served at buckets 1 and
+     32 against the CPU; a masked batch (rows ending early) through the
+     plain path on the card against the CPU; remat="layer" with policy
+     "dots" bit-equal to no remat, with the recompute's launches and the
+     peak memory both ways; the step p50, device busy time, idle share and
+     each LSTM kernel's device time by variant; layer 2's streamed kernels
+     per launch (F = 400) with their bound;
+ 13. main path 9: layerwise pretraining on the bundled digits through
+     `fit` on pretrain=True, backprop=False configurations, card against
+     CPU under the same injected noise: the VAE of
+     VariationalAutoEncoderExample (784 -> (256, 256) -> 2, Bernoulli
+     reconstruction, RmsProp 1e-3, l2 1e-4) and its reconstruction
+     log-probability of the held-out digits, the RBM stack of
+     DeepAutoEncoderExample (784-1000-500-250-100-30) and a one-layer
+     AutoEncoder (784-1000, corruption 0), each with its time per
+     pretraining step; then one Adam step of a MixtureOfExpertsLayer (n_in
+     512, 8 experts, top-2, hidden 2048) on the card against the CPU with
+     all-zero rows whose router logits tie; and the run's total seconds.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -127,8 +150,12 @@ batch-4096 gradients and step, 2 and 2 "streamed" for the narrow network's),
 six bf16 logsumexp-forward, dq and dk/dv launches per bf16 LM training step,
 the backward all of the "wgmma" variant, and six primal ones per bf16 LM
 forward, one of each per step or forward of the wide-head LMs, at Dh = 512
-of the "wide" variants (phase 9), each path launching none of the others'
-kernels, and none at all on the convolutional path (phase 11). The last two lines are a `{"kernels": [...]}` object and `{"ok":
+of the "wide" variants (phase 9), four residual-forward, four adjoint and
+four reduction launches per BiLSTM training step, the forward and adjoint
+two "cluster" (layer 1) and two "streamed" (layer 2) each, four primal
+launches per served BiLSTM forward and none for a masked batch (phase 12),
+each path launching none of the others' kernels, and none at all on the
+convolutional, pretraining and MoE paths (phases 11 and 13). The last two lines are a `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
 """
@@ -356,6 +383,45 @@ ALEX_PARAMS = 62_378_344        # zoo.py:510, image 224, 1000 classes
 # terms (a weight gradient) in another order, and cuDNN may pick FFT or
 # Winograd algorithms, whose f32 rounding exceeds a direct sum's
 CNN_LAYER_TOL = 1e-4
+
+# the bidirectional LSTM (main path 8) at the char-RNN's widths, the only
+# recurrent width the repository defines (BASELINE config 3,
+# deeplearning4j_tpu/models/zoo.py:59): one-hot input of the 77 characters
+# of ALPHABET, window 64, batch 64, two GravesBidirectionalLSTM(200),
+# LastTimeStep, softmax output over the next character, Adam 2e-3; held to
+# phase 6's limits (GRAD_TOL, SCORE_TOL, PARAM_TOL) against the CPU. Layer
+# 1 (F = 77) plans "cluster"; layer 2 reads both directions (F = 400),
+# where a cluster CTA's slice of W does not fit: "streamed".
+BI_B, BI_T, BI_STEPS, BI_LR = 64, 64, 20, 2e-3
+BI_F2 = 2 * HIDDEN
+
+# layerwise pretraining (main path 9) on the bundled digits: the VAE of
+# dl4j-examples' VariationalAutoEncoderExample (nIn 784, encoder and
+# decoder (256, 256), nOut 2, leakyrelu, Bernoulli reconstruction with
+# sigmoid, RmsProp 1e-3, l2 1e-4, batch 128), the RBM stack of its
+# DeepAutoEncoderExample (784-1000-500-250-100-30; SGD 0.1 here: the
+# example's line-gradient descent is not in the port) and a one-layer
+# AutoEncoder (784-1000, corruption 0). Both devices draw the same noise
+# (`same_noise`: one seeded CPU stream, copied to the device), so the VAE
+# and the AutoEncoder are held to the f32 limits. The RBM's Gibbs samples
+# compare that shared noise with probabilities that differ by rounding,
+# so a sample may flip where the two straddle a draw (about 1e-7 of the
+# 1e8 draws a step): each flip moves one row of dW by lr / 128, so its
+# parameters are held to 1e-2 relative L2 and its scores to 1e-3 relative.
+PRE_B, PRE_EPOCHS = 128, 3
+RBM_SIZES = (784, 1000, 500, 250, 100, 30)
+RBM_PARAM_TOL, RBM_SCORE_TOL = 1e-2, 1e-3
+# the VAE's reconstruction log-probability of the held-out digits, card
+# against CPU, relative to its magnitude (about 550 nats a digit: 784
+# Bernoulli terms summed in another order)
+RECON_TOL = 1e-5
+
+# a MixtureOfExpertsLayer at a transformer FFN's scale: n_in 512, 8
+# experts, top-2, hidden 2048 (4 x 512), relu, load-balance coefficient
+# 0.01; one Adam step at batch 64, the last 8 rows all zero (every router
+# logit ties: experts 0 and 1 must win, gates 1/2 each)
+MOE_IN, MOE_EXPERTS, MOE_TOPK, MOE_HIDDEN, MOE_B, MOE_ZERO = (
+    512, 8, 2, 2048, 64, 8)
 
 
 def check(cond, msg):
@@ -716,6 +782,513 @@ class BiasLog(StepLog):
         part = sum((1 - decay) * decay ** (steps - 1 - t)
                    * self.biases[t][pos] for t in range(steps))
         return state[bn]["mean"].detach().cpu() - part
+
+
+def tree_grads(torch, net, x, y, fmask=None):
+    """{"layer/key path": gradient on the CPU} of the network's score on
+    one batch at its current parameters (nested trees included: a BiLSTM's
+    `0/fwd/W`), through `_loss_fn` in training mode (remat included)."""
+    from deeplearning4j_tpu_torch.nn.trees import leaf_paths, tree_map
+    params = tuple(tree_map(lambda v: v.detach().requires_grad_(), p)
+                   for p in net.params)
+    paths = [(f"{i}/{k}", v) for i, p in enumerate(params)
+             for k, v in leaf_paths(p)]
+    with torch.enable_grad():
+        score, _ = net._loss_fn(params, net.state, x, y, fmask=fmask)
+        grads = torch.autograd.grad(score, [v for _, v in paths])
+    return score.detach(), {name: g.detach().cpu()
+                            for (name, _), g in zip(paths, grads)}
+
+
+def tree_rel_l2(net, ref):
+    """Largest per-tensor |a - b|_2 / |b|_2 between two networks' (possibly
+    nested) parameter trees."""
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    worst = 0.0
+    for p, q in zip(net.params, ref.params):
+        for a, b in zip(flat_leaves(p), flat_leaves(q)):
+            a, b = a.detach().cpu(), b.detach().cpu()
+            worst = max(worst, ((a - b).norm() / b.norm().clamp_min(1e-30))
+                        .item())
+    return worst
+
+
+def grads_rel_max(got, want):
+    """Largest per-tensor max |got - want| / max |want| over two gradient
+    dicts."""
+    return max(((got[k] - want[k]).abs().max()
+                / want[k].abs().max().clamp_min(1e-30)).item()
+               for k in want)
+
+
+def lstm_ms_by_variant(events):
+    """A profile's LSTM kernel device ms by kernel and variant."""
+    kinds = {}
+    for key, ms, _ in events:
+        for name, kind in (("lstm_cluster_fwd", "forward cluster"),
+                           ("lstm_seq_fwd", "forward streamed"),
+                           ("lstm_cluster_bwd", "adjoint cluster"),
+                           ("lstm_seq_bwd", "adjoint streamed"),
+                           ("lstm_param_grad", "reduction")):
+            if name in key:
+                kinds[kind] = kinds.get(kind, 0.0) + ms
+    return kinds
+
+
+def bilstm_conf(pt, remat=None, policy=None):
+    """Main path 8's network: 2 x GravesBidirectionalLSTM(200),
+    LastTimeStep, softmax output over the next of 77 characters, Adam."""
+    from deeplearning4j_tpu_torch.nn.layers import (GravesBidirectionalLSTM,
+                                                    LastTimeStep)
+    b = pt.NeuralNetConfiguration.builder().seed(12345).updater(
+        pt.Adam(BI_LR))
+    if remat is not None:
+        b = b.remat(remat).remat_policy(policy)
+    return (b.list()
+            .layer(GravesBidirectionalLSTM(n_out=HIDDEN))
+            .layer(GravesBidirectionalLSTM(n_out=HIDDEN))
+            .layer(LastTimeStep())
+            .layer(pt.OutputLayer(n_out=VOCAB, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.recurrent(VOCAB, BI_T)).build())
+
+
+def bilstm_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 8 (phase 12): train the stacked bidirectional LSTM 20 Adam
+    steps on the card and the CPU from one zip (first-step gradients,
+    scores, final parameters), with 4 residual-forward, 4 adjoint and 4
+    reduction launches a step (layer 1 "cluster", layer 2 "streamed");
+    serve the trained zip at buckets 1 and 32 through the primal kernel; a
+    masked batch through the plain path on the card; remat="layer" with
+    policy "dots" bit-equal to no remat; times. Returns the phase's
+    numbers."""
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.nn.trees import tree_map
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+    layer2 = lstm.sequence_plan(BI_B, BI_F2, HIDDEN)
+    check(lstm.sequence_variant(BI_B, VOCAB, HIDDEN) == "cluster"
+          and layer2.variant == "streamed",
+          f"BiLSTM plans: F={VOCAB} {lstm.sequence_variant(BI_B, VOCAB, HIDDEN)}"
+          f", F={BI_F2} {layer2}")
+    windows = text_windows(root, ALPHABET, BI_STEPS * BI_B, BI_T + 1)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    x_all, y_all = eye[windows[:, :-1]], eye[windows[:, -1]]
+    net = pt.MultiLayerNetwork(bilstm_conf(pt), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(31))
+    zip0 = os.path.join(tmp, "bilstm0.zip")
+    pt.ModelSerializer.write_model(net, zip0)
+    nets = [pt.ModelSerializer.restore(zip0, device=d)
+            for d in (DEVICE, "cpu")]
+
+    # first-step gradients, card against CPU
+    grads = []
+    for n in nets:
+        x, y = (n._as_input(a) for a in (x_all[:BI_B], y_all[:BI_B]))
+        grads.append(tree_grads(torch, n, x, y)[1])
+    grad_err = grads_rel_max(*grads)
+    check(grad_err <= GRAD_TOL, f"BiLSTM first-step gradients card vs CPU: "
+          f"{grad_err} > {GRAD_TOL}")
+
+    # 20 Adam steps on both devices, the card's launches counted
+    logs = [StepLog(torch), StepLog()]
+    for n, log in zip(nets, logs):
+        n.set_listeners(log)
+    reset_counts()
+    nets[0].fit(pt.ArrayDataSetIterator(x_all, y_all, batch_size=BI_B))
+    counts, variants = lstm.launch_counts(), lstm.variant_counts()
+    nets[1].fit(pt.ArrayDataSetIterator(x_all, y_all, batch_size=BI_B))
+    per = 4 * BI_STEPS
+    check(counts == {"launches": 0, "residual_launches": per,
+                     "adjoint_launches": per, "reduction_launches": per},
+          f"BiLSTM training launches {counts}, want {per} of each training "
+          "kernel and no primal forward")
+    for kind in ("residual", "adjoint"):
+        check(variants[kind] == {"cluster": per // 2, "streamed": per // 2},
+              f"BiLSTM {kind} variants {variants[kind]}")
+    cards = [float(s) for s in logs[0].scores]
+    cpus = [float(s) for s in logs[1].scores]
+    score_err = max(abs(a - b) for a, b in zip(cards, cpus))
+    param_err = tree_rel_l2(*nets)
+    check(len(cards) == len(cpus) == BI_STEPS and score_err <= SCORE_TOL
+          and param_err <= PARAM_TOL,
+          f"BiLSTM 20 steps card vs CPU: score err {score_err}, parameters "
+          f"relative L2 {param_err}")
+    step_ms = 1e3 * np.diff(logs[0].times)
+    print(f"BiLSTM (2 x GravesBidirectionalLSTM({HIDDEN}), B={BI_B}, "
+          f"T={BI_T}, Adam {BI_LR}) trained {BI_STEPS} steps on the card "
+          f"and the CPU from one zip: first-step gradients {grad_err:.3e} "
+          f"of max (limit {GRAD_TOL}), scores {cards[0]:.4f} -> "
+          f"{cards[-1]:.4f}, max err {score_err:.3e} (limit {SCORE_TOL}), "
+          f"final parameters relative L2 {param_err:.3e} (limit "
+          f"{PARAM_TOL}); launches {counts}, variants {variants}")
+    out.update(first_step_grad_err=grad_err, score_err=score_err,
+               param_err=param_err, launches=counts, variants=variants,
+               scores_card=cards)
+
+    # serve the trained zip at buckets 1 and 32
+    zip1 = os.path.join(tmp, "bilstm1.zip")
+    pt.ModelSerializer.write_model(nets[0], zip1)
+    ref = pt.ModelSerializer.restore(zip1, device="cpu")
+    reg = pt.ModelRegistry(buckets=(1, 32))
+    v = reg.register("bilstm", zip1)
+    reset_counts()
+    before = v.forwards
+    serve_err, serve_t = 0.0, {}
+    for rows in (1, 32):
+        xs = x_all[-rows:]
+        got, _ = reg.predict("bilstm", xs)
+        want = ref.output(xs).numpy()
+        check(got.shape == (rows, VOCAB) and np.isfinite(got).all(),
+              f"BiLSTM served output shape {got.shape}")
+        serve_err = max(serve_err, float(np.abs(got - want).max()))
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            reg.predict("bilstm", xs)
+            times.append(time.perf_counter() - t0)
+        serve_t[f"predict_p50_ms_b{rows}"] = 1e3 * float(np.median(times))
+    counts = lstm.launch_counts()
+    n_fwd = v.forwards - before
+    check(serve_err <= SERVE_TOL, f"BiLSTM served vs CPU: {serve_err} > "
+          f"{SERVE_TOL}")
+    check(counts == {"launches": 4 * n_fwd, "residual_launches": 0,
+                     "adjoint_launches": 0, "reduction_launches": 0},
+          f"serving the BiLSTM: {counts} for {n_fwd} forwards")
+    print(f"{tag} trained BiLSTM zip registered and served at buckets 1 and "
+          f"32: max abs err vs CPU {serve_err:.3e} (limit {SERVE_TOL}), "
+          f"{counts['launches']} primal LSTM launches for {n_fwd} forwards "
+          "(4 each), no training kernel; registry.predict p50 " + ", ".join(
+              f"bucket {b} {serve_t[f'predict_p50_ms_b{b}']:.3f} ms"
+              for b in (1, 32)))
+    out.update(serve_err=serve_err, serve=serve_t)
+
+    # a masked batch (rows end early): the plain path on the card
+    r = np.random.default_rng(41)
+    lengths = r.integers(BI_T // 4, BI_T + 1, BI_B)
+    mask = (np.arange(BI_T)[None] < lengths[:, None]).astype(np.float32)
+    reset_counts()
+    masked = []
+    for n in nets:
+        x, y, m = (n._as_input(a) for a in (x_all[:BI_B], y_all[:BI_B],
+                                             mask))
+        score, g = tree_grads(torch, n, x, y, fmask=m)
+        masked.append((n.output(x_all[:BI_B], features_mask=mask).cpu(),
+                       float(score), g))
+    c = lstm.launch_counts()
+    m_out = (masked[0][0] - masked[1][0]).abs().max().item()
+    m_score = abs(masked[0][1] - masked[1][1])
+    m_grad = grads_rel_max(masked[0][2], masked[1][2])
+    check(all(n == 0 for n in c.values()), f"the masked BiLSTM batch "
+          f"launched LSTM kernels: {c}")
+    check(m_out <= SERVE_TOL and m_score <= SCORE_TOL
+          and m_grad <= GRAD_TOL,
+          f"masked BiLSTM card vs CPU: output {m_out}, score {m_score}, "
+          f"gradients {m_grad}")
+    print(f"masked BiLSTM batch (lengths {lengths.min()}-{lengths.max()}): "
+          f"plain path on the card, LSTM launches {c} (all 0); card vs CPU "
+          f"output {m_out:.3e}, score {m_score:.3e}, gradients {m_grad:.3e} "
+          "of max")
+    out.update(masked_output_err=m_out, masked_score_err=m_score,
+               masked_grad_err=m_grad)
+
+    # remat="layer" with policy "dots": bit-equal, the recompute counted
+    remats = {}
+    for name, conf in (("none", bilstm_conf(pt)),
+                       ("layer/dots", bilstm_conf(pt, "layer", "dots"))):
+        n = pt.MultiLayerNetwork(conf, device=DEVICE).init()
+        n.params = tuple(tree_map(torch.Tensor.clone, p)
+                         for p in nets[0].params)
+        x, y = (n._as_input(a) for a in (x_all[:BI_B], y_all[:BI_B]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        score, g = tree_grads(torch, n, x, y)
+        torch.cuda.synchronize()
+        remats[name] = {"score": score.item(), "grads": g,
+                        "residual_launches":
+                            lstm.launch_counts()["residual_launches"],
+                        "peak_bytes": torch.cuda.max_memory_allocated()
+                        - base}
+    plain, rm = remats["none"], remats["layer/dots"]
+    bit_equal = (plain["score"] == rm["score"] and all(
+        torch.equal(plain["grads"][k], rm["grads"][k])
+        for k in plain["grads"]))
+    check(bit_equal, "BiLSTM remat='layer' (dots): scores or gradients "
+          "differ from the run without remat")
+    check(plain["residual_launches"] == 4
+          and rm["residual_launches"] == 8,
+          f"BiLSTM residual launches: no remat {plain['residual_launches']}"
+          f", remat {rm['residual_launches']} (want 4 and 4 + 4 recomputed)")
+    print(f"{tag} BiLSTM remat='layer', policy 'dots': score and gradients "
+          f"bit-equal to no remat; residual-forward launches "
+          f"{plain['residual_launches']} -> {rm['residual_launches']} (the "
+          f"recompute); peak memory above the step's start "
+          f"{plain['peak_bytes'] / 2**20:.1f} MiB -> "
+          f"{rm['peak_bytes'] / 2**20:.1f} MiB "
+          "(torch.cuda.max_memory_allocated)")
+    out["remat"] = {k: {kk: vv for kk, vv in v.items() if kk != "grads"}
+                    for k, v in remats.items()}
+
+    # times: the step, its device profile, the kernels by variant
+    timed = nets[0]
+    batch = pt.DataSet(torch.as_tensor(x_all[:BI_B], device=DEVICE),
+                       torch.as_tensor(y_all[:BI_B], device=DEVICE))
+    clock = StepLog(torch)
+    timed.set_listeners(clock)
+    for _ in range(3):
+        timed.fit(batch)
+    clock.times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        timed.fit(batch)
+    step_ms = 1e3 * np.diff([t0] + clock.times)
+    timed.set_listeners()
+    events, busy, wall = profile_device(
+        torch, lambda: timed.fit(batch), "BiLSTM training step", tag, reps=5)
+    by_variant = lstm_ms_by_variant(events)
+    streamed = sum(ms for k, ms in by_variant.items() if "streamed" in k)
+    times = {"step_p50_ms": float(np.median(step_ms)),
+             "device_busy_ms": busy, "profiled_wall_ms": wall,
+             "idle_share": 1 - busy / wall,
+             "lstm_device_ms_by_variant": by_variant,
+             "streamed_share_of_busy": streamed / busy,
+             "streamed_share_of_wall": streamed / wall}
+    print(f"{tag} BiLSTM training step (B={BI_B}, T={BI_T}): p50 "
+          f"{times['step_p50_ms']:.3f} ms; device busy {busy:.3f} of "
+          f"{wall:.3f} ms (idle share {1 - busy / wall:.3f}); LSTM kernels' "
+          "device ms a step: " + ", ".join(
+              f"{k} {ms:.4f}" for k, ms in sorted(by_variant.items()))
+          + f"; streamed kernels {streamed:.4f} ms = "
+          f"{100 * streamed / busy:.1f} % of busy, "
+          f"{100 * streamed / wall:.1f} % of the step")
+
+    # layer 2's streamed kernels per launch (T 64, B 64, F 400, H 200)
+    T, B, F, H = BI_T, BI_B, BI_F2, HIDDEN
+    args = lstm_inputs(torch, T, B, F, H, seed=43)
+    x, W, b, peep, h0, c0 = args
+    res = lstm.lstm_residual_forward(*args, 1.0)
+    ref_res = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+    dhs, dhT, dcT = cotangents(torch, T, B, H, seed=44)
+    layer2_t = {}
+    for kind, kern, plain_fn, (bnd, by) in (
+            ("residual", lambda: lstm.lstm_residual_forward(*args, 1.0),
+             lambda: lstm.lstm_sequence_reference(*args, 1.0,
+                                                  save_residuals=True),
+             residual_forward_bound_ms(T, B, F, H)),
+            ("adjoint", lambda: lstm.lstm_adjoint(W, peep, c0, *res[3:], dhs,
+                                                  dhT, dcT, F, True),
+             lambda: lstm.lstm_adjoint_reference(W, peep, c0, *ref_res[1:],
+                                                 dhs, dhT, dcT, F),
+             adjoint_bound_ms(T, B, F, H, True))):
+        k, p = cuda_ms(torch, kern), cuda_ms(torch, plain_fn, reps=5)
+        dev = device_ms(torch, kern)
+        layer2_t[kind] = {"ms": k, "device_ms": dev, "per_step_ms": k / T,
+                          "plain_ms": p, "bound_ms": bnd, "bound_by": by,
+                          "library_ms": None}
+        print(f"{tag} LSTM {kind} (streamed, BiLSTM layer 2) B={B} T={T} "
+              f"F={F} H={H}: kernel {k:.4f} ms ({1e3 * k / T:.3f} us a step)"
+              f", device {dev:.4f} ms, plain {p:.4f} ms, bound {bnd:.6f} ms "
+              f"({by})")
+    times["layer2_streamed"] = layer2_t
+    out.update(times=times, seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"bilstm_path": out}))
+    return out
+
+
+@contextlib.contextmanager
+def same_noise(torch, seed):
+    """The pretraining layers' draws (`nn.noise.draw`) from one seeded CPU
+    stream, copied to the layer's device: a card run and a CPU run see the
+    same noise."""
+    from deeplearning4j_tpu_torch.nn import noise
+    gen = torch.Generator().manual_seed(seed)
+    real = noise.draw
+
+    def draw(kind, shape, generator, dtype, device):
+        return real(kind, shape, gen, dtype, "cpu").to(device)
+    noise.draw = draw
+    try:
+        yield
+    finally:
+        noise.draw = real
+
+
+def pretrain_path(pt, torch, tag, tmp, reset_counts, counts):
+    """Main path 9 (phase 13): layerwise pretraining on the bundled
+    digits, card against CPU under the same noise: the VAE of
+    VariationalAutoEncoderExample (then its reconstruction
+    log-probability of the held-out digits), the RBM stack of
+    DeepAutoEncoderExample and a one-layer AutoEncoder at corruption 0,
+    each through `fit` on a pretrain=True, backprop=False configuration;
+    then the time per pretraining step. No hand kernel launches. Returns
+    the phase's numbers."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        RBM, AutoEncoder, BernoulliReconstructionDistribution,
+        VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.updaters import RmsProp
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+    x_train, _, x_test, _ = pt.bundled_mnist_subset()
+
+    def build(updater, layers, l2=None):
+        b = pt.NeuralNetConfiguration.builder().seed(12345).updater(updater)
+        if l2:
+            b = b.l2(l2)
+        lb = b.list()
+        for layer in layers:
+            lb = lb.layer(layer)
+        return (lb.set_input_type(pt.InputType.feed_forward(784))
+                .pretrain(True).backprop(False).build())
+
+    confs = {
+        "vae": build(RmsProp(1e-3), [VariationalAutoencoder(
+            n_out=2, encoder_layer_sizes=(256, 256),
+            decoder_layer_sizes=(256, 256), activation="leakyrelu",
+            pzx_activation="identity",
+            reconstruction_distribution=BernoulliReconstructionDistribution(
+                activation="sigmoid"))], l2=1e-4),
+        "rbm_stack": build(pt.Sgd(0.1), [RBM(n_out=n)
+                                         for n in RBM_SIZES[1:]]),
+        "autoencoder": build(pt.Sgd(0.1), [AutoEncoder(
+            n_out=1000, corruption_level=0.0)])}
+    reset_counts()
+    for name, conf in confs.items():
+        net = pt.MultiLayerNetwork(conf, device=DEVICE).init(
+            generator=torch.Generator().manual_seed(51))
+        z = os.path.join(tmp, f"{name}.zip")
+        pt.ModelSerializer.write_model(net, z)
+        nets = [pt.ModelSerializer.restore(z, device=d)
+                for d in (DEVICE, "cpu")]
+        scores = []
+        for n in nets:
+            it = pt.ArrayDataSetIterator(x_train, x_train, batch_size=PRE_B)
+            with same_noise(torch, 53):
+                n.fit(it)                   # pretrain=True: one epoch
+                n.pretrain(it, epochs=PRE_EPOCHS - 1)
+            scores.append(float(n._score))
+        param_err = tree_rel_l2(*nets)
+        score_err = abs(scores[0] - scores[1])
+        if name == "rbm_stack":
+            ok = (param_err <= RBM_PARAM_TOL
+                  and score_err <= RBM_SCORE_TOL * abs(scores[1]))
+            limits = f"{RBM_PARAM_TOL}, {RBM_SCORE_TOL} relative"
+        else:
+            ok = param_err <= PARAM_TOL and score_err <= SCORE_TOL * max(
+                1.0, abs(scores[1]))
+            limits = f"{PARAM_TOL}, {SCORE_TOL}"
+        check(ok and np.isfinite(scores[0]), f"{name} pretraining card vs "
+              f"CPU: parameters relative L2 {param_err}, last score "
+              f"{scores} (limits {limits})")
+        steps = PRE_EPOCHS * -(-len(x_train) // PRE_B)
+        print(f"{name} pretrained {PRE_EPOCHS} epochs ({steps} steps a "
+              f"layer) on the {len(x_train)} bundled digits, card and CPU "
+              f"under the same noise: last score card {scores[0]:.6f}, CPU "
+              f"{scores[1]:.6f}; parameters relative L2 {param_err:.3e} "
+              f"(limits {limits})")
+        entry = {"score_card": scores[0], "score_cpu": scores[1],
+                 "param_err": param_err}
+        if name == "vae":
+            lps = []
+            for n in nets:
+                with same_noise(torch, 57):
+                    lps.append(n.reconstruction_log_probability(
+                        x_test, num_samples=5))
+            rec_err = float(np.abs(lps[0] - lps[1]).max()
+                            / np.abs(lps[1]).max())
+            check(lps[0].shape == (len(x_test),) and np.isfinite(
+                lps[0]).all() and rec_err <= RECON_TOL,
+                f"VAE reconstruction log-probability card vs CPU: "
+                f"{rec_err} (limit {RECON_TOL})")
+            print(f"{tag} VAE reconstruction_log_probability of the "
+                  f"{len(x_test)} held-out digits (5 samples): mean "
+                  f"{lps[0].mean():.3f} nats, card vs CPU {rec_err:.3e} of "
+                  f"max (limit {RECON_TOL})")
+            entry.update(recon_log_prob_mean=float(lps[0].mean()),
+                         recon_err=rec_err)
+        # time per pretraining step (the bottom layer alone)
+        it = pt.ArrayDataSetIterator(x_train, x_train, batch_size=PRE_B)
+        n = nets[0]
+        n.pretrain_layer(0, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 5
+        n.pretrain_layer(0, it, epochs=reps)
+        torch.cuda.synchronize()
+        entry["layer0_step_ms"] = 1e3 * (time.perf_counter() - t0) / (
+            reps * -(-len(x_train) // PRE_B))
+        print(f"{tag} {name} layer 0 pretraining step (batch {PRE_B}): "
+              f"{entry['layer0_step_ms']:.3f} ms")
+        out[name] = entry
+    c = counts()
+    check(all(n == 0 for n in c.values()), f"the pretraining path launched "
+          f"hand kernels: {c}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"pretrain_path": out}))
+    return out
+
+
+def moe_step(pt, torch, tag, counts):
+    """One Adam step of a MixtureOfExpertsLayer network on the card and the
+    CPU from the same parameters, a batch whose last rows are all zero (the
+    router's logits tie there: experts 0 and 1 win on both devices).
+    Returns the numbers."""
+    from deeplearning4j_tpu_torch.nn.layers import MixtureOfExpertsLayer
+    from deeplearning4j_tpu_torch.nn.layers.moe import top_k_gates
+    conf = (pt.NeuralNetConfiguration.builder().seed(7)
+            .updater(pt.Adam(1e-3)).list()
+            .layer(MixtureOfExpertsLayer(
+                n_out=MOE_IN, n_experts=MOE_EXPERTS, top_k=MOE_TOPK,
+                expert_hidden=MOE_HIDDEN, activation="relu",
+                load_balance_coef=0.01))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(MOE_IN)).build())
+    r = np.random.default_rng(61)
+    x = r.normal(size=(MOE_B, MOE_IN)).astype(np.float32)
+    x[-MOE_ZERO:] = 0.0
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, MOE_B)]
+    card = pt.MultiLayerNetwork(conf, device=DEVICE).init(
+        generator=torch.Generator().manual_seed(63))
+    cpu = card.clone().to("cpu")
+    nets = (card, cpu)
+    gates = []
+    for n in nets:
+        xt = n._as_input(x)
+        logits = xt @ n.params[0]["router_W"]
+        gates.append(top_k_gates(logits, MOE_TOPK).cpu())
+    want = torch.zeros(MOE_ZERO, MOE_EXPERTS)
+    want[:, :2] = 0.5
+    for g, where in zip(gates, ("card", "CPU")):
+        check(torch.equal(g[-MOE_ZERO:], want), f"MoE tied rows on the "
+              f"{where}: gates {g[-MOE_ZERO:]}")
+        check(int((g > 0).sum(1).max()) == MOE_TOPK, f"MoE routes more than "
+              f"{MOE_TOPK} experts a row on the {where}")
+    same_route = torch.equal(gates[0] > 0, gates[1] > 0)
+    grads = [tree_grads(torch, n, n._as_input(x), n._as_input(y))[1]
+             for n in nets]
+    grad_err = grads_rel_max(*grads)
+    for n in nets:
+        n.fit(x, y)
+    param_err = tree_rel_l2(*nets)
+    score_err = abs(card.score() - cpu.score())
+    check(same_route and grad_err <= GRAD_TOL and param_err <= PARAM_TOL
+          and score_err <= SCORE_TOL,
+          f"MoE step card vs CPU: same routes {same_route}, gradients "
+          f"{grad_err}, parameters {param_err}, score {score_err}")
+    c = counts()
+    check(all(n == 0 for n in c.values()), f"the MoE step launched hand "
+          f"kernels: {c}")
+    print(f"{tag} MixtureOfExpertsLayer (n_in {MOE_IN}, {MOE_EXPERTS} "
+          f"experts, top-{MOE_TOPK}, hidden {MOE_HIDDEN}) one Adam step at "
+          f"batch {MOE_B} ({MOE_ZERO} all-zero rows routed to experts 0 and "
+          f"1 on both devices): same routes on card and CPU, gradients "
+          f"{grad_err:.3e} of max, score err {score_err:.3e}, parameters "
+          f"relative L2 {param_err:.3e}")
+    return {"grad_err": grad_err, "score_err": score_err,
+            "param_err": param_err}
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -3363,6 +3936,19 @@ def main():
         f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
         for mod in (lstm, attention, bn_relu)
         for k, n in mod.launch_counts().items()})
+    # ---- 12. main path 8: the bidirectional LSTM ------------------------
+    hand_counts = lambda: {
+        f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
+        for mod in (lstm, attention, bn_relu)
+        for k, n in mod.launch_counts().items()}
+    bilstm = bilstm_path(pt, torch, tag, tmp, root, reset_counts)
+    check(set(attention.launch_counts().values()) == {0}, "the BiLSTM path "
+          f"launched attention kernels: {attention.launch_counts()}")
+    check_no_bn_launches("BiLSTM")
+
+    # ---- 13. main path 9: layerwise pretraining; the MoE step -----------
+    pretrain_path(pt, torch, tag, tmp, reset_counts, hand_counts)
+    moe_step(pt, torch, tag, hand_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -3471,6 +4057,13 @@ def main():
         "library_ms": train_times[key]["library_ms"],
         "library": library,
         **(red_json if key == "reduction" else {}),
+        "bilstm_launches": (
+            bilstm["launches"][counter] if key == "reduction" else
+            bilstm["variants"][key]["cluster"]),
+        "bilstm_per": ("main path 8's 20 steps: one launch a layer and "
+                       "direction a step" if key == "reduction" else
+                       f"main path 8's 20 steps: layer 1 (F={VOCAB}) of "
+                       "the BiLSTM, both directions"),
         "card": card,
     } for name, key, counter, err, rel, replaces, library in (
         ("lstm_residual_forward", "residual", "residual_launches",
@@ -3496,6 +4089,12 @@ def main():
                    + (", no dx)" if kind == "adjoint" else ")"),
             **streamed_times[kind],
             "library": no_library,
+            **({} if kind == "fwd" else {"bilstm_layer2": {
+                "launches": bilstm["variants"][kind]["streamed"],
+                "per": f"main path 8's 20 steps: layer 2 of the BiLSTM "
+                       f"(T={BI_T}, B={BI_B}, F={BI_F2}, H={HIDDEN}), both "
+                       "directions; times per launch at that shape",
+                **bilstm["times"]["layer2_streamed"][kind]}}),
             "card": card,
         } for name, kind in (("fused_lstm_sequence", "fwd"),
                              ("lstm_residual_forward", "residual"),

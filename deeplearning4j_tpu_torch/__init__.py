@@ -42,6 +42,13 @@ AlexNet serves. Activations stay NHWC and conv weights HWIO, as in the JAX
 package; conv, pool and LRN map to `torch.nn.functional` (cuDNN on the
 card), as the JAX package's map to XLA ops. This path launches no hand
 kernel.
+
+The eleventh slice: GravesBidirectionalLSTM (both directions through the
+LSTM kernels) and LastTimeStep, nested parameter trees, layerwise
+pretraining (AutoEncoder, RBM, VariationalAutoencoder), the
+mixture-of-experts layer, remat on `torch.utils.checkpoint`, `clone`, and
+the offline data side (iterators, fetchers over a local cache, record and
+image readers, LabeledPoint).
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
                        ListDataSetIterator, bundled_mnist_subset)

@@ -1,8 +1,32 @@
-"""Datasets of the port: DataSet, the in-memory iterators and the bundled
-MNIST digits."""
-from .fetchers import bundled_mnist_subset
+"""Datasets of the port: DataSet and the iterators, the fetchers (the
+bundled MNIST digits, Iris, Curves, and MNIST / CIFAR-10 / LFW over a local
+cache), the record and image readers, and LabeledPoint ingestion."""
+from .fetchers import (CifarDataFetcher, CurvesDataFetcher, IrisDataFetcher,
+                       LFWDataFetcher, MnistDataFetcher, augment_digits,
+                       bundled_mnist_stratified, bundled_mnist_subset,
+                       read_idx)
+from .images import ImageLoader, ImageRecordDataSetIterator, ImageRecordReader
+from .impl import (CifarDataSetIterator, IrisDataSetIterator,
+                   MnistDataSetIterator)
 from .iterators import (ArrayDataSetIterator, DataSet, DataSetIterator,
-                        ListDataSetIterator)
+                        ExistingDataSetIterator, IteratorDataSetIterator,
+                        ListDataSetIterator, MultiDataSet,
+                        MultipleEpochsIterator, SamplingDataSetIterator)
+from .labeled_point import (LabeledPoint, LabeledPointDataSetIterator,
+                            labeled_points_to_dataset)
+from .records import (BinaryRecordDataSetIterator, BinaryRecordReader,
+                      CSVRecordReader, RecordReaderDataSetIterator)
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "bundled_mnist_subset"]
+           "ExistingDataSetIterator", "IteratorDataSetIterator",
+           "ListDataSetIterator", "MultiDataSet", "MultipleEpochsIterator",
+           "SamplingDataSetIterator", "bundled_mnist_subset",
+           "bundled_mnist_stratified", "augment_digits", "read_idx",
+           "MnistDataFetcher", "IrisDataFetcher", "CifarDataFetcher",
+           "LFWDataFetcher", "CurvesDataFetcher", "MnistDataSetIterator",
+           "IrisDataSetIterator", "CifarDataSetIterator", "ImageLoader",
+           "ImageRecordReader", "ImageRecordDataSetIterator",
+           "CSVRecordReader", "RecordReaderDataSetIterator",
+           "BinaryRecordReader", "BinaryRecordDataSetIterator",
+           "LabeledPoint", "LabeledPointDataSetIterator",
+           "labeled_points_to_dataset"]

@@ -1,19 +1,24 @@
-"""DataSet and the in-memory iterators: the port of the part of
-`deeplearning4j_tpu/datasets/iterators.py` that fit and evaluate use
-(`DataSet`, `DataSetIterator`, `ArrayDataSetIterator` with its seed +
-consumed-epoch shuffle, `ListDataSetIterator`). Batches are host numpy
+"""DataSet and the in-memory iterators: the port of
+`deeplearning4j_tpu/datasets/iterators.py` (`DataSet`, `MultiDataSet`,
+`DataSetIterator`, `ArrayDataSetIterator` with its seed + consumed-epoch
+shuffle, `ListDataSetIterator`, `ExistingDataSetIterator`,
+`IteratorDataSetIterator`, `MultipleEpochsIterator`,
+`SamplingDataSetIterator`; the asynchronous iterators come with ROADMAP
+A8's prefetch). Batches are host numpy
 arrays, so the same iterator can feed the JAX package and the port.
 """
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["DataSet", "DataSetIterator", "ArrayDataSetIterator",
-           "ListDataSetIterator"]
+__all__ = ["DataSet", "MultiDataSet", "DataSetIterator",
+           "ArrayDataSetIterator", "ListDataSetIterator",
+           "ExistingDataSetIterator", "IteratorDataSetIterator",
+           "MultipleEpochsIterator", "SamplingDataSetIterator"]
 
 
 @dataclass
@@ -77,6 +82,20 @@ class DataSet:
                        cat_masks([d.labels_mask for d in datasets],
                                  [l if l is not None else f
                                   for l, f in zip(labs, feats)]))
+
+
+@dataclass
+class MultiDataSet:
+    """Multiple-input / multiple-output minibatch of numpy arrays (ND4J
+    MultiDataSet), for the ComputationGraph (ROADMAP A7)."""
+
+    features: List[np.ndarray] = field(default_factory=list)
+    labels: List[np.ndarray] = field(default_factory=list)
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
 
 
 class DataSetIterator:
@@ -218,3 +237,137 @@ class ListDataSetIterator(DataSetIterator):
 
     def batch(self):
         return self._batch or (self._datasets[0].num_examples() if self._datasets else 0)
+
+
+class ExistingDataSetIterator(DataSetIterator):
+    """Wraps a plain python iterable of DataSets
+    (`datasets/iterator/ExistingDataSetIterator.java`)."""
+
+    def __init__(self, iterable: Iterable[DataSet]):
+        self._iterable = iterable
+        self.reset()
+
+    def reset(self):
+        self._it = iter(self._iterable)
+        self._peek = None
+        self._advance()
+
+    def _advance(self):
+        try:
+            self._peek = next(self._it)
+        except StopIteration:
+            self._peek = None
+
+    def has_next(self):
+        return self._peek is not None
+
+    def next(self):
+        d = self._peek
+        self._advance()
+        return d
+
+    def batch(self):
+        return -1
+
+
+class IteratorDataSetIterator(DataSetIterator):
+    """Re-batches an iterator of DataSets to a fixed minibatch size
+    (`datasets/iterator/IteratorDataSetIterator.java`)."""
+
+    def __init__(self, source: DataSetIterator, batch_size: int):
+        self.source = source
+        self.batch_size = int(batch_size)
+        self._buffer: List[DataSet] = []
+
+    def reset(self):
+        self.source.reset()
+        self._buffer = []
+
+    def has_next(self):
+        return bool(self._buffer) or self.source.has_next()
+
+    def next(self):
+        have = sum(d.num_examples() for d in self._buffer)
+        while have < self.batch_size and self.source.has_next():
+            d = self.source.next()
+            self._buffer.append(d)
+            have += d.num_examples()
+        merged = DataSet.merge(self._buffer)
+
+        def cut(a, lo, hi):
+            return None if a is None else a[lo:hi]
+
+        b = self.batch_size
+        out = DataSet(cut(merged.features, 0, b), cut(merged.labels, 0, b),
+                      cut(merged.features_mask, 0, b),
+                      cut(merged.labels_mask, 0, b))
+        n = merged.num_examples()
+        self._buffer = []
+        if n > b:
+            self._buffer = [DataSet(cut(merged.features, b, n),
+                                    cut(merged.labels, b, n),
+                                    cut(merged.features_mask, b, n),
+                                    cut(merged.labels_mask, b, n))]
+        return out
+
+    def batch(self):
+        return self.batch_size
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays an iterator for N epochs (`datasets/iterator/MultipleEpochsIterator.java`)."""
+
+    def __init__(self, epochs: int, source: DataSetIterator):
+        self.epochs = int(epochs)
+        self.source = source
+        self._epoch = 0
+
+    def reset(self):
+        self.source.reset()
+        self._epoch = 0
+
+    def has_next(self):
+        if self.source.has_next():
+            return True
+        if self._epoch + 1 < self.epochs:
+            self._epoch += 1
+            self.source.reset()
+            return self.source.has_next()
+        return False
+
+    def next(self):
+        if not self.has_next():
+            raise StopIteration
+        return self.source.next()
+
+    def batch(self):
+        return self.source.batch()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """Samples minibatches with replacement from one DataSet
+    (`datasets/iterator/SamplingDataSetIterator.java`)."""
+
+    def __init__(self, dataset: DataSet, batch_size: int, total_batches: int,
+                 seed: Optional[int] = None):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.total_batches = int(total_batches)
+        self.seed = seed
+        self.reset()
+
+    def reset(self):
+        self._rng = np.random.default_rng(self.seed)
+        self._count = 0
+
+    def has_next(self):
+        return self._count < self.total_batches
+
+    def next(self):
+        idx = self._rng.integers(0, self.dataset.num_examples(), self.batch_size)
+        self._count += 1
+        return DataSet(self.dataset.features[idx],
+                       None if self.dataset.labels is None else self.dataset.labels[idx])
+
+    def batch(self):
+        return self.batch_size

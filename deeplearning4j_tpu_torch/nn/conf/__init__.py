@@ -13,7 +13,8 @@ import json
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
-from .base import LayerConf, conf_from_dict, conf_to_dict
+from .base import (LAYER_REGISTRY, LayerConf, MaskState, conf_from_dict,
+                   conf_to_dict, layer_from_dict, register_layer)
 from .input_type import InputType
 from .preprocessors import infer_preprocessor
 from .. import updaters as _updaters
@@ -24,7 +25,8 @@ __all__ = [
     "NeuralNetConfiguration", "NeuralNetConfigurationBuilder",
     "MultiLayerConfiguration", "ListBuilder", "BackpropType",
     "GradientNormalization", "OptimizationAlgorithm", "InputType",
-    "LayerConf",
+    "LayerConf", "MaskState", "layer_from_dict", "register_layer",
+    "LAYER_REGISTRY",
 ]
 
 REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "everything")

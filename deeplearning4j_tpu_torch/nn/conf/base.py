@@ -19,14 +19,23 @@ from .input_type import InputType
 from .. import activations as _activations
 from .. import updaters as _updaters
 from ..schedules import Schedule
+from ..trees import flat_leaves, leaf_paths
 from ..weights import Distribution, WeightInit, init_weight
 
 __all__ = ["LayerConf", "register_layer", "register_aux_dataclass",
-           "conf_to_dict", "conf_from_dict", "LAYER_REGISTRY",
-           "cast_floating"]
+           "conf_to_dict", "conf_from_dict", "layer_from_dict",
+           "LAYER_REGISTRY", "MaskState", "cast_floating"]
 
 LAYER_REGISTRY: Dict[str, type] = {}
 _AUX_DATACLASSES: Dict[str, type] = {}
+
+
+class MaskState:
+    """Whether a layer's mask is applied (ACTIVE) or passed through
+    (PASSTHROUGH), as DL4J's `MaskState`."""
+
+    ACTIVE = "active"
+    PASSTHROUGH = "passthrough"
 
 
 def register_layer(cls):
@@ -117,6 +126,15 @@ def conf_from_dict(obj: Any) -> Any:
     raise TypeError(f"Cannot deserialize config value {obj!r}")
 
 
+def layer_from_dict(d: Dict) -> "LayerConf":
+    """A layer from its `__layer__` JSON record, with or without the
+    `{"__layer__": ...}` wrapper."""
+    out = conf_from_dict(d if "__layer__" in d else {"__layer__": d})
+    if not isinstance(out, LayerConf):
+        raise ValueError("not a layer dict")
+    return out
+
+
 @dataclass
 class LayerConf:
     """Hyperparameters shared by all layers. Left as None, an inheritable
@@ -177,10 +195,13 @@ class LayerConf:
     # ---- regularization contribution ------------------------------------
     def reg_score(self, params) -> torch.Tensor:
         """L1/L2 penalty for this layer's params, with the weight / bias
-        split of JAX `LayerConf.reg_score`."""
+        split of JAX `LayerConf.reg_score`. A nested tree adds its leaves'
+        penalties, each judged by its own key: a BiLSTM's penalty is its
+        two directions' GravesLSTM penalties summed (JAX raises here)."""
         score = torch.zeros((), dtype=torch.float32,
-                            device=next(iter(params.values())).device)
-        for k, v in params.items():
+                            device=flat_leaves(params)[0].device)
+        for path, v in leaf_paths(params):
+            k = path.rsplit("/", 1)[-1]
             is_bias = k == "b" or k.endswith("_b") or "bias" in k
             l1 = (self.l1_bias if is_bias else self.l1) or 0.0
             l2 = (self.l2_bias if is_bias else self.l2) or 0.0

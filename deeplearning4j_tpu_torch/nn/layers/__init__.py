@@ -8,7 +8,15 @@ from .feedforward import (ActivationLayer, BaseOutputLayerConf, DenseLayer,
                           OutputLayer)
 from .normalization import BatchNormalization, LocalResponseNormalization
 from .pooling import GlobalPoolingLayer
-from .recurrent import BaseRecurrentLayer, GravesLSTM, RnnOutputLayer
+from .generative import (RBM, AutoEncoder,
+                         BernoulliReconstructionDistribution,
+                         CenterLossOutputLayer,
+                         CompositeReconstructionDistribution,
+                         GaussianReconstructionDistribution,
+                         LossFunctionWrapper, VariationalAutoencoder)
+from .moe import MixtureOfExpertsLayer
+from .recurrent import (BaseRecurrentLayer, GravesBidirectionalLSTM,
+                        GravesLSTM, LastTimeStep, RnnOutputLayer)
 from .transformer import EmbeddingSequenceLayer, TransformerBlock
 
 __all__ = ["ConvolutionMode", "PoolingType", "ConvolutionLayer",
@@ -17,5 +25,11 @@ __all__ = ["ConvolutionMode", "PoolingType", "ConvolutionLayer",
            "OutputLayer", "LossLayer", "ActivationLayer", "DropoutLayer",
            "EmbeddingLayer", "BatchNormalization",
            "LocalResponseNormalization", "GlobalPoolingLayer",
-           "BaseRecurrentLayer", "GravesLSTM", "RnnOutputLayer",
+           "BaseRecurrentLayer", "GravesLSTM", "GravesBidirectionalLSTM",
+           "LastTimeStep", "RnnOutputLayer", "AutoEncoder", "RBM",
+           "VariationalAutoencoder", "CenterLossOutputLayer",
+           "GaussianReconstructionDistribution",
+           "BernoulliReconstructionDistribution",
+           "CompositeReconstructionDistribution", "LossFunctionWrapper",
+           "MixtureOfExpertsLayer",
            "EmbeddingSequenceLayer", "TransformerBlock"]

@@ -1,5 +1,6 @@
-"""Recurrent layers: GravesLSTM and RnnOutputLayer (forward of
-`deeplearning4j_tpu/nn/layers/recurrent.py`; backward through autograd).
+"""Recurrent layers: GravesLSTM, GravesBidirectionalLSTM, RnnOutputLayer
+and LastTimeStep (forward of `deeplearning4j_tpu/nn/layers/recurrent.py`;
+backward through autograd).
 
 Data layout is [batch, time, features]. Parameters are keyed as in JAX:
 GravesLSTM's `W` is [n_in + n_out, 4 n_out] (input and recurrent weights
@@ -21,8 +22,16 @@ kernel does not fit; the port has no such rule: the forward kernel streams
 x_t through shared memory in chunks, so a layer of any input width (a
 word-level one-hot vocabulary) runs the kernels on a GPU tensor.
 
-Carry protocol (stateful `rnn_time_step`): `init_carry(batch, dtype,
-device)` and `apply(..., carry=..., return_carry=True)`.
+GravesBidirectionalLSTM runs one GravesLSTM on x and another on x flipped
+in time (`{"fwd": {W, b, peep}, "bwd": {...}}`, a nested parameter tree),
+so on the card each direction takes the sequence kernels as a GravesLSTM
+does, and concatenates the two on the feature axis.
+
+Carry protocol (stateful `rnn_time_step`, truncated BPTT): `init_carry(
+batch, dtype, device)` and `apply(..., carry=..., return_carry=True)`. A
+bidirectional layer has no carry: its backward direction reads each
+sequence from its end, so it raises a named ValueError there (DL4J refuses
+the same; the JAX layer fails with an AttributeError).
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ from ..conf.base import LayerConf, register_layer
 from ..conf.input_type import InputType
 from .feedforward import BaseOutputLayerConf, _affine, _affine_params
 
-__all__ = ["GravesLSTM", "RnnOutputLayer", "BaseRecurrentLayer"]
+__all__ = ["GravesLSTM", "GravesBidirectionalLSTM", "RnnOutputLayer",
+           "BaseRecurrentLayer", "LastTimeStep"]
 
 
 @dataclass
@@ -163,6 +173,58 @@ class GravesLSTM(BaseRecurrentLayer):
 
 @register_layer
 @dataclass
+class GravesBidirectionalLSTM(BaseRecurrentLayer):
+    """Forward and backward GravesLSTM, outputs concatenated: [B, T,
+    2 n_out]."""
+
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+
+    def __post_init__(self):
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(2 * self.n_out, it.timesteps)
+
+    @property
+    def has_params(self) -> bool:
+        return True
+
+    def _dir_layer(self) -> GravesLSTM:
+        return GravesLSTM(n_in=self.n_in, n_out=self.n_out,
+                          activation=self.activation,
+                          gate_activation=self.gate_activation,
+                          forget_gate_bias_init=self.forget_gate_bias_init,
+                          weight_init=self.weight_init, dist=self.dist,
+                          dtype=self.dtype)
+
+    def init_params(self, gen, it: InputType, device):
+        sub = self._dir_layer()
+        return {"fwd": sub.init_params(gen, it, device),
+                "bwd": sub.init_params(gen, it, device)}
+
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
+        raise ValueError(
+            f"{type(self).__name__} cannot carry state between calls: its "
+            "backward direction reads each sequence from its end, so "
+            "truncated BPTT and rnn_time_step do not apply to a "
+            "bidirectional layer (train with standard backprop, and call "
+            "output on whole sequences)")
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        sub = self._dir_layer()
+        y_f, _ = sub.apply(params["fwd"], {}, x, train=train,
+                           generator=generator, mask=mask)
+        m_rev = None if mask is None else torch.flip(mask, dims=(1,))
+        y_b, _ = sub.apply(params["bwd"], {}, torch.flip(x, dims=(1,)),
+                           train=train, generator=generator, mask=m_rev)
+        return torch.cat([y_f, torch.flip(y_b, dims=(1,))], dim=-1), state
+
+
+@register_layer
+@dataclass
 class RnnOutputLayer(BaseOutputLayerConf):
     """Time-distributed output head: logits [B, T, C]."""
 
@@ -193,3 +255,26 @@ class RnnOutputLayer(BaseOutputLayerConf):
                mask=None):
         x = self.maybe_dropout_input(x, train, generator)
         return _affine(params, x, self.has_bias)
+
+
+@register_layer
+@dataclass
+class LastTimeStep(LayerConf):
+    """[B, T, F] -> [B, F]: each row's last time step, or with a mask the
+    last step whose mask is set (clamped at step 0)."""
+
+    input_kind = "rnn"
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feed_forward(it.size)
+
+    def apply(self, params, state, x, *, train=False, generator=None,
+              mask=None):
+        if mask is None:
+            return x[:, -1, :], state
+        idx = torch.clamp(mask.to(torch.int64).sum(dim=1) - 1, min=0)
+        rows = torch.arange(x.shape[0], device=x.device)
+        return x[rows, idx.to(x.device)], state
+
+    def output_mask(self, mask):
+        return None      # the time axis is gone

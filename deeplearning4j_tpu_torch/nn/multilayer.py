@@ -8,7 +8,9 @@ the output layer in the loss and `score_examples`, in `feed_forward`, and on
 the input types at `init`.
 
 Parameters are a tuple with one dict of tensors per layer (keys as in JAX:
-`W`, `b`, `peep`, `gamma`), held on the network's device; `state` is a tuple
+`W`, `b`, `peep`, `gamma`; a GravesBidirectionalLSTM's dict nests one per
+direction, and every walk over a tree goes through `nn/trees.py`), held on
+the network's device; `state` is a tuple
 with one layer-state dict per layer (BatchNormalization's running `mean` and
 `var`, empty for the other layers), which the training forward renews and a
 training step stores detached; `updater_state` is a tuple with one
@@ -27,6 +29,13 @@ dq and dk/dv kernels), then per layer: gradient normalization, the
 scheduled per-layer lr, the updater, the bias-lr rescale
 (`apply_layer_updates`).
 
+Layerwise pretraining (`pretrain`, `pretrain_layer`, and `fit` on a
+pretrain=True configuration) trains each AutoEncoder / RBM / VAE layer on
+the activations below it with its own score and gradients. Remat
+(`remat` "layer" / "blocks": each hidden layer behind a checkpoint
+boundary; "full": the whole loss) goes through `nn/remat.py` and leaves
+the numbers bit-equal.
+
 Mixed precision (`compute_dtype`, e.g. "bfloat16", as in JAX): the masters,
 the updater state and the layer state stay in the configuration's dtype; a
 step casts a floating input and every non-output layer's parameters to the
@@ -36,6 +45,7 @@ the logits and the loss are float32.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +57,8 @@ from .conf.base import cast_floating
 from .conf.input_type import InputType
 from .gradnorm import apply_gradient_normalization
 from .layers.feedforward import BaseOutputLayerConf
+from .remat import checkpoint_call
+from .trees import flat_leaves, tree_map, unflatten_like
 from ..datasets.iterators import DataSet, DataSetIterator
 from ..eval.evaluation import Evaluation
 from ..util.platform import DeviceLike, resolve_device, strict_fp32
@@ -54,23 +66,15 @@ from ..util.platform import DeviceLike, resolve_device, strict_fp32
 __all__ = ["MultiLayerNetwork"]
 
 
-def _sorted_leaves(p):
-    """A layer's parameters in sorted-key order: the layout `params_flat` /
-    `set_params_flat` use, as in JAX."""
-    return [p[k] for k in sorted(p)]
-
-
-def _tree_map(f, tree):
-    """`f` over the tensors of a (nested) dict, such as updater state."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(f, v) for k, v in tree.items()}
-    return f(tree)
-
-
 def _rescale_bias_updates(updates, scale):
     """Scale the bias entries (`b`, or a key containing "bias") of a
-    layer's updates."""
-    return {k: (v * scale if (k == "b" or "bias" in k) else v)
+    layer's (possibly nested) updates: a BiLSTM rescales the biases of both
+    directions."""
+    if not isinstance(updates, dict):
+        return updates
+    return {k: (v * scale if not isinstance(v, dict)
+                and (k == "b" or "bias" in k)
+                else _rescale_bias_updates(v, scale))
             for k, v in updates.items()}
 
 
@@ -108,7 +112,9 @@ class MultiLayerNetwork:
         self._score = float("nan")
         self._input_types: Optional[List[InputType]] = None
         self._rnn_carries = None
+        self._pretrained = False
         self._generator: Optional[torch.Generator] = None
+        self._pretrain_gen: Optional[torch.Generator] = None
         self._dropout_seed = conf.conf.seed
         self._compute_dtype = _compute_dtype(conf.conf)
 
@@ -161,8 +167,8 @@ class MultiLayerNetwork:
         """Move parameters, layer state, updater state (and any stateful-RNN
         carries) to `device`."""
         self.device = resolve_device(device)
-        move = lambda d: _tree_map(lambda v: v.to(self.device), d)
-        self._generator = None
+        move = lambda d: tree_map(lambda v: v.to(self.device), d)
+        self._generator = self._pretrain_gen = None
         if self.params is not None:
             self.params = tuple(move(p) for p in self.params)
             self.state = tuple(move(s) for s in self.state)
@@ -191,6 +197,17 @@ class MultiLayerNetwork:
         cdt = self._compute_dtype
         if cdt is not None and x.is_floating_point():
             x = x.to(cdt)
+        # per-layer remat ("blocks" is "layer" for a sequential net): each
+        # hidden layer behind a checkpoint boundary, where JAX puts one
+        use_remat = (self.conf.conf.remat in ("layer", "blocks") and train
+                     and carries is None and fmask is None)
+        if self.conf.conf.remat in ("layer", "blocks") and train \
+                and not use_remat:
+            warnings.warn(
+                f"remat={self.conf.conf.remat!r} is inactive for this "
+                "step: per-layer checkpointing does not support mask "
+                "arrays or TBPTT carries; training falls back to the "
+                "save-everything path", stacklevel=3)
         for i, layer in enumerate(self.layers[:n]):
             kw = dict(train=train, generator=generator, mask=mask)
             p_i = params[i]
@@ -203,6 +220,13 @@ class MultiLayerNetwork:
                 (x, new_carries[i]), new_state[i] = layer.apply(
                     p_i, state[i], x, carry=carries[i], return_carry=True,
                     **kw)
+            elif (use_remat and mask is None
+                    and not isinstance(layer, BaseOutputLayerConf)):
+                fn = lambda p_, s_, x_, _l=layer: _l.apply(
+                    p_, s_, x_, train=train, generator=generator, mask=None)
+                x, new_state[i] = checkpoint_call(
+                    fn, layer.remat_policy, p_i, state[i], x,
+                    generator=generator)
             else:
                 x, new_state[i] = layer.apply(p_i, state[i], x, **kw)
             mask = layer.output_mask(mask)
@@ -249,8 +273,24 @@ class MultiLayerNetwork:
             live = eff_lmask.to(torch.float32).reshape(
                 eff_lmask.shape[0], -1).amax(dim=1)
             batch = torch.clamp(live.sum(), min=1.0)
-        return (loss + self._reg_score(params) / batch,
-                (new_state, new_carries))
+        score = loss + self._reg_score(params) / batch
+        # layer auxiliary losses from the state (the MoE router's load
+        # balance), while training only: evaluation state holds a stale one
+        if train:
+            for layer, st in zip(self.layers, new_state):
+                if hasattr(layer, "aux_score"):
+                    score = score + layer.aux_score(st)
+        return score, (new_state, new_carries)
+
+    def _full_remat_loss(self, params, state, x, y, generator=None,
+                         fmask=None, lmask=None, train=True, carries=None):
+        """`_loss_fn` behind one checkpoint boundary (remat="full"): only
+        the step's inputs are kept, the whole forward is recomputed in the
+        backward."""
+        fn = lambda p, s: self._loss_fn(p, s, x, y, generator, fmask, lmask,
+                                        train, carries)
+        return checkpoint_call(fn, self.conf.conf.remat_policy, params,
+                               state, generator=generator)
 
     def _layer_lr(self, layer, step):
         """Scheduled, per-layer learning rate (None = updater default)."""
@@ -290,7 +330,7 @@ class MultiLayerNetwork:
                         torch.as_tensor(lr, dtype=torch.float32),
                         min=1e-30))
                 updates = _rescale_bias_updates(updates, scale)
-            new_params.append({k: p[k] - updates[k] for k in p})
+            new_params.append(tree_map(lambda a, u: a - u, p, updates))
             new_opt.append(os)
         return new_params, new_opt
 
@@ -298,31 +338,33 @@ class MultiLayerNetwork:
         """One optimizer step on one batch (or TBPTT chunk); stores the new
         parameters, updater state and layer state (detached, so no step's
         graph outlives it). Returns (score, new carries), both detached."""
-        params = tuple({k: v.detach().requires_grad_(not layer.frozen)
-                        for k, v in p.items()}
-                       for layer, p in zip(self.layers, self.params))
-        leaves = [v for p in params for v in p.values() if v.requires_grad]
+        params = tuple(
+            tree_map(lambda v, f=layer.frozen: v.detach().requires_grad_(
+                not f), p) for layer, p in zip(self.layers, self.params))
+        leaves = [v for p in params for v in flat_leaves(p)
+                  if v.requires_grad]
+        loss_fn = self._loss_fn
+        if self.conf.conf.remat == "full":
+            loss_fn = self._full_remat_loss
         with torch.enable_grad():
-            score, (new_state, new_carries) = self._loss_fn(
+            score, (new_state, new_carries) = loss_fn(
                 params, self.state, x, y, self._train_generator(), fmask,
                 lmask, train=True, carries=carries)
-            flat = iter(torch.autograd.grad(score, leaves, allow_unused=True))
+            found = torch.autograd.grad(score, leaves, allow_unused=True)
+        by_leaf = {id(v): d for v, d in zip(leaves, found)}
         sign = 1.0 if self.conf.conf.minimize else -1.0
-        grads = []
-        for p in params:
-            g = {}
-            for k, v in p.items():
-                d = next(flat) if v.requires_grad else None
-                d = torch.zeros_like(v) if d is None else d
-                g[k] = d if sign > 0 else -d
-            grads.append(g)
-        detached = tuple({k: v.detach() for k, v in p.items()}
-                         for p in params)
+
+        def grad_of(v):
+            d = by_leaf.get(id(v))
+            d = torch.zeros_like(v) if d is None else d
+            return d if sign > 0 else -d
+        grads = [tree_map(grad_of, p) for p in params]
+        detached = tuple(tree_map(torch.Tensor.detach, p) for p in params)
         new_params, new_opt = self.apply_layer_updates(
             self.layers, detached, grads, self.updater_state,
             self.iteration_count)
         self.params, self.updater_state = tuple(new_params), tuple(new_opt)
-        self.state = tuple(_tree_map(torch.Tensor.detach, s)
+        self.state = tuple(tree_map(torch.Tensor.detach, s)
                            for s in new_state)
         carries = None if carries is None else tuple(
             None if c is None else tuple(t.detach() for t in c)
@@ -428,8 +470,9 @@ class MultiLayerNetwork:
             return self
         if not isinstance(data, DataSetIterator):
             raise TypeError(f"Cannot fit on {type(data)}")
-        if self.conf.pretrain:
-            raise _not_in_port("layerwise pretraining (pretrain=True)", "6")
+        if self.conf.pretrain and not self._pretrained:
+            self.pretrain(data)
+            self._pretrained = True
         if not self.conf.backprop:
             return self
         for _ in range(epochs):
@@ -476,6 +519,120 @@ class MultiLayerNetwork:
             score, carries = self._train_step(
                 x[:, sl], y[:, sl], cut(fmask, sl), cut(lmask, sl), carries)
             self._step_done(score, x)
+
+    # ------------------------------------------------------------------
+    # Layerwise pretraining
+    # ------------------------------------------------------------------
+    def pretrain(self, iterator: DataSetIterator, epochs: int = 1
+                 ) -> "MultiLayerNetwork":
+        """Greedy layerwise unsupervised pretraining of the AutoEncoder,
+        RBM and VariationalAutoencoder layers, in layer order."""
+        if self.params is None:
+            self.init()
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "is_pretrainable", False):
+                self.pretrain_layer(i, iterator, epochs)
+        return self
+
+    def pretrain_layer(self, i: int, iterator: DataSetIterator,
+                       epochs: int = 1) -> "MultiLayerNetwork":
+        """Pretrain layer i alone on the activations the layers below it
+        give each batch (inference mode): its own score and gradients
+        (`pretrain_value_and_grad`), gradient normalization, the scheduled
+        lr and its updater, whose state carries over into the layer's
+        updater state. A layer that does not pretrain is left as it is."""
+        layer = self.layers[i]
+        if not getattr(layer, "is_pretrainable", False):
+            return self
+        if self.params is None:
+            self.init()
+        upd = self._layer_updater(layer)
+        opt_i = self.updater_state[i]
+        step = 0
+        for _ in range(epochs):
+            iterator.reset()
+            while iterator.has_next():
+                x = self._as_input(iterator.next().features)
+                with torch.no_grad():
+                    h = x
+                    if i > 0:
+                        h = self._forward(self.params, self.state, h,
+                                          upto=i)[0]
+                    h, _ = self._preprocess(i, h, None)
+                score, grads = layer.pretrain_value_and_grad(
+                    self.params[i], h, self._noise_generator())
+                grads = apply_gradient_normalization(
+                    layer.gradient_normalization,
+                    layer.gradient_normalization_threshold or 1.0, grads)
+                updates, opt_i = upd.update(grads, opt_i, step,
+                                            self._layer_lr(layer, step))
+                params = list(self.params)
+                params[i] = tree_map(lambda a, u: (a - u).detach(),
+                                     params[i], updates)
+                self.params = tuple(params)
+                self._score = score.detach()
+                step += 1
+        opt = list(self.updater_state)
+        opt[i] = opt_i
+        self.updater_state = tuple(opt)
+        return self
+
+    def _noise_generator(self) -> torch.Generator:
+        """The generator of the pretraining layers' corruption, Gibbs and
+        reparameterization draws, on the network's device."""
+        if self._pretrain_gen is None:
+            self._pretrain_gen = torch.Generator(
+                device=self.device).manual_seed(self._dropout_seed)
+        return self._pretrain_gen
+
+    def reconstruction_log_probability(self, x, num_samples: int = 5,
+                                       seed: int = 0) -> np.ndarray:
+        """Per-example importance-sampled reconstruction log-probability
+        of a leading VariationalAutoencoder layer (the VAE anomaly-score
+        quantity), its draws from a generator seeded with `seed`."""
+        from .layers.generative import VariationalAutoencoder
+        if self.params is None:
+            self.init()
+        layer0 = self.layers[0]
+        if not isinstance(layer0, VariationalAutoencoder):
+            raise ValueError("reconstruction_log_probability requires the "
+                             "first layer to be a VariationalAutoencoder "
+                             f"(got {type(layer0).__name__})")
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        with torch.no_grad():
+            lp = layer0.reconstruction_probability(
+                self.params[0], self._as_input(x), gen,
+                num_samples=num_samples)
+        return lp.cpu().numpy()
+
+    def reconstruction_probability(self, x, num_samples: int = 5,
+                                   seed: int = 0) -> np.ndarray:
+        return np.exp(self.reconstruction_log_probability(
+            x, num_samples=num_samples, seed=seed))
+
+    def clone(self) -> "MultiLayerNetwork":
+        """An independent copy: parameters, layer state and updater state
+        deep-copied, the input types, counters and the generators' states
+        carried over, so the clone and the original train apart and, given
+        the same batches, alike."""
+        m = MultiLayerNetwork(self.conf, device=self.device)
+        if self.params is not None:
+            copy = lambda d: tree_map(lambda v: v.detach().clone(), d)
+            m.params = tuple(copy(p) for p in self.params)
+            m.state = tuple(copy(s) for s in self.state)
+            m.updater_state = tuple(copy(u) for u in self.updater_state)
+            m._input_types = list(self._input_types or [])
+        m._dropout_seed = self._dropout_seed
+        m._pretrained = self._pretrained
+        for name in ("_generator", "_pretrain_gen"):
+            g = getattr(self, name)
+            if g is not None:
+                twin = torch.Generator(device=g.device)
+                twin.set_state(g.get_state())
+                setattr(m, name, twin)
+        m.iteration_count = self.iteration_count
+        m.epoch_count = self.epoch_count
+        return m
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
@@ -579,25 +736,24 @@ class MultiLayerNetwork:
 
     def num_params(self) -> int:
         return sum(int(leaf.numel()) for p in self.params
-                   for leaf in _sorted_leaves(p))
+                   for leaf in flat_leaves(p))
 
     def params_flat(self) -> np.ndarray:
-        """Every parameter in one flat array (layer order, sorted keys)."""
+        """Every parameter in one flat array (layer order, sorted key paths;
+        a BiLSTM's nested tree included)."""
         parts = [leaf.detach().cpu().numpy().ravel()
-                 for p in self.params for leaf in _sorted_leaves(p)]
+                 for p in self.params for leaf in flat_leaves(p)]
         return np.concatenate(parts) if parts else np.zeros(0, np.float32)
 
     def set_params_flat(self, vec: np.ndarray):
         """Inverse of `params_flat`."""
         vec = np.asarray(vec)
+        to_leaf = lambda chunk, leaf: torch.tensor(
+            chunk.reshape(tuple(leaf.shape)), dtype=leaf.dtype,
+            device=leaf.device)
         pos, params = 0, []
         for p in self.params:
-            d = {}
-            for k in sorted(p):
-                n = p[k].numel()
-                d[k] = torch.tensor(vec[pos:pos + n].reshape(p[k].shape),
-                                    dtype=p[k].dtype, device=p[k].device)
-                pos += n
+            d, pos = unflatten_like(p, vec, pos, to_leaf)
             params.append(d)
         self.params = tuple(params)
 

@@ -1,0 +1,56 @@
+"""Parameter trees: the (possibly nested) dicts of tensors that hold a
+layer's parameters, gradients, updater state and layer state.
+
+Most layers' trees are flat (`{"W", "b", "peep"}`); a
+GravesBidirectionalLSTM's is nested (`{"fwd": {...}, "bwd": {...}}`), as
+in the JAX package. Every walk over a tree goes through these helpers, in
+the sorted-key-path order of JAX's `_flat_leaves` / `_unflatten_like`
+(`params_flat`, `set_params_flat`, the gradient check, the zip).
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+__all__ = ["tree_map", "flat_leaves", "leaf_paths", "unflatten_like"]
+
+
+def tree_map(f: Callable, tree, *rest):
+    """`f` over the leaves of one or more trees of the same shape (dicts
+    recurse; anything else is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return f(tree, *rest)
+
+
+def flat_leaves(tree) -> list:
+    """The leaves of a tree in sorted-key-path order."""
+    if not isinstance(tree, dict):
+        return [tree]
+    out = []
+    for k in sorted(tree):
+        out.extend(flat_leaves(tree[k]))
+    return out
+
+
+def leaf_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """[(path, leaf)] in sorted-key-path order, paths joined by "/" (a
+    BiLSTM's `fwd/W`)."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out.extend(leaf_paths(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def unflatten_like(tree, vec, pos: int, to_leaf: Callable):
+    """A tree shaped like `tree` from `vec[pos:]`; `to_leaf(chunk, leaf)`
+    makes one leaf from its flat chunk. Returns (new tree, new pos)."""
+    if not isinstance(tree, dict):
+        n = tree.numel()
+        return to_leaf(vec[pos:pos + n], tree), pos + n
+    out = {}
+    for k in sorted(tree):
+        out[k], pos = unflatten_like(tree[k], vec, pos, to_leaf)
+    return out, pos

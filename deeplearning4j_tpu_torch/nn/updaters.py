@@ -10,7 +10,7 @@ layer's parameter dict:
 
 State is one dict per layer, keyed as JAX keys it (`m`/`v`, `u`, `h`,
 `msg`/`msdx`, `g2`, `v`), each holding a dict shaped like the layer's
-parameters, so `updaterState.npz` has the same `i:0/k:m/k:W` paths in both
+parameters (nested where they are: a BiLSTM's `m/fwd/W`), so `updaterState.npz` has the same `i:0/k:m/k:W` paths in both
 packages. The scalar step arithmetic (Adam's `t = step + 1` and `b ** t`,
 schedules) is done in float32 on the host, as JAX does it in float32;
 the tensors are updated out of place.
@@ -22,17 +22,14 @@ from typing import Dict, Optional
 
 import torch
 
+from .trees import tree_map
+
 __all__ = ["Updater", "Sgd", "NoOp", "Adam", "AdaMax", "AdaGrad", "AdaDelta",
            "RmsProp", "Nesterovs", "get", "from_dict", "UPDATERS"]
 
 
-def _tmap(f, *dicts):
-    """Apply `f` key by key over parameter-shaped dicts."""
-    return {k: f(*(d[k] for d in dicts)) for k in dicts[0]}
-
-
 def _zeros_like(params):
-    return _tmap(torch.zeros_like, params)
+    return tree_map(torch.zeros_like, params)
 
 
 def _f32(v) -> torch.Tensor:
@@ -72,7 +69,7 @@ class Updater:
 class Sgd(Updater):
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
-        return _tmap(lambda g: lr * g, grads), state
+        return tree_map(lambda g: lr * g, grads), state
 
 
 @dataclass
@@ -102,22 +99,22 @@ class Adam(Updater):
         z = {"m": _zeros_like(params), "v": _zeros_like(params)}
         dt = self._m_dtype()
         if dt is not None:
-            z["m"] = _tmap(lambda a: a.to(dt), z["m"])
+            z["m"] = tree_map(lambda a: a.to(dt), z["m"])
         return z
 
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
-        m = _tmap(lambda m_, g: b1 * m_.to(g.dtype) + (1 - b1) * g,
+        m = tree_map(lambda m_, g: b1 * m_.to(g.dtype) + (1 - b1) * g,
                   state["m"], grads)
-        v = _tmap(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
         # bias-corrected step size (ND4J AdamUpdater's form), float32
         alpha = float(_f32(lr) * torch.sqrt(_bias_correction(b2, step))
                       / _bias_correction(b1, step))
-        upd = _tmap(lambda m_, v_: alpha * m_ / (torch.sqrt(v_) + eps), m, v)
+        upd = tree_map(lambda m_, v_: alpha * m_ / (torch.sqrt(v_) + eps), m, v)
         dt = self._m_dtype()
         if dt is not None:
-            m = _tmap(lambda a: a.to(dt), m)
+            m = tree_map(lambda a: a.to(dt), m)
         return upd, {"m": m, "v": v}
 
 
@@ -134,11 +131,11 @@ class AdaMax(Updater):
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
         b1, b2 = self.beta1, self.beta2
-        m = _tmap(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-        u = _tmap(lambda u_, g: torch.maximum(b2 * u_, g.abs()), state["u"],
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        u = tree_map(lambda u_, g: torch.maximum(b2 * u_, g.abs()), state["u"],
                   grads)
         alpha = float(_f32(lr) / _bias_correction(b1, step))
-        upd = _tmap(lambda m_, u_: alpha * m_ / (u_ + self.epsilon), m, u)
+        upd = tree_map(lambda m_, u_: alpha * m_ / (u_ + self.epsilon), m, u)
         return upd, {"m": m, "u": u}
 
 
@@ -152,8 +149,8 @@ class AdaGrad(Updater):
 
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
-        h = _tmap(lambda h_, g: h_ + g * g, state["h"], grads)
-        upd = _tmap(lambda g, h_: lr * g / (torch.sqrt(h_) + self.epsilon),
+        h = tree_map(lambda h_, g: h_ + g * g, state["h"], grads)
+        upd = tree_map(lambda g, h_: lr * g / (torch.sqrt(h_) + self.epsilon),
                     grads, h)
         return upd, {"h": h}
 
@@ -168,11 +165,11 @@ class AdaDelta(Updater):
 
     def update(self, grads, state, step, lr=None):
         rho, eps = self.rho, self.epsilon
-        msg = _tmap(lambda a, g: rho * a + (1 - rho) * g * g, state["msg"],
+        msg = tree_map(lambda a, g: rho * a + (1 - rho) * g * g, state["msg"],
                     grads)
-        upd = _tmap(lambda g, a, d: g * torch.sqrt(d + eps)
+        upd = tree_map(lambda g, a, d: g * torch.sqrt(d + eps)
                     / torch.sqrt(a + eps), grads, msg, state["msdx"])
-        msdx = _tmap(lambda d, u: rho * d + (1 - rho) * u * u, state["msdx"],
+        msdx = tree_map(lambda d, u: rho * d + (1 - rho) * u * u, state["msdx"],
                      upd)
         return upd, {"msg": msg, "msdx": msdx}
 
@@ -189,8 +186,8 @@ class RmsProp(Updater):
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
         d = self.rms_decay
-        g2 = _tmap(lambda a, g: d * a + (1 - d) * g * g, state["g2"], grads)
-        upd = _tmap(lambda g, a: lr * g / (torch.sqrt(a) + self.epsilon),
+        g2 = tree_map(lambda a, g: d * a + (1 - d) * g * g, state["g2"], grads)
+        upd = tree_map(lambda g, a: lr * g / (torch.sqrt(a) + self.epsilon),
                     grads, g2)
         return upd, {"g2": g2}
 
@@ -209,8 +206,8 @@ class Nesterovs(Updater):
     def update(self, grads, state, step, lr=None):
         lr = self._lr(lr)
         mu = self.momentum
-        v_new = _tmap(lambda v, g: mu * v - lr * g, state["v"], grads)
-        upd = _tmap(lambda vn, g: lr * g - mu * vn, v_new, grads)
+        v_new = tree_map(lambda v, g: mu * v - lr * g, state["v"], grads)
+        upd = tree_map(lambda vn, g: lr * g - mu * vn, v_new, grads)
         return upd, {"v": v_new}
 
 

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..nn.trees import flat_leaves, tree_map
 from ..util.platform import DeviceLike, resolve_device
 
 __all__ = ["ModelRegistry", "ServableVersion", "UnknownModelError",
@@ -138,7 +139,7 @@ class ServableVersion:
         self.source = source
         self.created_at = time.time()
         self.param_bytes = sum(v.numel() * v.element_size()
-                               for p in params for v in p.values())
+                               for p in params for v in flat_leaves(p))
         self.forwards = 0
         self._count_lock = threading.Lock()
 
@@ -270,8 +271,8 @@ class ModelRegistry:
         if getattr(model, "params", None) is None:
             model.init()
         shape = _example_shape(model, input_shape)
-        copy = lambda d: {k: v.detach().to(self.device, copy=True)
-                          for k, v in d.items()}
+        copy = lambda d: tree_map(
+            lambda v: v.detach().to(self.device, copy=True), d)
         params = tuple(copy(p) for p in model.params)
         state = tuple(copy(s) for s in model.state)
         version = ServableVersion(name, precision, buckets, shape, params,

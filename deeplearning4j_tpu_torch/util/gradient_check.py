@@ -17,6 +17,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..nn.trees import leaf_paths, tree_map
+
 __all__ = ["GradientCheckUtil", "check_gradients_fn"]
 
 DEFAULT_EPS = 1e-6
@@ -25,8 +27,10 @@ DEFAULT_MIN_ABS_ERROR = 1e-8
 
 
 def _paths(params):
-    """[(name, layer index, key)] of a tuple of per-layer dicts."""
-    return [(f"{i}/{k}", i, k) for i, p in enumerate(params) for k in p]
+    """[(name, leaf)] of a tuple of per-layer (possibly nested) dicts, in
+    sorted-key-path order: `0/W`, a BiLSTM's `0/fwd/W`."""
+    return [(f"{i}/{path}", leaf) for i, p in enumerate(params)
+            for path, leaf in leaf_paths(p)]
 
 
 def check_gradients_fn(
@@ -40,11 +44,11 @@ def check_gradients_fn(
     print_results: bool = False,
 ) -> Tuple[bool, List[str]]:
     """Check d loss_fn(params) / d params numerically. `params` is a tuple
-    of per-layer dicts of tensors; `loss_fn(params)` returns a scalar
+    of per-layer (possibly nested) dicts of tensors; `loss_fn(params)` returns a scalar
     tensor. Returns (passed, failure messages)."""
-    params = tuple({k: v.detach().to(torch.float64).clone()
-                    for k, v in p.items()} for p in params)
-    leaves = [params[i][k] for _, i, k in _paths(params)]
+    params = tuple(tree_map(lambda v: v.detach().to(torch.float64).clone(),
+                            p) for p in params)
+    leaves = [leaf for _, leaf in _paths(params)]
     for leaf in leaves:
         leaf.requires_grad_(True)
     with torch.enable_grad():
@@ -54,8 +58,7 @@ def check_gradients_fn(
     failures: List[str] = []
     checked = 0
     with torch.no_grad():
-        for (name, _, _), leaf, grad in zip(_paths(params), leaves,
-                                            analytic):
+        for (name, leaf), grad in zip(_paths(params), analytic):
             n = leaf.numel()
             if n == 0:
                 continue

@@ -16,6 +16,7 @@ import torch
 from deeplearning4j_tpu.kernels.attention import (
     attention_reference as jax_reference, flash_attention as jax_flash)
 from deeplearning4j_tpu_torch.kernels import attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-6
 

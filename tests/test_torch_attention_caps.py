@@ -25,6 +25,7 @@ from deeplearning4j_tpu.kernels.attention import \
 from deeplearning4j_tpu.models.zoo import char_rnn as jax_char_rnn
 from deeplearning4j_tpu_torch import char_rnn, from_jax_params
 from deeplearning4j_tpu_torch.kernels import attention, lstm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

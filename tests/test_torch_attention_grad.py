@@ -28,6 +28,7 @@ from deeplearning4j_tpu.kernels.attention import (_flash_bwd_impl,
 from deeplearning4j_tpu.kernels.attention import \
     attention_reference as jax_reference
 from deeplearning4j_tpu_torch.kernels import attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD_ATOL = 2e-6
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5

@@ -23,6 +23,7 @@ import torch
 from deeplearning4j_tpu.kernels.attention import (_flash_bwd_impl,
                                                   _flash_fwd_impl)
 from deeplearning4j_tpu_torch.kernels import attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, BLOCK = 2, 16
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -59,16 +60,30 @@ def _close(got, want, tol, name):
                                atol=tol, err_msg=name)
 
 
+_JAX_FORWARD = {}
+
+
+def _jax_forward(T, S, causal, Dh, dtype):
+    """JAX's interpret-mode forward (o and logsumexp) of one case's inputs,
+    computed once for the module: the forward test and the backward test
+    of a case share it (the inputs are seeded alike)."""
+    key = (T, S, causal, Dh, dtype)
+    if key not in _JAX_FORWARD:
+        q, k, v, _ = _arrays(T, S, Dh, dtype, seed=T + S + Dh)
+        scale = float(1.0 / np.sqrt(Dh))
+        _JAX_FORWARD[key] = _per_head(
+            lambda q_, k_, v_: _flash_fwd_impl(q_, k_, v_, causal, scale,
+                                               BLOCK, BLOCK, True,
+                                               emit_lse=True), q, k, v)
+    return _JAX_FORWARD[key]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Dh", [160, 256, 257, 320, 512])
 @pytest.mark.parametrize("T,S,causal", CASES)
 def test_forward_matches_jax_pallas_kernel(T, S, causal, Dh, dtype):
     q, k, v, _ = _arrays(T, S, Dh, dtype, seed=T + S + Dh)
-    scale = float(1.0 / np.sqrt(Dh))
-    want_o, want_lse = _per_head(
-        lambda q_, k_, v_: _flash_fwd_impl(q_, k_, v_, causal, scale, BLOCK,
-                                           BLOCK, True, emit_lse=True),
-        q, k, v)
+    want_o, want_lse = _jax_forward(T, S, causal, Dh, dtype)
     tq, tk, tv = (t.to(getattr(torch, dtype)) for t in _t(q, k, v))
     o, lse = attention.flash_attention_fwd_lse_heads(tq, tk, tv, causal)
     out = attention.flash_attention_heads(tq, tk, tv, causal)
@@ -84,12 +99,9 @@ def test_forward_matches_jax_pallas_kernel(T, S, causal, Dh, dtype):
 @pytest.mark.parametrize("T,S,causal", CASES)
 def test_backward_matches_jax_pallas_kernels(T, S, causal, Dh, dtype):
     """The same q, k, v, o, logsumexp and cotangent into both backwards."""
-    q, k, v, do = _arrays(T, S, Dh, dtype, seed=2 * T + S + Dh)
+    q, k, v, do = _arrays(T, S, Dh, dtype, seed=T + S + Dh)
     scale = float(1.0 / np.sqrt(Dh))
-    o, lse = _per_head(
-        lambda q_, k_, v_: _flash_fwd_impl(q_, k_, v_, causal, scale, BLOCK,
-                                           BLOCK, True, emit_lse=True),
-        q, k, v)
+    o, lse = _jax_forward(T, S, causal, Dh, dtype)
     want = _per_head(
         lambda q_, k_, v_, o_, l_, g_: _flash_bwd_impl(
             q_, k_, v_, o_, l_, g_, causal, scale, BLOCK, BLOCK, True),

@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.kernels import bn_relu
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.base import cast_floating
 from deeplearning4j_tpu_torch.util.platform import strict_fp32
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-6
 # one ulp relative to the magnitude: 8 and 11 significant bits

@@ -70,6 +70,7 @@ from deeplearning4j_tpu_torch import MultiLayerNetwork, from_jax_params
 from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
 from deeplearning4j_tpu_torch.kernels import attention, lstm
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = {"out": 2e-2, "grad": 2e-2, "score": 2e-2, "param_l2": 5e-2}
 LM_VOCAB, LM_WIDTH, LM_HEADS, LM_SEQ, LM_LR = 11, 32, 4, 16, 1e-3

@@ -29,6 +29,7 @@ import torch
 from deeplearning4j_tpu.kernels import batchnorm as jax_batchnorm
 from deeplearning4j_tpu.kernels import bn_relu as jax_bn
 from deeplearning4j_tpu_torch.kernels import batchnorm, bn_relu
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-6
 GRAD_TOL = 1e-5

@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch import (ModelSerializer, char_rnn,
                                       from_jax_params, sample_characters)
 from deeplearning4j_tpu_torch.fault.atomic import CorruptCheckpointError
 from deeplearning4j_tpu_torch.kernels import lstm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 VOCAB, HIDDEN, SEQ = 11, 8, 5

@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
 from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.util.gradient_check import (
     GradientCheckUtil, check_gradients_fn)
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, HIDDEN = 11, 8
 STEP_TOL = 1e-5
@@ -427,8 +428,7 @@ def test_fit_on_the_lm_matches_jax_fit():
                                        err_msg=f"layer {i} {k}")
 
 
-@pytest.mark.parametrize("setting,item", [
-    ("optimization_algo", "A7"), ("pretrain", "A6")])
+@pytest.mark.parametrize("setting,item", [("optimization_algo", "A7")])
 def test_line_search_and_pretrain_raise_named_errors(setting, item):
     b = NeuralNetConfiguration.builder()
     if setting == "optimization_algo":
@@ -436,12 +436,52 @@ def test_line_search_and_pretrain_raise_named_errors(setting, item):
     lb = (b.list().layer(GravesLSTM(n_out=4))
           .layer(RnnOutputLayer(n_out=5, activation="softmax"))
           .set_input_type(InputType.recurrent(5, 3)))
-    if setting == "pretrain":
-        lb = lb.pretrain(True)
     net = MultiLayerNetwork(lb.build(), device="cpu").init()
     x = np.eye(5, dtype=np.float32)[np.zeros((2, 3), int)]
     with pytest.raises(NotImplementedError, match=item):
         net.fit(ListDataSetIterator([DataSet(x, x)]))
+
+
+def test_fit_on_a_pretrain_config_matches_jax():
+    """pretrain=True (refused until the port's eleventh slice): `fit` runs
+    the layerwise pretraining once (an AutoEncoder at corruption 0: no
+    noise), then backprop over the same iterator, as JAX's `fit`; a
+    recurrent net with pretrain=True and no pretrainable layer trains as
+    without it. One-step tolerance for the three pretraining steps,
+    trajectory tolerance after the backprop steps."""
+    from deeplearning4j_tpu.nn.layers import AutoEncoder as JaxAutoEncoder
+    conf = (JaxNNC.builder().seed(2).updater(jax_updaters.Adam(1e-2)).list()
+            .layer(JaxAutoEncoder(n_out=6, corruption_level=0.0))
+            .layer(JaxOutput(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(JaxInputType.feed_forward(VOCAB))
+            .pretrain(True).backprop(False).build())
+    jnet = JaxMultiLayerNetwork(conf).init()
+    net = _twin(jnet)
+    r = np.random.default_rng(12)
+    x = r.random((12, VOCAB)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[r.integers(0, 3, 12)]
+    jnet.fit(JaxArrayIterator(x, y, batch_size=4))
+    net.fit(ArrayDataSetIterator(x, y, batch_size=4))
+    assert net.iteration_count == 0          # backprop off: pretrain only
+    _params_close(net, jnet, STEP_TOL, "pretrained")
+    for n in (jnet, net):
+        n.conf.backprop = True
+    jnet.fit(JaxArrayIterator(x, y, batch_size=4), epochs=2)
+    net.fit(ArrayDataSetIterator(x, y, batch_size=4), epochs=2)
+    assert net.iteration_count == jnet.iteration_count == 6
+    _params_close(net, jnet, TRAJ_TOL, "trained")
+    rnn = (NeuralNetConfiguration.builder().seed(1).list()
+           .layer(GravesLSTM(n_out=4))
+           .layer(RnnOutputLayer(n_out=5, activation="softmax"))
+           .set_input_type(InputType.recurrent(5, 3)).pretrain(True).build())
+    xs = np.eye(5, dtype=np.float32)[[[0, 1, 2], [3, 4, 0]]]
+    nets = [MultiLayerNetwork(c, device="cpu").init() for c in (
+        rnn, MultiLayerConfiguration.from_json(
+            rnn.to_json().replace('"pretrain": true', '"pretrain": false')))]
+    for n in nets:
+        n.fit(ListDataSetIterator([DataSet(xs, xs)]))
+    np.testing.assert_array_equal(nets[0].params_flat(),
+                                  nets[1].params_flat())
 
 
 def test_fit_on_the_cpu_launches_no_kernel():

@@ -42,22 +42,12 @@ from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.conf import InputType
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.conf.base import conf_from_dict, conf_to_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACT_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 TOL = 1e-5
 F8_TOL = 2e-2
 
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's side of each comparison: the
-    suite runs in parallel workers, and torch's default of one thread per
-    core in each of them oversubscribes the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 def _port(jax_obj):
     """The port's twin of a JAX layer or preprocessor, through the JSON."""

@@ -21,6 +21,7 @@ from deeplearning4j_tpu_torch import (DenseLayer, InputType,
                                       NeuralNetConfiguration, OutputLayer,
                                       char_rnn)
 from deeplearning4j_tpu_torch.nn import activations
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deeplearning4j_tpu_torch")

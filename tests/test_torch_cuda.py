@@ -23,6 +23,7 @@ import torch
 
 import deeplearning4j_tpu_torch as pt
 from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -1103,3 +1104,138 @@ def test_lenet_step_on_the_card_matches_the_cpu(cuda):
             a, b = p[k].cpu(), q[k]
             assert ((a - b).norm() / b.norm()).item() <= 1e-3, k
     assert out.is_contiguous() and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# the bidirectional LSTM, MoE ties and remat (main paths 8-9)
+# ---------------------------------------------------------------------------
+def _tree_grads(net, x, y, fmask=None):
+    """{"layer/key path": gradient on the CPU} of the network's score,
+    through nested parameter trees (a BiLSTM's `0/fwd/W`)."""
+    from deeplearning4j_tpu_torch.nn.trees import leaf_paths, tree_map
+    params = tuple(tree_map(lambda v: v.detach().requires_grad_(), p)
+                   for p in net.params)
+    paths = [(f"{i}/{k}", v) for i, p in enumerate(params)
+             for k, v in leaf_paths(p)]
+    as_t = lambda a: None if a is None else torch.as_tensor(
+        a, device=net.device)
+    score, _ = net._loss_fn(params, net.state, as_t(x), as_t(y),
+                            fmask=as_t(fmask))
+    grads = torch.autograd.grad(score, [v for _, v in paths])
+    return score.item(), {n: g.detach().cpu()
+                          for (n, _), g in zip(paths, grads)}
+
+
+def _bilstm_net(device, B=64, remat=None, policy=None):
+    from deeplearning4j_tpu_torch.nn.layers import (GravesBidirectionalLSTM,
+                                                    LastTimeStep)
+    b = pt.NeuralNetConfiguration.builder().seed(3).updater(pt.Adam(2e-3))
+    if remat is not None:
+        b = b.remat(remat).remat_policy(policy)
+    conf = (b.list().layer(GravesBidirectionalLSTM(n_out=200))
+            .layer(GravesBidirectionalLSTM(n_out=200))
+            .layer(LastTimeStep())
+            .layer(pt.OutputLayer(n_out=77, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.recurrent(77, 64)).build())
+    return pt.MultiLayerNetwork(conf, device=device).init(
+        generator=torch.Generator().manual_seed(5))
+
+
+def _bilstm_batch(B=64, T=64, seed=0):
+    r = np.random.default_rng(seed)
+    eye = np.eye(77, dtype=np.float32)
+    return eye[r.integers(0, 77, (B, T))], eye[r.integers(0, 77, B)]
+
+
+def test_bilstm_on_the_card_matches_the_plain_path(cuda):
+    """The stacked BiLSTM of chip_smoke's main path 8 (B 64, T 64, 2 x
+    BiLSTM(200)): the output (primal kernel) within TOL and the gradients
+    (residual forward, adjoint and reduction kernels) within 1e-4 of each
+    tensor's largest entry of the same network on the card with every LSTM
+    kernel replaced by its plain version."""
+    net = _bilstm_net(cuda)
+    x, y = _bilstm_batch()
+    out = net.output(x)
+    got = _tree_grads(net, x, y)
+    saved = {name: getattr(lstm, name) for name in (
+        "fused_lstm_sequence", "lstm_sequence")}
+    lstm.fused_lstm_sequence = lambda *a: lstm.lstm_sequence_reference(*a)
+    lstm.lstm_sequence = lambda *a: lstm.lstm_sequence_reference(*a)
+    try:
+        ref_out = net.output(x)
+        want = _tree_grads(net, x, y)
+    finally:
+        for name, fn in saved.items():
+            setattr(lstm, name, fn)
+    assert (out - ref_out).abs().max().item() <= TOL
+    assert abs(got[0] - want[0]) <= 1e-5
+    for name, g in want[1].items():
+        assert _rel_err(got[1][name], g) <= 1e-4, name
+
+
+def test_bilstm_step_launch_counts_and_variants(cuda):
+    """One training step of the BiLSTM: 4 residual-forward, 4 adjoint and 4
+    reduction launches, the forward and adjoint 2 "cluster" (layer 1, F 77)
+    and 2 "streamed" (layer 2, F 400); an inference forward 4 primal
+    launches; a masked batch none."""
+    net = _bilstm_net(cuda)
+    x, y = _bilstm_batch()
+    assert lstm.sequence_variant(64, 77, 200) == "cluster"
+    assert lstm.sequence_variant(64, 400, 200) == "streamed"
+    lstm.reset_launches()
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    assert lstm.launch_counts() == {"launches": 0, "residual_launches": 4,
+                                    "adjoint_launches": 4,
+                                    "reduction_launches": 4}
+    v = lstm.variant_counts()
+    for kind in ("residual", "adjoint"):
+        assert v[kind] == {"cluster": 2, "streamed": 2}, (kind, v)
+    lstm.reset_launches()
+    net.output(x)
+    assert lstm.launch_counts()["launches"] == 4
+    lstm.reset_launches()
+    mask = np.ones((64, 64), np.float32)
+    mask[::2, 40:] = 0.0
+    net.output(x, features_mask=mask)
+    assert set(lstm.launch_counts().values()) == {0}
+
+
+def test_bilstm_remat_is_bit_equal_and_relaunches_the_residual(cuda):
+    """remat="layer" with policy "dots": the score and every gradient
+    bit-equal to the run without remat; the recompute launches the
+    residual-saving forward once more per direction and layer (4 + 4)."""
+    x, y = _bilstm_batch(B=16)
+    runs = {}
+    for key, args in (("plain", {}), ("remat", {"remat": "layer",
+                                                "policy": "dots"})):
+        net = _bilstm_net(cuda, **args)
+        lstm.reset_launches()
+        runs[key] = (_tree_grads(net, x, y),
+                     lstm.launch_counts()["residual_launches"])
+    (s0, g0), n0 = runs["plain"]
+    (s1, g1), n1 = runs["remat"]
+    assert s0 == s1
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert (n0, n1) == (4, 8)
+
+
+def test_moe_ties_route_the_lowest_experts_on_the_card(cuda):
+    """All-zero rows tie every router logit: experts 0 and 1 win with gates
+    1/2 on the card as on the CPU (a stable descending sort, where
+    torch.topk promises no order); other rows route to the same experts on
+    both devices."""
+    from deeplearning4j_tpu_torch.nn.layers.moe import top_k_gates
+    r = np.random.default_rng(0)
+    logits = r.normal(size=(64, 8)).astype(np.float32)
+    logits[-8:] = 0.0
+    logits[5, 2:5] = 0.25           # a three-way tie within a row
+    cpu = top_k_gates(torch.as_tensor(logits), 2)
+    card = top_k_gates(torch.as_tensor(logits, device=cuda), 2).cpu()
+    assert torch.equal(card > 0, cpu > 0)
+    assert torch.allclose(card, cpu, rtol=0, atol=1e-6)
+    want = torch.zeros(8, 8)
+    want[:, :2] = 0.5
+    assert torch.equal(card[-8:], want)
+    assert int((card > 0).sum(1).max()) == 2

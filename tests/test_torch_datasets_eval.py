@@ -15,6 +15,7 @@ from deeplearning4j_tpu.eval.evaluation import Evaluation as JaxEvaluation
 from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator, DataSet,
                                                ListDataSetIterator)
 from deeplearning4j_tpu_torch.eval import Evaluation
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _arrays(n=10, seed=0):

@@ -57,6 +57,7 @@ from deeplearning4j_tpu_torch import (InferenceServer, ModelRegistry,
 from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP_TOL, TRAJ_TOL = 1e-5, 1e-4
 BF16_GRAD = 2e-2
@@ -64,17 +65,6 @@ BF16_GRAD = 2e-2
 ZOO = [("lenet_mnist", {}), ("vgg16", {"n_classes": 3, "image": 32}),
        ("alexnet", {"n_classes": 5, "image": 64})]
 
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's side of each comparison: the
-    suite runs in parallel workers, and torch's default of one thread per
-    core in each of them oversubscribes the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 def _np_tree(tree):
     if isinstance(tree, dict):

@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.kernels import attention, lstm
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.util.gradient_check import GradientCheckUtil
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, WIDTH, HEADS, BLOCKS, SEQ = 11, 32, 4, 2, 16
 STEP_TOL = 1e-5

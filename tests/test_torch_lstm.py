@@ -17,6 +17,7 @@ from deeplearning4j_tpu.kernels.lstm import \
 from deeplearning4j_tpu.nn.layers.recurrent import _lstm_cell as jax_cell
 from deeplearning4j_tpu_torch.kernels import lstm
 from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 OFFS = 1.0

@@ -32,6 +32,7 @@ from deeplearning4j_tpu_torch.kernels import lstm
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 OFFS = 1.0

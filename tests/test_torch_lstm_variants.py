@@ -22,6 +22,7 @@ import torch
 
 from deeplearning4j_tpu.kernels import lstm as jax_lstm
 from deeplearning4j_tpu_torch.kernels import lstm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 OFFS = 1.0

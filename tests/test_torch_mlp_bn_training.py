@@ -70,6 +70,7 @@ from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator, DataSet
 from deeplearning4j_tpu_torch.kernels import bn_relu
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.util.gradient_check import GradientCheckUtil
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEP_TOL, TRAJ_TOL = 1e-5, 1e-4              # float32 compute
 BF16 = {"grad": 2e-2, "step": 1e-5, "score": 2e-2, "param_l2": 5e-2}

@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch import (InferenceServer, ModelRegistry,
                                       ModelSerializer)
 from deeplearning4j_tpu_torch.serving import (DynamicBatcher, ServingError,
                                               UnknownModelError)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 VOCAB, HIDDEN, SEQ = 11, 8, 5

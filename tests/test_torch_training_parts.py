@@ -20,6 +20,7 @@ from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
 from deeplearning4j_tpu_torch.nn import gradnorm, losses, schedules, updaters
 from deeplearning4j_tpu_torch.nn.conf import GradientNormalization
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 

@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch import (Adam, EmbeddingSequenceLayer,
                                       TransformerBlock, from_jax_params)
 from deeplearning4j_tpu_torch.kernels import attention
 from deeplearning4j_tpu_torch.nn import activations
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 VOCAB, WIDTH, HEADS, BLOCKS, SEQ = 16, 32, 4, 2, 24
