@@ -133,7 +133,30 @@ Phases:
      AutoEncoder (784-1000, corruption 0), each with its time per
      pretraining step; then one Adam step of a MixtureOfExpertsLayer (n_in
      512, 8 experts, top-2, hidden 2048) on the card against the CPU with
-     all-zero rows whose router logits tie; and the run's total seconds.
+     all-zero rows whose router logits tie;
+ 14. main path 10, ComputationGraphs: ResNet-50 (BASELINE config 2: 224 x
+     224 x 3, 1000 classes, 25,557,032 parameters, Adam 1e-3) in float32
+     at batch 2 on the card against the CPU (output, score, first-step
+     gradients in relative L2 per tensor, the CPU's float32 against its
+     float64 beside them), then 5 bf16 steps at batch 32 on seeded
+     images, its graph zip with Adam state restored on both devices for
+     one more step, its step p50, images/s, share of the bf16 dense peak,
+     device busy time, idle share and device time by kind; GoogLeNet (224,
+     1000 classes) registered and served in process at buckets 1, 8 and 32
+     against the CPU with the predict p50 per bucket; an encoder-decoder
+     graph in the shape of dl4j-examples' AdditionRNN at the char-RNN's
+     widths (two one-hot inputs of 77, T 64, encoder GravesLSTM(200) ->
+     LastTimeStepVertex -> DuplicateToTimeSeriesVertex -> MergeVertex with
+     the decoder input -> decoder GravesLSTM(200) -> softmax) trained 20
+     Adam steps with `fit` over MultiDataSets of chip_smoke_text.txt on the
+     card and the CPU from one zip, then stepped with rnn_time_step against
+     the CPU; a bf16 two-branch graph (two 784-wide inputs, each Dense(1024)
+     -> BatchNormalization(relu), MergeVertex, softmax 10) trained 20 Adam
+     steps on the bundled digits card against CPU, early stopping on it with
+     a LocalFileModelSaver on the card and its best model restored, a
+     GraphTransferLearning head replacement stepped on both devices, and
+     conjugate-gradient and L-BFGS line searches card against CPU; and the
+     run's total seconds.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -154,8 +177,14 @@ of the "wide" variants (phase 9), four residual-forward, four adjoint and
 four reduction launches per BiLSTM training step, the forward and adjoint
 two "cluster" (layer 1) and two "streamed" (layer 2) each, four primal
 launches per served BiLSTM forward and none for a masked batch (phase 12),
-each path launching none of the others' kernels, and none at all on the
-convolutional, pretraining and MoE paths (phases 11 and 13). The last two lines are a `{"kernels": [...]}` object and `{"ok":
+two residual-forward, two adjoint and two reduction launches per step of
+the seq2seq graph, all "cluster", and two primal ones per rnn_time_step
+call, one "resident" BN+ReLU forward and one backward launch per BN vertex
+and step of the two-branch graph, none in its evaluation (phase 14), each
+path launching none of the others' kernels, and none at all on the
+convolutional, pretraining and MoE paths (phases 11 and 13) or on the
+ResNet-50 and GoogLeNet graphs (phase 14: the 4-D BN takes the plain
+tier). The last two lines are a `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
 """
@@ -1314,9 +1343,12 @@ def device_ms(torch, fn, reps=20):
     fn()
     torch.cuda.synchronize()
     # a profiling session now and then records no device event at all
-    # (seen on the H100 machine after a few dozen sessions): up to three
-    # sessions, then the check fails
-    for _ in range(3):
+    # (seen on the H100 machine after a few dozen sessions; three sessions
+    # in a row once, at a BN entry point's microsecond launches): up to six
+    # sessions, each after a pause, then the check fails
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.25)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1972,6 +2004,658 @@ def cnn_path(pt, torch, tag, tmp, reset_counts, counts):
     out.update(lenet_times=lenet_t, vgg16_times=vgg_t, alexnet_times=alex_t,
                seconds=time.perf_counter() - t_phase)
     print(json.dumps({"cnn_path": out}))
+    return out
+
+
+# ---- main path 10: ComputationGraphs ------------------------------------
+# ResNet-50 (BASELINE config 2, deeplearning4j_tpu/models/zoo.py:114) at
+# ImageNet widths: 224 x 224 x 3, 1000 classes, Adam 1e-3, bf16 compute over
+# float32 masters by default; 25,557,032 parameters. Parity runs in float32
+# at batch 2: the output as VGG-16's (VGG_TOL; at random init the softmax is
+# all but one-hot, so the score, relative 1e-4, is the sharper check), the
+# first-step gradients against float64 (ROADMAP C3's measure): per tensor,
+# the card's relative L2 gap to the CPU's float64 gradients within
+# R50_F64_FACTOR times the CPU's own float32 gap to them, plus
+# R50_GRAD_FLOOR. A gap of the card to the CPU's float32 alone cannot be
+# held: max pooling and ReLU masks flip on rounding, and BN divides by the
+# deviation of 98 values a channel at the last stage, so the CPU's float32
+# lies 2.3e-2 from its float64 in one tensor (the card 1.8e-2 from the
+# CPU's float32 and 2.1e-2 from its float64; NVIDIA H100 80GB HBM3,
+# 700.00 W, this script's first run). The same gradients with bf16 compute
+# on the card are read against the limit as a control. Training at batch
+# 32 in bf16.
+R50_PARAMS, R50_CMP_B, R50_B, R50_STEPS = 25_557_032, 2, 32, 5
+R50_F64_FACTOR, R50_GRAD_FLOOR = 2.0, 1e-3
+# the bf16 zip-resume step, card against CPU, relative to the score: at
+# batch 2 the batch statistics of bf16 activations amplify rounding (the
+# tiny ResNet on the CPU: tests/test_torch_graph.py holds both packages'
+# bf16 scores to 2e-2 of the float32 one)
+R50_RESUME_TOL = 2e-2
+# GoogLeNet (zoo.py:563) at 224 and 1000 classes, served in process
+GOOG_PARAMS = 6_998_552
+# the encoder-decoder graph in the shape of dl4j-examples' AdditionRNN at
+# the char-RNN's widths: two sequence inputs of one-hot characters (77, T =
+# 64), encoder GravesLSTM(200) -> LastTimeStepVertex ->
+# DuplicateToTimeSeriesVertex (time from the decoder input) -> MergeVertex
+# with the decoder input (F = 277) -> decoder GravesLSTM(200) -> softmax
+# RnnOutputLayer; Adam 2e-3, batch 64, 20 steps on chip_smoke_text.txt,
+# held to phase 6's limits
+S2S_B, S2S_T, S2S_STEPS, S2S_LR = 64, 64, 20, 2e-3
+S2S_STEP_B, S2S_STEP_T = 32, 16     # rnn_time_step batch and steps
+# the bf16 two-branch graph at the BN-MLP's widths: two 784-wide inputs
+# (a digit and its mirror image), each Dense(1024, no bias: a bias before
+# BN gets only rounding noise as gradient) -> BatchNormalization(relu),
+# MergeVertex, softmax OutputLayer(10); Adam 1e-3, batch 128, 20 steps on
+# the bundled digits, held to the BN-MLP's bf16 limits
+TB_WIDTH, TB_B, TB_STEPS, TB_LR = 1024, 128, 20, 1e-3
+# line search on the card: CG and L-BFGS, 5 iterations each, on
+# test_solvers.py's least-squares problem widened to 256 features and 4096
+# rows, scores held relative to their size (a line search compares float32
+# scores to pick its step: steps may differ where two trials tie)
+LS_ITERS, LS_N, LS_D = 5, 4096, 256
+LS_TOL = 1e-4
+
+
+def graph_grads(torch, g, ds):
+    """{"vertex/key path": gradient on the CPU} of a graph's score on one
+    DataSet or MultiDataSet at its current parameters, and the score."""
+    from deeplearning4j_tpu_torch.nn.trees import leaf_paths, tree_map
+    inputs, labels, fm, lm = g._to_inputs(ds)
+    params = {n: tree_map(lambda v: v.detach().requires_grad_(), p)
+              for n, p in g.params.items()}
+    paths = [(f"{n}/{k}", v) for n, p in params.items()
+             for k, v in leaf_paths(p)]
+    with torch.enable_grad():
+        score, _ = g._loss_fn(params, g.state, inputs, labels, None, fm, lm)
+        grads = torch.autograd.grad(score, [v for _, v in paths])
+    return float(score.detach()), {name: d.detach().cpu()
+                                   for (name, _), d in zip(paths, grads)}
+
+
+def graph_rel_l2(g, ref, lr=0.0, steps=0, state=False):
+    """Largest per-tensor |a - b|_2 / max(|b|_2, Adam's reach lr * steps in
+    L2) between two graphs' parameters (or layer states)."""
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    worst = 0.0
+    a_t, b_t = (g.state, ref.state) if state else (g.params, ref.params)
+    for n in b_t:
+        for a, b in zip(flat_leaves(a_t[n]), flat_leaves(b_t[n])):
+            a, b = a.detach().double().cpu(), b.detach().double().cpu()
+            scale = max(b.norm().item(), lr * steps * b.numel() ** 0.5,
+                        1e-30)
+            worst = max(worst, (a - b).norm().item() / scale)
+    return worst
+
+
+def graph_forward_flops(g):
+    """A graph's forward FLOPs per example: 2 x the multiply-adds of every
+    convolution and dense vertex, from the input types `build()` inferred."""
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    DenseLayer, OutputLayer)
+    flops = 0
+    for name, layer in g.layer_vertices.items():
+        it = g._input_type_for(name)
+        out = layer.output_type(it)
+        if isinstance(layer, ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            flops += 2 * out.height * out.width * kh * kw * it.channels \
+                * out.channels
+        elif isinstance(layer, (DenseLayer, OutputLayer)):
+            flops += 2 * it.flat_size() * layer.n_out
+    return flops
+
+
+def resnet_ms_by_kind(events):
+    """A profile's device ms by kind for the ResNet step: cuDNN's
+    convolutions, its NHWC / NCHW layout transposes, other GEMMs, the BN
+    plain tier's reductions (batch statistics, dgamma / dbeta), pooling,
+    and elementwise work and the rest (BN's normalise, ReLU, the residual
+    adds, casts, Adam)."""
+    kinds = dict.fromkeys(("conv", "layout", "gemm", "bn_reduce", "pool",
+                           "elementwise"), 0.0)
+    for key, ms, _ in events:
+        low = key.lower()
+        kind = ("layout" if "nhwctonchw" in low or "nchwtonhwc" in low else
+                "conv" if any(w in low for w in (
+                    "fprop", "dgrad", "wgrad", "convolve", "implicit",
+                    "winograd", "cudnn", "fft", "conv")) else
+                "gemm" if "gemm" in low or "xmma" in low else
+                "bn_reduce" if "reduce" in low else
+                "pool" if "pool" in low else "elementwise")
+        kinds[kind] += ms
+    return kinds
+
+
+def s2s_conf(pt):
+    """The encoder-decoder graph (AdditionRNN's shape, char-RNN widths)."""
+    return (pt.NeuralNetConfiguration.builder().seed(12345)
+            .updater(pt.Adam(S2S_LR)).graph_builder()
+            .add_inputs("encoderInput", "decoderInput")
+            .add_layer("encoder", pt.GravesLSTM(n_out=HIDDEN),
+                       "encoderInput")
+            .add_vertex("lastTimeStep", pt.LastTimeStepVertex(), "encoder")
+            .add_vertex("duplicateTimeStep", pt.DuplicateToTimeSeriesVertex(),
+                        "lastTimeStep", "decoderInput")
+            .add_vertex("merge", pt.MergeVertex(), "decoderInput",
+                        "duplicateTimeStep")
+            .add_layer("decoder", pt.GravesLSTM(n_out=HIDDEN), "merge")
+            .add_layer("output", pt.RnnOutputLayer(
+                n_out=VOCAB, activation="softmax", loss="mcxent"), "decoder")
+            .set_outputs("output")
+            .set_input_types(pt.InputType.recurrent(VOCAB, S2S_T),
+                             pt.InputType.recurrent(VOCAB, S2S_T))
+            .build())
+
+
+def two_branch_conf(pt, compute_dtype="bfloat16"):
+    """The bf16 two-branch BN graph at the BN-MLP's widths."""
+    b = pt.NeuralNetConfiguration.builder().seed(42).updater(pt.Adam(TB_LR))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    b = b.graph_builder().add_inputs("digit", "mirror")
+    for side in ("digit", "mirror"):
+        b.add_layer(f"{side}_dense", pt.DenseLayer(
+            n_out=TB_WIDTH, activation="identity", has_bias=False), side)
+        b.add_layer(f"{side}_bn", pt.BatchNormalization(activation="relu"),
+                    f"{side}_dense")
+    return (b.add_vertex("merge", pt.MergeVertex(), "digit_bn", "mirror_bn")
+            .add_layer("out", pt.OutputLayer(n_out=10, activation="softmax",
+                                             loss="mcxent"), "merge")
+            .set_outputs("out")
+            .set_input_types(pt.InputType.feed_forward(784),
+                             pt.InputType.feed_forward(784))
+            .build())
+
+
+def graph_path(pt, torch, tag, tmp, root, reset_counts, hand_counts):
+    """Main path 10 (phase 14): ComputationGraphs on the card. (a)
+    ResNet-50: float32 parity at batch 2 against the CPU (and the CPU's
+    float32 against float64), 5 bf16 steps at batch 32, the graph zip with
+    Adam state restored on both devices for one more step, times and a
+    profile; no hand kernel. (b) GoogLeNet served in process at buckets 1,
+    8 and 32 against the CPU. (c) The encoder-decoder graph: 20 Adam steps
+    card against CPU from one zip through the LSTM training kernels (2 + 2
+    + 2 "cluster" launches a step), and rnn_time_step step by step against
+    the CPU through the primal kernel. (d) The bf16 two-branch BN graph: 20
+    Adam steps card against CPU through the BN+ReLU kernels (one resident
+    forward and backward launch per BN vertex and step, none in
+    evaluation), early stopping with a LocalFileModelSaver on the card, a
+    GraphTransferLearning head replacement stepped on both devices, and CG
+    and L-BFGS line searches card against CPU. Returns the phase's
+    numbers."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.kernels import bn_relu, lstm
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.conf import OptimizationAlgorithm
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration, GraphTransferLearning)
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves, tree_map
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+
+    def no_hand_launches(what):
+        c = hand_counts()
+        check(all(n == 0 for n in c.values()),
+              f"{what} launched hand kernels: {c}")
+
+    # -- (a) ResNet-50 -------------------------------------------------------
+    gen = lambda: torch.Generator().manual_seed(51)
+    r = np.random.default_rng(52)
+    xr = r.normal(size=(R50_B * (R50_STEPS + 1), IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    yr = np.eye(CLASSES, dtype=np.float32)[r.integers(0, CLASSES, len(xr))]
+    small = pt.DataSet(xr[:R50_CMP_B], yr[:R50_CMP_B])
+    reset_counts()
+    f32 = [zoo.resnet50(CLASSES, IMAGE, compute_dtype=None,
+                        device=d).init(generator=gen())
+           for d in (DEVICE, "cpu")]
+    check(f32[0].num_params() == R50_PARAMS, f"ResNet-50 has "
+          f"{f32[0].num_params()} parameters, want {R50_PARAMS}")
+    probs = [g.output(small.features)[0].cpu() for g in f32]
+    r50_out_err = rel_err(probs[0], probs[1])
+    grads = [graph_grads(torch, g, small) for g in f32]
+    r50_score_err = abs(grads[0][0] - grads[1][0]) / abs(grads[1][0])
+    del f32[1]
+    f64 = zoo.resnet50(CLASSES, IMAGE, compute_dtype=None,
+                       device="cpu").init(generator=gen())
+    f64.conf.conf.dtype = "float64"
+    f64.params = tree_map(torch.Tensor.double, f64.params)
+    f64.state = tree_map(torch.Tensor.double, f64.state)
+    grads.append(graph_grads(torch, f64, small))
+    del f64
+    gaps = {pair: {k: l2_err(grads[a][1][k].double(),
+                             grads[b][1][k].double())
+                   for k in grads[b][1]}
+            for pair, (a, b) in (("card_vs_cpu", (0, 1)),
+                                 ("cpu_f32_vs_f64", (1, 2)),
+                                 ("card_vs_cpu_f64", (0, 2)))}
+    worst = {pair: max(d.values()) for pair, d in gaps.items()}
+    # control: the same gradients through bf16 compute on the card, read
+    # against the same limit (what the limit lets through, not a check)
+    bf = zoo.resnet50(CLASSES, IMAGE, device=DEVICE).init(generator=gen())
+    ctl = {k: l2_err(v.double(), grads[2][1][k].double())
+           for k, v in graph_grads(torch, bf, small)[1].items()}
+    del bf, grads
+    past = {k: (gaps["card_vs_cpu_f64"][k], gaps["cpu_f32_vs_f64"][k])
+            for k in gaps["card_vs_cpu_f64"]
+            if gaps["card_vs_cpu_f64"][k] > R50_F64_FACTOR
+            * gaps["cpu_f32_vs_f64"][k] + R50_GRAD_FLOOR}
+    over = lambda d: max([d[k] / gaps["cpu_f32_vs_f64"][k] for k in d
+                          if gaps["cpu_f32_vs_f64"][k] >= R50_GRAD_FLOOR]
+                         or [0.0])
+    ratio, ctl_ratio = over(gaps["card_vs_cpu_f64"]), over(ctl)
+    ctl_past = sum(ctl[k] > R50_F64_FACTOR * gaps["cpu_f32_vs_f64"][k]
+                   + R50_GRAD_FLOOR for k in ctl)
+    check(r50_out_err <= VGG_TOL and not past and r50_score_err <= 1e-4,
+          f"ResNet-50 float32 card vs CPU: output {r50_out_err}, score "
+          f"{r50_score_err}, tensors past the float64 limit (card, CPU): "
+          f"{past}")
+    print(f"ResNet-50 ({R50_PARAMS} parameters, {IMAGE} x {IMAGE} x 3, "
+          f"{CLASSES} classes) in float32 at batch {R50_CMP_B}: output card "
+          f"vs CPU {r50_out_err:.3e} of max (limit {VGG_TOL}); score "
+          f"relative {r50_score_err:.3e} (limit 1e-4); first-step gradients "
+          f"relative L2, worst tensor: card vs CPU float32 "
+          f"{worst['card_vs_cpu']:.3e}, card vs CPU float64 "
+          f"{worst['card_vs_cpu_f64']:.3e}, the CPU's float32 vs its "
+          f"float64 {worst['cpu_f32_vs_f64']:.3e}; every tensor's card gap to "
+          f"float64 within {R50_F64_FACTOR} x the CPU's + {R50_GRAD_FLOOR} "
+          f"(largest card / CPU ratio {ratio:.3f} where the CPU's gap is "
+          f"past {R50_GRAD_FLOOR}); control, the card in bf16 compute: "
+          f"worst tensor {max(ctl.values()):.3e} from float64, largest "
+          f"ratio {ctl_ratio:.3f}, {ctl_past} of {len(ctl)} tensors past "
+          f"the limit")
+    out["resnet50_f32"] = {"output_err": r50_out_err, "grad_worst": worst,
+                           "card_over_cpu_f64_gap_max": ratio,
+                           "bf16_control_over_cpu_f64_gap_max": ctl_ratio,
+                           "bf16_control_past": ctl_past,
+                           "score_err": r50_score_err}
+    del f32
+
+    r50 = zoo.resnet50(CLASSES, IMAGE, device=DEVICE).init(generator=gen())
+    log = StepLog(torch)
+    r50.set_listeners(log)
+    for i in range(R50_STEPS):
+        r50.fit(pt.DataSet(xr[i * R50_B:(i + 1) * R50_B],
+                           yr[i * R50_B:(i + 1) * R50_B]))
+    r50_scores = [float(s) for s in log.scores]
+    check(len(r50_scores) == R50_STEPS and np.isfinite(r50_scores).all(),
+          f"ResNet-50 bf16 scores at batch {R50_B}: {r50_scores}")
+    print(f"ResNet-50 bf16 training at batch {R50_B} (Adam 1e-3, seeded "
+          f"normal images, fixed labels): scores {r50_scores}")
+    zr = os.path.join(tmp, "resnet50.zip")
+    pt.ModelSerializer.write_model(r50, zr)
+    back = [pt.ModelSerializer.restore(zr, device=d) for d in (DEVICE,
+                                                               "cpu")]
+    for g in back:
+        check(g.iteration_count == R50_STEPS and graph_rel_l2(g, r50) == 0
+              and all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+                  flat_leaves(g.updater_state), flat_leaves(
+                      r50.updater_state))),
+              f"ResNet-50 zip restore on {g.device}")
+    nxt = pt.DataSet(xr[-R50_CMP_B:], yr[-R50_CMP_B:])
+    resumed = []
+    for g in back:
+        g.fit(nxt)
+        resumed.append(g.score())
+    resume_err = abs(resumed[0] - resumed[1]) / abs(resumed[1])
+    check(resume_err <= R50_RESUME_TOL, f"ResNet-50 resumed step card "
+          f"{resumed[0]} vs CPU {resumed[1]}")
+    print(f"ResNet-50 zip (Adam state, iteration {R50_STEPS}) restored on "
+          f"both devices bit-equal, one more bf16 step at batch "
+          f"{R50_CMP_B}: score card {resumed[0]:.5f} vs CPU {resumed[1]:.5f}"
+          f" ({resume_err:.3e} relative, limit {R50_RESUME_TOL})")
+    del back
+    no_hand_launches("the ResNet-50 path")
+    out["resnet50"] = {"scores_b32": r50_scores,
+                       "resume_scores": resumed, "resume_err": resume_err}
+
+    # times: step p50, images/s, share of the bf16 dense peak, profile
+    rb = pt.DataSet(torch.as_tensor(xr[:R50_B], device=DEVICE),
+                    torch.as_tensor(yr[:R50_B], device=DEVICE))
+    clock = StepLog(torch)
+    r50.set_listeners(clock)
+    for _ in range(2):
+        r50.fit(rb)
+    clock.times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        r50.fit(rb)
+    fit_s = time.perf_counter() - t0
+    r50.set_listeners()
+    p50 = float(np.median(1e3 * np.diff([t0] + clock.times)))
+    fwd = graph_forward_flops(r50)
+    step_flop = 3 * fwd * R50_B
+    bound = 1e3 * step_flop / BF16_FLOP_PER_S
+    events, busy, wall = profile_device(
+        torch, lambda: r50.fit(rb),
+        f"ResNet-50 bf16 training step (batch {R50_B})", tag, reps=3)
+    kinds = resnet_ms_by_kind(events)
+    r50_t = {"batch": R50_B, "step_p50_ms": p50,
+             "images_per_s": 10 * R50_B / fit_s,
+             "forward_gflop_per_image": fwd / 1e9,
+             "step_tflop": step_flop / 1e12, "bound_ms": bound,
+             "share_of_bf16_peak": bound / p50, "device_busy_ms": busy,
+             "profiled_wall_ms": wall, "idle_share": 1 - busy / wall,
+             "device_ms_by_kind": kinds}
+    print(f"{tag} ResNet-50 training (batch {R50_B}, bf16 compute, float32 "
+          f"masters): step p50 {p50:.3f} ms, {r50_t['images_per_s']:.1f} "
+          f"images/s; forward {fwd / 1e9:.2f} GFLOP an image, a step 3 x "
+          f"{fwd / 1e9:.2f} x {R50_B} = {step_flop / 1e12:.3f} TFLOP, bound "
+          f"{bound:.2f} ms at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s: "
+          f"{100 * bound / p50:.1f} % of the bf16 dense peak; device busy "
+          f"{busy:.3f} of {wall:.3f} ms (idle share {1 - busy / wall:.3f}): "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items()))
+    no_hand_launches("the ResNet-50 timed steps")
+    out["resnet50_times"] = r50_t
+    del r50, rb
+
+    # -- (b) GoogLeNet served ---------------------------------------------
+    goog = [zoo.googlenet(CLASSES, IMAGE, device=d).init(
+        generator=torch.Generator().manual_seed(53)) for d in (DEVICE,
+                                                               "cpu")]
+    check(goog[0].num_params() == GOOG_PARAMS, f"GoogLeNet has "
+          f"{goog[0].num_params()} parameters, want {GOOG_PARAMS}")
+    zg = os.path.join(tmp, "googlenet.zip")
+    pt.ModelSerializer.write_model(goog[0], zg)
+    reg = pt.ModelRegistry(buckets=BUCKETS, device=DEVICE)
+    v = reg.register("googlenet", zg)
+    check(v.model_kind == "ComputationGraph"
+          and v.example_shape == (IMAGE, IMAGE, 3),
+          f"GoogLeNet registered as {v.model_kind} {v.example_shape}")
+    r = np.random.default_rng(54)
+    goog_err, goog_t = 0.0, {}
+    for b in BUCKETS:
+        x = r.normal(size=(b, IMAGE, IMAGE, 3)).astype(np.float32)
+        got, _ = reg.predict("googlenet", x)
+        want = goog[1].output(x)[0].numpy()
+        check(got.shape == (b, CLASSES) and np.isfinite(got).all()
+              and np.abs(got.sum(-1) - 1).max() <= 1e-4,
+              f"GoogLeNet bucket {b} output")
+        goog_err = max(goog_err, float(np.abs(got - want).max()))
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            reg.predict("googlenet", x)
+            times.append(time.perf_counter() - t0)
+        goog_t[f"predict_p50_ms_b{b}"] = 1e3 * float(np.median(times))
+    check(goog_err <= SERVE_TOL, f"GoogLeNet served vs CPU: {goog_err}")
+    print(f"{tag} GoogLeNet ({GOOG_PARAMS} parameters, {IMAGE}, {CLASSES} "
+          f"classes) zip registered and served in process: max abs err vs "
+          f"the CPU {goog_err:.3e} (limit {SERVE_TOL}); registry.predict "
+          "p50 " + ", ".join(f"bucket {b} "
+                             f"{goog_t[f'predict_p50_ms_b{b}']:.3f} ms"
+                             for b in BUCKETS))
+    no_hand_launches("the GoogLeNet path")
+    out["googlenet"] = {"serve_err": goog_err, **goog_t}
+    del goog, reg, v
+
+    # -- (c) the encoder-decoder graph through the LSTM kernels -----------
+    for f in (VOCAB, VOCAB + HIDDEN):
+        check(lstm.sequence_variant(S2S_B, f, HIDDEN) == "cluster",
+              f"seq2seq LSTM plan at F={f}")
+    windows = text_windows(root, ALPHABET, S2S_STEPS * S2S_B,
+                           2 * S2S_T + 1)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    enc, dec, lab = (eye[windows[:, :S2S_T]],
+                     eye[windows[:, S2S_T:2 * S2S_T]],
+                     eye[windows[:, S2S_T + 1:]])
+    batches = [pt.MultiDataSet(features=[enc[i:i + S2S_B],
+                                         dec[i:i + S2S_B]],
+                               labels=[lab[i:i + S2S_B]])
+               for i in range(0, len(enc), S2S_B)]
+    s2s = pt.ComputationGraph(s2s_conf(pt), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(55))
+    z0 = os.path.join(tmp, "s2s0.zip")
+    pt.ModelSerializer.write_model(s2s, z0)
+    nets = [pt.ModelSerializer.restore(z0, device=d) for d in (DEVICE,
+                                                               "cpu")]
+    g = [graph_grads(torch, n, batches[0]) for n in nets]
+    s2s_grad_err = grads_rel_max(g[0][1], g[1][1])
+    check(s2s_grad_err <= GRAD_TOL, f"seq2seq first-step gradients card vs "
+          f"CPU: {s2s_grad_err} > {GRAD_TOL}")
+    logs = [StepLog(torch), StepLog()]
+    for n, lg in zip(nets, logs):
+        n.set_listeners(lg)
+    reset_counts()
+    nets[0].fit(ExistingDataSetIterator(batches))
+    counts, variants = lstm.launch_counts(), lstm.variant_counts()
+    nets[1].fit(ExistingDataSetIterator(batches))
+    per = 2 * S2S_STEPS
+    check(counts == {"launches": 0, "residual_launches": per,
+                     "adjoint_launches": per, "reduction_launches": per},
+          f"seq2seq training launches {counts}, want {per} of each "
+          "training kernel and no primal forward")
+    for kind in ("residual", "adjoint"):
+        check(variants[kind] == {"cluster": per, "streamed": 0},
+              f"seq2seq {kind} variants {variants[kind]}")
+    check(set(bn_relu.launch_counts().values()) == {0},
+          "the seq2seq path launched BN+ReLU kernels")
+    cards = [float(s) for s in logs[0].scores]
+    cpus = [float(s) for s in logs[1].scores]
+    s2s_score_err = max(abs(a - b) for a, b in zip(cards, cpus))
+    s2s_param_err = graph_rel_l2(nets[0], nets[1])
+    check(len(cards) == S2S_STEPS and s2s_score_err <= SCORE_TOL
+          and s2s_param_err <= PARAM_TOL,
+          f"seq2seq 20 steps card vs CPU: scores {s2s_score_err}, "
+          f"parameters {s2s_param_err}")
+    step_ms = float(np.median(1e3 * np.diff(logs[0].times)))
+    print(f"seq2seq graph (AdditionRNN shape: one-hot {VOCAB}, T={S2S_T}, "
+          f"encoder and decoder GravesLSTM({HIDDEN}), B={S2S_B}, Adam "
+          f"{S2S_LR}) trained {S2S_STEPS} steps with fit over MultiDataSets "
+          f"on the card and the CPU from one zip: first-step gradients "
+          f"{s2s_grad_err:.3e} of max (limit {GRAD_TOL}), scores "
+          f"{cards[0]:.4f} -> {cards[-1]:.4f}, max err {s2s_score_err:.3e} "
+          f"(limit {SCORE_TOL}), final parameters relative L2 "
+          f"{s2s_param_err:.3e} (limit {PARAM_TOL}); launches {counts}, "
+          f"variants {variants}; {tag} step p50 {step_ms:.3f} ms")
+    out["seq2seq"] = {"grad_err": s2s_grad_err, "score_err": s2s_score_err,
+                      "param_err": s2s_param_err, "launches": counts,
+                      "variants": variants, "step_p50_ms": step_ms,
+                      "scores_card": cards}
+    # rnn_time_step on the trained graph, both inputs one step at a time
+    for n in nets:
+        n.rnn_clear_previous_state()
+    reset_counts()
+    step_err = 0.0
+    for t in range(S2S_STEP_T):
+        a, b = enc[:S2S_STEP_B, t], dec[:S2S_STEP_B, t]
+        got = nets[0].rnn_time_step(a, b).cpu()
+        want = nets[1].rnn_time_step(a, b)
+        step_err = max(step_err, (got - want).abs().max().item())
+    step_counts = lstm.launch_counts()
+    check(step_err <= SERVE_TOL and step_counts == {
+        "launches": 2 * S2S_STEP_T, "residual_launches": 0,
+        "adjoint_launches": 0, "reduction_launches": 0},
+          f"seq2seq rnn_time_step: err {step_err}, launches {step_counts}")
+    print(f"seq2seq rnn_time_step, {S2S_STEP_T} steps of both inputs at batch "
+          f"{S2S_STEP_B}: max abs err vs CPU {step_err:.3e} (limit "
+          f"{SERVE_TOL}), {step_counts['launches']} primal LSTM launches "
+          "(2 a step)")
+    out["seq2seq"].update(rnn_time_step_err=step_err,
+                          rnn_time_step_launches=step_counts["launches"])
+    del nets, s2s
+
+    # -- (d) the bf16 two-branch BN graph through the BN+ReLU kernels -----
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    mirror = lambda x: x.reshape(-1, 28, 28)[:, :, ::-1].reshape(-1, 784)
+    r = np.random.default_rng(56)
+    tb_batches = []
+    for _ in range(TB_STEPS // 2):
+        order = r.permutation(len(x_tr))
+        for i in range(2):
+            idx = order[i * TB_B:(i + 1) * TB_B]
+            tb_batches.append(pt.MultiDataSet(
+                features=[x_tr[idx], mirror(x_tr[idx])], labels=[y_tr[idx]]))
+    held = [pt.MultiDataSet(features=[x_te, mirror(x_te)], labels=[y_te])]
+    tb = pt.ComputationGraph(two_branch_conf(pt), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(57))
+    zt = os.path.join(tmp, "two_branch0.zip")
+    pt.ModelSerializer.write_model(tb, zt)
+    nets = [pt.ModelSerializer.restore(zt, device=d) for d in (DEVICE,
+                                                               "cpu")]
+    check(nets[0].conf.vertices["digit_bn"]._helper(torch.zeros(
+        TB_B, TB_WIDTH, dtype=torch.bfloat16), True) == "pallas",
+          "the two-branch BN vertices do not take the BN+ReLU tier")
+    reset_counts()
+    g = [graph_grads(torch, n, tb_batches[0]) for n in nets]
+    tb_grad_err = grads_rel_max(g[0][1], g[1][1])
+    first = bn_relu.launch_counts()
+    check(tb_grad_err <= BF16_GRAD_TOL and first == {
+        "fwd_launches": 2, "bwd_launches": 2},
+          f"two-branch first-step gradients {tb_grad_err}, BN launches "
+          f"{first}")
+    logs = [StepLog(torch), StepLog()]
+    for n, lg in zip(nets, logs):
+        n.set_listeners(lg)
+    reset_counts()
+    nets[0].fit(ExistingDataSetIterator(tb_batches))
+    tb_counts, tb_variants = bn_relu.launch_counts(), bn_relu.variant_counts()
+    nets[1].fit(ExistingDataSetIterator(tb_batches))
+    per = 2 * TB_STEPS
+    check(tb_counts == {"fwd_launches": per, "bwd_launches": per}
+          and tb_variants == {"fwd": {"resident": per, "streamed": 0},
+                              "bwd": {"resident": per, "streamed": 0}},
+          f"two-branch BN launches {tb_counts} {tb_variants}, want {per} "
+          "resident forward and backward")
+    check(set(lstm.launch_counts().values()) == {0},
+          "the two-branch path launched LSTM kernels")
+    cards = [float(s) for s in logs[0].scores]
+    cpus = [float(s) for s in logs[1].scores]
+    tb_score_err = max(abs(a - b) for a, b in zip(cards, cpus))
+    tb_param_err = graph_rel_l2(nets[0], nets[1], TB_LR, TB_STEPS)
+    tb_state_err = graph_rel_l2(nets[0], nets[1], state=True)
+    check(tb_score_err <= BF16_SCORE_TOL and tb_param_err <= BF16_PARAM_TOL
+          and tb_state_err <= BF16_PARAM_TOL,
+          f"two-branch 20 steps card vs CPU: scores {tb_score_err}, "
+          f"parameters {tb_param_err}, running statistics {tb_state_err}")
+    reset_counts()
+    evs = [n.evaluate(ExistingDataSetIterator(held)) for n in nets]
+    check(set(bn_relu.launch_counts().values()) == {0},
+          f"evaluation launched BN kernels: {bn_relu.launch_counts()}")
+    tb_step_ms = float(np.median(1e3 * np.diff(logs[0].times)))
+    print(f"bf16 two-branch graph (2 x 784 -> Dense({TB_WIDTH}) -> "
+          f"BatchNormalization(relu), Merge, softmax 10; B={TB_B}, Adam "
+          f"{TB_LR}) trained {TB_STEPS} steps on the card and the CPU from "
+          f"one zip: first-step gradients {tb_grad_err:.3e} of max (limit "
+          f"{BF16_GRAD_TOL}), scores {cards[0]:.4f} -> {cards[-1]:.4f}, max "
+          f"err {tb_score_err:.3e} (limit {BF16_SCORE_TOL}), parameters "
+          f"{tb_param_err:.3e} and running statistics {tb_state_err:.3e} "
+          f"relative L2 (limit {BF16_PARAM_TOL}); BN launches {tb_counts} "
+          f"{tb_variants}, none in evaluation; held-out accuracy card "
+          f"{evs[0].accuracy():.4f}, CPU {evs[1].accuracy():.4f}; {tag} "
+          f"step p50 {tb_step_ms:.3f} ms")
+    out["two_branch"] = {"grad_err": tb_grad_err, "score_err": tb_score_err,
+                         "param_err": tb_param_err,
+                         "state_err": tb_state_err, "launches": tb_counts,
+                         "variants": tb_variants, "step_p50_ms": tb_step_ms,
+                         "accuracy_card": evs[0].accuracy(),
+                         "accuracy_cpu": evs[1].accuracy()}
+
+    # early stopping on the card, the best model restored from its zip
+    es_dir = os.path.join(tmp, "early_stopping")
+    saver = es.LocalFileModelSaver(es_dir)
+    cfg = (es.EarlyStoppingConfiguration.Builder()
+           .score_calculator(es.DataSetLossCalculator(
+               ExistingDataSetIterator(held)))
+           .epoch_termination_conditions(
+               es.ScoreImprovementEpochTerminationCondition(1, 1e-3),
+               es.MaxEpochsTerminationCondition(4))
+           .model_saver(saver).build())
+    es_net = pt.ModelSerializer.restore(zt, device=DEVICE)
+    res = es.EarlyStoppingTrainer(
+        cfg, es_net, ExistingDataSetIterator(tb_batches[:2])).fit()
+    best = res.best_model
+    again = es.DataSetLossCalculator(ExistingDataSetIterator(
+        held)).calculate_score(best)
+    check(best.device.type == "cuda"
+          and os.path.exists(os.path.join(es_dir, "bestModel.zip"))
+          and abs(again - res.best_model_score) <= 1e-6,
+          f"early stopping: best model on {best.device}, score {again} vs "
+          f"{res.best_model_score}")
+    print(f"early stopping on the card ({res.termination_reason}: "
+          f"{res.termination_details} after {res.total_epochs} epochs): "
+          f"validation scores {res.score_vs_epoch}, best epoch "
+          f"{res.best_model_epoch}, its zip restored on the card scores "
+          f"{again:.6f} (recorded {res.best_model_score:.6f})")
+    out["early_stopping"] = {"epochs": res.total_epochs,
+                             "reason": res.termination_details,
+                             "scores": res.score_vs_epoch}
+
+    # transfer learning: a new head on the frozen branches, card vs CPU
+    tl_nets = []
+    for n in nets:
+        tl_nets.append(
+            GraphTransferLearning.GraphBuilder(n)
+            .fine_tune_configuration(FineTuneConfiguration.Builder()
+                                     .updater(pt.Sgd(0.05)).build())
+            .set_feature_extractor("merge")
+            .remove_vertex_and_connections("out")
+            .add_layer("parity", pt.OutputLayer(n_out=2, activation="softmax",
+                                                loss="mcxent"), "merge")
+            .set_outputs("parity").build())
+    y2 = np.eye(2, dtype=np.float32)[y_tr[:TB_B].argmax(1) % 2]
+    parity = pt.MultiDataSet(features=[x_tr[:TB_B], mirror(x_tr[:TB_B])],
+                             labels=[y2])
+    reset_counts()
+    frozen = tl_nets[0].params["digit_dense"]["W"].clone()
+    for n in tl_nets:
+        n.fit(parity)
+    tl_counts = bn_relu.launch_counts()
+    tl_score_err = abs(tl_nets[0].score() - tl_nets[1].score())
+    tl_param_err = graph_rel_l2(tl_nets[0], tl_nets[1])
+    check(torch.equal(tl_nets[0].params["digit_dense"]["W"], frozen)
+          and tl_score_err <= BF16_SCORE_TOL
+          and tl_param_err <= BF16_PARAM_TOL,
+          f"transfer learning step card vs CPU: score {tl_score_err}, "
+          f"parameters {tl_param_err}")
+    print(f"GraphTransferLearning (branches frozen up to the merge, a new "
+          f"2-class head, SGD 0.05): one step on the card and the CPU, "
+          f"score err {tl_score_err:.3e}, parameters {tl_param_err:.3e} "
+          f"relative L2, frozen weights unmoved; BN launches {tl_counts}")
+    out["transfer"] = {"score_err": tl_score_err, "param_err": tl_param_err,
+                       "bn_launches": tl_counts}
+    del nets, tl_nets, es_net, best
+
+    # line search: CG and L-BFGS, card against CPU
+    r = np.random.default_rng(58)
+    xl = r.normal(size=(LS_N, LS_D)).astype(np.float32)
+    yl = (xl @ r.normal(size=(LS_D, 1)) + 0.01 * r.normal(
+        size=(LS_N, 1))).astype(np.float32)
+    ls = {}
+    for algo in (OptimizationAlgorithm.CONJUGATE_GRADIENT,
+                 OptimizationAlgorithm.LBFGS):
+        conf = (pt.NeuralNetConfiguration.builder().seed(59)
+                .optimization_algo(algo).max_num_line_search_iterations(8)
+                .list()
+                .layer(pt.DenseLayer(n_out=64, activation="tanh"))
+                .layer(pt.OutputLayer(n_out=1, activation="identity",
+                                      loss="mse"))
+                .set_input_type(pt.InputType.feed_forward(LS_D)).build())
+        pair = [pt.MultiLayerNetwork(conf, device=d).init(
+            generator=torch.Generator().manual_seed(60))
+            for d in (DEVICE, "cpu")]
+        scores = [[], []]
+        for _ in range(LS_ITERS):
+            for n, s in zip(pair, scores):
+                n.fit(pt.DataSet(xl, yl))
+                s.append(n.score())
+        err = max(abs(a - b) / abs(b) for a, b in zip(*scores))
+        check(err <= LS_TOL and scores[0][-1] < scores[0][0],
+              f"{algo} card vs CPU: scores {scores}")
+        ls[algo] = {"scores_card": scores[0], "rel_err": err}
+    print(f"line search on the card ({LS_ITERS} iterations, {LS_N} x {LS_D}"
+          " least squares through Dense(64, tanh)): " + ", ".join(
+              f"{a} scores {v['scores_card'][0]:.4f} -> "
+              f"{v['scores_card'][-1]:.4f}, max relative err vs CPU "
+              f"{v['rel_err']:.3e}" for a, v in ls.items())
+          + f" (limit {LS_TOL})")
+    out["line_search"] = ls
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} main path 10 (ComputationGraphs): {out['seconds']:.1f} s")
+    print(json.dumps({"graph_path": out}))
     return out
 
 
@@ -3949,6 +4633,11 @@ def main():
     # ---- 13. main path 9: layerwise pretraining; the MoE step -----------
     pretrain_path(pt, torch, tag, tmp, reset_counts, hand_counts)
     moe_step(pt, torch, tag, hand_counts)
+
+    # ---- 14. main path 10: ComputationGraphs ----------------------------
+    graph = graph_path(pt, torch, tag, tmp, root, reset_counts, hand_counts)
+    check(set(attention.launch_counts().values()) == {0}, "the graph path "
+          f"launched attention kernels: {attention.launch_counts()}")
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -4015,6 +4704,11 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_by == {"operations"} else "bytes",
         "library_ms": None,
+        "graph_launches": graph["seq2seq"]["rnn_time_step_launches"],
+        "graph_per": f"main path 10: {S2S_STEP_T} rnn_time_step calls of "
+                     f"the seq2seq graph (encoder F={VOCAB} and decoder F="
+                     f"{VOCAB + HIDDEN}, H={HIDDEN}, B={S2S_STEP_B}), 2 "
+                     "launches a call, all cluster",
         "card": card,
     }, {
         "name": "flash_attention_heads",
@@ -4064,6 +4758,11 @@ def main():
                        "direction a step" if key == "reduction" else
                        f"main path 8's 20 steps: layer 1 (F={VOCAB}) of "
                        "the BiLSTM, both directions"),
+        "graph_launches": graph["seq2seq"]["launches"][counter],
+        "graph_per": f"main path 10's {S2S_STEPS} steps of the seq2seq "
+                     f"graph: encoder (F={VOCAB}) and decoder (F="
+                     f"{VOCAB + HIDDEN}), one launch each a step"
+                     + ("" if key == "reduction" else ", all cluster"),
         "card": card,
     } for name, key, counter, err, rel, replaces, library in (
         ("lstm_residual_forward", "residual", "residual_launches",
@@ -4200,6 +4899,12 @@ def main():
             "by_shape": {f"N={n} C={c}": bn_timing(bn_times[(key, n, c)])
                          for n in (MLP_B, 4096)
                          for c in (MLP_WIDTH, 200, 48)},
+            **({"graph_launches": graph["two_branch"]["variants"][key][
+                "resident"],
+                "graph_per": f"main path 10's {TB_STEPS} steps of the bf16 "
+                             f"two-branch graph (N={TB_B}, C={TB_WIDTH}): one "
+                             "launch per BN vertex a step"}
+               if variant == "resident" else {}),
             "card": card,
         } for name, key, replaces, library in (
             ("bn_relu_forward", "fwd",

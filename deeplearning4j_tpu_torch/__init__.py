@@ -49,14 +49,30 @@ pretraining (AutoEncoder, RBM, VariationalAutoencoder), the
 mixture-of-experts layer, remat on `torch.utils.checkpoint`, `clone`, and
 the offline data side (iterators, fetchers over a local cache, record and
 image readers, LabeledPoint).
+
+The twelfth slice: ComputationGraph with its twelve vertex types beside the
+layer vertex, the graph zip, the line-search solvers (line gradient
+descent, conjugate gradient, L-BFGS), the training listeners, transfer
+learning, early stopping, ROC and regression evaluation, and ResNet-50 and
+GoogLeNet in the zoo. A graph applies the same layer objects as
+MultiLayerNetwork, so its GravesLSTM vertices run the LSTM kernels and its
+bf16 [N, C] BatchNormalization(relu) vertices the BN+ReLU kernels.
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
                        ListDataSetIterator, bundled_mnist_subset)
-from .eval import Evaluation
-from .models import (alexnet, char_rnn, lenet_mnist, mlp_mnist,
-                     sample_characters, vgg16, vgg19)
+from .datasets.iterators import MultiDataSet
+from .eval import ROC, Evaluation, RegressionEvaluation, ROCMultiClass
+from .models import (alexnet, char_rnn, googlenet, lenet_mnist, mlp_mnist,
+                     resnet50, sample_characters, vgg16, vgg19)
 from .nn import (BackpropType, InputType, MultiLayerConfiguration,
                  MultiLayerNetwork, NeuralNetConfiguration)
+from .nn.conf.graph import (ComputationGraphConfiguration,
+                            DuplicateToTimeSeriesVertex, ElementWiseVertex,
+                            GraphVertex, L2NormalizeVertex, L2Vertex,
+                            LastTimeStepVertex, MergeVertex,
+                            PreprocessorVertex, ScaleVertex, ShiftVertex,
+                            StackVertex, SubsetVertex, UnstackVertex)
+from .nn.graph import ComputationGraph
 from .nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
                         EmbeddingSequenceLayer, GravesLSTM,
                         LocalResponseNormalization, OutputLayer,
@@ -66,9 +82,16 @@ from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "bundled_mnist_subset", "Evaluation",
-           "alexnet", "char_rnn", "lenet_mnist", "mlp_mnist",
-           "sample_characters", "vgg16", "vgg19", "BackpropType",
+           "ListDataSetIterator", "MultiDataSet", "bundled_mnist_subset",
+           "Evaluation", "ROC", "ROCMultiClass", "RegressionEvaluation",
+           "alexnet", "char_rnn", "googlenet", "lenet_mnist", "mlp_mnist",
+           "resnet50", "sample_characters", "vgg16", "vgg19",
+           "ComputationGraph", "ComputationGraphConfiguration",
+           "GraphVertex", "MergeVertex", "ElementWiseVertex", "SubsetVertex",
+           "StackVertex", "UnstackVertex", "ScaleVertex", "ShiftVertex",
+           "L2Vertex", "L2NormalizeVertex", "PreprocessorVertex",
+           "LastTimeStepVertex", "DuplicateToTimeSeriesVertex",
+           "BackpropType",
            "InputType", "MultiLayerConfiguration", "MultiLayerNetwork",
            "NeuralNetConfiguration", "BatchNormalization",
            "ConvolutionLayer", "DenseLayer", "EmbeddingSequenceLayer",

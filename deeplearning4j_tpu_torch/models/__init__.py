@@ -1,5 +1,5 @@
-from .zoo import (alexnet, char_rnn, lenet_mnist, mlp_mnist,
-                  sample_characters, vgg16, vgg19)
+from .zoo import (alexnet, char_rnn, googlenet, lenet_mnist, mlp_mnist,
+                  resnet50, sample_characters, vgg16, vgg19)
 
-__all__ = ["alexnet", "char_rnn", "lenet_mnist", "mlp_mnist",
-           "sample_characters", "vgg16", "vgg19"]
+__all__ = ["alexnet", "char_rnn", "googlenet", "lenet_mnist", "mlp_mnist",
+           "resnet50", "sample_characters", "vgg16", "vgg19"]

@@ -1,23 +1,28 @@
 """Model zoo of the port, as in `deeplearning4j_tpu/models/zoo.py`: LeNet-MNIST
 (BASELINE config 1), the MNIST MLP, the char-RNN (BASELINE config 3, the
 reference's GravesLSTMCharModellingExample topology) and its sampling loop,
-VGG-16 / VGG-19 and AlexNet. Each builder returns the network uninitialized,
-on the GPU unless `device` says otherwise.
+VGG-16 / VGG-19, AlexNet, and the ComputationGraphs ResNet-50 (BASELINE
+config 2) and GoogLeNet. Each builder returns the model uninitialized, on
+the GPU unless `device` says otherwise.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 from ..nn.conf import BackpropType, InputType, NeuralNetConfiguration
-from ..nn.layers import (ConvolutionLayer, ConvolutionMode, DenseLayer,
-                         GravesLSTM, LocalResponseNormalization, OutputLayer,
+from ..nn.layers import (ActivationLayer, BatchNormalization,
+                         ConvolutionLayer, ConvolutionMode, DenseLayer,
+                         GlobalPoolingLayer, GravesLSTM,
+                         LocalResponseNormalization, OutputLayer,
                          PoolingType, RnnOutputLayer, SubsamplingLayer)
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam, Nesterovs
 from ..util.platform import DeviceLike
 
 __all__ = ["lenet_mnist", "char_rnn", "mlp_mnist", "vgg16", "vgg19",
-           "alexnet", "sample_characters"]
+           "alexnet", "resnet50", "googlenet", "sample_characters"]
 
 
 def lenet_mnist(seed: int = 42, updater=None,
@@ -188,3 +193,137 @@ def alexnet(n_classes: int = 1000, image: int = 224, seed: int = 42,
                             loss="mcxent")))
     conf = b.set_input_type(InputType.convolutional(image, image, 3)).build()
     return MultiLayerNetwork(conf, device=device)
+
+
+def resnet50(n_classes: int = 1000, image: int = 224, seed: int = 42,
+             updater=None, blocks=(3, 4, 6, 3), width: int = 64,
+             compute_dtype: Optional[str] = "bfloat16",
+             remat: Optional[str] = None,
+             activation_store_dtype: Optional[str] = None,
+             device: DeviceLike = None):
+    """ResNet-50 as a ComputationGraph: a 7x7 stride-2 stem with BN+ReLU
+    and a 3x3 max pool, then four stages of bottleneck blocks (1x1, 3x3,
+    1x1 convs, each with BatchNormalization; a projection shortcut on each
+    stage's first block), each block closed by an add ElementWiseVertex
+    and a ReLU; global average pool and softmax. NHWC, Adam 1e-3, bf16
+    compute over float32 masters by default."""
+    from ..nn.conf.graph import ElementWiseVertex
+    from ..nn.graph import ComputationGraph
+
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed)
+         .updater(updater or Adam(1e-3))
+         .weight_init("relu")
+         .compute_dtype(compute_dtype)
+         .remat(remat)
+         .activation_store_dtype(activation_store_dtype)
+         .graph_builder()
+         .add_inputs("input")
+         .set_input_types(InputType.convolutional(image, image, 3)))
+
+    def conv_bn_relu(name, inp, n_out, k, s, relu=True):
+        b.add_layer(f"{name}_conv",
+                    ConvolutionLayer(n_out=n_out, kernel_size=(k, k),
+                                     stride=(s, s), activation="identity",
+                                     convolution_mode=ConvolutionMode.SAME,
+                                     has_bias=False), inp)
+        b.add_layer(f"{name}_bn",
+                    BatchNormalization(
+                        activation="relu" if relu else "identity"),
+                    f"{name}_conv")
+        return f"{name}_bn"
+
+    top = conv_bn_relu("stem", "input", width, 7, 2)
+    b.add_layer("stem_pool",
+                SubsamplingLayer(pooling_type=PoolingType.MAX,
+                                 kernel_size=(3, 3), stride=(2, 2),
+                                 convolution_mode=ConvolutionMode.SAME),
+                top)
+    top = "stem_pool"
+    ch = width
+    for stage, n_blocks in enumerate(blocks):
+        out_ch = ch * 4
+        for blk in range(n_blocks):
+            name = f"s{stage}b{blk}"
+            stride = 2 if (blk == 0 and stage > 0) else 1
+            t1 = conv_bn_relu(f"{name}_1", top, ch, 1, stride)
+            t2 = conv_bn_relu(f"{name}_2", t1, ch, 3, 1)
+            t3 = conv_bn_relu(f"{name}_3", t2, out_ch, 1, 1, relu=False)
+            if blk == 0:
+                sc = conv_bn_relu(f"{name}_sc", top, out_ch, 1, stride,
+                                  relu=False)
+            else:
+                sc = top
+            b.add_vertex(f"{name}_add", ElementWiseVertex(op="add"), t3, sc)
+            b.add_layer(f"{name}_relu", ActivationLayer(activation="relu"),
+                        f"{name}_add")
+            top = f"{name}_relu"
+        ch *= 2
+    b.add_layer("avgpool", GlobalPoolingLayer(pooling_type=PoolingType.AVG),
+                top)
+    b.add_layer("fc", OutputLayer(n_out=n_classes, activation="softmax",
+                                  loss="mcxent"), "avgpool")
+    b.set_outputs("fc")
+    return ComputationGraph(b.build(), device=device)
+
+
+def googlenet(n_classes: int = 1000, image: int = 224, seed: int = 42,
+              updater=None, device: DeviceLike = None):
+    """GoogLeNet (Inception-v1) as a ComputationGraph: a conv / pool stem,
+    nine inception modules (1x1, 3x3 and 5x5 branches behind 1x1
+    reductions, and a pooled 1x1 projection, joined by a MergeVertex), max
+    pools between the stages, global average pool and a softmax head with
+    input dropout 0.6."""
+    from ..nn.conf.graph import MergeVertex
+    from ..nn.graph import ComputationGraph
+
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed)
+         .updater(updater or Adam(1e-3))
+         .weight_init("relu")
+         .graph_builder()
+         .add_inputs("input")
+         .set_input_types(InputType.convolutional(image, image, 3)))
+
+    def conv(name, inp, n_out, k, s=1):
+        b.add_layer(name, ConvolutionLayer(
+            n_out=n_out, kernel_size=(k, k), stride=(s, s),
+            activation="relu", convolution_mode=ConvolutionMode.SAME), inp)
+        return name
+
+    def pool(name, inp, k=3, s=2):
+        b.add_layer(name, SubsamplingLayer(
+            pooling_type=PoolingType.MAX, kernel_size=(k, k), stride=(s, s),
+            convolution_mode=ConvolutionMode.SAME), inp)
+        return name
+
+    def inception(name, inp, c1, c3r, c3, c5r, c5, pp):
+        b1 = conv(f"{name}_1x1", inp, c1, 1)
+        b3 = conv(f"{name}_3x3", conv(f"{name}_3x3r", inp, c3r, 1), c3, 3)
+        b5 = conv(f"{name}_5x5", conv(f"{name}_5x5r", inp, c5r, 1), c5, 5)
+        bp = conv(f"{name}_poolproj",
+                  pool(f"{name}_pool", inp, 3, 1), pp, 1)
+        b.add_vertex(f"{name}_concat", MergeVertex(), b1, b3, b5, bp)
+        return f"{name}_concat"
+
+    top = conv("stem1", "input", 64, 7, 2)
+    top = pool("stem1_pool", top)
+    top = conv("stem2a", top, 64, 1)
+    top = conv("stem2b", top, 192, 3)
+    top = pool("stem2_pool", top)
+    top = inception("i3a", top, 64, 96, 128, 16, 32, 32)
+    top = inception("i3b", top, 128, 128, 192, 32, 96, 64)
+    top = pool("pool3", top)
+    top = inception("i4a", top, 192, 96, 208, 16, 48, 64)
+    top = inception("i4b", top, 160, 112, 224, 24, 64, 64)
+    top = inception("i4c", top, 128, 128, 256, 24, 64, 64)
+    top = inception("i4d", top, 112, 144, 288, 32, 64, 64)
+    top = inception("i4e", top, 256, 160, 320, 32, 128, 128)
+    top = pool("pool4", top)
+    top = inception("i5a", top, 256, 160, 320, 32, 128, 128)
+    top = inception("i5b", top, 384, 192, 384, 48, 128, 128)
+    b.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG),
+                top)
+    b.add_layer("out", OutputLayer(n_out=n_classes, activation="softmax",
+                                   loss="mcxent", dropout=0.6), "gap")
+    return ComputationGraph(b.set_outputs("out").build(), device=device)

@@ -231,6 +231,11 @@ class NeuralNetConfigurationBuilder:
     def list(self) -> "ListBuilder":
         return ListBuilder(self._c)
 
+    def graph_builder(self):
+        """The ComputationGraph builder (`nn/conf/graph.py`)."""
+        from .graph import GraphBuilder
+        return GraphBuilder(self._c)
+
 
 @dataclass
 class MultiLayerConfiguration:

@@ -19,7 +19,8 @@ updater-state dict per layer. `predict_fn` is the pure
 `rnn_time_step` threads one (h, c) carry per recurrent layer across calls.
 
 Training: `fit(DataSet | DataSetIterator | (features, labels))` runs one
-optimizer step per batch (`_fit_batch`), or for a truncated-BPTT
+optimizer step per batch (`_fit_batch`; a line-search `optimization_algo`
+takes `optimize/solvers.py` instead of the updater), or for a truncated-BPTT
 configuration one step per chunk of `tbptt_fwd_length` time steps
 (`_fit_tbptt`), with the recurrent carries flowing forward detached. A step
 is the masked-mean loss of the output layer plus l1/l2 normalised by live
@@ -95,6 +96,22 @@ def _not_in_port(what: str, item: str):
         f"{what} is not in the PyTorch port yet (ROADMAP A{item})")
 
 
+#: the keyword options of JAX's `fit` that wait for ROADMAP A8, with their
+#: defaults (the only values the port takes so far)
+FIT_OPTION_DEFAULTS = {"superstep": 1, "grad_accumulation": 1,
+                       "prefetch": False, "pad_ragged": False,
+                       "time_buckets": None, "checkpoint_dir": None,
+                       "checkpoint_every": 0, "resume": False, "guard": None}
+
+
+def refuse_fit_options(options: dict):
+    """Raise the A8 refusal for any `fit` option given a non-default
+    value."""
+    for name, value in options.items():
+        if value != FIT_OPTION_DEFAULTS[name]:
+            raise _not_in_port(f"fit({name}={value!r})", "8")
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
@@ -117,6 +134,7 @@ class MultiLayerNetwork:
         self._pretrain_gen: Optional[torch.Generator] = None
         self._dropout_seed = conf.conf.seed
         self._compute_dtype = _compute_dtype(conf.conf)
+        self._line_solver = None
 
     # ------------------------------------------------------------------
     # Initialization and placement
@@ -445,22 +463,11 @@ class MultiLayerNetwork:
         one optimizer step per batch, or per TBPTT chunk. The keyword
         options after `epochs` are the JAX package's; only their defaults
         are in the port so far, and any other value raises."""
-        for name, value, default in (
-                ("superstep", superstep, 1),
-                ("grad_accumulation", grad_accumulation, 1),
-                ("prefetch", prefetch, False),
-                ("pad_ragged", pad_ragged, False),
-                ("time_buckets", time_buckets, None),
-                ("checkpoint_dir", checkpoint_dir, None),
-                ("checkpoint_every", checkpoint_every, 0),
-                ("resume", resume, False), ("guard", guard, None)):
-            if value != default:
-                raise _not_in_port(f"fit({name}={value!r})", "8")
-        if self.conf.conf.optimization_algo != \
-                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
-            raise _not_in_port(
-                f"optimization_algo={self.conf.conf.optimization_algo!r} "
-                "(line-search training)", "7")
+        refuse_fit_options(dict(
+            superstep=superstep, grad_accumulation=grad_accumulation,
+            prefetch=prefetch, pad_ragged=pad_ragged,
+            time_buckets=time_buckets, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume, guard=guard))
         if self.params is None:
             self.init()
         if labels is not None:
@@ -496,8 +503,28 @@ class MultiLayerNetwork:
                 and x.dim() == 3):
             self._fit_tbptt(x, y, fmask, lmask)
             return
-        score, _ = self._train_step(x, y, fmask, lmask)
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            score = self._line_search_step(x, y, fmask, lmask)
+        else:
+            score, _ = self._train_step(x, y, fmask, lmask)
         self._step_done(score, x)
+
+    def _line_search_step(self, x, y, fmask, lmask):
+        """One batch of the line-search optimizer (CG, L-BFGS or line
+        gradient descent; the updater chain is not used)."""
+        if self._line_solver is None:
+            from ..optimize.solvers import LineSearchSolver
+            self._line_solver = LineSearchSolver(
+                self, self.conf.conf.optimization_algo,
+                max_line_search_iterations=
+                self.conf.conf.max_num_line_search_iterations)
+        self.params, new_state, score = self._line_solver.fit_batch(
+            self.params, self.state, x, y, self._train_generator(), fmask,
+            lmask)
+        self.state = tuple(tree_map(torch.Tensor.detach, s)
+                           for s in new_state)
+        return score
 
     def _step_done(self, score, x):
         self._score = score

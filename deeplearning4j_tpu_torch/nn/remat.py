@@ -73,28 +73,41 @@ def _context_fn(saved_ops):
     return lambda: _ckpt.create_selective_checkpoint_contexts(policy)
 
 
+def as_generators(obj) -> list:
+    """The generators in `obj`: one generator, a sequence of them (Nones
+    skipped), or None (no generators)."""
+    if obj is None:
+        return []
+    if isinstance(obj, torch.Generator):
+        return [obj]
+    return [g for g in obj if g is not None]
+
+
 def checkpoint_call(fn: Callable, policy: Optional[str], *args,
-                    generator: Optional[torch.Generator] = None):
+                    generator=None):
     """`fn(*args)` behind a checkpoint boundary that saves what `policy`
-    names. `generator` (the dropout generator `fn` draws from, if any) is
-    set back to its state at the call for the recomputation, and left
-    where the first forward left it."""
+    names. `generator` (the dropout generator `fn` draws from, or a
+    sequence of them, or None) is set back to its state at the call for
+    the recomputation, and left where the first forward left it."""
     saved_ops = resolve_policy(policy)
     if policy == "everything":
         return fn(*args)
-    start = None if generator is None else generator.get_state()
+    gens = as_generators(generator)
+    start = [g.get_state() for g in gens]
     calls = [0]
 
     def body(*a):
         calls[0] += 1
-        if start is None or calls[0] == 1:
+        if not gens or calls[0] == 1:
             return fn(*a)
-        after = generator.get_state()        # the recomputation
-        generator.set_state(start)
+        after = [g.get_state() for g in gens]     # the recomputation
+        for g, s in zip(gens, start):
+            g.set_state(s)
         try:
             return fn(*a)
         finally:
-            generator.set_state(after)
+            for g, s in zip(gens, after):
+                g.set_state(s)
 
     kw = {} if not saved_ops else {"context_fn": _context_fn(saved_ops)}
     return _ckpt.checkpoint(body, *args, use_reentrant=False,

@@ -6,6 +6,9 @@ GravesBidirectionalLSTM's is nested (`{"fwd": {...}, "bwd": {...}}`), as
 in the JAX package. Every walk over a tree goes through these helpers, in
 the sorted-key-path order of JAX's `_flat_leaves` / `_unflatten_like`
 (`params_flat`, `set_params_flat`, the gradient check, the zip).
+`tree_map` and `flat_leaves` also take a whole model's tree: a
+MultiLayerNetwork's tuple of layer trees (in order, as JAX's pytrees) or a
+ComputationGraph's dict of vertex trees.
 """
 from __future__ import annotations
 
@@ -15,22 +18,25 @@ __all__ = ["tree_map", "flat_leaves", "leaf_paths", "unflatten_like"]
 
 
 def tree_map(f: Callable, tree, *rest):
-    """`f` over the leaves of one or more trees of the same shape (dicts
-    recurse; anything else is a leaf)."""
+    """`f` over the leaves of one or more trees of the same shape (dicts,
+    tuples and lists recurse; anything else is a leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(f, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(f, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return f(tree, *rest)
 
 
 def flat_leaves(tree) -> list:
-    """The leaves of a tree in sorted-key-path order."""
-    if not isinstance(tree, dict):
-        return [tree]
-    out = []
-    for k in sorted(tree):
-        out.extend(flat_leaves(tree[k]))
-    return out
+    """The leaves of a tree in sorted-key-path order (tuples and lists in
+    order)."""
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in flat_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [v for t in tree for v in flat_leaves(t)]
+    return [tree]
 
 
 def leaf_paths(tree, prefix: str = "") -> List[Tuple[str, object]]:

@@ -14,8 +14,10 @@
     manifest on restore; a checkpoint directory serves its newest loadable
     `ckpt_*.zip`, skipping corrupt ones.
 
-Only `precision="fp32"` is in the port; `bf16` and `int8` raise
-`ServingError`. Canary routing and metrics arrive with later slices.
+A model is a MultiLayerNetwork or a single-input ComputationGraph (whose
+first output is served); a multi-input graph raises `ServingError`. Only
+`precision="fp32"` is in the port; `bf16` and `int8` raise `ServingError`.
+Canary routing and metrics arrive with later slices.
 """
 from __future__ import annotations
 
@@ -101,7 +103,12 @@ def _example_shape(model, override: Optional[Sequence[int]]) -> Tuple[int, ...]:
     """Per-example feature shape the buckets are fixed to."""
     if override is not None:
         return tuple(int(d) for d in override)
-    it = getattr(getattr(model, "conf", None), "input_type", None)
+    conf = getattr(model, "conf", None)
+    it = getattr(conf, "input_type", None)
+    if it is None:
+        its = getattr(conf, "input_types", None)   # a ComputationGraph's
+        if its:
+            it = its[0]
     if it is not None:
         if it.kind in ("ff", "cnn_flat"):
             return (int(it.flat_size()),)
@@ -139,7 +146,7 @@ class ServableVersion:
         self.source = source
         self.created_at = time.time()
         self.param_bytes = sum(v.numel() * v.element_size()
-                               for p in params for v in flat_leaves(p))
+                               for v in flat_leaves(params))
         self.forwards = 0
         self._count_lock = threading.Lock()
 
@@ -273,14 +280,34 @@ class ModelRegistry:
         shape = _example_shape(model, input_shape)
         copy = lambda d: tree_map(
             lambda v: v.detach().to(self.device, copy=True), d)
-        params = tuple(copy(p) for p in model.params)
-        state = tuple(copy(s) for s in model.state)
+        params, state = copy(model.params), copy(model.state)
         version = ServableVersion(name, precision, buckets, shape, params,
-                                  state, model.predict_fn, self.device,
+                                  state, _make_predict(model), self.device,
                                   type(model).__name__, src)
         for b in buckets:           # warm every bucket off the request path
             version.run_padded(np.zeros((b,) + shape, np.float32), b)
         return version
+
+
+def _make_predict(model):
+    """`(params, state, x, fmask) -> out` for the model: its own
+    `predict_fn` for a network; for a ComputationGraph, its one input fed
+    by name and its first output returned (a multi-input graph cannot be
+    served from one feature array)."""
+    predict = model.predict_fn
+    graph_inputs = getattr(getattr(model, "conf", None), "network_inputs",
+                           None)
+    if graph_inputs is None:
+        return predict
+    if len(graph_inputs) != 1:
+        raise ServingError(
+            "serving supports single-input models; this ComputationGraph "
+            f"declares inputs {list(graph_inputs)}")
+    name = graph_inputs[0]
+
+    def forward(params, state, x, fmask):
+        return predict(params, state, {name: x}, {name: fmask})[0]
+    return forward
 
 
 def _check_precision(precision: str):

@@ -3,6 +3,7 @@ writes, so a model saved by either package loads in the other:
 
   * `configuration.json`   — the network config (identical JSON)
   * `coefficients.npz`     — parameters, keyed `i:<layer>/k:<param>`
+                             (a ComputationGraph's `k:<vertex>/k:<param>`)
   * `networkState.npz`     — layer state, keyed `i:<layer>/k:<name>`
                              (BatchNormalization's `i:1/k:mean`, `k:var`)
   * `updaterState.npz`     — optimizer state, keyed `i:<layer>/k:<slot>/
@@ -10,16 +11,18 @@ writes, so a model saved by either package loads in the other:
   * `metadata.json`        — counters and model kind
   * `manifest.sha256.json` — sha256 of every other entry, checked on restore
 
-Writes are crash-safe (fault/atomic.py). `from_jax_params` loads the JAX
-net's parameters (and optionally its layer state and updater state), as
-numpy arrays, straight into a port network.
+Both model kinds, MultiLayerNetwork and ComputationGraph, are written and
+restored (`metadata.json`'s `kind` picks the class). Writes are crash-safe
+(fault/atomic.py). `from_jax_params` loads the JAX model's parameters (and
+optionally its layer state and updater state), as numpy arrays, straight
+into a port network or graph.
 """
 from __future__ import annotations
 
 import io
 import json
 import zipfile
-from typing import Dict, Optional, Sequence
+from typing import Dict
 
 import numpy as np
 import torch
@@ -73,27 +76,32 @@ def arrays_to_tree(template, arrays: Dict[str, np.ndarray]):
     return build(template, [])
 
 
-def from_jax_params(net, params: Sequence[Dict[str, np.ndarray]],
-                    updater_state: Optional[Sequence] = None,
-                    state: Optional[Sequence[Dict[str, np.ndarray]]] = None):
-    """Load the JAX network's parameters (one dict of numpy arrays per
-    layer, keyed as in JAX) into `net`, which must be initialized; with
-    `updater_state` (JAX's `updater_state` with its leaves as numpy arrays:
-    one entry per layer, `{"m": {"W": ...}, ...}` or `()`) its updater
-    state, and with `state` (JAX's `state`: one dict per layer, `{"mean":
-    ..., "var": ...}` for BatchNormalization, `{}` for the others) its layer
-    state too. Shapes are checked; a missing key raises KeyError."""
+def from_jax_params(net, params, updater_state=None, state=None):
+    """Load the JAX model's parameters into `net`, which must be
+    initialized: for a MultiLayerNetwork one dict of numpy arrays per layer
+    (keyed as in JAX), for a ComputationGraph a dict keyed by vertex name.
+    With `updater_state` (JAX's `updater_state` with numpy leaves: per layer
+    or vertex `{"m": {"W": ...}, ...}` or `()`) its updater state, and with
+    `state` (JAX's `state`: BatchNormalization's `{"mean", "var"}`, `{}`
+    for the others) its layer state too. Shapes are checked; a missing key
+    raises KeyError."""
     trees = (("parameter", params, "params"),
              ("updater state", updater_state, "updater_state"),
              ("layer state", state, "state"))
+    graph = isinstance(net.params, dict)
     for what, tree, _ in trees:
-        if tree is not None and len(tree) != len(net.params):
+        if tree is None:
+            continue
+        if graph and set(tree) != set(net.params):
+            raise ValueError(f"{what} dicts for vertices {sorted(tree)}; "
+                             f"the graph has {sorted(net.params)}")
+        if not graph and len(tree) != len(net.params):
             raise ValueError(f"{len(tree)} layer {what} dicts for a "
                              f"{len(net.params)}-layer network")
     for _, tree, attr in trees:
         if tree is not None:
             arrays: Dict = {}
-            _flatten(list(tree), [], arrays)
+            _flatten(dict(tree) if graph else list(tree), [], arrays)
             setattr(net, attr, arrays_to_tree(getattr(net, attr), arrays))
     return net
 
@@ -119,7 +127,8 @@ class ModelSerializer:
 
     @staticmethod
     def write_model(model, path: str, save_updater: bool = True):
-        """Write a MultiLayerNetwork to a zip, crash-safely, with a sha256
+        """Write a MultiLayerNetwork or ComputationGraph to a zip,
+        crash-safely, with a sha256
         manifest of every entry; with `save_updater`, its updater state
         too."""
         meta = {"kind": type(model).__name__,
@@ -170,22 +179,29 @@ class ModelSerializer:
     @staticmethod
     def restore(path: str, load_updater: bool = True,
                 device: DeviceLike = None):
-        """Restore a MultiLayerNetwork zip onto `device` (the GPU unless
-        the caller asks for the CPU): parameters, layer state, and with
-        `load_updater` its updater state where the zip has one (else the
-        updater's zero state)."""
+        """Restore a MultiLayerNetwork or ComputationGraph zip onto
+        `device` (the GPU unless the caller asks for the CPU): parameters,
+        layer state, and with `load_updater` its updater state where the
+        zip has one (else the updater's zero state)."""
         from ..nn.conf import MultiLayerConfiguration
+        from ..nn.conf.graph import ComputationGraphConfiguration
+        from ..nn.graph import ComputationGraph
         from ..nn.multilayer import MultiLayerNetwork
 
         entries = ModelSerializer._read_verified(path)
         meta = json.loads(entries[ModelSerializer.METADATA].decode())
-        if meta.get("kind", "MultiLayerNetwork") != "MultiLayerNetwork":
-            raise NotImplementedError(
-                f"{path}: a {meta['kind']} checkpoint; the PyTorch port "
-                "restores MultiLayerNetwork only")
-        conf = MultiLayerConfiguration.from_json(
-            entries[ModelSerializer.CONFIG].decode())
-        model = MultiLayerNetwork(conf, device=device).init()
+        kind = meta.get("kind", "MultiLayerNetwork")
+        config = entries[ModelSerializer.CONFIG].decode()
+        if kind == "ComputationGraph":
+            model = ComputationGraph(
+                ComputationGraphConfiguration.from_json(config),
+                device=device).init()
+        elif kind == "MultiLayerNetwork":
+            model = MultiLayerNetwork(
+                MultiLayerConfiguration.from_json(config),
+                device=device).init()
+        else:
+            raise ValueError(f"{path}: unknown model kind {kind!r}")
         model.params = arrays_to_tree(
             model.params, _loadz(entries[ModelSerializer.COEFFICIENTS]))
         if ModelSerializer.NETWORK_STATE in entries:

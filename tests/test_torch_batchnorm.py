@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.kernels import bn_relu
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.base import cast_floating
 from deeplearning4j_tpu_torch.util.platform import strict_fp32
+from jax_reference import jax_init
 from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-6
@@ -210,9 +211,9 @@ def _bn_mlp_conf(builder, dense, bn, output, input_type, updater, seed=3,
 
 
 def _jax_bn_mlp(updater=None, **kw):
-    return JaxMultiLayerNetwork(_bn_mlp_conf(
+    return jax_init(JaxMultiLayerNetwork(_bn_mlp_conf(
         JaxNNC.builder, JaxDense, JaxBN, JaxOutput, JaxInputType,
-        updater or JaxSgd(0.1), **kw)).init()
+        updater or JaxSgd(0.1), **kw)))
 
 
 def _twin(jnet):

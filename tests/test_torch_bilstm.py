@@ -59,6 +59,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import _rescale_bias_updates
 from deeplearning4j_tpu_torch.nn.trees import flat_leaves
 from deeplearning4j_tpu_torch.util.gradient_check import (
     GradientCheckUtil, check_gradients_fn)
+from jax_reference import jax_init, jax_value_and_grad
 from torch_threads import one_torch_thread  # noqa: F401
 
 N_IN, HIDDEN, T, B, CLASSES = 5, 6, 7, 8, 3
@@ -98,7 +99,7 @@ def _jax_conf(updater=None, head="rnn", **glob):
 def _pair(updater=None, head="rnn", **glob):
     """(JAX network, the port's twin from its JSON, parameters and updater
     state)."""
-    jnet = JaxMultiLayerNetwork(_jax_conf(updater, head, **glob)).init()
+    jnet = jax_init(JaxMultiLayerNetwork(_jax_conf(updater, head, **glob)))
     net = MultiLayerNetwork(
         MultiLayerConfiguration.from_json(jnet.conf.to_json()),
         device="cpu").init()
@@ -148,13 +149,7 @@ def _port_grads(net, x, y, fm=None, lm=None):
 
 
 def _jax_grads(jnet, x, y, fm=None, lm=None):
-    a = lambda v: None if v is None else jnp.asarray(v)
-
-    def loss(p):
-        return jnet._loss_fn(p, jnet.state, a(x), a(y), None, fmask=a(fm),
-                             lmask=a(lm))[0]
-    s, g = jax.value_and_grad(loss)(jnet.params)
-    return float(s), g
+    return jax_value_and_grad(jnet, x, y, fm, lm)
 
 
 # ---------------------------------------------------------------------------
@@ -252,11 +247,11 @@ def test_l2_and_bias_lr_step_matches_the_documented_penalty():
     directions included)."""
     l2, bias_lr = 1e-2, 0.03
     updater = jax_updaters.Adam(1e-2)
-    jreg = JaxMultiLayerNetwork(_jax_conf(updater, l2=l2)).init()
+    jreg = jax_init(JaxMultiLayerNetwork(_jax_conf(updater, l2=l2)))
     jreg.layers[0].bias_learning_rate = bias_lr
     with pytest.raises(TypeError):
         jreg.fit(*_data(5)[:2])                 # the reference defect
-    jplain = JaxMultiLayerNetwork(_jax_conf(updater)).init()
+    jplain = jax_init(JaxMultiLayerNetwork(_jax_conf(updater)))
     conf = MultiLayerConfiguration.from_json(jreg.conf.to_json())
     conf.layers[0].bias_learning_rate = bias_lr
     net = from_jax_params(MultiLayerNetwork(conf, device="cpu").init(),
@@ -272,7 +267,7 @@ def test_l2_and_bias_lr_step_matches_the_documented_penalty():
         reg = (sub.reg_score(p[0]["fwd"]) + sub.reg_score(p[0]["bwd"])
                + jreg.layers[1].reg_score(p[1]))
         return s + reg / x.shape[0]
-    js, g = jax.value_and_grad(loss)(jplain.params)
+    js, g = jax.jit(jax.value_and_grad(loss))(jplain.params)
     want, _ = jreg.apply_layer_updates(jreg.layers, jplain.params, g,
                                        jplain.updater_state, 0)
     net.fit(x, y)

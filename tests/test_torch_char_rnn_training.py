@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.nn.layers import GravesLSTM
 from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.util.gradient_check import (
     GradientCheckUtil, check_gradients_fn)
+from jax_reference import jax_init, jax_value_and_grad
 from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB, HIDDEN = 11, 8
@@ -117,8 +118,8 @@ class _Scores:
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("masked", [False, True])
 def test_one_batch_gradients_match_jax_grad(masked):
-    jnet = jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=12,
-                        tbptt=5, seed=3).init()
+    jnet = jax_init(jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN,
+                                 seq_len=12, tbptt=5, seed=3))
     net = _twin(jnet)
     x, y = _char_data(3, 12, seed=1)
     lmask = None
@@ -126,9 +127,7 @@ def test_one_batch_gradients_match_jax_grad(masked):
         lmask = np.ones((3, 12), np.float32)
         lmask[0, 7:] = 0.0
         lmask[2, :] = 0.0
-    want = jax.grad(lambda p: jnet._loss_fn(
-        p, jnet.state, jnp.asarray(x), jnp.asarray(y), None,
-        lmask=None if lmask is None else jnp.asarray(lmask))[0])(jnet.params)
+    _, want = jax_value_and_grad(jnet, x, y, lmask=lmask)
     params = tuple({k: v.clone().requires_grad_() for k, v in p.items()}
                    for p in net.params)
     score, _ = net._loss_fn(params, net.state, torch.from_numpy(x),
@@ -148,7 +147,7 @@ def test_one_batch_gradients_match_jax_grad(masked):
 def test_one_optimizer_step_matches_jax(updater):
     u = (jax_updaters.Sgd(0.1) if updater == "sgd"
          else jax_updaters.Adam(2e-3))
-    jnet = JaxMultiLayerNetwork(_jax_rnn_conf(u)).init()
+    jnet = jax_init(JaxMultiLayerNetwork(_jax_rnn_conf(u)))
     net = _twin(jnet)
     x, y = _char_data(3, 12, seed=2)
     jnet.fit(x, y)
@@ -166,8 +165,8 @@ def test_one_optimizer_step_matches_jax(updater):
 
 
 def test_twenty_step_tbptt_trajectory_matches_jax_fit():
-    jnet = jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=11,
-                        tbptt=3, seed=4).init()
+    jnet = jax_init(jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN,
+                                 seq_len=11, tbptt=3, seed=4))
     net = _twin(jnet)
     x, y = _char_data(15, 11, seed=3)
     jl, pl = _Scores(), _Scores()
@@ -184,8 +183,8 @@ def test_twenty_step_tbptt_trajectory_matches_jax_fit():
 def test_tbptt_carries_cross_chunks_detached():
     """A 2-chunk batch is two steps whose second chunk starts from the
     first chunk's final (h, c), as JAX's `_fit_tbptt` does."""
-    jnet = jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=10,
-                        tbptt=5, seed=6).init()
+    jnet = jax_init(jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN,
+                                 seq_len=10, tbptt=5, seed=6))
     net = _twin(jnet)
     x, y = _char_data(3, 10, seed=4)
     jnet.fit(x, y)
@@ -198,8 +197,8 @@ def test_tbptt_carries_cross_chunks_detached():
 # scoring and evaluation
 # ---------------------------------------------------------------------------
 def test_score_score_examples_and_evaluate_match_jax():
-    jnet = JaxMultiLayerNetwork(_jax_rnn_conf(jax_updaters.Adam(1e-2),
-                                              l2=1e-2)).init()
+    jnet = jax_init(JaxMultiLayerNetwork(
+        _jax_rnn_conf(jax_updaters.Adam(1e-2), l2=1e-2)))
     net = _twin(jnet)
     x, y = _char_data(6, 12, seed=5)
     mask = np.ones((6, 12), np.float32)
@@ -237,7 +236,7 @@ def test_mlp_steps_with_l2_bias_lr_gradnorm_and_schedule(minimize):
             .layer(JaxDense(n_out=6, activation="relu", learning_rate=0.05))
             .layer(JaxOutput(n_out=3, activation="softmax", loss="mcxent"))
             .set_input_type(JaxInputType.feed_forward(4)).build())
-    jnet = JaxMultiLayerNetwork(conf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(conf))
     net = _twin(jnet)
     r = np.random.default_rng(6)
     for _ in range(3):
@@ -331,8 +330,9 @@ def test_resumed_training_equals_uninterrupted(tmp_path):
     resumes bit-exactly."""
     x, y = _char_data(12, 8, seed=8)
     batches = [(x[i:i + 3], y[i:i + 3]) for i in range(0, 12, 3)]
-    make = lambda: jax_char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN,
-                                seq_len=8, tbptt=4, seed=7).init()
+    make = lambda: jax_init(jax_char_rnn(vocab_size=VOCAB,
+                                         lstm_size=HIDDEN, seq_len=8,
+                                         tbptt=4, seed=7))
     whole, half = make(), make()
     for bx, by in batches:
         whole.fit(bx, by)
@@ -406,7 +406,7 @@ def test_fit_on_the_lm_matches_jax_fit():
             .layer(JaxRnnOutput(n_out=16, activation="softmax",
                                 loss="mcxent"))
             .set_input_type(JaxInputType.recurrent(1, 6)).build())
-    jnet = JaxMultiLayerNetwork(conf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(conf))
     net = _twin(jnet)
     r = np.random.default_rng(10)
     for _ in range(3):
@@ -428,18 +428,30 @@ def test_fit_on_the_lm_matches_jax_fit():
                                        err_msg=f"layer {i} {k}")
 
 
-@pytest.mark.parametrize("setting,item", [("optimization_algo", "A7")])
-def test_line_search_and_pretrain_raise_named_errors(setting, item):
-    b = NeuralNetConfiguration.builder()
-    if setting == "optimization_algo":
-        b = b.optimization_algo("lbfgs")
-    lb = (b.list().layer(GravesLSTM(n_out=4))
-          .layer(RnnOutputLayer(n_out=5, activation="softmax"))
-          .set_input_type(InputType.recurrent(5, 3)))
-    net = MultiLayerNetwork(lb.build(), device="cpu").init()
-    x = np.eye(5, dtype=np.float32)[np.zeros((2, 3), int)]
-    with pytest.raises(NotImplementedError, match=item):
-        net.fit(ListDataSetIterator([DataSet(x, x)]))
+def test_fit_with_a_line_search_optimizer_matches_jax():
+    """optimization_algo="lbfgs" (refused until the port's twelfth slice):
+    the recurrent net the refusal was tested on (GravesLSTM(4) + softmax
+    RnnOutputLayer) fits six batches through the L-BFGS line search, each
+    score within the trajectory tolerance of JAX's, and so the final
+    parameters."""
+    conf = (JaxNNC.builder().seed(3).optimization_algo("lbfgs").list()
+            .layer(JaxGravesLSTM(n_out=4))
+            .layer(JaxRnnOutput(n_out=5, activation="softmax"))
+            .set_input_type(JaxInputType.recurrent(5, 3)).build())
+    jnet = jax_init(JaxMultiLayerNetwork(conf))
+    net = _twin(jnet)
+    r = np.random.default_rng(13)
+    eye = np.eye(5, dtype=np.float32)
+    x, y = eye[r.integers(0, 5, (4, 3))], eye[r.integers(0, 5, (4, 3))]
+    for _ in range(6):
+        jnet.fit(x, y)
+        net.fit(ListDataSetIterator([DataSet(x, y)]))
+        assert abs(net.score() - float(jnet.score())) <= TRAJ_TOL
+    for i, (p, jp) in enumerate(zip(net.params, jnet.params)):
+        for k in jp:
+            np.testing.assert_allclose(p[k].numpy(), np.asarray(jp[k]),
+                                       rtol=0, atol=TRAJ_TOL,
+                                       err_msg=f"layer {i} {k}")
 
 
 def test_fit_on_a_pretrain_config_matches_jax():
@@ -455,7 +467,7 @@ def test_fit_on_a_pretrain_config_matches_jax():
             .layer(JaxOutput(n_out=3, activation="softmax", loss="mcxent"))
             .set_input_type(JaxInputType.feed_forward(VOCAB))
             .pretrain(True).backprop(False).build())
-    jnet = JaxMultiLayerNetwork(conf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(conf))
     net = _twin(jnet)
     r = np.random.default_rng(12)
     x = r.random((12, VOCAB)).astype(np.float32)

@@ -1239,3 +1239,166 @@ def test_moe_ties_route_the_lowest_experts_on_the_card(cuda):
     want[:, :2] = 0.5
     assert torch.equal(card[-8:], want)
     assert int((card > 0).sum(1).max()) == 2
+
+
+# ---------------------------------------------------------------------------
+# ComputationGraphs: kernels 4-7 through graph vertices (main path 10)
+# ---------------------------------------------------------------------------
+def _graph_grads(g, ds):
+    """(score, {"vertex/key path": gradient on the CPU}) of a graph."""
+    from deeplearning4j_tpu_torch.nn.trees import leaf_paths, tree_map
+    inputs, labels, fm, lm = g._to_inputs(ds)
+    params = {n: tree_map(lambda v: v.detach().requires_grad_(), p)
+              for n, p in g.params.items()}
+    paths = [(f"{n}/{k}", v) for n, p in params.items()
+             for k, v in leaf_paths(p)]
+    score, _ = g._loss_fn(params, g.state, inputs, labels, None, fm, lm)
+    grads = torch.autograd.grad(score, [v for _, v in paths])
+    return score.item(), {n: d.detach().cpu()
+                          for (n, _), d in zip(paths, grads)}
+
+
+def _seq2seq_graph(device, B=64, T=64):
+    """chip_smoke's encoder-decoder graph (AdditionRNN's shape at the
+    char-RNN's widths) and one batch of one-hot characters."""
+    conf = (pt.NeuralNetConfiguration.builder().seed(7)
+            .updater(pt.Adam(2e-3)).graph_builder()
+            .add_inputs("enc", "dec")
+            .add_layer("encoder", pt.GravesLSTM(n_out=200), "enc")
+            .add_vertex("last", pt.LastTimeStepVertex(), "encoder")
+            .add_vertex("dup", pt.DuplicateToTimeSeriesVertex(), "last",
+                        "dec")
+            .add_vertex("merge", pt.MergeVertex(), "dec", "dup")
+            .add_layer("decoder", pt.GravesLSTM(n_out=200), "merge")
+            .add_layer("out", pt.RnnOutputLayer(n_out=77,
+                                                activation="softmax",
+                                                loss="mcxent"), "decoder")
+            .set_outputs("out")
+            .set_input_types(pt.InputType.recurrent(77, T),
+                             pt.InputType.recurrent(77, T)).build())
+    g = pt.ComputationGraph(conf, device=device).init(
+        generator=torch.Generator().manual_seed(8))
+    r = np.random.default_rng(9)
+    eye = np.eye(77, dtype=np.float32)
+    ds = pt.MultiDataSet(features=[eye[r.integers(0, 77, (B, T))]
+                                   for _ in range(2)],
+                         labels=[eye[r.integers(0, 77, (B, T))]])
+    return g, ds
+
+
+def test_seq2seq_graph_step_matches_the_cpu_with_cluster_launches(cuda):
+    """The seq2seq graph's GravesLSTM vertices on the card: first-step
+    gradients within 1e-4 of each tensor's largest entry of the CPU's, one
+    Adam step's score within 1e-4 and parameters within 1e-3 relative L2;
+    the step launches 2 residual-forward, 2 adjoint and 2 reduction
+    kernels, forward and adjoint "cluster" (F 77 and 277, H 200); an
+    rnn_time_step call 2 primal launches, within TOL of the CPU's."""
+    pair = [_seq2seq_graph(d) for d in (cuda, "cpu")]
+    grads = [_graph_grads(g, ds) for g, ds in pair]
+    for name, want in grads[1][1].items():
+        assert _rel_err(grads[0][1][name], want) <= 1e-4, name
+    lstm.reset_launches()
+    pair[0][0].fit(pair[0][1])
+    torch.cuda.synchronize()
+    assert lstm.launch_counts() == {"launches": 0, "residual_launches": 2,
+                                    "adjoint_launches": 2,
+                                    "reduction_launches": 2}
+    v = lstm.variant_counts()
+    for kind in ("residual", "adjoint"):
+        assert v[kind] == {"cluster": 2, "streamed": 0}, (kind, v)
+    pair[1][0].fit(pair[1][1])
+    (g, ds), (ref, _) = pair
+    assert abs(g.score() - ref.score()) <= 1e-4
+    for n in ref.params:
+        for k, b in ref.params[n].items():
+            a = g.params[n][k].cpu()
+            assert ((a - b).norm() / b.norm()).item() <= 1e-3, (n, k)
+    lstm.reset_launches()
+    x = [f[:8, 0] for f in ds.features]
+    assert (g.rnn_time_step(*x).cpu() - ref.rnn_time_step(*x)).abs().max() \
+        <= TOL
+    assert lstm.launch_counts()["launches"] == 2
+
+
+def _two_branch_graph(device, width=1024, B=128):
+    conf = (pt.NeuralNetConfiguration.builder().seed(10)
+            .updater(pt.Adam(1e-3)).compute_dtype("bfloat16")
+            .graph_builder().add_inputs("a", "b")
+            .add_layer("da", pt.DenseLayer(n_out=width, activation="identity",
+                                           has_bias=False), "a")
+            .add_layer("bna", pt.BatchNormalization(activation="relu"), "da")
+            .add_layer("db", pt.DenseLayer(n_out=width, activation="identity",
+                                           has_bias=False), "b")
+            .add_layer("bnb", pt.BatchNormalization(activation="relu"), "db")
+            .add_vertex("m", pt.MergeVertex(), "bna", "bnb")
+            .add_layer("out", pt.OutputLayer(n_out=10, activation="softmax",
+                                             loss="mcxent"), "m")
+            .set_outputs("out")
+            .set_input_types(pt.InputType.feed_forward(784),
+                             pt.InputType.feed_forward(784)).build())
+    g = pt.ComputationGraph(conf, device=device).init(
+        generator=torch.Generator().manual_seed(11))
+    x, y, _, _ = pt.bundled_mnist_subset()
+    return g, pt.MultiDataSet(features=[x[:B], x[B:2 * B]], labels=[y[:B]])
+
+
+def test_two_branch_bn_graph_step_matches_the_cpu_with_resident_launches(
+        cuda):
+    """The bf16 two-branch graph's BatchNormalization(relu) vertices on the
+    card: first-step gradients within 2e-2 of each tensor's largest entry
+    of the CPU's (the bf16 limit), one Adam step's score within 2e-2 and
+    parameters and running statistics within 5e-2 relative L2; the step
+    launches one "resident" forward and one backward per BN vertex, the
+    evaluation forward none."""
+    pair = [_two_branch_graph(d) for d in (cuda, "cpu")]
+    grads = [_graph_grads(g, ds) for g, ds in pair]
+    for name, want in grads[1][1].items():
+        assert _rel_err(grads[0][1][name], want) <= 2e-2, name
+    bn_relu.reset_launches()
+    pair[0][0].fit(pair[0][1])
+    torch.cuda.synchronize()
+    assert bn_relu.launch_counts() == {"fwd_launches": 2, "bwd_launches": 2}
+    assert bn_relu.variant_counts() == {
+        "fwd": {"resident": 2, "streamed": 0},
+        "bwd": {"resident": 2, "streamed": 0}}
+    pair[1][0].fit(pair[1][1])
+    (g, ds), (ref, _) = pair
+    assert abs(g.score() - ref.score()) <= 2e-2
+    for tree, ref_tree in ((g.params, ref.params), (g.state, ref.state)):
+        for n in ref_tree:
+            for k, b in ref_tree[n].items():
+                a = tree[n][k].cpu().double()
+                b = b.double()
+                scale = max(b.norm().item(), 1e-3 * b.numel() ** 0.5)
+                assert (a - b).norm().item() / scale <= 5e-2, (n, k)
+    bn_relu.reset_launches()
+    out = g.output(*ds.features)[0]
+    torch.cuda.synchronize()
+    assert set(bn_relu.launch_counts().values()) == {0}
+    assert (out.cpu() - ref.output(*ds.features)[0]).abs().max() <= 2e-2
+
+
+def test_resnet_block_on_the_card_matches_the_cpu(cuda):
+    """One bottleneck block of ResNet-50 at ImageNet's first-stage widths
+    (56 x 56 x 64 in, 256 out, the projection shortcut, batch 4, float32):
+    output within 1e-4 of the largest entry and the first step's gradients
+    within 1e-2 relative L2 per tensor of the CPU's (the VGG limits: ReLU
+    masks and BN); no hand kernel launches (4-D BN: the plain tier)."""
+    from deeplearning4j_tpu_torch.models import zoo
+    pair = [zoo.resnet50(n_classes=10, image=224, blocks=(1,), width=64,
+                         compute_dtype=None, device=d).init(
+        generator=torch.Generator().manual_seed(12)) for d in (cuda, "cpu")]
+    r = np.random.default_rng(13)
+    x = r.normal(size=(4, 224, 224, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, 4)]
+    ds = pt.DataSet(x, y)
+    before = _hand_kernel_launches()
+    outs = [g.output(x)[0].cpu() for g in pair]
+    assert _rel_err(outs[0], outs[1]) <= 1e-4
+    grads = [_graph_grads(g, ds) for g in pair]
+    torch.cuda.synchronize()
+    assert _hand_kernel_launches() == before
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-4 * abs(grads[1][0])
+    for name, want in grads[1][1].items():
+        got = grads[0][1][name]
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2, name

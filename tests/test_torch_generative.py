@@ -52,6 +52,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.updaters import Sgd
 from deeplearning4j_tpu_torch.util.gradient_check import GradientCheckUtil
+from jax_reference import jax_init
 from torch_threads import one_torch_thread  # noqa: F401
 
 D, N = 12, 40
@@ -77,7 +78,7 @@ def _pair(layers, updater, pretrain=True, backprop=False, n_in=D):
         b = b.layer(layer)
     jconf = (b.set_input_type(JaxInputType.feed_forward(n_in))
              .pretrain(pretrain).backprop(backprop).build())
-    jnet = JaxMultiLayerNetwork(jconf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(jconf))
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
         jconf.to_json()), device="cpu").init()
     return jnet, from_jax_params(net, _np_tree(jnet.params),
@@ -331,7 +332,7 @@ def test_center_loss_step_matches_jax():
                  n_out=3, activation="softmax", loss="mcxent", lambda_=0.05,
                  alpha=0.3))
              .set_input_type(JaxInputType.feed_forward(5)).build())
-    jnet = JaxMultiLayerNetwork(jconf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(jconf))
     net = from_jax_params(MultiLayerNetwork(MultiLayerConfiguration.from_json(
         jconf.to_json()), device="cpu").init(), _np_tree(jnet.params))
     r = np.random.default_rng(6)

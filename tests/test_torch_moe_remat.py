@@ -52,6 +52,7 @@ from deeplearning4j_tpu_torch.nn.layers import (DenseLayer,
 from deeplearning4j_tpu_torch.nn.layers.moe import top_k_gates
 from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.util.gradient_check import check_gradients_fn
+from jax_reference import jax_init
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL, STEP_TOL, TRAJ_TOL = 1e-5, 1e-5, 1e-4
@@ -73,7 +74,7 @@ def _moe_pair(top_k=2, n_experts=4, lb=0.0, updater=None, noise_std=0.0):
                            load_balance_coef=lb, router_noise=noise_std))
              .layer(JaxOutput(n_out=4, activation="softmax", loss="mcxent"))
              .set_input_type(JaxInputType.feed_forward(8)).build())
-    jnet = JaxMultiLayerNetwork(jconf).init()
+    jnet = jax_init(JaxMultiLayerNetwork(jconf))
     net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
         jconf.to_json()), device="cpu").init()
     return jnet, from_jax_params(net, _np_tree(jnet.params),
@@ -109,8 +110,8 @@ def test_moe_forward_matches_jax(top_k, n_experts):
     _close(net.output(x).numpy(), jnet.output(x), TOL)
     layer, p = net.layers[0], net.params[0]
     y, _ = layer.apply(p, net.state[0], torch.as_tensor(x))
-    jy, _ = jnet.layers[0].apply(jnet.params[0], jnet.state[0],
-                                 jnp.asarray(x))
+    jy, _ = jax.jit(jnet.layers[0].apply)(jnet.params[0], jnet.state[0],
+                                          jnp.asarray(x))
     _close(y.numpy(), jy, TOL)
 
 
@@ -282,7 +283,7 @@ def _mlp(remat_mode=None, policy=None, dropout=None, jax_side=False):
             .set_input_type((JaxInputType if jax_side else InputType)
                             .feed_forward(8)).build())
     if jax_side:
-        return JaxMultiLayerNetwork(conf).init()
+        return jax_init(JaxMultiLayerNetwork(conf))
     return MultiLayerNetwork(conf, device="cpu").init(
         generator=torch.Generator().manual_seed(1))
 
