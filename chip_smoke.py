@@ -19,7 +19,14 @@ Phases:
      {1024, 200, 48} x bf16 / f16 / f32 and an NHWC input for the BN+ReLU
      forward and backward, "resident" there, "streamed" at N = 28,673 and
      57,345, unaligned views through both, each variant rerun
-     bit-equal);
+     bit-equal); then every variant of the seven kernels (LSTM forward,
+     residual forward and adjoint "cluster" and "streamed", the
+     reduction; attention "tiled" forward and logsumexp, "simt" and
+     "wgmma" dq and dk/dv, the "wide" four; BN+ReLU forward and backward
+     "resident" and "streamed") captured once in a CUDA graph at the main
+     paths' shapes and replayed on three fresh inputs, each replay
+     bit-equal to an eager launch, the counters at 1 captured + 3
+     replayed launches;
   3. main path 1: the full-width char-RNN (vocab 77, 2 x GravesLSTM(200),
      seq 64, random weights from a seed) written to a zip, registered,
      served over HTTP in buckets 1, 8 and 32 (direct, batched, concurrent
@@ -155,8 +162,25 @@ Phases:
      steps on the bundled digits card against CPU, early stopping on it with
      a LocalFileModelSaver on the card and its best model restored, a
      GraphTransferLearning head replacement stepped on both devices, and
-     conjugate-gradient and L-BFGS line searches card against CPU; and the
-     run's total seconds.
+     conjugate-gradient and L-BFGS line searches card against CPU;
+ 15. main path 11, the training loop (`fit`'s options; windows replayed
+     from CUDA graphs): the BN-MLP of phase 8 on 20 batches of 128
+     seeded normal rows, superstep 1, 4, 3 and "epoch" bit-equal on the
+     card and held to the CPU at phase 8's bf16 limits, the same with
+     dropout, grad_accumulation=2 at batch 64 (K=2 bit-equal to K=1;
+     against batch 128 on mlp_mnist without BN), a TrainingGuard over a
+     NaN batch (skip_batch and rollback: the run equals one without the
+     poisoned window), checkpoint_every=5 under superstep=4 with a
+     SimulatedCrash at the second save and resume bit-equal to the
+     uninterrupted run, checkpoints resumed across devices, the same run
+     in a TelemetrySession (chrome trace parsed back, captures counted,
+     the card's memory watermarks), then 20 steps at batch 4096 with
+     prefetch at K=1 and K=4 (step p50, samples/s, device busy time, idle
+     share and copy time); the char-RNN's fit_scan bit-equal to its
+     per-batch fit (20 TBPTT chunk steps); the bf16 LM with warm-up at
+     batch 16, superstep=4 bit-equal to 1, and its step p50 and idle
+     share at batch 64 for K=1 and K=4; the bf16 two-branch BN graph
+     under superstep=4; and the run's total seconds.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -184,7 +208,12 @@ and step of the two-branch graph, none in its evaluation (phase 14), each
 path launching none of the others' kernels, and none at all on the
 convolutional, pretraining and MoE paths (phases 11 and 13) or on the
 ResNet-50 and GoogLeNet graphs (phase 14: the 4-D BN takes the plain
-tier). The last two lines are a `{"kernels": [...]}` object and `{"ok":
+tier); on the training loop (phase 15), counted through the CUDA-graph
+replays, one resident BN+ReLU forward and backward launch per BN layer
+and step at every window length, 2 + 2 + 2 cluster LSTM launches per
+chunk step of the char-RNN's fit_scan, 6 + 6 + 6 wgmma attention
+launches per bf16 LM step, and one resident forward and backward per BN
+vertex and step of the two-branch graph. The last two lines are a `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
 """
@@ -769,6 +798,19 @@ def bn_mlp_json(pt):
             .layer(pt.OutputLayer(n_out=10, activation="softmax",
                                   loss="mcxent"))
             .set_input_type(pt.InputType.feed_forward(784)).build().to_json())
+
+
+def plain_mlp_conf(pt):
+    """`mlp_mnist`'s widths and Adam (784 -> 1024 -> 1024 -> 10, relu) in
+    bf16 compute, without BN: where gradient accumulation computes what
+    one big batch does."""
+    return (pt.NeuralNetConfiguration.builder().seed(42)
+            .updater(pt.Adam(MLP_LR)).compute_dtype("bfloat16").list()
+            .layer(pt.DenseLayer(n_out=MLP_WIDTH, activation="relu"))
+            .layer(pt.DenseLayer(n_out=MLP_WIDTH, activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(784)).build())
 
 
 def bn_narrow_json(pt):
@@ -2659,6 +2701,648 @@ def graph_path(pt, torch, tag, tmp, root, reset_counts, hand_counts):
     return out
 
 
+# ---- phase 2's CUDA-graph checks, and main path 11: the training loop -----
+def trees_equal(torch, a, b):
+    """Two trees of tensors hold the same bits, leaf for leaf."""
+    from deeplearning4j_tpu_torch.nn.trees import flatten_tree
+    la, lb = flatten_tree(a)[0], flatten_tree(b)[0]
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.shape == y.shape
+            and torch.equal(x.cpu(), y.cpu()))
+        for x, y in zip(la, lb))
+
+
+def nets_equal(torch, a, b):
+    """Parameters, updater state, layer state and counters bit-equal."""
+    return (trees_equal(torch, a.params, b.params)
+            and trees_equal(torch, a.updater_state, b.updater_state)
+            and trees_equal(torch, a.state, b.state)
+            and a.iteration_count == b.iteration_count
+            and a.epoch_count == b.epoch_count)
+
+
+def launches_in(delta):
+    """Total launches in a `kernels.count_delta`."""
+    return sum(sum(totals.values()) for totals, _ in delta.values())
+
+
+def replay_check(torch, kernels, what, make, call):
+    """Capture one call of a kernel wrapper in a CUDA graph (the wrapper
+    launches on the current stream, as a capture needs), replay it on
+    three fresh inputs copied into the captured ones, and hold each replay
+    bit-equal to an eager call on the same inputs. The capture's launches
+    come off the counters and every replay adds them back: 1 launch
+    captured, 3 counted after the replays. Returns the captured
+    launches."""
+    def quiet(fn):
+        snap = kernels.count_snapshot()
+        out = fn()
+        kernels.restore_counts(snap)
+        return out
+
+    static = quiet(lambda: make(0))
+    quiet(lambda: call(*static))            # first launch: attributes
+    torch.cuda.synchronize()
+    before = kernels.count_snapshot()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(*static)
+    captured = kernels.count_delta(before, kernels.count_snapshot())
+    kernels.restore_counts(before)
+    check(launches_in(captured) == 1, f"{what}: the capture recorded "
+          f"{launches_in(captured)} launches, want 1")
+    outs = [o for o in (out if isinstance(out, (tuple, list)) else (out,))]
+    for r in (1, 2, 3):
+        fresh = quiet(lambda: make(r))
+        for s, f in zip(static, fresh):
+            if isinstance(s, torch.Tensor):
+                s.copy_(f)
+        graph.replay()
+        kernels.add_counts(captured)
+        want = quiet(lambda: call(*fresh))
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        torch.cuda.synchronize()
+        check(all((o is None and w is None) or torch.equal(o, w)
+                  for o, w in zip(outs, want)),
+              f"{what}: replay {r} differs from the eager launch")
+    got = kernels.count_delta(before, kernels.count_snapshot())
+    check(launches_in(got) == 3 and all(
+        got[m][0] == {k: 3 * n for k, n in captured[m][0].items()}
+        for m in got), f"{what}: counters read {got} after 3 replays of "
+        f"{captured}")
+    return captured
+
+
+def capture_checks(torch, kernels, lstm, attention, bn_relu, tag):
+    """Phase 2's CUDA-graph check of every kernel variant at the main
+    paths' shapes: capture one call, replay it three times, each replay
+    bit-equal to an eager launch, the counters at 1 captured + 3
+    replayed."""
+    t0 = time.perf_counter()
+    cases = []
+
+    def lstm_make(T, B, F, H, kind):
+        def make(r):
+            args = lstm_inputs(torch, T, B, F, H, seed=100 + r)
+            if kind in ("fwd", "residual"):
+                return args + [1.0]
+            x, W, b, peep, h0, c0 = args
+            res = lstm.lstm_sequence_reference(*args, 1.0,
+                                               save_residuals=True)
+            dhs, dhT, dcT = cotangents(torch, T, B, H, seed=200 + r)
+            if kind == "adjoint":
+                return [W, peep, c0, *res[1:], dhs, dhT, dcT, F]
+            dgates = cotangents(torch, T, B, 4 * H, seed=300 + r)[0]
+            return [x, res[0], h0, res[1], c0, dgates]
+        return make
+
+    calls = {"fwd": lstm.fused_lstm_sequence,
+             "residual": lstm.lstm_residual_forward,
+             "adjoint": lstm.lstm_adjoint,
+             "reduction": lstm.lstm_param_grads}
+    for kind, shape in (("fwd", (SEQ, 32, VOCAB, HIDDEN)),
+                        ("fwd", STREAMED_SHAPES[0]),
+                        ("residual", (TRAIN_TBPTT, TRAIN_B, VOCAB, HIDDEN)),
+                        ("residual", STREAMED_SHAPES[0]),
+                        ("adjoint", (TRAIN_TBPTT, TRAIN_B, VOCAB, HIDDEN)),
+                        ("adjoint", STREAMED_SHAPES[0]),
+                        ("reduction", (TRAIN_TBPTT, TRAIN_B, VOCAB,
+                                       HIDDEN))):
+        T, B, F, H = shape
+        variant = ("" if kind == "reduction"
+                   else lstm.sequence_variant(B, F, H))
+        cases.append((f"LSTM {kind} {variant} T={T} B={B} F={F} H={H}",
+                      lstm_make(T, B, F, H, kind), calls[kind]))
+
+    def attn_make(B, T, H, Dh, dtype, kind):
+        dt = getattr(torch, dtype)
+
+        def make(r):
+            q, k, v = (t.to(dt) for t in attention_inputs(
+                torch, B, T, T, H, Dh, seed=400 + r))
+            if kind in ("fwd", "lse"):
+                return [q, k, v, True]
+            o, lse = attention.attention_reference_heads_lse(q, k, v, True)
+            do = attention_inputs(torch, B, T, T, H, Dh,
+                                  seed=500 + r)[0].to(dt)
+            if kind == "dq":
+                return [q, k, v, o, lse, do, True]
+            dsum = (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+                .contiguous()
+            return [q, k, v, do, lse, dsum, True]
+        return make
+
+    acalls = {"fwd": attention.flash_attention_heads,
+              "lse": attention.flash_attention_fwd_lse_heads,
+              "dq": attention.attention_bwd_dq,
+              "dkv": attention.attention_bwd_dkv}
+    Dh = LM_WIDTH // LM_HEADS
+    for kinds, (B, T, H, Dh_, dt), variant in (
+            (("fwd", "lse", "dq", "dkv"),
+             (LM_CMP_B, LM_SEQ, LM_HEADS, Dh, "float32"), "tiled / simt"),
+            (("dq", "dkv"), (LM_CMP_B, LM_SEQ, LM_HEADS, Dh, "bfloat16"),
+             "wgmma"),
+            (("fwd", "lse", "dq", "dkv"), (2, LM_SEQ, 2, 512, "float32"),
+             "wide")):
+        for kind in kinds:
+            cases.append((f"attention {kind} {variant} B={B} T={T} H={H} "
+                          f"Dh={Dh_} {dt}", attn_make(B, T, H, Dh_, dt, kind),
+                          acalls[kind]))
+
+    def bn_make(N, C, kind):
+        def make(r):
+            x, g, b, dy = bn_args(torch, N, C, "bfloat16", seed=600 + r)
+            if kind == "fwd":
+                return [x, g, b]
+            y, mean, var = bn_relu.bn_relu_reference(x, g, b)
+            return [x, g, b, mean, var, dy]
+        return make
+
+    for N, C in ((MLP_B, MLP_WIDTH), BN_STREAMED[1]):
+        for kind, fn in (("fwd", bn_relu.bn_relu_forward),
+                         ("bwd", bn_relu.bn_relu_backward)):
+            variant = bn_relu.bn_plan(N, C, 2, kind == "bwd").variant
+            cases.append((f"BN+ReLU {kind} {variant} N={N} C={C} bfloat16",
+                          bn_make(N, C, kind), fn))
+    for what, make, call in cases:
+        replay_check(torch, kernels, what, make, call)
+    print(f"{tag} CUDA graphs: {len(cases)} kernel variants captured and "
+          "replayed 3 times each on fresh inputs, every replay bit-equal "
+          "to an eager launch, counters 1 captured + 3 replayed each "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return len(cases)
+
+
+def window_profile(torch, fn, reps=1):
+    """Device busy ms, host wall ms and host-to-device copy ms of `fn`
+    (torch.profiler, device-side events only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = h2d = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        if "htod" in e.key.lower() or "host to device" in e.key.lower():
+            h2d += ms
+    check(busy > 0, "torch.profiler recorded no device time")
+    return busy, wall, h2d
+
+
+class EdgeLog:
+    """Listener: the score and the host time (after a device sync) of every
+    iteration_done; under a window they come at the window's edge."""
+
+    def __init__(self, torch, sync=True):
+        self.torch, self.sync = torch, sync
+        self.scores, self.times = [], []
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(float(model._score))
+        if self.sync:
+            self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+
+
+# the training loop (main path 11): the BN-MLP of phase 8 on 20 batches of
+# seeded normal rows (the bundled digits give two batches an epoch), the
+# char-RNN of phase 6 on its 10 text batches, 8 steps of the bf16 LM of
+# phase 9 at batch 16, 8 steps of the two-branch graph of phase 14
+LOOP_BATCHES, LOOP_BIG_B = 20, 4096
+LOOP_LM_STEPS, LOOP_TB_STEPS = 8, 8
+
+
+def loop_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 11 (phase 15): the training-loop machinery on the card,
+    held against the same zips and batches on the CPU. Returns its
+    launches and numbers."""
+    from deeplearning4j_tpu_torch.fault import (FaultyIterator, GuardPolicy,
+                                                SimulatedCrash,
+                                                TrainingGuard,
+                                                crash_at_write)
+    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
+    from deeplearning4j_tpu_torch.telemetry import TelemetrySession
+    from deeplearning4j_tpu_torch.telemetry import runtime as tel_runtime
+    t_phase = time.perf_counter()
+    out = {"card": tag.strip("[]")}
+    L = pt.ListDataSetIterator
+
+    # -- (a) the bf16 BN-MLP through kernels 4-5 --------------------------
+    r = np.random.default_rng(71)
+    xs = r.normal(size=(LOOP_BATCHES * MLP_B, 784)).astype(np.float32)
+    ys = np.eye(10, dtype=np.float32)[r.integers(0, 10, len(xs))]
+    batches = [pt.DataSet(xs[i:i + MLP_B], ys[i:i + MLP_B])
+               for i in range(0, len(xs), MLP_B)]
+    halves = [pt.DataSet(xs[i:i + MLP_B // 2], ys[i:i + MLP_B // 2])
+              for i in range(0, len(xs), MLP_B // 2)]
+    mlp_json = bn_mlp_json(pt)
+    zpath = os.path.join(tmp, "loop_mlp.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(mlp_json), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(72)), zpath)
+    net = lambda dev=DEVICE: pt.ModelSerializer.restore(zpath, device=dev)
+    pre_bn = (0, 2)
+
+    def mlp_err(a, b, steps):
+        """Largest per-tensor relative L2 error of the parameters (against
+        Adam's reach where a tensor is small) and of the running
+        variances, with the name of that tensor; the pre-BN biases, whose
+        gradient is 0 up to rounding (Adam moves them by noise, up to its
+        reach lr x steps an entry, either way), are held as phase 8 holds
+        them: both sides within that reach."""
+        worst, name = 0.0, ""
+        reach_entry = MLP_LR * steps
+        for i, (p, q) in enumerate(zip(a.params, b.params)):
+            for k in q:
+                x, y = p[k].detach().cpu(), q[k].detach().cpu()
+                if i in pre_bn and k == "b":
+                    check(max(x.abs().max().item(), y.abs().max().item())
+                          <= reach_entry * 1.001, f"pre-BN bias {i} moved "
+                          f"past Adam's reach {reach_entry}")
+                    continue
+                scale = max(y.norm().item(),
+                            reach_entry * y.numel() ** 0.5)
+                err = (x - y).norm().item() / scale
+                if err > worst:
+                    worst, name = err, f"{i}/{k}"
+        for i in (1, 3):
+            x, y = (n.state[i]["var"].detach().cpu() for n in (a, b))
+            err = ((x - y).norm() / y.norm()).item()
+            if err > worst:
+                worst, name = err, f"{i}/var"
+        return worst, name
+
+    def run(k, dev=DEVICE, data=None, m=1, **kw):
+        n = net(dev)
+        log = EdgeLog(torch, sync=False)
+        n.set_listeners(log)
+        n.fit(L(batches if data is None else data), superstep=k,
+              grad_accumulation=m, **kw)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        return n, log.scores
+
+    reset_counts()
+    t0 = time.perf_counter()
+    ref, ref_scores = run(1)
+    eager_s = time.perf_counter() - t0
+    eager_counts = bn_relu.variant_counts()
+    runs, counts = {}, {}
+    for k in (4, 3, "epoch"):
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[k] = run(k)
+        counts[k] = (bn_relu.variant_counts(), time.perf_counter() - t0)
+        check(nets_equal(torch, runs[k][0], ref) and runs[k][1] == ref_scores,
+              f"BN-MLP superstep={k} on the card differs from superstep=1")
+    want = {kind: {"resident": 2 * LOOP_BATCHES, "streamed": 0}
+            for kind in ("fwd", "bwd")}
+    for k, (c, _) in list(counts.items()) + [("1 (eager)", (eager_counts,
+                                                            0))]:
+        check(c == want, f"BN-MLP superstep={k}: BN launches {c}, want "
+              f"{want} (one resident forward and backward per BN layer "
+              "and step, through the replays)")
+    n_graphs = len(runs[4][0].__dict__.get("_captured_steps", {}))
+    check(n_graphs == 1, f"superstep=4 captured {n_graphs} graphs, want 1")
+    cpu_ref, cpu_scores = run(1, "cpu")
+    cpu4, cpu4_scores = run(4, "cpu")
+    check(nets_equal(torch, cpu4, cpu_ref), "BN-MLP superstep=4 on the CPU "
+          "differs from superstep=1")
+    score_err = float(np.abs(np.subtract(runs[4][1], cpu4_scores)).max())
+    param_err, param_at = mlp_err(runs[4][0], cpu4, LOOP_BATCHES)
+    check(score_err <= BF16_SCORE_TOL, f"BN-MLP superstep=4 card vs CPU "
+          f"scores {score_err} > {BF16_SCORE_TOL}")
+    check(param_err <= BF16_PARAM_TOL, f"BN-MLP superstep=4 card vs CPU "
+          f"parameters / running variances {param_err} (tensor {param_at}) "
+          f"> {BF16_PARAM_TOL}")
+    print(f"{tag} loop (a) BN-MLP bf16, {LOOP_BATCHES} steps: superstep 4, "
+          "3 (ragged last window) and epoch bit-equal to 1 on the card "
+          "(parameters, updater state, running statistics, counters, "
+          f"scores); one capture; BN launches {counts[4][0]} through the "
+          f"replays; fit wall s: eager {eager_s:.2f}, "
+          + ", ".join(f"K={k} {c[1]:.2f}" for k, c in counts.items())
+          + f" (first windows capture); card vs CPU at K=4: scores "
+          f"{score_err:.3e} (limit {BF16_SCORE_TOL}), parameters and "
+          f"running variances {param_err:.3e} at {param_at} (limit "
+          f"{BF16_PARAM_TOL})")
+    out["bn_mlp"] = {"score_err": score_err, "param_err": param_err,
+                     "launches": counts[4][0]}
+
+    # dropout: the generator registered with the graph advances as an
+    # eager step does
+    drop_conf = pt.MultiLayerConfiguration.from_json(mlp_json)
+    drop_conf.layers[0].dropout = 0.5
+    dz = os.path.join(tmp, "loop_drop.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        drop_conf, device=DEVICE).init(
+        generator=torch.Generator().manual_seed(73)), dz)
+    drops = []
+    for k in (1, 4):
+        n = pt.ModelSerializer.restore(dz, device=DEVICE)
+        n.fit(L(batches[:8]), superstep=k)
+        drops.append(n)
+    check(nets_equal(torch, *drops) and torch.equal(
+        drops[0]._generator.get_state(), drops[1]._generator.get_state()),
+        "BN-MLP with dropout: superstep=4 differs from 1 on the card")
+    print(f"{tag} loop (a) dropout 0.5: superstep=4 bit-equal to 1 on the "
+          "card, generator states equal")
+
+    # gradient accumulation: 2 x 64 rows a step. Against native batch 128
+    # it is the same math only without BN (a BN layer normalises over each
+    # microbatch): the BN-MLP's gap is printed, and mlp_mnist in bf16 (the
+    # same widths, Dense(relu), no BN) is held to the bf16 limits
+    acc1, acc1_s = run(1, data=halves, m=2)
+    acc2, acc2_s = run(2, data=halves, m=2)
+    check(nets_equal(torch, acc1, acc2) and acc1_s == acc2_s,
+          "grad_accumulation=2: superstep 2 differs from 1 on the card")
+    bn_acc = (float(np.abs(np.subtract(acc1_s, ref_scores)).max()),
+              mlp_err(acc1, ref, LOOP_BATCHES)[0])
+    plain_zip = os.path.join(tmp, "loop_plain_mlp.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        plain_mlp_conf(pt), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(79)), plain_zip)
+    plain = []
+    for data, m in ((batches, 1), (halves, 2)):
+        n = pt.ModelSerializer.restore(plain_zip, device=DEVICE)
+        log = EdgeLog(torch, sync=False)
+        n.set_listeners(log)
+        n.fit(L(data), superstep=2, grad_accumulation=m)
+        plain.append((n, log.scores))
+    acc_score = float(np.abs(np.subtract(plain[0][1], plain[1][1])).max())
+    acc_param = max(
+        (a - b).norm().item() / max(b.norm().item(), MLP_LR * LOOP_BATCHES
+                                    * b.numel() ** 0.5)
+        for p, q in zip(plain[1][0].params, plain[0][0].params)
+        for a, b in ((p[k].detach().cpu(), q[k].detach().cpu()) for k in q))
+    check(acc_score <= BF16_SCORE_TOL and acc_param <= BF16_PARAM_TOL,
+          f"mlp_mnist grad_accumulation=2 x 64 against batch 128: scores "
+          f"{acc_score}, parameters {acc_param} (limits {BF16_SCORE_TOL}, "
+          f"{BF16_PARAM_TOL})")
+    print(f"{tag} loop (a) grad_accumulation=2 at batch 64: superstep 2 "
+          f"bit-equal to 1 on the card; mlp_mnist (bf16, no BN) against "
+          f"native batch 128: scores {acc_score:.3e}, parameters "
+          f"{acc_param:.3e} (limits {BF16_SCORE_TOL}, {BF16_PARAM_TOL}); "
+          f"the BN-MLP against batch 128 (BN statistics over 64 rows, not "
+          f"128: another function, printed only): scores {bn_acc[0]:.3e}, "
+          f"parameters {bn_acc[1]:.3e}")
+    out["accumulation"] = {"plain_score_err": acc_score,
+                           "plain_param_err": acc_param,
+                           "bn_score_gap": bn_acc[0],
+                           "bn_param_gap": bn_acc[1]}
+
+    # the guard: NaN in batch 7, superstep 4 (window 2 discarded whole)
+    kept = batches[:4] + batches[8:]
+    guard_ref, _ = run(4, data=kept)
+    for policy in (GuardPolicy.SKIP_BATCH, GuardPolicy.ROLLBACK):
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            n = net(dev)
+            g = TrainingGuard(policy=policy, refresh_every=100)
+            n.fit(FaultyIterator(L(batches), nan_at=7), superstep=4,
+                  guard=g)
+            check(g.nonfinite_steps >= 1 and n.iteration_count
+                  == len(kept), f"guard {policy} on {dev}: "
+                  f"{g.nonfinite_steps} non-finite, {n.iteration_count} "
+                  "steps")
+            got[dev] = n
+        check(nets_equal(torch, got[DEVICE], guard_ref), f"guard {policy}: "
+              "the card's run is not the run without the poisoned window")
+        err = mlp_err(got[DEVICE], got["cpu"], len(kept))[0]
+        check(err <= BF16_PARAM_TOL, f"guard {policy}: card vs CPU {err}")
+        print(f"{tag} loop (a) guard {policy}: the poisoned window "
+              "restored to its pre-window snapshot bit-exactly (the run "
+              f"equals one without batches 4-7); card vs CPU {err:.3e}")
+
+    # checkpoints, a crash at the second save, resume
+    ck = {}
+    for dev in (DEVICE, "cpu"):
+        d = os.path.join(tmp, f"loop_ckpt_{dev}")
+        n = net(dev)
+        try:
+            with crash_at_write(nth=2) as hit:
+                n.fit(L(batches), superstep=4, checkpoint_dir=d,
+                      checkpoint_every=5)
+            check(False, "the crash at the second save did not fire")
+        except SimulatedCrash:
+            pass
+        check(hit["fired"] == 2, f"crash hook fired {hit['fired']} times")
+        ck[dev] = d
+    resumed = net()
+    resumed.fit(L(batches), superstep=4, checkpoint_dir=ck[DEVICE],
+                resume=True)
+    check(nets_equal(torch, resumed, runs[4][0]), "resume after the crash "
+          "differs from the uninterrupted run on the card")
+    cross = {}
+    for src, dev in ((DEVICE, "cpu"), ("cpu", DEVICE)):
+        n = net(dev)
+        n.fit(L(batches), superstep=4, checkpoint_dir=ck[src], resume=True)
+        want_net = cpu4 if dev == "cpu" else runs[4][0]
+        cross[f"{src}->{dev}"] = mlp_err(n, want_net, LOOP_BATCHES)[0]
+        check(n.iteration_count == LOOP_BATCHES and cross[f"{src}->{dev}"]
+              <= BF16_PARAM_TOL, f"checkpoint written on {src} resumed on "
+              f"{dev}: {cross[f'{src}->{dev}']}")
+    print(f"{tag} loop (a) checkpoint_every=5 under superstep=4, crash at "
+          "the 2nd save: resume bit-equal to the uninterrupted run on the "
+          f"card; across devices {cross} (limit {BF16_PARAM_TOL})")
+
+    # telemetry: run (a)'s K=4 inside a session
+    sess = TelemetrySession()
+    with tel_runtime.enabled(sess):
+        tel_net, _ = run(4)
+        sample = sess.watermarks.sample()
+    check(nets_equal(torch, tel_net, runs[4][0]), "the telemetry run differs")
+    trace = os.path.join(tmp, "loop_trace.json")
+    sess.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)
+    events = events.get("traceEvents", events) if isinstance(events,
+                                                             dict) else events
+    spans = {k: round(v, 4) for k, v in sess.span_totals().items()}
+    caps = sess.compiles.report()
+    check(caps.get("nn/superstep", {}).get("count") == 1, f"captures "
+          f"{caps}: want one of nn/superstep (one batch signature)")
+    check(sample.get("device0_bytes", 0) > 0, f"watermarks {sample}")
+    check(len(events) > 0 and "device/dispatch" in spans, f"trace "
+          f"{len(events)} events, spans {spans}")
+    print(f"{tag} loop (e) telemetry: {len(events)} trace events parsed "
+          f"back; span totals s {spans}; captures {caps}; watermarks "
+          f"{sample}")
+    out["telemetry"] = {"captures": caps, "spans": spans, "sample": sample}
+
+    # prefetch at batch 4096: step time, idle share, copy time (recorded)
+    rb = np.random.default_rng(74)
+    bx = rb.normal(size=(LOOP_BATCHES * LOOP_BIG_B, 784)).astype(np.float32)
+    by = np.eye(10, dtype=np.float32)[rb.integers(0, 10, len(bx))]
+    big = [pt.DataSet(bx[i:i + LOOP_BIG_B], by[i:i + LOOP_BIG_B])
+           for i in range(0, len(bx), LOOP_BIG_B)]
+    out["prefetch"] = {}
+    for k in (1, 4):
+        n = net()
+        n.fit(L(big[:k]), superstep=k, prefetch=True)      # captures
+        log = EdgeLog(torch)
+        n.set_listeners(log)
+        t0 = time.perf_counter()
+        n.fit(L(big), superstep=k, prefetch=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        edges = np.diff([t0] + log.times[k - 1::k]) / k * 1e3
+        n.set_listeners()
+        busy, pwall, h2d = window_profile(
+            torch, lambda: n.fit(L(big), superstep=k, prefetch=True))
+        row = {"step_p50_ms": float(np.median(edges)),
+               "samples_per_s": LOOP_BATCHES * LOOP_BIG_B / wall,
+               "busy_ms_per_step": busy / LOOP_BATCHES,
+               "idle_share": 1 - busy / pwall,
+               "h2d_ms_per_step": h2d / LOOP_BATCHES}
+        out["prefetch"][f"K={k}"] = row
+        print(f"{tag} loop (a) prefetch, batch {LOOP_BIG_B}, superstep={k}: "
+              f"step p50 {row['step_p50_ms']:.3f} ms, "
+              f"{row['samples_per_s']:.0f} samples/s, device busy "
+              f"{row['busy_ms_per_step']:.3f} ms a step, idle share "
+              f"{row['idle_share']:.3f}, host-to-device copies "
+              f"{row['h2d_ms_per_step']:.3f} ms a step (torch.profiler)")
+    del big, bx, by
+
+    # -- (b) the char-RNN's device-resident TBPTT epoch, kernels 6-7 -------
+    x_text, y_text = readme_batches(root)
+    cr = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=TRAIN_T,
+                     tbptt=TRAIN_TBPTT, device=DEVICE)
+    cr.init(generator=torch.Generator().manual_seed(75))
+    czip = os.path.join(tmp, "loop_char_rnn.zip")
+    pt.ModelSerializer.write_model(cr, czip)
+    text = list(pt.ArrayDataSetIterator(x_text, y_text, batch_size=TRAIN_B,
+                                        shuffle=True, seed=11))
+    per_batch = pt.ModelSerializer.restore(czip, device=DEVICE)
+    per_batch.fit(L(text))
+    reset_counts()
+    scan = pt.ModelSerializer.restore(czip, device=DEVICE)
+    t0 = time.perf_counter()
+    scan.fit_scan(text)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    c_counts, c_var = lstm.launch_counts(), lstm.variant_counts()
+    steps = scan.iteration_count
+    check(steps == 2 * TRAIN_BATCHES, f"fit_scan took {steps} chunk steps")
+    check(nets_equal(torch, scan, per_batch), "char-RNN fit_scan differs "
+          "from the per-batch fit on the card")
+    check(c_counts == {"launches": 0, "residual_launches": 2 * steps,
+                       "adjoint_launches": 2 * steps,
+                       "reduction_launches": 2 * steps}
+          and c_var["residual"]["cluster"] == c_var["adjoint"]["cluster"]
+          == 2 * steps, f"char-RNN fit_scan launches {c_counts} {c_var}")
+    cpu_scan = pt.ModelSerializer.restore(czip, device="cpu")
+    cpu_scan.fit_scan(text)
+    c_err = max(param_rel_l2(scan, cpu_scan), 0.0)
+    check(c_err <= PARAM_TOL, f"char-RNN fit_scan card vs CPU parameters "
+          f"{c_err} > {PARAM_TOL}")
+    c_score = abs(float(scan._score) - float(cpu_scan._score))
+    check(c_score <= SCORE_TOL, f"char-RNN fit_scan last score card vs CPU "
+          f"{c_score} > {SCORE_TOL}")
+    print(f"{tag} loop (b) char-RNN fit_scan ({steps} TBPTT chunk steps, "
+          f"{scan_s:.2f} s with the capture): bit-equal to the per-batch "
+          f"fit on the card; launches {c_counts} all cluster through the "
+          f"replays; card vs CPU parameters {c_err:.3e} (limit "
+          f"{PARAM_TOL}), last score {c_score:.3e} (limit {SCORE_TOL})")
+    out["char_rnn"] = {"launches": c_counts, "param_err": c_err}
+
+    # -- (c) the bf16 LM with warm-up, kernels 1-3 --------------------------
+    ids, lab = lm_text_batches(root)
+    lm_batches = [pt.DataSet(ids[i:i + LM_CMP_B], lab[i:i + LM_CMP_B])
+                  for i in range(0, LOOP_LM_STEPS * LM_CMP_B, LM_CMP_B)]
+    lm = make_lm(pt, torch, 76, updater=pt.Adam(LM_LR, beta2=0.99),
+                 compute_dtype="bfloat16", warmup=True)
+    lzip = os.path.join(tmp, "loop_lm.zip")
+    pt.ModelSerializer.write_model(lm, lzip)
+    lms = []
+    for k in (1, 4):
+        reset_counts()
+        n = pt.ModelSerializer.restore(lzip, device=DEVICE)
+        n.fit(L(lm_batches), superstep=k)
+        torch.cuda.synchronize()
+        lms.append((n, attention.launch_counts(),
+                    attention.variant_counts()))
+    check(nets_equal(torch, lms[0][0], lms[1][0]), "bf16 LM superstep=4 "
+          "differs from 1 on the card")
+    a_counts, a_var = lms[1][1], lms[1][2]
+    per = LM_BLOCKS * LOOP_LM_STEPS
+    check(a_counts == {"launches": 0, "lse_launches": per,
+                       "dq_launches": per, "dkv_launches": per}
+          and a_var["dq"]["wgmma"] == a_var["dkv"]["wgmma"] == per,
+          f"bf16 LM superstep=4 launches {a_counts} {a_var}")
+    print(f"{tag} loop (c) bf16 LM, {LOOP_LM_STEPS} steps at batch "
+          f"{LM_CMP_B}: superstep=4 bit-equal to 1 on the card; launches "
+          f"{a_counts} (dq / dk/dv all wgmma) through the replays")
+    out["lm"] = {"launches": a_counts}
+    big_lm = [pt.DataSet(ids[i:i + LM_TRAIN_B], lab[i:i + LM_TRAIN_B])
+              for i in range(0, LOOP_LM_STEPS * LM_TRAIN_B, LM_TRAIN_B)]
+    out["lm_times"] = {}
+    for k in (1, 4):
+        n = pt.ModelSerializer.restore(lzip, device=DEVICE)
+        n.fit(L(big_lm[:k]), superstep=k)                   # captures
+        log = EdgeLog(torch)
+        n.set_listeners(log)
+        t0 = time.perf_counter()
+        n.fit(L(big_lm), superstep=k)
+        edges = np.diff([t0] + log.times[k - 1::k]) / k * 1e3
+        n.set_listeners()
+        busy, pwall, _ = window_profile(
+            torch, lambda: n.fit(L(big_lm), superstep=k))
+        row = {"step_p50_ms": float(np.median(edges)),
+               "idle_share": 1 - busy / pwall,
+               "busy_ms_per_step": busy / LOOP_LM_STEPS}
+        out["lm_times"][f"K={k}"] = row
+        print(f"{tag} loop (c) bf16 LM batch {LM_TRAIN_B} x {LM_SEQ}, "
+              f"superstep={k}: step p50 {row['step_p50_ms']:.3f} ms, device "
+              f"busy {row['busy_ms_per_step']:.3f} ms a step, idle share "
+              f"{row['idle_share']:.3f}")
+
+    # -- (d) the bf16 two-branch BN graph, kernels 4-5 on vertices -------
+    x_tr, y_tr, _, _ = pt.bundled_mnist_subset()
+    mirror = lambda x: x.reshape(-1, 28, 28)[:, :, ::-1].reshape(-1, 784)
+    rg = np.random.default_rng(77)
+    tbb = []
+    for _ in range(LOOP_TB_STEPS):
+        idx = rg.permutation(len(x_tr))[:TB_B]
+        tbb.append(pt.MultiDataSet(features=[x_tr[idx], mirror(x_tr[idx])],
+                                   labels=[y_tr[idx]]))
+    tz = os.path.join(tmp, "loop_two_branch.zip")
+    pt.ModelSerializer.write_model(pt.ComputationGraph(
+        two_branch_conf(pt), device=DEVICE).init(
+        generator=torch.Generator().manual_seed(78)), tz)
+    gs = []
+    for k in (1, 4):
+        reset_counts()
+        g = pt.ModelSerializer.restore(tz, device=DEVICE)
+        g.fit(L(tbb), superstep=k)
+        torch.cuda.synchronize()
+        gs.append((g, bn_relu.variant_counts()))
+    check(nets_equal(torch, gs[0][0], gs[1][0]), "two-branch graph "
+          "superstep=4 differs from 1 on the card")
+    gwant = {kind: {"resident": 2 * LOOP_TB_STEPS, "streamed": 0}
+             for kind in ("fwd", "bwd")}
+    check(gs[1][1] == gwant, f"two-branch graph superstep=4 BN launches "
+          f"{gs[1][1]}, want {gwant}")
+    print(f"{tag} loop (d) bf16 two-branch graph, {LOOP_TB_STEPS} steps: "
+          f"superstep=4 bit-equal to 1 on the card; BN launches "
+          f"{gs[1][1]} through the replays")
+    out["graph"] = {"launches": gs[1][1]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} main path 11 (training loop): "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2706,6 +3390,17 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     kernels.library()
     print(f"kernel build: {kernels.build_seconds:.3f} s (nvcc, sm_90a)")
+    if "--loop-only" in sys.argv:
+        # phase 2's CUDA-graph checks and main path 11 alone, for work on
+        # the training loop; prints no result lines
+        capture_checks(torch, kernels, lstm, attention, bn_relu, tag)
+        with tempfile.TemporaryDirectory() as tmp:
+            loop_path(pt, torch, tag, tmp,
+                      os.path.dirname(os.path.abspath(__file__)),
+                      reset_counts)
+        print(f"{tag} --loop-only run: {time.perf_counter() - t_start:.1f} "
+              "s (kernel build included)")
+        return 0
 
     # ---- 2. kernels vs plain on the card --------------------------------
     # the LSTM sequence kernels: each shape takes the variant its plan
@@ -3068,6 +3763,10 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     rng = np.random.default_rng(0)
+
+    # each kernel variant captured in a CUDA graph and replayed
+    n_captured = capture_checks(torch, kernels, lstm, attention, bn_relu,
+                                tag)
 
     # ---- 3. main path 1: serve the char-RNN -----------------------------
     rnn_zips = []
@@ -4638,9 +5337,14 @@ def main():
     graph = graph_path(pt, torch, tag, tmp, root, reset_counts, hand_counts)
     check(set(attention.launch_counts().values()) == {0}, "the graph path "
           f"launched attention kernels: {attention.launch_counts()}")
+
+    # ---- 15. main path 11: the training loop ------------------------------
+    loop = loop_path(pt, torch, tag, tmp, root, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
+    print(json.dumps({"training_loop": loop, "captured_variants":
+                      n_captured}, default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -4763,6 +5467,9 @@ def main():
                      f"graph: encoder (F={VOCAB}) and decoder (F="
                      f"{VOCAB + HIDDEN}), one launch each a step"
                      + ("" if key == "reduction" else ", all cluster"),
+        "loop_launches": loop["char_rnn"]["launches"][counter],
+        "loop_per": "main path 11: the char-RNN's fit_scan, 20 TBPTT chunk "
+                    "steps replayed from one CUDA graph, 2 launches a step",
         "card": card,
     } for name, key, counter, err, rel, replaces, library in (
         ("lstm_residual_forward", "residual", "residual_launches",
@@ -4815,6 +5522,10 @@ def main():
             "library": "scaled_dot_product_attention forward (f32, "
                        "is_causal, inputs requiring grad)",
             "bf16": typed_entry("lse", bf16_counts["lse_launches"]),
+            "loop_launches": loop["lm"]["launches"]["lse_launches"],
+            "loop_per": f"main path 11: {LOOP_LM_STEPS} steps of the bf16 "
+                        f"LM at batch {LM_CMP_B} under superstep=4 (CUDA-"
+                        f"graph replays), {LM_BLOCKS} a step",
             "card": card,
         }] + [{
             "name": base if variant == "simt" else f"{base}_{variant}",
@@ -4834,6 +5545,11 @@ def main():
                        f"({rows[kind]['library_call']}) called on one saved "
                        "graph, the same time on the dq and dk/dv entries",
             **extra(kind),
+            **({"loop_launches": loop["lm"]["launches"][f"{kind}_launches"],
+                "loop_per": f"main path 11: {LOOP_LM_STEPS} steps of the "
+                            f"bf16 LM at batch {LM_CMP_B} under superstep=4 "
+                            f"(CUDA-graph replays), {LM_BLOCKS} a step"}
+               if variant == "wgmma" else {}),
             "card": card,
         } for kind, base, replaces in (
             ("dq", "attention_bwd_dq",
@@ -4903,7 +5619,11 @@ def main():
                 "resident"],
                 "graph_per": f"main path 10's {TB_STEPS} steps of the bf16 "
                              f"two-branch graph (N={TB_B}, C={TB_WIDTH}): one "
-                             "launch per BN vertex a step"}
+                             "launch per BN vertex a step",
+                "loop_launches": loop["bn_mlp"]["launches"][key]["resident"],
+                "loop_per": f"main path 11: {LOOP_BATCHES} steps of the "
+                            "BN-MLP under superstep=4 (CUDA-graph replays), "
+                            "one launch per BN layer a step"}
                if variant == "resident" else {}),
             "card": card,
         } for name, key, replaces, library in (

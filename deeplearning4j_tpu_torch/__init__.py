@@ -57,6 +57,14 @@ learning, early stopping, ROC and regression evaluation, and ResNet-50 and
 GoogLeNet in the zoo. A graph applies the same layer objects as
 MultiLayerNetwork, so its GravesLSTM vertices run the LSTM kernels and its
 bf16 [N, C] BatchNormalization(relu) vertices the BN+ReLU kernels.
+
+The thirteenth slice is the training-loop machinery: `fit(superstep=K)`
+windows (on the card, replays of one CUDA graph of the optimizer step,
+captured per batch signature; `nn/superstep.py`), gradient accumulation,
+`fit_scan` / `fit_scan_arrays`, the input pipeline with padding, time
+buckets and pinned device prefetch (`datasets/pipeline.py`), the
+asynchronous iterators, the TrainingGuard, crash-safe checkpoints with
+resume and fault injection (`fault/`), and the telemetry (`telemetry/`).
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
                        ListDataSetIterator, bundled_mnist_subset)
@@ -80,6 +88,8 @@ from .nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
 from .nn.updaters import Adam, Nesterovs, Sgd
 from .serving import InferenceServer, ModelRegistry
 from .util import ModelSerializer, from_jax_params
+from . import telemetry
+from .telemetry import TelemetryListener, TelemetrySession
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
            "ListDataSetIterator", "MultiDataSet", "bundled_mnist_subset",
@@ -98,4 +108,5 @@ __all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
            "GravesLSTM", "LocalResponseNormalization", "OutputLayer",
            "RnnOutputLayer", "SubsamplingLayer", "TransformerBlock", "Adam", "Nesterovs", "Sgd",
            "InferenceServer", "ModelRegistry", "ModelSerializer",
+           "telemetry", "TelemetryListener", "TelemetrySession",
            "from_jax_params"]

@@ -3,12 +3,16 @@
 `DataSetIterator`, `ArrayDataSetIterator` with its seed + consumed-epoch
 shuffle, `ListDataSetIterator`, `ExistingDataSetIterator`,
 `IteratorDataSetIterator`, `MultipleEpochsIterator`,
-`SamplingDataSetIterator`; the asynchronous iterators come with ROADMAP
-A8's prefetch). Batches are host numpy
-arrays, so the same iterator can feed the JAX package and the port.
+`SamplingDataSetIterator`, and the background-thread
+`AsyncDataSetIterator` / `AsyncMultiDataSetIterator`). Batches are host
+numpy arrays, so the same iterator can feed the JAX package and the port;
+`datasets/pipeline.py`'s device prefetch stages them on the card ahead of
+the step (a DataSet it has staged carries its tensors in `_staged`).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import warnings
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -18,7 +22,8 @@ import numpy as np
 __all__ = ["DataSet", "MultiDataSet", "DataSetIterator",
            "ArrayDataSetIterator", "ListDataSetIterator",
            "ExistingDataSetIterator", "IteratorDataSetIterator",
-           "MultipleEpochsIterator", "SamplingDataSetIterator"]
+           "MultipleEpochsIterator", "SamplingDataSetIterator",
+           "AsyncDataSetIterator", "AsyncMultiDataSetIterator"]
 
 
 @dataclass
@@ -31,6 +36,9 @@ class DataSet:
     labels: Optional[np.ndarray] = None
     features_mask: Optional[np.ndarray] = None
     labels_mask: Optional[np.ndarray] = None
+    # (device, dtype, tensors, event) when datasets/pipeline.py has staged
+    # the batch on a device ahead of its step
+    _staged: Optional[tuple] = field(default=None, repr=False, compare=False)
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
@@ -93,6 +101,7 @@ class MultiDataSet:
     labels: List[np.ndarray] = field(default_factory=list)
     features_masks: Optional[List[Optional[np.ndarray]]] = None
     labels_masks: Optional[List[Optional[np.ndarray]]] = None
+    _staged: Optional[tuple] = field(default=None, repr=False, compare=False)
 
     def num_examples(self) -> int:
         return int(self.features[0].shape[0])
@@ -371,3 +380,155 @@ class SamplingDataSetIterator(DataSetIterator):
 
     def batch(self):
         return self.batch_size
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch (double buffering), as JAX's
+    `AsyncDataSetIterator` (`datasets/iterator/AsyncDataSetIterator.java`
+    in DL4J), including worker-exception propagation to the caller.
+
+    Consumer protocol: queue entries are `(batch, more)` pairs, `more`
+    evaluated by the WORKER after drawing the batch — so `next()` hands a
+    ready batch over immediately and the consumer only ever blocks when
+    the next batch genuinely isn't staged yet (waiting for batch k+1
+    before releasing batch k would serialize exactly the work the thread
+    exists to overlap), and the last batch's tag ends the epoch without a
+    final sentinel round-trip. The worker starts lazily on first
+    consumption, so wrapping an iterator (or an epoch-start `reset()`)
+    never stages batches that are immediately thrown away."""
+
+    _SENTINEL = object()
+
+    def __init__(self, source: DataSetIterator, queue_size: int = 2):
+        self.source = source
+        self.queue_size = max(1, int(queue_size))
+        self._queue: queue.Queue = queue.Queue(self.queue_size)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._peek = None
+        self._more = True      # may the worker still yield items?
+        self._started = False
+
+    def _prepare(self, ds):
+        """Worker-thread hook run on each batch before it is queued —
+        subclasses stage extra work here (DevicePrefetchIterator starts
+        the host->device copy)."""
+        return ds
+
+    def _start(self):
+        self._queue = queue.Queue(self.queue_size)
+        self._error = None
+        self._stop = threading.Event()
+        # Bind this generation's queue/stop locally: a stale worker that
+        # outlives reset()'s join timeout must keep writing to ITS queue, not
+        # the new generation's (else previous-epoch batches leak in).
+        q, stop = self._queue, self._stop
+
+        def put(item):
+            # stop-aware put: an abandoned consumer must not leave this
+            # thread blocked on a full queue forever
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                more = self.source.has_next()
+                while more and not stop.is_set():
+                    ds = self.source.next()
+                    more = self.source.has_next()
+                    if not put((self._prepare(ds), more)):
+                        return
+            except BaseException as e:  # propagate to consumer
+                self._error = e
+            # ALWAYS end with a sentinel: an empty source yields no tagged
+            # item at all, so without it the consumer's first _fetch would
+            # block forever. After a fully-tagged epoch the consumer never
+            # reads it (the last tag ended the epoch) — the queue has space
+            # by then and reset()/close() drain it.
+            put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=worker, daemon=True,
+                                        name="dl4j-async-prefetch")
+        self._thread.start()
+        self._started = True
+        self._peek = None
+        self._more = True
+
+    def _ensure_started(self):
+        if not self._started:
+            self._start()
+
+    def _fetch(self):
+        """Block for the next queue entry; resolves end-of-epoch and
+        worker errors."""
+        item = self._queue.get()
+        if item is self._SENTINEL:
+            self._more = False   # before raising: a caller that catches the
+            self._peek = None    # error and re-polls must not block forever
+            if self._error is not None:
+                raise RuntimeError(
+                    "Async prefetch thread failed") from self._error
+        else:
+            self._peek, more = item
+            if not more:
+                self._more = False
+
+    def _shutdown(self):
+        """Stop + join the current worker generation (idempotent)."""
+        if self._thread is None:
+            return
+        self._stop.set()
+        # drain so a blocked worker unblocks promptly
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5)
+        self._thread = None
+
+    def close(self):
+        """Shut the prefetch thread down. The iterator stays resettable:
+        `reset()` (or `__iter__`) restarts a fresh worker."""
+        self._shutdown()
+        self._peek = None
+        self._more = False
+        self._started = True   # don't lazily restart; reset() re-arms
+
+    def reset(self):
+        self._shutdown()
+        self.source.reset()
+        self._peek = None
+        self._more = True
+        self._started = False   # worker restarts on first consumption
+
+    def has_next(self):
+        self._ensure_started()
+        if self._peek is not None:
+            return True
+        if not self._more:
+            return False
+        self._fetch()
+        return self._peek is not None
+
+    def next(self):
+        if not self.has_next():
+            raise StopIteration
+        d = self._peek
+        self._peek = None
+        return d
+
+    def batch(self):
+        return self.source.batch()
+
+
+class AsyncMultiDataSetIterator(AsyncDataSetIterator):
+    """Background-thread prefetch over a MULTI-dataset iterator (parity
+    with `datasets/iterator/AsyncMultiDataSetIterator.java`) — the prefetch
+    machinery is payload-agnostic, so this is the naming/type marker for
+    MultiDataSet sources feeding a ComputationGraph."""

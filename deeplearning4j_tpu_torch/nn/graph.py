@@ -20,6 +20,10 @@ auxiliary loss; gradients from autograd; then per vertex the gradient
 normalization, scheduled lr, updater and bias-lr rescale
 (`apply_vertex_updates`), frozen vertices left as they are. A line-search
 `optimization_algo` routes the batch through `GraphLineSearchSolver`.
+`fit` on an iterator takes JAX's options, as `MultiLayerNetwork.fit` does:
+windows of `superstep` steps (CUDA-graph replays on the card),
+`grad_accumulation`, the input pipeline, checkpoints and resume, and a
+`TrainingGuard` (`nn/superstep.py`, `nn/fitloop.py`).
 
 Mixed precision (`compute_dtype`): floating inputs and every non-output
 layer's parameters are cast to the compute dtype; output layers keep their
@@ -46,10 +50,10 @@ from .conf.graph import ComputationGraphConfiguration
 from .conf.input_type import InputType
 from .gradnorm import apply_gradient_normalization
 from .layers.feedforward import BaseOutputLayerConf
-from .multilayer import (_compute_dtype, _rescale_bias_updates,
-                         refuse_fit_options)
+from .multilayer import (MultiLayerNetwork, _compute_dtype, layer_scalars,
+                         log, scalar_row, update_layer)
 from .remat import checkpoint_call
-from .trees import flat_leaves, tree_map, unflatten_like
+from .trees import flat_leaves, flatten_tree, tree_map, unflatten_like
 from ..datasets.iterators import DataSet, MultiDataSet
 from ..eval.evaluation import Evaluation
 from ..util.platform import DeviceLike, resolve_device, strict_fp32
@@ -58,6 +62,11 @@ __all__ = ["ComputationGraph"]
 
 
 class ComputationGraph:
+    # what a TrainingGuard snapshots and restores
+    _fault_state_attrs = ("params", "state", "updater_state", "_generators",
+                          "iteration_count", "epoch_count", "_score")
+    _entry_name = "graph"
+
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
         self.conf = conf
@@ -76,6 +85,8 @@ class ComputationGraph:
         self._dropout_seed = conf.conf.seed
         self._compute_dtype = _compute_dtype(conf.conf)
         self._line_solver = None
+        self._batch_signatures = set()
+        self.recompile_count = 0
 
     # ------------------------------------------------------------------
     @property
@@ -141,6 +152,7 @@ class ComputationGraph:
         self.device = resolve_device(device)
         move = lambda d: tree_map(lambda v: v.to(self.device), d)
         self._generators = None
+        self.__dict__.pop("_captured_steps", None)
         if self.params is not None:
             self.params = move(self.params)
             self.state = move(self.state)
@@ -373,48 +385,64 @@ class ComputationGraph:
             lr = lr * (base / sched.base_lr)
         return lr
 
-    def apply_vertex_updates(self, params, grads, opt_state, step):
+    def apply_vertex_updates(self, params, grads, opt_state, step,
+                             scalars=None):
         """Per-vertex gradient normalization, scheduled lr, updater and
         bias-lr rescale; frozen and parameter-free vertices stay as they
-        are. Returns (new params, new updater state) as dicts."""
-        new_params, new_opt = {}, {}
+        are. The step's scalars come from the host for `step`, or from
+        `scalars`, the step's row (`_step_scalars`). Returns (new params,
+        new updater state) as dicts."""
+        new_params, new_opt, off = {}, {}, 0
         for name, p in params.items():
             layer = self.conf.vertices[name]
             g, os = grads[name], opt_state[name]
             if not p or layer.frozen:
                 new_params[name], new_opt[name] = p, os
                 continue
-            g = apply_gradient_normalization(
-                layer.gradient_normalization,
-                layer.gradient_normalization_threshold or 1.0, g)
-            upd = self._layer_updater(layer)
-            lr = self._layer_lr(layer, step)
-            updates, os = upd.update(g, os, step, lr)
-            if layer.bias_learning_rate is not None:
-                if lr is None:
-                    eff = getattr(upd, "learning_rate", 1.0) or 1.0
-                    scale = layer.bias_learning_rate / eff
-                else:
-                    scale = float(layer.bias_learning_rate / torch.clamp(
-                        torch.as_tensor(lr, dtype=torch.float32),
-                        min=1e-30))
-                updates = _rescale_bias_updates(updates, scale)
-            new_params[name] = tree_map(lambda a, u: a - u, p, updates)
-            new_opt[name] = os
+            new_params[name], new_opt[name], off = update_layer(
+                self, layer, p, g, os, step, scalars, off)
         return new_params, new_opt
 
+    def _step_scalars(self, step) -> List[float]:
+        """The host scalars of every trainable vertex's update at `step`,
+        in vertex order: the row a replayed step reads."""
+        out = []
+        for name, p in self.params.items():
+            layer = self.conf.vertices[name]
+            if p and not layer.frozen:
+                out.extend(layer_scalars(self, layer, step))
+        return out
+
+    def apply_updates(self, params, grads, opt_state, step):
+        """The UPDATE half on a full gradient tree (the counterpart of
+        `grad_step_fn`). Returns (params, updater state) as dicts."""
+        return self.apply_vertex_updates(params, grads, opt_state, step,
+                                         scalar_row(self, step))
+
+    @property
+    def grad_step_fn(self):
+        """The GRADIENT half of the train step, `(params, state, inputs,
+        labels, fmasks, lmasks) -> (score, new_state, grads)` (dicts keyed
+        by input / output name), the loss selection and the minimize sign
+        folded in."""
+        def grad_step(params, state, inputs, labels, fmasks, lmasks):
+            return self._grad_fn(params, state,
+                                 (inputs, labels, fmasks, lmasks))[:3]
+        return grad_step
+
     def _value_and_grad(self, params, inputs, labels, generators, fmasks,
-                        lmasks, loss_fn=None):
-        """(score, new_state, grads): the loss at `params` and its gradient
-        tree (zeros for frozen vertices), with the minimize sign folded
-        in."""
+                        lmasks, loss_fn=None, state=None):
+        """(score, new_state, grads): the loss at `params` (with layer
+        state `state`, the graph's own when None) and its gradient tree
+        (zeros for frozen vertices), with the minimize sign folded in."""
+        state = self.state if state is None else state
         params = {n: tree_map(lambda v, f=self.conf.vertices[n].frozen:
                               v.detach().requires_grad_(not f), p)
                   for n, p in params.items()}
         leaves = [v for v in flat_leaves(params) if v.requires_grad]
         loss_fn = loss_fn or self._loss_fn
         with torch.enable_grad():
-            score, new_state = loss_fn(params, self.state, inputs, labels,
+            score, new_state = loss_fn(params, state, inputs, labels,
                                        generators, fmasks, lmasks,
                                        train=True)
             found = torch.autograd.grad(score, leaves, allow_unused=True) \
@@ -429,19 +457,58 @@ class ComputationGraph:
         grads = tree_map(grad_of, params)
         return score.detach(), new_state, grads
 
-    def _train_step(self, inputs, labels, fmasks, lmasks):
-        """One optimizer step on one batch; stores the new parameters,
-        updater state and (detached) layer state. Returns the score."""
+    def _grad_fn(self, params, state, batch, carries=None):
+        """(score, new_state, grads, None) of one batch `(inputs, labels,
+        fmasks, lmasks)`; everything returned is detached."""
+        inputs, labels, fmasks, lmasks = batch
         loss_fn = (self._full_remat_loss if self.conf.conf.remat == "full"
                    else self._loss_fn)
         score, new_state, grads = self._value_and_grad(
-            self.params, inputs, labels, self._train_generators(), fmasks,
-            lmasks, loss_fn)
-        detached = tree_map(torch.Tensor.detach, self.params)
-        self.params, self.updater_state = self.apply_vertex_updates(
-            detached, grads, self.updater_state, self.iteration_count)
-        self.state = tree_map(torch.Tensor.detach, new_state)
+            params, inputs, labels, self._train_generators(), fmasks,
+            lmasks, loss_fn, state=state)
+        return (score, tree_map(torch.Tensor.detach, new_state), grads,
+                None)
+
+    def _update_fn(self, params, grads, opt_state, scalars):
+        """The update with the step's scalar row (a replayed step's)."""
+        return self.apply_vertex_updates(
+            tree_map(torch.Tensor.detach, params), grads, opt_state, None,
+            scalars)
+
+    def _eager_update(self, params, grads, opt_state, step):
+        return self.apply_updates(tree_map(torch.Tensor.detach, params),
+                                  grads, opt_state, step)
+
+    def _eager_step(self, params, state, opt_state, step, batch):
+        score, new_state, grads, _ = self._grad_fn(params, state, batch)
+        new_params, new_opt = self._eager_update(params, grads, opt_state,
+                                                 step)
+        return new_params, new_state, new_opt, score
+
+    def _train_step(self, inputs, labels, fmasks, lmasks):
+        """One optimizer step on one batch; stores the new parameters,
+        updater state and (detached) layer state. Returns the score."""
+        score, new_state, grads, _ = self._grad_fn(
+            self.params, self.state, (inputs, labels, fmasks, lmasks))
+        self.params, self.updater_state = self._eager_update(
+            self.params, grads, self.updater_state, self.iteration_count)
+        self.state = new_state
         return score
+
+    # the protocol of nn/superstep.py's windows and captures
+    def _carry_trees(self):
+        return self.params, self.state, self.updater_state
+
+    def _set_carry_trees(self, params, state, opt_state):
+        self.params, self.state, self.updater_state = (
+            dict(params), dict(state), dict(opt_state))
+
+    def _dropout_generators(self):
+        return list(self._train_generators() or [])
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return getattr(torch, self.conf.conf.dtype)
 
     def _train_generators(self) -> Optional[List[torch.Generator]]:
         """[hidden, output 0, ...] dropout generators on the graph's device
@@ -466,23 +533,33 @@ class ComputationGraph:
                                device=self.device)
 
     def _to_inputs(self, ds) -> Tuple[Dict, Dict, Dict, Dict]:
+        """(inputs, labels, features masks, labels masks) of a DataSet or
+        MultiDataSet as dicts of tensors on the graph's device (the
+        tensors the device prefetch staged, when it did)."""
+        from ..datasets.pipeline import staged_tree
+        if not isinstance(ds, (DataSet, MultiDataSet)):
+            raise TypeError(f"Cannot fit on {type(ds)}")
+        tree = staged_tree(ds, self.device, self._dtype)
+        if tree is None:
+            from ..datasets.pipeline import batch_tree
+            leaves, rebuild = flatten_tree(batch_tree(ds))
+            tree = rebuild([self._as_input(a) for a in leaves])
+        return self._tree_dicts(ds, tree)
+
+    def _tree_dicts(self, ds, tree):
+        """A `datasets.pipeline.batch_tree`-shaped tree of tensors as the
+        step's four dicts."""
         ins, outs = self.conf.network_inputs, self.conf.network_outputs
-        t = self._as_input
+        f, l, fm, lm = tree
         if isinstance(ds, DataSet):
             if len(ins) != 1 or len(outs) != 1:
                 raise ValueError("DataSet fits single-input/single-output "
                                  "graphs; use MultiDataSet")
-            return ({ins[0]: t(ds.features)}, {outs[0]: t(ds.labels)},
-                    {ins[0]: t(ds.features_mask)},
-                    {outs[0]: t(ds.labels_mask)})
-        if isinstance(ds, MultiDataSet):
-            fm = ds.features_masks or (None,) * len(ins)
-            lm = ds.labels_masks or (None,) * len(outs)
-            return ({n: t(a) for n, a in zip(ins, ds.features)},
-                    {n: t(a) for n, a in zip(outs, ds.labels)},
-                    {n: t(a) for n, a in zip(ins, fm)},
-                    {n: t(a) for n, a in zip(outs, lm)})
-        raise TypeError(f"Cannot fit on {type(ds)}")
+            return ({ins[0]: f}, {outs[0]: l}, {ins[0]: fm}, {outs[0]: lm})
+        fm = fm or (None,) * len(ins)
+        lm = lm or (None,) * len(outs)
+        return (dict(zip(ins, f)), dict(zip(outs, l)), dict(zip(ins, fm)),
+                dict(zip(outs, lm)))
 
     # ------------------------------------------------------------------
     # Training
@@ -493,30 +570,119 @@ class ComputationGraph:
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume: bool = False, guard=None) -> "ComputationGraph":
         """fit(DataSet | MultiDataSet) or fit(iterator): one optimizer step
-        per batch. The keyword options after `epochs` are the JAX
-        package's; only their defaults are in the port so far, and any
-        other value raises."""
-        refuse_fit_options(dict(
-            superstep=superstep, grad_accumulation=grad_accumulation,
-            prefetch=prefetch, pad_ragged=pad_ragged,
-            time_buckets=time_buckets, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume, guard=guard))
+        per batch. The keyword options behave exactly as on
+        `MultiLayerNetwork.fit`: `superstep` windows (CUDA-graph replays on
+        the card, eager on the CPU, bit-identical to K=1), gradient
+        accumulation, the input pipeline (`pad_ragged`, `time_buckets`,
+        `prefetch`), crash-safe checkpoints with resume, and a
+        `TrainingGuard`. Line-search optimizers fall back to per-batch
+        steps."""
+        from .superstep import validate_grad_accumulation
+        accum_m = validate_grad_accumulation(grad_accumulation)
         if self.params is None:
             self.init()
         if isinstance(data, (DataSet, MultiDataSet)):
-            self._fit_batch(data)
+            if checkpoint_dir is not None or resume:
+                raise ValueError(
+                    "checkpoint_dir/resume need an iterator fit (the "
+                    "checkpoint records epoch/batch progress)")
+            if accum_m != 1:
+                raise ValueError(
+                    f"grad_accumulation={accum_m} needs an iterator fit "
+                    "(M consecutive microbatches form one optimizer step)")
+            if superstep != 1:
+                log.info("superstep=%r ignored for a single-DataSet fit "
+                         "(one batch is one step); pass an iterator to "
+                         "window batches", superstep)
+            if guard is not None:
+                guard.run_step(self, lambda: self._fit_batch(data))
+            else:
+                self._fit_batch(data)
             return self
         if not hasattr(data, "has_next"):
             raise TypeError(f"Cannot fit on {type(data)}")
-        for _ in range(epochs):
-            data.reset()
-            while data.has_next():
-                self._fit_batch(data.next())
-            self.epoch_count += 1
-        return self
+        from .fitloop import fit_iterator
+        return fit_iterator(
+            self, data, epochs, superstep=superstep, accum_m=accum_m,
+            prefetch=prefetch, pad_ragged=pad_ragged,
+            time_buckets=time_buckets, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume, guard=guard,
+            context={"grad_accumulation": accum_m},
+            epoch_listeners=False)
+
+    def fit_scan_arrays(self, xs, ys, epochs: int = 1) -> "ComputationGraph":
+        """Device-resident multi-step training: each epoch runs the T steps
+        of `xs` / `ys` ([T, batch, ...] arrays for a single-input graph,
+        or dicts keyed by input / output name) as one window (CUDA-graph
+        replays on the card). Listener caveat: iteration_done is replayed
+        after the window, so every call sees the window's final
+        parameters."""
+        from .fitloop import scan_epochs
+
+        if self.params is None:
+            self.init()
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            raise ValueError(
+                "fit_scan_arrays supports SGD-updater training only; "
+                "line-search optimizers are per-batch sequential — use fit()")
+        if not isinstance(xs, dict):
+            xs = {self.conf.network_inputs[0]: xs}
+        if not isinstance(ys, dict):
+            ys = {self.conf.network_outputs[0]: ys}
+        xs = {k: self._as_input(v) for k, v in xs.items()}
+        ys = {k: self._as_input(v) for k, v in ys.items()}
+        n = int(next(iter(xs.values())).shape[0])
+        none = lambda names: {k: None for k in names}
+        batches = [({k: v[i] for k, v in xs.items()},
+                    {k: v[i] for k, v in ys.items()}, none(xs), none(ys))
+                   for i in range(n)]
+        return scan_epochs(self, batches, None, epochs,
+                           epoch_listeners=False)
+
+    def _make_superstep_runner(self, superstep, guard, ckpt, accum_m=1):
+        """SuperstepRunner for this fit, or None for the per-batch loop
+        (superstep=1 with grad_accumulation=1, or a line-search optimizer,
+        which rejects M>1 rather than silently changing the effective
+        batch)."""
+        from .superstep import (SuperstepRunner, accum_skip_nonfinite,
+                                validate_superstep)
+
+        k = validate_superstep(superstep)
+        if k == 1 and accum_m == 1:
+            return None
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            if accum_m != 1:
+                raise ValueError(
+                    f"grad_accumulation={accum_m} is not supported with "
+                    "line-search optimizers (per-batch sequential)")
+            log.info("superstep=%r falls back to per-batch dispatch: "
+                     "line-search optimizers are per-batch sequential",
+                     superstep)
+            return None
+        adapter = _GraphSuperstepAdapter(
+            self, m=accum_m,
+            skip_nonfinite=accum_skip_nonfinite(guard, accum_m))
+        return SuperstepRunner(self, adapter, k, guard=guard, ckpt=ckpt,
+                               grad_accumulation=accum_m)
+
+    def _track_signature(self, batch):
+        sig = tuple(None if a is None else tuple(a.shape)
+                    for a in flatten_tree(batch)[0])
+        if sig not in self._batch_signatures:
+            self._batch_signatures.add(sig)
+            self.recompile_count += 1
+
+    _watched_train_step = MultiLayerNetwork._watched_train_step
 
     def _fit_batch(self, ds):
-        inputs, labels, fmasks, lmasks = self._to_inputs(ds)
+        from ..telemetry.runtime import active, null_span
+        tel = active()
+        span = tel.span if tel is not None else null_span
+        with span("host/batch_prep"):
+            inputs, labels, fmasks, lmasks = self._to_inputs(ds)
+        self._track_signature((inputs, labels, fmasks, lmasks))
         if self.conf.conf.optimization_algo != \
                 OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
             if self._line_solver is None:
@@ -525,12 +691,18 @@ class ComputationGraph:
                     self, self.conf.conf.optimization_algo,
                     max_line_search_iterations=
                     self.conf.conf.max_num_line_search_iterations)
-            self.params, new_state, score = self._line_solver.fit_batch(
-                self.params, self.state, inputs, labels,
-                self._train_generators(), fmasks, lmasks)
+            with span("device/dispatch", kind="line_search"):
+                self.params, new_state, score = self._line_solver.fit_batch(
+                    self.params, self.state, inputs, labels,
+                    self._train_generators(), fmasks, lmasks)
             self.state = tree_map(torch.Tensor.detach, new_state)
         else:
-            score = self._train_step(inputs, labels, fmasks, lmasks)
+            with span("device/dispatch", kind="train_step"):
+                score = self._watched_train_step(inputs, labels, fmasks,
+                                                 lmasks)
+        if tel is not None and tel.sync_per_step and score.is_cuda:
+            with span("device/sync"):
+                torch.cuda.current_stream(score.device).synchronize()
         self._score = score
         self.last_batch_size = int(next(iter(inputs.values())).shape[0])
         self.iteration_count += 1
@@ -738,3 +910,49 @@ class ComputationGraph:
         g.iteration_count = self.iteration_count
         g.epoch_count = self.epoch_count
         return g
+
+
+class _GraphSuperstepAdapter:
+    """SuperstepRunner hooks for ComputationGraph (see nn/superstep.py):
+    batches are dicts keyed by input / output name (DataSet or MultiDataSet
+    sources), masks are dicts whose values may be None. With `m>1` the
+    window trains in groups of m microbatches."""
+
+    def __init__(self, net: ComputationGraph, m: int = 1,
+                 skip_nonfinite: bool = False):
+        self.net = net
+        self.m = int(m)
+        self.skip_nonfinite = bool(skip_nonfinite)
+
+    @staticmethod
+    def _shape(a):
+        return None if a is None else tuple(np.shape(a))
+
+    def signature(self, ds):
+        if isinstance(ds, MultiDataSet):
+            seq = lambda xs: (None if xs is None else
+                              tuple(self._shape(a) for a in xs))
+            return (seq(ds.features), seq(ds.labels),
+                    seq(ds.features_masks), seq(ds.labels_masks))
+        return (self._shape(ds.features), self._shape(ds.labels),
+                self._shape(ds.features_mask), self._shape(ds.labels_mask))
+
+    def batch_nbytes(self, ds):
+        from ..datasets.pipeline import batch_nbytes, batch_tree
+        return batch_nbytes(flatten_tree(batch_tree(ds))[0])
+
+    def stage(self, window):
+        from ..datasets.pipeline import stage_window
+        trees = stage_window(window, self.net.device, self.net._dtype)
+        return [self.net._tree_dicts(ds, t) for ds, t in zip(window, trees)]
+
+    def dispatch(self, staged, n, step0):
+        from .superstep import run_window
+        return run_window(self.net, staged, step0, self.m,
+                          self.skip_nonfinite)
+
+    def on_window_end(self, window):
+        last = window[-1]
+        feats = (last.features[0] if isinstance(last, MultiDataSet)
+                 else last.features)
+        self.net.last_batch_size = int(np.shape(feats)[0])

@@ -46,6 +46,8 @@ the logits and the loss are float32.
 """
 from __future__ import annotations
 
+import functools
+import logging
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,12 +61,15 @@ from .conf.input_type import InputType
 from .gradnorm import apply_gradient_normalization
 from .layers.feedforward import BaseOutputLayerConf
 from .remat import checkpoint_call
-from .trees import flat_leaves, tree_map, unflatten_like
+from .trees import flat_leaves, flatten_tree, tree_map, unflatten_like
+from .updaters import smul
 from ..datasets.iterators import DataSet, DataSetIterator
 from ..eval.evaluation import Evaluation
 from ..util.platform import DeviceLike, resolve_device, strict_fp32
 
 __all__ = ["MultiLayerNetwork"]
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 
 def _rescale_bias_updates(updates, scale):
@@ -73,7 +78,7 @@ def _rescale_bias_updates(updates, scale):
     directions."""
     if not isinstance(updates, dict):
         return updates
-    return {k: (v * scale if not isinstance(v, dict)
+    return {k: (smul(scale, v) if not isinstance(v, dict)
                 and (k == "b" or "bias" in k)
                 else _rescale_bias_updates(v, scale))
             for k, v in updates.items()}
@@ -96,23 +101,73 @@ def _not_in_port(what: str, item: str):
         f"{what} is not in the PyTorch port yet (ROADMAP A{item})")
 
 
-#: the keyword options of JAX's `fit` that wait for ROADMAP A8, with their
-#: defaults (the only values the port takes so far)
-FIT_OPTION_DEFAULTS = {"superstep": 1, "grad_accumulation": 1,
-                       "prefetch": False, "pad_ragged": False,
-                       "time_buckets": None, "checkpoint_dir": None,
-                       "checkpoint_every": 0, "resume": False, "guard": None}
+def _bias_scale(layer, upd, lr) -> float:
+    """The bias-lr rescale of a layer's updates: bias_lr / lr (updater
+    steps are linear in lr, so rescaling the bias updates is exact), in
+    float32 as JAX computes it."""
+    if lr is None:
+        eff = getattr(upd, "learning_rate", 1.0) or 1.0
+        return layer.bias_learning_rate / eff
+    return float(layer.bias_learning_rate / torch.clamp(
+        torch.as_tensor(lr, dtype=torch.float32), min=1e-30))
 
 
-def refuse_fit_options(options: dict):
-    """Raise the A8 refusal for any `fit` option given a non-default
-    value."""
-    for name, value in options.items():
-        if value != FIT_OPTION_DEFAULTS[name]:
-            raise _not_in_port(f"fit({name}={value!r})", "8")
+def layer_scalars(model, layer, step) -> tuple:
+    """The host scalars of one layer's update at `step`: its updater's
+    (`Updater.scalars`), then the bias-lr rescale when the layer has a
+    bias lr."""
+    upd = model._layer_updater(layer)
+    lr = model._layer_lr(layer, step)
+    sc = tuple(upd.scalars(step, lr))
+    if layer.bias_learning_rate is not None:
+        sc += (_bias_scale(layer, upd, lr),)
+    return sc
+
+
+def _n_scalars(model, layer) -> int:
+    n = len(model._layer_updater(layer).scalars(0, None))
+    return n + (layer.bias_learning_rate is not None)
+
+
+def update_layer(model, layer, p, g, os, step, scalars, off):
+    """One layer's update: gradient normalization, then its updater and
+    bias-lr rescale with the step's scalars — `layer_scalars(step)` on the
+    host when `scalars` is None, else the `off`-th entries of the step's
+    scalar row (floats or a 1-D tensor, whose entries come as 0-dim
+    tensors). Returns (new params, new updater state, next offset)."""
+    g = apply_gradient_normalization(
+        layer.gradient_normalization,
+        layer.gradient_normalization_threshold or 1.0, g)
+    upd = model._layer_updater(layer)
+    if scalars is None:
+        sc = layer_scalars(model, layer, step)
+    else:
+        n = _n_scalars(model, layer)
+        sc = tuple(scalars[off + j] for j in range(n))
+        off += n
+    n_upd = len(sc) - (layer.bias_learning_rate is not None)
+    updates, os = upd.apply(g, os, sc[:n_upd])
+    if layer.bias_learning_rate is not None:
+        updates = _rescale_bias_updates(updates, sc[-1])
+    return tree_map(lambda a, u: a - u, p, updates), os, off
+
+
+def scalar_row(model, step):
+    """The step's scalar row for the eager step: None on the CPU (the
+    updaters compute their floats on the host), a 1-D float32 tensor on a
+    CUDA device, the form a replayed step reads, so the eager step and
+    the replay run the same arithmetic."""
+    if model.device.type != "cuda":
+        return None
+    from .superstep import _scalar_rows
+    return _scalar_rows(model, [step])[0]
 
 
 class MultiLayerNetwork:
+    # what a TrainingGuard snapshots and restores
+    _fault_state_attrs = ("params", "state", "updater_state", "_generator",
+                          "iteration_count", "epoch_count", "_score")
+
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
         self.conf = conf
@@ -135,6 +190,8 @@ class MultiLayerNetwork:
         self._dropout_seed = conf.conf.seed
         self._compute_dtype = _compute_dtype(conf.conf)
         self._line_solver = None
+        self._batch_signatures = set()
+        self.recompile_count = 0
 
     # ------------------------------------------------------------------
     # Initialization and placement
@@ -187,6 +244,7 @@ class MultiLayerNetwork:
         self.device = resolve_device(device)
         move = lambda d: tree_map(lambda v: v.to(self.device), d)
         self._generator = self._pretrain_gen = None
+        self.__dict__.pop("_captured_steps", None)
         if self.params is not None:
             self.params = tuple(move(p) for p in self.params)
             self.state = tuple(move(s) for s in self.state)
@@ -321,44 +379,63 @@ class MultiLayerNetwork:
             lr = lr * (base / sched.base_lr)
         return lr
 
-    def apply_layer_updates(self, layers, params, grads, opt_state, step):
+    def apply_layer_updates(self, layers, params, grads, opt_state, step,
+                            scalars=None):
         """Per-layer gradient normalization, scheduled lr, updater and
         bias-lr rescale (frozen and parameter-free layers stay as they
-        are). Returns (new params, new updater state) as lists."""
-        new_params, new_opt = [], []
+        are). The step's scalars are computed on the host from `step`, or
+        read from `scalars`, the step's row (`_step_scalars`; see
+        `update_layer`). Returns (new params, new updater state) as
+        lists."""
+        new_params, new_opt, off = [], [], 0
         for layer, p, g, os in zip(layers, params, grads, opt_state):
             if not p or layer.frozen:
                 new_params.append(p)
                 new_opt.append(os)
                 continue
-            g = apply_gradient_normalization(
-                layer.gradient_normalization,
-                layer.gradient_normalization_threshold or 1.0, g)
-            upd = self._layer_updater(layer)
-            lr = self._layer_lr(layer, step)
-            updates, os = upd.update(g, os, step, lr)
-            if layer.bias_learning_rate is not None:
-                # updater steps are linear in lr, so rescaling the bias
-                # updates by bias_lr / lr is exact (float32, as in JAX)
-                if lr is None:
-                    eff = getattr(upd, "learning_rate", 1.0) or 1.0
-                    scale = layer.bias_learning_rate / eff
-                else:
-                    scale = float(layer.bias_learning_rate / torch.clamp(
-                        torch.as_tensor(lr, dtype=torch.float32),
-                        min=1e-30))
-                updates = _rescale_bias_updates(updates, scale)
-            new_params.append(tree_map(lambda a, u: a - u, p, updates))
+            p, os, off = update_layer(self, layer, p, g, os, step, scalars,
+                                      off)
+            new_params.append(p)
             new_opt.append(os)
         return new_params, new_opt
 
-    def _train_step(self, x, y, fmask, lmask, carries=None):
-        """One optimizer step on one batch (or TBPTT chunk); stores the new
-        parameters, updater state and layer state (detached, so no step's
-        graph outlives it). Returns (score, new carries), both detached."""
+    def _step_scalars(self, step) -> List[float]:
+        """The host scalars of every trainable layer's update at `step`,
+        in layer order: the row a replayed step reads."""
+        out = []
+        for layer, p in zip(self.layers, self.params):
+            if p and not layer.frozen:
+                out.extend(layer_scalars(self, layer, step))
+        return out
+
+    def apply_updates(self, params, grads, opt_state, step):
+        """The UPDATE half on a full gradient tree (per-layer gradient
+        normalization, scheduled lr, bias-lr rescale): the counterpart of
+        `grad_step_fn` for callers that schedule the gradient themselves
+        (the accumulated mean). Returns (params, updater state) as
+        tuples."""
+        new_params, new_opt = self.apply_layer_updates(
+            self.layers, params, grads, opt_state, step,
+            scalar_row(self, step))
+        return tuple(new_params), tuple(new_opt)
+
+    @property
+    def grad_step_fn(self):
+        """The GRADIENT half of the train step, `(params, state, x, y,
+        fmask, lmask) -> (score, new_state, grads)`, with the loss
+        selection (remat="full") and the minimize sign folded in; the
+        dropout draws come from the network's generator."""
+        def grad_step(params, state, x, y, fmask, lmask):
+            return self._grad_fn(params, state, (x, y, fmask, lmask))[:3]
+        return grad_step
+
+    def _grad_fn(self, params, state, batch, carries=None):
+        """(score, new_state, grads, new_carries) of one batch (or TBPTT
+        chunk) `(x, y, fmask, lmask)`; everything returned is detached."""
+        x, y, fmask, lmask = batch
         params = tuple(
             tree_map(lambda v, f=layer.frozen: v.detach().requires_grad_(
-                not f), p) for layer, p in zip(self.layers, self.params))
+                not f), p) for layer, p in zip(self.layers, params))
         leaves = [v for p in params for v in flat_leaves(p)
                   if v.requires_grad]
         loss_fn = self._loss_fn
@@ -366,7 +443,7 @@ class MultiLayerNetwork:
             loss_fn = self._full_remat_loss
         with torch.enable_grad():
             score, (new_state, new_carries) = loss_fn(
-                params, self.state, x, y, self._train_generator(), fmask,
+                params, state, x, y, self._train_generator(), fmask,
                 lmask, train=True, carries=carries)
             found = torch.autograd.grad(score, leaves, allow_unused=True)
         by_leaf = {id(v): d for v, d in zip(leaves, found)}
@@ -377,17 +454,57 @@ class MultiLayerNetwork:
             d = torch.zeros_like(v) if d is None else d
             return d if sign > 0 else -d
         grads = [tree_map(grad_of, p) for p in params]
-        detached = tuple(tree_map(torch.Tensor.detach, p) for p in params)
-        new_params, new_opt = self.apply_layer_updates(
-            self.layers, detached, grads, self.updater_state,
-            self.iteration_count)
-        self.params, self.updater_state = tuple(new_params), tuple(new_opt)
-        self.state = tuple(tree_map(torch.Tensor.detach, s)
-                           for s in new_state)
-        carries = None if carries is None else tuple(
+        new_state = tuple(tree_map(torch.Tensor.detach, s)
+                          for s in new_state)
+        new_carries = None if carries is None else tuple(
             None if c is None else tuple(t.detach() for t in c)
             for c in new_carries)
-        return score.detach(), carries
+        return score.detach(), new_state, grads, new_carries
+
+    def _update_fn(self, params, grads, opt_state, scalars):
+        """The update with the step's scalar row (a replayed step's)."""
+        detached = tuple(tree_map(torch.Tensor.detach, p) for p in params)
+        new_params, new_opt = self.apply_layer_updates(
+            self.layers, detached, grads, opt_state, None, scalars)
+        return tuple(new_params), tuple(new_opt)
+
+    def _eager_update(self, params, grads, opt_state, step):
+        detached = tuple(tree_map(torch.Tensor.detach, p) for p in params)
+        return self.apply_updates(detached, grads, opt_state, step)
+
+    def _eager_step(self, params, state, opt_state, step, batch):
+        """One optimizer step on a batch tree, out of place: (params,
+        state, updater state, score)."""
+        score, new_state, grads, _ = self._grad_fn(params, state, batch)
+        new_params, new_opt = self._eager_update(params, grads, opt_state,
+                                                 step)
+        return new_params, new_state, new_opt, score
+
+    def _train_step(self, x, y, fmask, lmask, carries=None):
+        """One optimizer step on one batch (or TBPTT chunk); stores the new
+        parameters, updater state and layer state (detached, so no step's
+        graph outlives it). Returns (score, new carries), both detached."""
+        score, new_state, grads, carries = self._grad_fn(
+            self.params, self.state, (x, y, fmask, lmask), carries)
+        self.params, self.updater_state = self._eager_update(
+            self.params, grads, self.updater_state, self.iteration_count)
+        self.state = new_state
+        return score, carries
+
+    # the protocol of nn/superstep.py's windows and captures
+    _entry_name = "nn"
+
+    def _carry_trees(self):
+        return self.params, self.state, self.updater_state
+
+    def _set_carry_trees(self, params, state, opt_state):
+        self.params = tuple(params)
+        self.state = tuple(state)
+        self.updater_state = tuple(opt_state)
+
+    def _dropout_generators(self):
+        g = self._train_generator()
+        return [] if g is None else [g]
 
     def _train_generator(self) -> Optional[torch.Generator]:
         """The dropout generator, on the network's device (None when no
@@ -446,10 +563,19 @@ class MultiLayerNetwork:
 
     def _batch(self, ds: DataSet):
         """(features, labels, features mask, labels mask) of a DataSet as
-        tensors on the network's device, in the parameters' dtype."""
+        tensors on the network's device, in the parameters' dtype (the
+        tensors the device prefetch staged, when it did)."""
+        from ..datasets.pipeline import staged_tree
+        staged = staged_tree(ds, self.device, self._dtype)
+        if staged is not None:
+            return staged
         return tuple(None if a is None else self._as_input(a)
                      for a in (ds.features, ds.labels, ds.features_mask,
                                ds.labels_mask))
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return getattr(torch, self.conf.conf.dtype)
 
     # ------------------------------------------------------------------
     # Training
@@ -460,20 +586,74 @@ class MultiLayerNetwork:
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume: bool = False, guard=None) -> "MultiLayerNetwork":
         """fit(DataSetIterator), fit(DataSet) or fit(features, labels):
-        one optimizer step per batch, or per TBPTT chunk. The keyword
-        options after `epochs` are the JAX package's; only their defaults
-        are in the port so far, and any other value raises."""
-        refuse_fit_options(dict(
-            superstep=superstep, grad_accumulation=grad_accumulation,
-            prefetch=prefetch, pad_ragged=pad_ragged,
-            time_buckets=time_buckets, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume, guard=guard))
+        one optimizer step per batch, or per TBPTT chunk.
+
+        `superstep=K` (iterator inputs) trains windows of K batches: on the
+        card each window is K replays of one captured CUDA graph of the
+        step, with the scores read once at its edge; on the CPU the same
+        steps run eagerly. Bit-identical to K=1 either way. "auto" sizes
+        the window from batch bytes and grows it with the measured
+        dispatch share; "epoch" windows the whole epoch. Listeners, the
+        guard and checkpoint / SIGTERM saves act at window edges. TBPTT
+        and line-search configurations fall back to per-batch steps (a
+        log line says so).
+
+        `grad_accumulation=M` (iterator inputs) accumulates M consecutive
+        microbatches into one optimizer step (float32 sums, one update on
+        their mean: the effective batch is M·b at b's activation memory).
+        It composes with `superstep` (windows of K·M microbatches);
+        listeners, `iteration_count` and lr schedules count optimizer
+        steps; an epoch tail shorter than M trains as one step
+        renormalized over its microbatches; resume must use the same M.
+        TBPTT and line-search configurations refuse M>1.
+
+        Input pipeline (iterator inputs; `datasets/pipeline.py`):
+          pad_ragged    — pad ragged final batches with weight-zero rows:
+                          one batch signature (one capture) per fit.
+          time_buckets  — also pad the time axis of sequence batches up
+                          to these bucket lengths.
+          prefetch      — stage each batch on the device on a background
+                          thread, through pinned memory on a side stream,
+                          one batch ahead.
+
+        Fault tolerance (iterator inputs; `fault/`):
+          checkpoint_dir   — directory of crash-safe checkpoints; a
+                             SIGTERM during fit snapshots there first.
+          checkpoint_every — save every N iterations (0 = at fit end and
+                             on SIGTERM only).
+          resume           — restore the newest verifiable checkpoint,
+                             skip the trained prefix and train what remains
+                             of `epochs`: the resumed run matches the
+                             uninterrupted one.
+          guard            — a `fault.TrainingGuard`: non-finite score
+                             policy (warn / skip_batch / rollback / halt)
+                             and retry of transient iterator errors."""
+        from .superstep import validate_grad_accumulation
+        accum_m = validate_grad_accumulation(grad_accumulation)
         if self.params is None:
             self.init()
         if labels is not None:
             data = DataSet(np.asarray(data), np.asarray(labels))
         if isinstance(data, DataSet):
-            self._fit_batch(data)
+            if checkpoint_dir is not None or resume:
+                raise ValueError(
+                    "checkpoint_dir/resume need an iterator fit (the "
+                    "checkpoint records epoch/batch progress); wrap the "
+                    "DataSet in a ListDataSetIterator")
+            if accum_m != 1:
+                raise ValueError(
+                    f"grad_accumulation={accum_m} needs an iterator fit "
+                    "(M consecutive microbatches form one optimizer "
+                    "step); wrap the DataSet in a ListDataSetIterator or "
+                    "split it with datasets.pipeline.split_microbatches")
+            if superstep != 1:
+                log.info("superstep=%r ignored for a single-DataSet fit "
+                         "(one batch is one step); pass an iterator to "
+                         "window batches", superstep)
+            if guard is not None:
+                guard.run_step(self, lambda: self._fit_batch(data))
+            else:
+                self._fit_batch(data)
             return self
         if not isinstance(data, DataSetIterator):
             raise TypeError(f"Cannot fit on {type(data)}")
@@ -481,34 +661,122 @@ class MultiLayerNetwork:
             self.pretrain(data)
             self._pretrained = True
         if not self.conf.backprop:
+            if (checkpoint_dir is not None or resume or checkpoint_every
+                    or guard is not None or accum_m != 1):
+                raise ValueError(
+                    "checkpoint_dir/checkpoint_every/resume/guard/"
+                    "grad_accumulation need a backprop fit — this "
+                    "configuration has backprop=False, so none of them "
+                    "would take effect")
             return self
-        for _ in range(epochs):
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_start"):
-                    listener.on_epoch_start(self)
-            data.reset()
-            while data.has_next():
-                self._fit_batch(data.next())
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-            self.epoch_count += 1
-        return self
+        from .fitloop import fit_iterator
+        return fit_iterator(
+            self, data, epochs, superstep=superstep, accum_m=accum_m,
+            prefetch=prefetch, pad_ragged=pad_ragged,
+            time_buckets=time_buckets, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume, guard=guard,
+            context={"grad_accumulation": accum_m,
+                     **self._precision_remat_context()},
+            epoch_listeners=True)
+
+    def _precision_remat_context(self):
+        """FitCheckpointer context entries for the policies that shape the
+        step's math or memory: resume warns when the restored run's values
+        differ (compute_dtype changes the math; remat / remat_policy only
+        the memory profile)."""
+        c = self.conf.conf
+        return {"compute_dtype": c.compute_dtype, "remat": c.remat,
+                "remat_policy": c.remat_policy}
+
+    def _make_superstep_runner(self, superstep, guard, ckpt, accum_m=1):
+        """SuperstepRunner for this fit, or None for the per-batch loop
+        (superstep=1 with grad_accumulation=1, line-search optimizers,
+        TBPTT). grad_accumulation>1 always needs the windowed loop; on
+        configurations that can't window it raises instead of silently
+        training with a different effective batch."""
+        from .superstep import (SuperstepRunner, accum_skip_nonfinite,
+                                validate_superstep)
+
+        k = validate_superstep(superstep)
+        if k == 1 and accum_m == 1:
+            return None
+        reason = None
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            reason = ("line-search optimizers (CG/LBFGS) are per-batch "
+                      "sequential")
+        elif self.conf.backprop_type == BackpropType.TRUNCATED_BPTT:
+            reason = ("TBPTT chunks each batch on host; use fit_scan for "
+                      "device-resident TBPTT epochs")
+        if reason is not None:
+            if accum_m != 1:
+                raise ValueError(
+                    f"grad_accumulation={accum_m} is not supported for "
+                    f"this configuration: {reason}")
+            log.info("superstep=%r falls back to per-batch dispatch: %s",
+                     superstep, reason)
+            return None
+        adapter = _NetworkSuperstepAdapter(
+            self, m=accum_m,
+            skip_nonfinite=accum_skip_nonfinite(guard, accum_m))
+        return SuperstepRunner(self, adapter, k, guard=guard, ckpt=ckpt,
+                               grad_accumulation=accum_m)
 
     def _fit_batch(self, ds: DataSet):
-        x, y, fmask, lmask = self._batch(ds)
-        self._check_input_width(x)
+        from ..telemetry.runtime import active, null_span
+        tel = active()
+        span = tel.span if tel is not None else null_span
+        with span("host/batch_prep"):
+            x, y, fmask, lmask = self._batch(ds)
+            self._check_input_width(x)
         self.last_input = x
         if (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
                 and x.dim() == 3):
             self._fit_tbptt(x, y, fmask, lmask)
             return
+        self._track_signature((x, y, fmask, lmask))
         if self.conf.conf.optimization_algo != \
                 OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
-            score = self._line_search_step(x, y, fmask, lmask)
+            with span("device/dispatch", kind="line_search"):
+                score = self._line_search_step(x, y, fmask, lmask)
         else:
-            score, _ = self._train_step(x, y, fmask, lmask)
+            with span("device/dispatch", kind="train_step"):
+                score, _ = self._watched_train_step(x, y, fmask, lmask)
+        if tel is not None and tel.sync_per_step and score.is_cuda:
+            with span("device/sync"):
+                torch.cuda.current_stream(score.device).synchronize()
         self._step_done(score, x)
+
+    @property
+    def _watched_train_step(self):
+        """`_train_step` behind the active telemetry session's capture
+        watcher (`<entry>/train_step`), bound to this model. The wrapper
+        is kept on the class: one kept on the model would hold the model
+        in a reference cycle."""
+        from ..telemetry.compile_watch import watch_compiles
+        cls = type(self)
+        fn = cls.__dict__.get("_watched_step_fn")
+        if fn is None:
+            fn = watch_compiles(cls._train_step,
+                                f"{self._entry_name}/train_step")
+            cls._watched_step_fn = staticmethod(fn)
+        return functools.partial(fn, self)
+
+    def _track_signature(self, batch):
+        """Count the distinct batch signatures the step has seen
+        (`recompile_count`: each would capture the step anew on the
+        card); a second one logs the pad_ragged hint, as JAX does."""
+        sig = tuple(None if a is None else tuple(a.shape)
+                    for a in flatten_tree(batch)[0])
+        if sig not in self._batch_signatures:
+            self._batch_signatures.add(sig)
+            self.recompile_count += 1
+            if self.recompile_count == 2:
+                log.info(
+                    "train step sees a second batch signature %s — ragged "
+                    "final batches double the captures; use fit(..., "
+                    "pad_ragged=True) (weight-zero padding, a learning "
+                    "no-op) or ArrayDataSetIterator(drop_last=True)", sig)
 
     def _line_search_step(self, x, y, fmask, lmask):
         """One batch of the line-search optimizer (CG, L-BFGS or line
@@ -543,9 +811,166 @@ class MultiLayerNetwork:
         cut = lambda a, sl: None if a is None else a[:, sl]
         for t0 in range(0, T, L):
             sl = slice(t0, min(t0 + L, T))
-            score, carries = self._train_step(
-                x[:, sl], y[:, sl], cut(fmask, sl), cut(lmask, sl), carries)
+            chunk = (x[:, sl], y[:, sl], cut(fmask, sl), cut(lmask, sl))
+            self._track_signature(chunk)
+            score, carries = self._train_step(*chunk, carries)
             self._step_done(score, x)
+
+    # ------------------------------------------------------------------
+    # Device-resident epochs
+    # ------------------------------------------------------------------
+    def fit_scan(self, data, epochs: int = 1, *, pad_ragged: bool = False,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, resume: bool = False,
+                 guard=None) -> "MultiLayerNetwork":
+        """Device-resident epoch training: a thin alias for `fit(...,
+        superstep="epoch")` (one window per epoch, bit-identical to the
+        per-batch loop), except for the two cases JAX routes specially:
+        TBPTT configurations go through `fit_scan_arrays` (hidden state
+        flows between a series' chunks and resets at series boundaries; a
+        ragged final chunk is padded under a zero label mask, the
+        reference's doTruncatedBPTT semantics), and line-search optimizers
+        through the per-batch `fit` loop. All batches must share shapes
+        (pad_ragged=True, a uniform-batch iterator, or drop the tail)."""
+        from ..datasets.iterators import ListDataSetIterator
+
+        if self.params is None:
+            self.init()
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            if isinstance(data, DataSet):
+                data = ListDataSetIterator([data])
+            elif not isinstance(data, DataSetIterator):
+                data = ListDataSetIterator(list(data))
+            return self.fit(data, epochs=epochs,
+                            checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=checkpoint_every,
+                            resume=resume, guard=guard)
+        if isinstance(data, DataSet):
+            batches = [data]
+        elif isinstance(data, DataSetIterator):
+            data.reset()
+            batches = []
+            while data.has_next():
+                batches.append(data.next())
+        else:
+            batches = list(data)
+        if not batches:
+            return self
+        if pad_ragged:
+            from ..datasets.pipeline import pad_dataset
+            target = max(b.num_examples() for b in batches)
+            batches = [pad_dataset(b, target)[0] for b in batches]
+        shapes = {tuple(np.shape(b.features)) for b in batches}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"fit_scan needs uniform batch shapes, got {sorted(shapes)}; "
+                "pad the ragged tail (pad_ragged=True — weight-zero rows, "
+                "a learning no-op), drop it (ArrayDataSetIterator("
+                "drop_last=True)), or use fit()")
+        tbptt = (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                 and len(np.shape(batches[0].features)) >= 3)
+        if not tbptt:
+            return self.fit(ListDataSetIterator(batches), epochs=epochs,
+                            superstep="epoch",
+                            checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=checkpoint_every,
+                            resume=resume, guard=guard)
+        # the batches' arrays, or tensors already on a device, stacked
+        stack = lambda arrays: torch.stack([self._as_input(a)
+                                            for a in arrays])
+        xs = stack([b.features for b in batches])
+        ys = stack([b.labels for b in batches])
+
+        def stack_masks(ms, name):
+            have = [m is not None for m in ms]
+            if not any(have):
+                return None
+            if not all(have):
+                raise ValueError(
+                    f"fit_scan needs {name} on every batch or on none "
+                    f"(got a mix); mask the full dataset or use fit()")
+            return stack(ms)
+
+        fmask = stack_masks([b.features_mask for b in batches],
+                            "features_mask")
+        lmask = stack_masks([b.labels_mask for b in batches], "labels_mask")
+        return self.fit_scan_arrays(xs, ys, fmask, lmask, epochs=epochs,
+                                    checkpoint_dir=checkpoint_dir,
+                                    checkpoint_every=checkpoint_every,
+                                    resume=resume, guard=guard)
+
+    def fit_scan_arrays(self, xs, ys, fmask=None, lmask=None,
+                        epochs: int = 1, *,
+                        checkpoint_dir: Optional[str] = None,
+                        checkpoint_every: int = 0, resume: bool = False,
+                        guard=None) -> "MultiLayerNetwork":
+        """fit_scan on pre-stacked [S, batch, ...] arrays (numpy, or
+        tensors already on the device to skip the copy). Each epoch is one
+        window: on the card, replays of the captured step (for TBPTT, of
+        the captured chunk step, its recurrent carries zeroed at each
+        series' first chunk); on the CPU the same steps eagerly.
+
+        Listener caveat: iteration_done is replayed AFTER the epoch with
+        per-step scores, so every call sees the END-OF-EPOCH params —
+        per-iteration param/update histograms are not faithful on this
+        path (a warning fires for such listeners); use fit() for those."""
+        from ..telemetry.runtime import active, null_span
+        from .fitloop import scan_epochs
+
+        if self.params is None:
+            self.init()
+        if self.conf.conf.optimization_algo != \
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT:
+            raise ValueError(
+                "fit_scan_arrays supports SGD-updater training only; "
+                "line-search optimizers (CG/LBFGS) are per-batch sequential "
+                "— use fit()")
+        tel = active()
+        span = tel.span if tel is not None else null_span
+        with span("host/batch_prep"):
+            xs_d, ys_d = self._as_input(xs), self._as_input(ys)
+            fm_d = None if fmask is None else self._as_input(fmask)
+            lm_d = None if lmask is None else self._as_input(lmask)
+        tbptt = (self.conf.backprop_type == BackpropType.TRUNCATED_BPTT
+                 and xs_d.dim() >= 4)
+        firsts = None
+        if tbptt:
+            L = self.conf.tbptt_fwd_length
+            T_time = xs_d.shape[2]
+            pad = (-T_time) % L
+            if pad:
+                if lm_d is None:
+                    lm_d = torch.ones(ys_d.shape[:3], dtype=xs_d.dtype,
+                                      device=self.device)
+                pad3 = lambda a: torch.nn.functional.pad(
+                    a, [0, 0] * (a.dim() - 3) + [0, pad])
+                xs_d, ys_d, lm_d = pad3(xs_d), pad3(ys_d), pad3(lm_d)
+                if fm_d is not None:
+                    fm_d = pad3(fm_d)
+            nc = xs_d.shape[2] // L
+
+            def chunked(a):
+                # [S, B, nc*L, ...] -> [S*nc, B, L, ...]
+                a = a.reshape((a.shape[0], a.shape[1], nc, L)
+                              + tuple(a.shape[3:]))
+                a = a.movedim(2, 1)
+                return a.reshape((a.shape[0] * nc, a.shape[2], L)
+                                 + tuple(a.shape[4:]))
+
+            xs_d, ys_d = chunked(xs_d), chunked(ys_d)
+            fm_d = chunked(fm_d) if fm_d is not None else None
+            lm_d = chunked(lm_d) if lm_d is not None else None
+            firsts = [i % nc == 0 for i in range(int(xs_d.shape[0]))]
+        batches = [(xs_d[i], ys_d[i],
+                    None if fm_d is None else fm_d[i],
+                    None if lm_d is None else lm_d[i])
+                   for i in range(int(xs_d.shape[0]))]
+        return scan_epochs(self, batches, firsts, epochs,
+                           checkpoint_dir=checkpoint_dir,
+                           checkpoint_every=checkpoint_every, resume=resume,
+                           guard=guard,
+                           context=self._precision_remat_context())
 
     # ------------------------------------------------------------------
     # Layerwise pretraining
@@ -815,3 +1240,57 @@ class MultiLayerNetwork:
     def rnn_get_previous_state(self, layer_idx: int):
         c = self._rnn_carries
         return None if c is None else c[layer_idx]
+
+
+class _NetworkSuperstepAdapter:
+    """SuperstepRunner hooks for MultiLayerNetwork (see nn/superstep.py):
+    array-shaped batches, masks optional. With `m>1` the window trains in
+    groups of m microbatches."""
+
+    def __init__(self, net: MultiLayerNetwork, m: int = 1,
+                 skip_nonfinite: bool = False):
+        self.net = net
+        self.m = int(m)
+        self.skip_nonfinite = bool(skip_nonfinite)
+
+    @staticmethod
+    def _shape(a):
+        return None if a is None else tuple(np.shape(a))
+
+    def signature(self, ds):
+        self.net._check_input_width(_ShapeOnly(np.shape(ds.features)))
+        return (self._shape(ds.features), self._shape(ds.labels),
+                self._shape(ds.features_mask), self._shape(ds.labels_mask))
+
+    def batch_nbytes(self, ds):
+        from ..datasets.pipeline import batch_nbytes
+        return batch_nbytes((ds.features, ds.labels, ds.features_mask,
+                             ds.labels_mask))
+
+    def stage(self, window):
+        from ..datasets.pipeline import stage_window
+        return stage_window(window, self.net.device, self.net._dtype)
+
+    def dispatch(self, staged, n, step0):
+        from .superstep import run_window
+        return run_window(self.net, staged, step0, self.m,
+                          self.skip_nonfinite)
+
+    def on_window_end(self, window):
+        net = self.net
+        last = window[-1]
+        net.last_input = last.features
+        net.last_batch_size = int(np.shape(last.features)[0])
+        net._track_signature((last.features, last.labels,
+                              last.features_mask, last.labels_mask))
+
+
+class _ShapeOnly:
+    """A stand-in with the shape of a batch's features, for the input-width
+    check of a batch that is not on the device yet."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def dim(self):
+        return len(self.shape)

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, List, Tuple
 
-__all__ = ["tree_map", "flat_leaves", "leaf_paths", "unflatten_like"]
+__all__ = ["tree_map", "flat_leaves", "leaf_paths", "unflatten_like",
+           "flatten_tree"]
 
 
 def tree_map(f: Callable, tree, *rest):
@@ -60,3 +61,18 @@ def unflatten_like(tree, vec, pos: int, to_leaf: Callable):
     for k in sorted(tree):
         out[k], pos = unflatten_like(tree[k], vec, pos, to_leaf)
     return out, pos
+
+
+def flatten_tree(tree):
+    """(leaves, rebuild): the leaves of a tree in `tree_map`'s order (None
+    leaves included), and a function that rebuilds a tree of the same
+    shape from a list of as many values. The rebuild keeps the tree's
+    shape, not its leaves."""
+    leaves = []
+    skeleton = tree_map(leaves.append, tree)
+
+    def rebuild(values):
+        it = iter(values)
+        return tree_map(lambda _: next(it), skeleton)
+
+    return leaves, rebuild

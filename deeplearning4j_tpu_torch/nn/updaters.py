@@ -14,6 +14,19 @@ parameters (nested where they are: a BiLSTM's `m/fwd/W`), so `updaterState.npz` 
 packages. The scalar step arithmetic (Adam's `t = step + 1` and `b ** t`,
 schedules) is done in float32 on the host, as JAX does it in float32;
 the tensors are updated out of place.
+
+Each update is split in two (`update` = `apply` of `scalars`):
+`scalars(step, lr)` is the step's host arithmetic, a tuple of float32
+values (Adam's bias-corrected step size, the lr), and `apply(grads,
+state, sc)` the tensor arithmetic, which takes each of them as a Python
+float or as a 0-dim float32 tensor. A training step replayed as a CUDA
+graph reads its scalars from a device table the host fills for each step
+(`nn/superstep.py`): a float baked into a graph at capture would freeze
+the step it was captured at. A multiply by a 0-dim float32 tensor gives
+the bits of a multiply by the same value as a Python float (the tests
+hold it on the CPU and on the card); `_smul` keeps that true for
+bfloat16 and float16 tensors, which would otherwise round the scalar to
+their own type first.
 """
 from __future__ import annotations
 
@@ -25,7 +38,7 @@ import torch
 from .trees import tree_map
 
 __all__ = ["Updater", "Sgd", "NoOp", "Adam", "AdaMax", "AdaGrad", "AdaDelta",
-           "RmsProp", "Nesterovs", "get", "from_dict", "UPDATERS"]
+           "RmsProp", "Nesterovs", "get", "from_dict", "UPDATERS", "smul"]
 
 
 def _zeros_like(params):
@@ -34,6 +47,16 @@ def _zeros_like(params):
 
 def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
+
+
+def smul(s, t: torch.Tensor) -> torch.Tensor:
+    """`s * t` for a step scalar `s` (a float, or a 0-dim float32 tensor)
+    with the bits of the float form: a half-precision `t` is multiplied in
+    float32 and rounded once, as torch does for a Python scalar."""
+    if (isinstance(s, torch.Tensor) and t.dtype != s.dtype
+            and t.dtype in (torch.bfloat16, torch.float16)):
+        return (s * t.to(s.dtype)).to(t.dtype)
+    return s * t
 
 
 def _bias_correction(b: float, step) -> torch.Tensor:
@@ -51,8 +74,17 @@ class Updater:
     def init(self, params) -> Dict:
         return {}
 
-    def update(self, grads, state, step, lr=None):
+    def scalars(self, step, lr=None) -> tuple:
+        """The step's host scalars (float32 values as Python floats)."""
+        return ()
+
+    def apply(self, grads, state, sc):
+        """(updates, new state) from the gradients and `scalars`' values
+        (floats or 0-dim float32 tensors)."""
         raise NotImplementedError
+
+    def update(self, grads, state, step, lr=None):
+        return self.apply(grads, state, self.scalars(step, lr))
 
     def _lr(self, lr) -> float:
         """The step's lr as a host float (a float32 schedule value stays
@@ -67,16 +99,19 @@ class Updater:
 
 @dataclass
 class Sgd(Updater):
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
-        return tree_map(lambda g: lr * g, grads), state
+    def scalars(self, step, lr=None):
+        return (self._lr(lr),)
+
+    def apply(self, grads, state, sc):
+        lr, = sc
+        return tree_map(lambda g: smul(lr, g), grads), state
 
 
 @dataclass
 class NoOp(Updater):
     """Updater.NONE: gradients applied raw (lr ignored)."""
 
-    def update(self, grads, state, step, lr=None):
+    def apply(self, grads, state, sc):
         return grads, state
 
 
@@ -102,16 +137,20 @@ class Adam(Updater):
             z["m"] = tree_map(lambda a: a.to(dt), z["m"])
         return z
 
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
+    def scalars(self, step, lr=None):
+        # bias-corrected step size (ND4J AdamUpdater's form), float32
+        return (float(_f32(self._lr(lr))
+                      * torch.sqrt(_bias_correction(self.beta2, step))
+                      / _bias_correction(self.beta1, step)),)
+
+    def apply(self, grads, state, sc):
+        alpha, = sc
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
         m = tree_map(lambda m_, g: b1 * m_.to(g.dtype) + (1 - b1) * g,
                   state["m"], grads)
         v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
-        # bias-corrected step size (ND4J AdamUpdater's form), float32
-        alpha = float(_f32(lr) * torch.sqrt(_bias_correction(b2, step))
-                      / _bias_correction(b1, step))
-        upd = tree_map(lambda m_, v_: alpha * m_ / (torch.sqrt(v_) + eps), m, v)
+        upd = tree_map(lambda m_, v_: smul(alpha, m_) / (torch.sqrt(v_) + eps),
+                       m, v)
         dt = self._m_dtype()
         if dt is not None:
             m = tree_map(lambda a: a.to(dt), m)
@@ -128,14 +167,18 @@ class AdaMax(Updater):
     def init(self, params):
         return {"m": _zeros_like(params), "u": _zeros_like(params)}
 
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
+    def scalars(self, step, lr=None):
+        return (float(_f32(self._lr(lr))
+                      / _bias_correction(self.beta1, step)),)
+
+    def apply(self, grads, state, sc):
+        alpha, = sc
         b1, b2 = self.beta1, self.beta2
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
         u = tree_map(lambda u_, g: torch.maximum(b2 * u_, g.abs()), state["u"],
                   grads)
-        alpha = float(_f32(lr) / _bias_correction(b1, step))
-        upd = tree_map(lambda m_, u_: alpha * m_ / (u_ + self.epsilon), m, u)
+        upd = tree_map(lambda m_, u_: smul(alpha, m_) / (u_ + self.epsilon),
+                       m, u)
         return upd, {"m": m, "u": u}
 
 
@@ -147,10 +190,14 @@ class AdaGrad(Updater):
     def init(self, params):
         return {"h": _zeros_like(params)}
 
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
+    def scalars(self, step, lr=None):
+        return (self._lr(lr),)
+
+    def apply(self, grads, state, sc):
+        lr, = sc
         h = tree_map(lambda h_, g: h_ + g * g, state["h"], grads)
-        upd = tree_map(lambda g, h_: lr * g / (torch.sqrt(h_) + self.epsilon),
+        upd = tree_map(lambda g, h_: smul(lr, g) / (torch.sqrt(h_)
+                                                    + self.epsilon),
                     grads, h)
         return upd, {"h": h}
 
@@ -163,7 +210,7 @@ class AdaDelta(Updater):
     def init(self, params):
         return {"msg": _zeros_like(params), "msdx": _zeros_like(params)}
 
-    def update(self, grads, state, step, lr=None):
+    def apply(self, grads, state, sc):
         rho, eps = self.rho, self.epsilon
         msg = tree_map(lambda a, g: rho * a + (1 - rho) * g * g, state["msg"],
                     grads)
@@ -183,11 +230,15 @@ class RmsProp(Updater):
     def init(self, params):
         return {"g2": _zeros_like(params)}
 
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
+    def scalars(self, step, lr=None):
+        return (self._lr(lr),)
+
+    def apply(self, grads, state, sc):
+        lr, = sc
         d = self.rms_decay
         g2 = tree_map(lambda a, g: d * a + (1 - d) * g * g, state["g2"], grads)
-        upd = tree_map(lambda g, a: lr * g / (torch.sqrt(a) + self.epsilon),
+        upd = tree_map(lambda g, a: smul(lr, g) / (torch.sqrt(a)
+                                                   + self.epsilon),
                     grads, g2)
         return upd, {"g2": g2}
 
@@ -203,11 +254,14 @@ class Nesterovs(Updater):
     def init(self, params):
         return {"v": _zeros_like(params)}
 
-    def update(self, grads, state, step, lr=None):
-        lr = self._lr(lr)
+    def scalars(self, step, lr=None):
+        return (self._lr(lr),)
+
+    def apply(self, grads, state, sc):
+        lr, = sc
         mu = self.momentum
-        v_new = tree_map(lambda v, g: mu * v - lr * g, state["v"], grads)
-        upd = tree_map(lambda vn, g: lr * g - mu * vn, v_new, grads)
+        v_new = tree_map(lambda v, g: mu * v - smul(lr, g), state["v"], grads)
+        upd = tree_map(lambda vn, g: smul(lr, g) - mu * vn, v_new, grads)
         return upd, {"v": v_new}
 
 

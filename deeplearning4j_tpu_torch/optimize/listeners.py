@@ -176,10 +176,11 @@ class ParamAndGradientIterationListener(IterationListener):
 
 
 def warn_scan_replay(listeners):
-    """A windowed fit (`fit_scan_arrays`, ROADMAP A8) replays listeners
-    after the window with per-step scores only, so every iteration_done
-    sees the final parameters. Warn when attached listeners snapshot
-    parameters per iteration."""
+    """A windowed fit (`fit(superstep=K)`, `grad_accumulation`,
+    `fit_scan`, `fit_scan_arrays`) replays listeners at the window's edge
+    with per-step scores only, so every iteration_done sees the window's
+    final parameters. Warn when attached listeners snapshot parameters per
+    iteration."""
     def flatten(ls):
         for l in ls:
             yield l
@@ -193,7 +194,7 @@ def warn_scan_replay(listeners):
         import warnings
         warnings.warn(
             f"listeners {bad} collect per-iteration parameter stats, but "
-            "fit_scan_arrays replays iteration_done after the device scan: "
+            "a windowed fit replays iteration_done after the window: "
             "scores are per-step, param/update stats are end-of-window "
             "snapshots. Use fit() for faithful per-iteration histograms.",
             stacklevel=3)

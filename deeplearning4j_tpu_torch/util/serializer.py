@@ -8,12 +8,16 @@ writes, so a model saved by either package loads in the other:
                              (BatchNormalization's `i:1/k:mean`, `k:var`)
   * `updaterState.npz`     — optimizer state, keyed `i:<layer>/k:<slot>/
                              k:<param>` (`i:0/k:m/k:W`)
-  * `metadata.json`        — counters and model kind
+  * `metadata.json`        — counters and model kind (a checkpoint adds
+                             its bookkeeping, and the states of the
+                             dropout generators under `torch_generators`)
   * `manifest.sha256.json` — sha256 of every other entry, checked on restore
 
 Both model kinds, MultiLayerNetwork and ComputationGraph, are written and
 restored (`metadata.json`'s `kind` picks the class). Writes are crash-safe
-(fault/atomic.py). `from_jax_params` loads the JAX model's parameters (and
+(fault/atomic.py), with the `zip/temp_written` crash point of
+fault/injection.py; `restore_into` restores a checkpoint into a model that
+already exists (the resume path). `from_jax_params` loads the JAX model's parameters (and
 optionally its layer state and updater state), as numpy arrays, straight
 into a port network or graph.
 """
@@ -22,7 +26,7 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -126,15 +130,23 @@ class ModelSerializer:
     MANIFEST = "manifest.sha256.json"
 
     @staticmethod
-    def write_model(model, path: str, save_updater: bool = True):
+    def write_model(model, path: str, save_updater: bool = True,
+                    extra_meta: Optional[Dict] = None):
         """Write a MultiLayerNetwork or ComputationGraph to a zip,
-        crash-safely, with a sha256
-        manifest of every entry; with `save_updater`, its updater state
-        too."""
+        crash-safely, with a sha256 manifest of every entry; with
+        `save_updater`, its updater state too. `extra_meta` merges into
+        metadata.json (checkpoint bookkeeping: score, epoch-in-fit, ...)."""
+        from ..fault.metrics import checkpoint_timer
+
         meta = {"kind": type(model).__name__,
                 "iteration_count": model.iteration_count,
                 "epoch_count": model.epoch_count,
                 "format_version": 1}
+        gens = _generator_meta(model)
+        if gens is not None:
+            meta["torch_generators"] = gens
+        if extra_meta:
+            meta.update(extra_meta)
         entries = [(ModelSerializer.CONFIG, model.conf.to_json().encode()),
                    (ModelSerializer.COEFFICIENTS,
                     _savez(tree_to_arrays(model.params))),
@@ -152,7 +164,9 @@ class ModelSerializer:
             for name, data in entries:
                 z.writestr(name, data)
             z.writestr(ModelSerializer.MANIFEST, json.dumps(manifest))
-        atomic_replace(path, buf.getvalue())
+        with checkpoint_timer("save", "zip"):
+            atomic_replace(path, buf.getvalue(),
+                           crash_point="zip/temp_written")
 
     @staticmethod
     def _read_verified(path: str) -> Dict[str, bytes]:
@@ -202,6 +216,26 @@ class ModelSerializer:
                 device=device).init()
         else:
             raise ValueError(f"{path}: unknown model kind {kind!r}")
+        ModelSerializer._restore_into(model, entries, load_updater)
+        return model
+
+    @staticmethod
+    def restore_into(model, path: str, load_updater: bool = True) -> Dict:
+        """Restore a checkpoint into an already-initialised model of the
+        same architecture (the resume path: no config parse, no init), on
+        the model's device. Verifies the manifest first. Returns the
+        metadata dict (counters, checkpoint extras)."""
+        from ..fault.metrics import checkpoint_timer
+
+        with checkpoint_timer("restore", "zip"):
+            entries = ModelSerializer._read_verified(path)
+            return ModelSerializer._restore_into(model, entries,
+                                                 load_updater)
+
+    @staticmethod
+    def _restore_into(model, entries: Dict[str, bytes],
+                      load_updater: bool) -> Dict:
+        meta = json.loads(entries[ModelSerializer.METADATA].decode())
         model.params = arrays_to_tree(
             model.params, _loadz(entries[ModelSerializer.COEFFICIENTS]))
         if ModelSerializer.NETWORK_STATE in entries:
@@ -213,4 +247,71 @@ class ModelSerializer:
                 _loadz(entries[ModelSerializer.UPDATER_STATE]))
         model.iteration_count = meta.get("iteration_count", 0)
         model.epoch_count = meta.get("epoch_count", 0)
-        return model
+        _restore_generators(model, meta.get("torch_generators"))
+        return meta
+
+
+def _generator_slots(model):
+    """(attribute, is_list) of the model's dropout generators: a network's
+    `_generator` and `_pretrain_gen`, a graph's `_generators` list."""
+    if hasattr(model, "_generators"):
+        return [("_generators", True)]
+    return [("_generator", False), ("_pretrain_gen", False)]
+
+
+def _gen_state(g):
+    return None if g is None else bytes(g.get_state().numpy()).hex()
+
+
+def _generator_meta(model) -> Optional[Dict]:
+    """The dropout generators' states for metadata.json, with the device
+    kind that drew them (a state restores only on the same kind)."""
+    out = {}
+    for attr, is_list in _generator_slots(model):
+        g = getattr(model, attr, None)
+        out[attr] = ([_gen_state(x) for x in g] if is_list and g is not None
+                     else _gen_state(g) if not is_list else None)
+    if all(v is None for v in out.values()):
+        return None
+    return {"device": model.device.type, "states": out}
+
+
+def _from_hex(h: str) -> torch.Tensor:
+    return torch.frombuffer(bytearray.fromhex(h), dtype=torch.uint8).clone()
+
+
+def _put_state(cur, h, device):
+    """A generator on `device` holding state `h` (`cur` itself, in place,
+    when it exists: a captured CUDA graph keeps the generator it was
+    captured with), or None when `h` is None."""
+    if h is None:
+        return None
+    g = cur if cur is not None else torch.Generator(device=device)
+    g.set_state(_from_hex(h))
+    return g
+
+
+def _restore_generators(model, rec: Optional[Dict]):
+    """Put back the generator states `write_model` recorded, when they
+    were drawn on the model's device kind; a zip without them (a JAX
+    checkpoint, or a model that never drew) leaves the generators unset,
+    so they start from the seed as in a fresh run."""
+    slots = _generator_slots(model)
+    if rec is None or rec.get("device") != model.device.type:
+        for attr, _ in slots:
+            setattr(model, attr, None)
+        return
+    states = rec.get("states", {})
+    for attr, is_list in slots:
+        h = states.get(attr)
+        cur = getattr(model, attr, None)
+        if is_list:
+            if h is None:
+                setattr(model, attr, None)
+            else:
+                cur = cur if cur is not None and len(cur) == len(h) \
+                    else [None] * len(h)
+                setattr(model, attr, [_put_state(c, x, model.device)
+                                      for c, x in zip(cur, h)])
+        else:
+            setattr(model, attr, _put_state(cur, h, model.device))

@@ -2,8 +2,8 @@
 package: GravesBidirectionalLSTM (a nested parameter tree, `{"fwd": {W, b,
 peep}, "bwd": {...}}`) and LastTimeStep, through every place that walks a
 parameter tree, and the twins of the JAX package's `tests/test_recurrent.py`
-and `tests/test_bilstm_subsystems.py` (bar its parallel and `fit_scan`
-cases, which wait for ROADMAP A11 and A8).
+and `tests/test_bilstm_subsystems.py` (bar its parallel case, which waits
+for ROADMAP A11; its `fit_scan` half is in `tests/test_torch_fit_scan.py`).
 
 The same numpy inputs, made from a seed, go through both packages; the
 parameters and updater state cross through `from_jax_params` or the zip.

@@ -380,19 +380,60 @@ def test_bfloat16_first_moment_round_trips_through_the_zip(tmp_path):
 # ---------------------------------------------------------------------------
 # what the slice does not train, and the counters
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("option,value,item", [
-    ("superstep", 2, "A8"), ("grad_accumulation", 2, "A8"),
-    ("prefetch", True, "A8"), ("pad_ragged", True, "A8"),
-    ("time_buckets", [4], "A8"), ("checkpoint_dir", "ckpt", "A8"),
-    ("checkpoint_every", 5, "A8"), ("resume", True, "A8"),
-    ("guard", object(), "A8")])
-def test_fit_options_not_in_the_slice_raise_named_errors(option, value, item):
-    net = char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=5,
-                   device="cpu").init()
-    x, y = _char_data(2, 5)
-    with pytest.raises(NotImplementedError, match=f"{option}.*{item}"):
-        net.fit(ArrayDataSetIterator(x, y, batch_size=2), **{option: value})
-    assert net.iteration_count == 0
+def _fit_option_case(option, value, tmp_path):
+    """Fit the small char-RNN (three series of 5, batch 2: a ragged tail)
+    with one of JAX's `fit` options; returns (net, the same fit without
+    the option)."""
+    from deeplearning4j_tpu_torch.fault import TrainingGuard
+    x, y = _char_data(3, 5)
+    mk = lambda: char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=5,
+                          device="cpu").init()
+    plain = mk()
+    plain.fit(ArrayDataSetIterator(x, y, batch_size=2))
+    if option == "checkpoint_dir":
+        value = str(tmp_path / value)
+    if option == "guard":
+        value = TrainingGuard(value)
+    net = mk()
+    net.fit(ArrayDataSetIterator(x, y, batch_size=2), **{option: value})
+    return net, plain
+
+
+@pytest.mark.parametrize("option,value", [
+    ("superstep", 2), ("grad_accumulation", 2), ("prefetch", True),
+    ("pad_ragged", True), ("time_buckets", [8]), ("checkpoint_dir", "ckpt"),
+    ("checkpoint_every", 5), ("resume", True), ("guard", "warn")])
+def test_fit_options_train_the_char_rnn(option, value, tmp_path):
+    """Each of JAX's `fit` options on the TBPTT char-RNN, as JAX treats
+    it: superstep falls back to per-batch steps (the same bits), prefetch
+    and a warn guard change nothing, padding rows and the time axis is a
+    learning no-op (1e-5), checkpoint_dir leaves a resumable checkpoint,
+    and grad_accumulation, checkpoint_every or resume without a directory
+    raise JAX's errors."""
+    if option == "grad_accumulation":
+        with pytest.raises(ValueError, match="not supported for this "
+                                             "configuration"):
+            _fit_option_case(option, value, tmp_path)
+        return
+    if option in ("checkpoint_every", "resume"):
+        with pytest.raises(ValueError, match="need checkpoint_dir"):
+            _fit_option_case(option, value, tmp_path)
+        return
+    net, plain = _fit_option_case(option, value, tmp_path)
+    assert net.iteration_count == plain.iteration_count == 2
+    if option in ("pad_ragged", "time_buckets"):
+        np.testing.assert_allclose(net.params_flat(), plain.params_flat(),
+                                   rtol=0, atol=1e-5)
+        return
+    np.testing.assert_array_equal(net.params_flat(), plain.params_flat())
+    if option == "checkpoint_dir":
+        from deeplearning4j_tpu_torch.fault import CheckpointManager
+        (it, path), = CheckpointManager(str(tmp_path / "ckpt")).entries()
+        assert it == 2
+        back = char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=5,
+                        device="cpu").init()
+        ModelSerializer.restore_into(back, path)
+        np.testing.assert_array_equal(back.params_flat(), net.params_flat())
 
 
 def test_fit_on_the_lm_matches_jax_fit():

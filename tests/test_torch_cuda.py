@@ -1402,3 +1402,344 @@ def test_resnet_block_on_the_card_matches_the_cpu(cuda):
     for name, want in grads[1][1].items():
         got = grads[0][1][name]
         assert ((got - want).norm() / want.norm()).item() <= 1e-2, name
+
+
+# ---------------------------------------------------------------------------
+# the training loop on the card: CUDA-graph replays (nn/superstep.py)
+# ---------------------------------------------------------------------------
+def _loop_mlp(cuda, dropout=None, bn=False, width=64, dtype=None, seed=3):
+    b = pt.NeuralNetConfiguration.builder().seed(seed).updater(
+        pt.Adam(1e-3))
+    if dtype is not None:
+        b = b.compute_dtype(dtype)
+    b = b.list().layer(pt.DenseLayer(
+        n_out=width, activation="identity" if bn else "relu",
+        dropout=dropout))
+    if bn:
+        b = b.layer(pt.BatchNormalization(activation="relu"))
+    conf = (b.layer(pt.OutputLayer(n_out=5, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(12)).build())
+    return pt.MultiLayerNetwork(conf, device=cuda).init(
+        generator=torch.Generator().manual_seed(seed))
+
+
+def _loop_data(n, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, 12)).astype(np.float32)
+    return x, np.eye(5, dtype=np.float32)[r.integers(0, 5, n)]
+
+
+def _same_run(a, b):
+    from deeplearning4j_tpu_torch.nn.trees import flatten_tree
+    for tree in ("params", "updater_state", "state"):
+        la = flatten_tree(getattr(a, tree))[0]
+        lb = flatten_tree(getattr(b, tree))[0]
+        assert len(la) == len(lb)
+        assert all(torch.equal(x, y) for x, y in zip(la, lb)), tree
+    assert a.iteration_count == b.iteration_count
+
+
+_UPDATERS = [pt.nn.updaters.Sgd(0.1), pt.nn.updaters.Adam(1e-2),
+             pt.nn.updaters.AdaMax(1e-2), pt.nn.updaters.AdaGrad(0.1),
+             pt.nn.updaters.AdaDelta(), pt.nn.updaters.RmsProp(1e-2),
+             pt.nn.updaters.Nesterovs(0.1, 0.9), pt.nn.updaters.NoOp()]
+
+
+@pytest.mark.parametrize("u", _UPDATERS,
+                         ids=[type(u).__name__ for u in _UPDATERS])
+def test_scalar_row_gives_the_bits_of_host_floats_on_the_card(cuda, u):
+    """A multiply by a 0-dim float32 CUDA tensor (a replayed step's scalar
+    row) gives the bits of a multiply by the same float32 as a Python
+    scalar, through every updater, five steps."""
+    r = np.random.default_rng(4)
+    p = {"W": torch.tensor(r.normal(size=(33, 17)), dtype=torch.float32,
+                           device=cuda)}
+    sa, sb = u.init(p), u.init(p)
+    for step in range(5):
+        g = {"W": torch.tensor(r.normal(size=(33, 17)), dtype=torch.float32,
+                               device=cuda)}
+        host = u.scalars(step, None)
+        row = torch.tensor(host, dtype=torch.float32, device=cuda)
+        ua, sa = u.apply(g, sa, host)
+        ub, sb = u.apply(g, sb, tuple(row[i] for i in range(len(host))))
+        assert torch.equal(ua["W"], ub["W"])
+    h = torch.tensor(r.normal(size=257), dtype=torch.bfloat16, device=cuda)
+    s = float(torch.tensor(0.1234567, dtype=torch.float32))
+    assert torch.equal(pt.nn.updaters.smul(s, h),
+                       pt.nn.updaters.smul(torch.tensor(s, device=cuda), h))
+
+
+def _replay_check(cuda, make, call):
+    """Capture one wrapper call, replay it on 3 fresh inputs: each replay
+    bit-equal to an eager call, the counters at 3 replayed launches."""
+    from deeplearning4j_tpu_torch import kernels
+    quiet = lambda fn: (lambda s: (fn(), kernels.restore_counts(s))[0])(
+        kernels.count_snapshot())
+    static = quiet(lambda: make(0))
+    quiet(lambda: call(*static))
+    torch.cuda.synchronize()
+    before = kernels.count_snapshot()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call(*static)
+    captured = kernels.count_delta(before, kernels.count_snapshot())
+    kernels.restore_counts(before)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    for seed in (1, 2, 3):
+        fresh = quiet(lambda: make(seed))
+        for s, f in zip(static, fresh):
+            if isinstance(s, torch.Tensor):
+                s.copy_(f)
+        g.replay()
+        kernels.add_counts(captured)
+        want = quiet(lambda: call(*fresh))
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        torch.cuda.synchronize()
+        assert all((o is None and w is None) or torch.equal(o, w)
+                   for o, w in zip(outs, want))
+    got = kernels.count_delta(before, kernels.count_snapshot())
+    n = sum(sum(t.values()) for t, _ in got.values())
+    m = sum(sum(t.values()) for t, _ in captured.values())
+    assert m == 1 and n == 3
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("fwd", (64, 32, 77, 200)), ("fwd", (8, 4, 77, 512)),
+    ("residual", (64, 64, 77, 200)), ("residual", (8, 4, 77, 512)),
+    ("adjoint", (64, 64, 77, 200)), ("adjoint", (8, 4, 77, 512)),
+    ("reduction", (64, 64, 77, 200))])
+def test_lstm_kernels_replay_bit_equal_from_a_cuda_graph(cuda, kind, shape):
+    T, B, F, H = shape
+
+    def make(seed):
+        args = _lstm_args(T, B, F, H, cuda, seed=seed)
+        if kind in ("fwd", "residual"):
+            return args + [1.0]
+        x, W, b, peep, h0, c0 = args
+        res = lstm.lstm_sequence_reference(*args, 1.0, save_residuals=True)
+        r = np.random.default_rng(seed + 50)
+        dh = [torch.as_tensor(r.normal(size=s).astype(np.float32),
+                              device=cuda)
+              for s in ((T, B, H), (B, H), (B, H), (T, B, 4 * H))]
+        if kind == "adjoint":
+            return [W, peep, c0, *res[1:], dh[0], dh[1], dh[2], F]
+        return [x, res[0], h0, res[1], c0, dh[3]]
+    call = {"fwd": lstm.fused_lstm_sequence,
+            "residual": lstm.lstm_residual_forward,
+            "adjoint": lstm.lstm_adjoint,
+            "reduction": lstm.lstm_param_grads}[kind]
+    _replay_check(cuda, make, call)
+
+
+@pytest.mark.parametrize("kind,dtype,Dh", [
+    ("fwd", "float32", 64), ("lse", "float32", 64), ("dq", "float32", 64),
+    ("dkv", "float32", 64), ("dq", "bfloat16", 64), ("dkv", "bfloat16", 64),
+    ("lse", "float32", 512), ("dq", "float32", 512)])
+def test_attention_kernels_replay_bit_equal_from_a_cuda_graph(cuda, kind,
+                                                              dtype, Dh):
+    B, T, H = 4, 128, 6 if Dh == 64 else 2
+    dt = getattr(torch, dtype)
+
+    def make(seed):
+        r = np.random.default_rng(seed)
+        q, k, v, do = (torch.as_tensor(r.normal(size=(B, T, H, Dh)).astype(
+            np.float32), device=cuda).to(dt) for _ in range(4))
+        if kind in ("fwd", "lse"):
+            return [q, k, v, True]
+        o, lse = attention.attention_reference_heads_lse(q, k, v, True)
+        if kind == "dq":
+            return [q, k, v, o, lse, do, True]
+        dsum = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        return [q, k, v, do, lse, dsum, True]
+    call = {"fwd": attention.flash_attention_heads,
+            "lse": attention.flash_attention_fwd_lse_heads,
+            "dq": attention.attention_bwd_dq,
+            "dkv": attention.attention_bwd_dkv}[kind]
+    _replay_check(cuda, make, call)
+
+
+@pytest.mark.parametrize("kind,N,C", [("fwd", 128, 1024), ("bwd", 128, 1024),
+                                      ("fwd", 57345, 8), ("bwd", 57345, 8)])
+def test_bn_kernels_replay_bit_equal_from_a_cuda_graph(cuda, kind, N, C):
+    def make(seed):
+        r = np.random.default_rng(seed)
+        x, dy = (torch.as_tensor(r.normal(size=(N, C)).astype(np.float32),
+                                 device=cuda).to(torch.bfloat16)
+                 for _ in range(2))
+        g, b = (torch.as_tensor(r.normal(size=C).astype(np.float32),
+                                device=cuda) for _ in range(2))
+        if kind == "fwd":
+            return [x, g, b]
+        _, mean, var = bn_relu.bn_relu_reference(x, g, b)
+        return [x, g, b, mean, var, dy]
+    call = (bn_relu.bn_relu_forward if kind == "fwd"
+            else bn_relu.bn_relu_backward)
+    _replay_check(cuda, make, call)
+
+
+@pytest.mark.parametrize("k", [2, 3, "epoch"])
+def test_superstep_replays_match_eager_steps_with_dropout(cuda, k):
+    """Windows replayed from one captured step (the dropout generator
+    registered with the graph) give the eager per-batch bits, generator
+    state included."""
+    x, y = _loop_data(7 * 16 + 5)
+    it = lambda: pt.ArrayDataSetIterator(x, y, batch_size=16)
+    a = _loop_mlp(cuda, dropout=0.4)
+    a.fit(it(), epochs=2)
+    b = _loop_mlp(cuda, dropout=0.4)
+    b.fit(it(), epochs=2, superstep=k)
+    _same_run(a, b)
+    assert torch.equal(a._generator.get_state(), b._generator.get_state())
+    assert len(b._captured_steps) == 2        # full batches and the tail
+
+
+def test_superstep_bf16_bn_counts_replayed_launches(cuda):
+    """A bf16 BN network: K=4 bit-equal to K=1, one resident forward and
+    backward BN launch a step counted through the replays."""
+    x, y = _loop_data(8 * 128)
+    it = lambda: pt.ArrayDataSetIterator(x, y, batch_size=128)
+    a = _loop_mlp(cuda, bn=True, width=256, dtype="bfloat16")
+    a.fit(it())
+    bn_relu.reset_launches()
+    b = _loop_mlp(cuda, bn=True, width=256, dtype="bfloat16")
+    b.fit(it(), superstep=4)
+    assert bn_relu.variant_counts() == {
+        "fwd": {"resident": 8, "streamed": 0},
+        "bwd": {"resident": 8, "streamed": 0}}
+    _same_run(a, b)
+
+
+def test_accumulation_replays_match_eager_on_the_card(cuda):
+    x, y = _loop_data(9 * 16)
+    it = lambda: pt.ArrayDataSetIterator(x, y, batch_size=16)
+    from deeplearning4j_tpu_torch.nn import superstep as ss
+    a = _loop_mlp(cuda, dropout=0.3)
+    keep = ss._captures
+    ss._captures = lambda model: False
+    try:
+        a.fit(it(), grad_accumulation=4, superstep=2)
+    finally:
+        ss._captures = keep
+    b = _loop_mlp(cuda, dropout=0.3)
+    b.fit(it(), grad_accumulation=4, superstep=2)
+    _same_run(a, b)
+
+
+def test_fit_scan_tbptt_replays_match_the_per_batch_fit(cuda):
+    V, T = 11, 40
+    r = np.random.default_rng(5)
+    idx = r.integers(0, V, (8, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    x, y = eye[idx[:, :-1]], eye[idx[:, 1:]]
+    mk = lambda: pt.char_rnn(vocab_size=V, lstm_size=24, seq_len=T,
+                             tbptt=20, device=cuda).init(
+        generator=torch.Generator().manual_seed(6))
+    batches = [pt.DataSet(x[:4], y[:4]), pt.DataSet(x[4:], y[4:])]
+    a = mk()
+    a.fit(pt.ListDataSetIterator(batches))
+    lstm.reset_launches()
+    b = mk()
+    b.fit_scan(batches)
+    assert lstm.launch_counts()["residual_launches"] == 2 * 4
+    _same_run(a, b)
+
+
+def test_guard_rollback_and_resume_on_the_card(cuda, tmp_path):
+    from deeplearning4j_tpu_torch.fault import (FaultyIterator, SimulatedCrash,
+                                                TrainingGuard, crash_at_write)
+    x, y = _loop_data(12 * 16)
+    it = lambda: pt.ArrayDataSetIterator(x, y, batch_size=16)
+    keep = np.r_[0:64, 128:192]
+    ref = _loop_mlp(cuda)
+    ref.fit(pt.ArrayDataSetIterator(x[keep], y[keep], batch_size=16),
+            superstep=4)
+    m = _loop_mlp(cuda)
+    m.fit(FaultyIterator(it(), nan_at=5), superstep=4,
+          guard=TrainingGuard("rollback", refresh_every=100))
+    _same_run(ref, m)
+    full = _loop_mlp(cuda)
+    full.fit(it(), superstep=4)
+    d = str(tmp_path / "ck")
+    k = _loop_mlp(cuda)
+    with crash_at_write(nth=2):
+        with pytest.raises(SimulatedCrash):
+            k.fit(it(), superstep=4, checkpoint_dir=d, checkpoint_every=5)
+    r = _loop_mlp(cuda)
+    r.fit(it(), superstep=4, checkpoint_dir=d, resume=True)
+    _same_run(full, r)
+
+
+def test_prefetch_stages_on_a_side_stream_and_matches(cuda):
+    x, y = _loop_data(8 * 64)
+    it = lambda: pt.ArrayDataSetIterator(x, y, batch_size=64)
+    a = _loop_mlp(cuda)
+    a.fit(it())
+    for k in (1, 4):
+        b = _loop_mlp(cuda)
+        b.fit(it(), prefetch=True, superstep=k)
+        _same_run(a, b)
+
+
+def test_a_step_that_syncs_raises_capture_error(cuda, monkeypatch):
+    """A step with a host sync cannot be captured: CaptureError names the
+    op, and nothing trains eagerly in its place."""
+    from deeplearning4j_tpu_torch.nn.superstep import CaptureError
+    m = _loop_mlp(cuda)
+    layer = m.layers[0]
+    orig = type(layer).apply
+
+    def syncing(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        out[0].sum().item()
+        return out
+    monkeypatch.setattr(type(layer), "apply", syncing)
+    before = m.params_flat()
+    x, y = _loop_data(4 * 16)
+    with pytest.raises(CaptureError, match="synchroniz"):
+        m.fit(pt.ArrayDataSetIterator(x, y, batch_size=16), superstep=2)
+    assert m.iteration_count == 0
+    np.testing.assert_array_equal(m.params_flat(), before)
+
+
+def test_telemetry_counts_captures_and_reads_the_card(cuda):
+    x, y = _loop_data(6 * 16)
+    sess = pt.TelemetrySession()
+    with pt.telemetry.enabled(sess):
+        _loop_mlp(cuda).fit(pt.ArrayDataSetIterator(x, y, batch_size=16),
+                            epochs=2, superstep=3)
+        sample = sess.watermarks.sample()
+    assert sess.compiles.count("nn/superstep") == 1
+    assert sample["device0_bytes"] > 0 and sample["device0_peak_bytes"] > 0
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_fit_takes_batches_already_on_the_card(cuda, k):
+    """DataSets and MultiDataSets holding CUDA tensors train per batch and
+    in windows on both model kinds, as their host arrays do, and
+    fit_scan stacks them on the card."""
+    x, y = _loop_data(4 * 16)
+    host = [pt.DataSet(x[i:i + 16], y[i:i + 16]) for i in range(0, 64, 16)]
+    dev = [pt.DataSet(torch.as_tensor(d.features, device=cuda),
+                      torch.as_tensor(d.labels, device=cuda)) for d in host]
+    a = _loop_mlp(cuda)
+    a.fit(pt.ListDataSetIterator(host), superstep=k)
+    b = _loop_mlp(cuda)
+    b.fit(pt.ListDataSetIterator(dev), superstep=k)
+    _same_run(a, b)
+    c = _loop_mlp(cuda)
+    c.fit_scan(dev)
+    _same_run(a, c)
+    conf = (pt.NeuralNetConfiguration.builder().seed(3).updater(pt.Sgd(0.1))
+            .graph_builder().add_inputs("in")
+            .add_layer("out", pt.OutputLayer(n_out=5, activation="softmax",
+                                             loss="mcxent"), "in")
+            .set_outputs("out")
+            .set_input_types(pt.InputType.feed_forward(12)).build())
+    ga = pt.ComputationGraph(conf, device=cuda).init()
+    ga.fit(pt.ListDataSetIterator(host), superstep=k)
+    gb = pt.ComputationGraph(conf, device=cuda).init()
+    gb.fit(pt.ListDataSetIterator(
+        [pt.MultiDataSet(features=[d.features], labels=[d.labels])
+         for d in dev]), superstep=k)
+    _same_run(ga, gb)

@@ -4,7 +4,7 @@ input types), every vertex type's forward and gradients (masks included),
 multi-input and multi-output graphs, `rnn_time_step`, remat, the graph zip
 both ways, the zoo's ResNet and GoogLeNet at small sizes, serving, and the
 named errors. Twins of the JAX package's `tests/test_graph.py`,
-`tests/test_graph_rnn.py` (bar its Async iterator, ROADMAP A8) and
+`tests/test_graph_rnn.py` and
 `tests/test_graph_vertex_training_sweep.py`.
 
 The same numpy inputs, made from a seed, go through both packages; the
@@ -691,16 +691,74 @@ def test_registry_refuses_a_multi_input_graph_with_jax_words():
         reg.register("m", g, input_shape=(4,))
 
 
+def _merge_batches(n, rows=8, seed=0):
+    r = np.random.default_rng(seed)
+    return [pt.MultiDataSet(
+        features=[r.normal(size=(rows, 4)).astype(np.float32),
+                  r.normal(size=(rows, 6)).astype(np.float32)],
+        labels=[np.eye(2, dtype=np.float32)[r.integers(0, 2, rows)]])
+        for _ in range(n)]
+
+
 @pytest.mark.parametrize("option,value", [
     ("superstep", 2), ("grad_accumulation", 2), ("prefetch", True),
     ("pad_ragged", True), ("time_buckets", (4,)),
-    ("checkpoint_dir", "/nonexistent"), ("checkpoint_every", 5),
-    ("resume", True), ("guard", object())])
-def test_fit_options_of_a8_raise_named_errors(option, value):
-    g = ComputationGraph(_merge_conf(pt), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        g.fit(pt.MultiDataSet(features=[np.zeros((1, 4)), np.zeros((1, 6))],
-                              labels=[np.zeros((1, 2))]), **{option: value})
+    ("checkpoint_dir", "ckpt"), ("checkpoint_every", 5),
+    ("resume", True), ("guard", "skip_batch")])
+def test_fit_options_train_a_two_input_graph(option, value, tmp_path):
+    """Each of JAX's `fit` options on the two-input graph over an iterator
+    of MultiDataSets (four batches of 8 and a ragged one of 3), as JAX
+    treats it: superstep windows and prefetch give the per-batch bits,
+    gradient accumulation of 2 x 8 rows is the 16-row step (rtol 5e-5),
+    padding rows is a learning no-op (1e-5), checkpoint_dir leaves a
+    resumable checkpoint, checkpoint_every or resume without a directory
+    raise JAX's errors, and a skip_batch guard drops a poisoned batch."""
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.fault import FaultyIterator, TrainingGuard
+    bs = _merge_batches(4) + [_merge_batches(1, rows=3, seed=1)[0]]
+    mk = lambda: ComputationGraph(_merge_conf(pt), device="cpu").init()
+    plain = mk()
+    plain.fit(ListDataSetIterator(bs))
+    g = mk()
+    if option in ("checkpoint_every", "resume"):
+        with pytest.raises(ValueError, match="need checkpoint_dir"):
+            g.fit(ListDataSetIterator(bs), **{option: value})
+        return
+    if option == "grad_accumulation":
+        g.fit(ListDataSetIterator(bs[:4]), grad_accumulation=value)
+        ref = mk()
+        ref.fit(ListDataSetIterator([pt.MultiDataSet(
+            features=[np.concatenate([b.features[i] for b in pair])
+                      for i in range(2)],
+            labels=[np.concatenate([b.labels[0] for b in pair])])
+            for pair in (bs[0:2], bs[2:4])]))
+        assert g.iteration_count == ref.iteration_count == 2
+        np.testing.assert_allclose(g.params_flat(), ref.params_flat(),
+                                   rtol=5e-5, atol=1e-7)
+        return
+    if option == "guard":
+        guard = TrainingGuard(value)
+        g.fit(FaultyIterator(ListDataSetIterator(bs), nan_at=1),
+              guard=guard)
+        assert guard.skipped_batches == 1 and g.iteration_count == 4
+        assert np.isfinite(g.params_flat()).all()
+        return
+    if option == "checkpoint_dir":
+        value = str(tmp_path / value)
+    g.fit(ListDataSetIterator(bs), **{option: value})
+    assert g.iteration_count == plain.iteration_count == 5
+    if option in ("pad_ragged", "time_buckets"):
+        np.testing.assert_allclose(g.params_flat(), plain.params_flat(),
+                                   rtol=0, atol=1e-5)
+        return
+    np.testing.assert_array_equal(g.params_flat(), plain.params_flat())
+    if option == "checkpoint_dir":
+        (it, path), = pt.fault.CheckpointManager(value).entries()
+        back = mk()
+        pt.ModelSerializer.restore_into(back, path)
+        assert it == 5 and back.iteration_count == 5
+        np.testing.assert_array_equal(back.params_flat(), g.params_flat())
 
 
 def test_data_errors_match_jax():
