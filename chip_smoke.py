@@ -180,7 +180,24 @@ Phases:
      per-batch fit (20 TBPTT chunk steps); the bf16 LM with warm-up at
      batch 16, superstep=4 bit-equal to 1, and its step p50 and idle
      share at batch 64 for K=1 and K=4; the bf16 two-branch BN graph
-     under superstep=4; and the run's total seconds.
+     under superstep=4; and the run's total seconds;
+ 16. main path 12, generation (the decode plane): phase 5's LM at
+     nanoGPT's widths registered from a seeded zip with generation enabled
+     (block_len 16, decode buckets 1-32, prompt buckets 8-256); one
+     sequence's prefill and 64 teacher-forced ticks against the full
+     forward on the card and the CPU (1e-4 of the largest |logit|), its
+     greedy tokens against the card's full-forward argmax (near ties
+     counted), a row's tick bit-equal with neighbours in its bucket and
+     printed across buckets; generation over HTTP at 8 and 32 clients
+     (prompts 8-200, max_tokens 16-64; tokens/s, TTFT from the request
+     traces) and again at 32 with a /swap mid-run (no request fails); a
+     pool of 64 blocks forcing eviction and resume; an int8 KV arena whose
+     first token is fp32's; bf16 and int8 precision at bucket 32 against
+     fp32 and the CPU, then 32 tokens generated in bf16; a canary at 0.25
+     promoted, another rolled back; /metrics, /debug/flightrecord and the
+     X-DL4J-Trace header on a success and an error; prefill and tick (CUDA
+     graph and eager) times, a profiled tick, `run_decode_bench`
+     (continuous against static), `run_serving_bench` and `obs_bench`.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -213,7 +230,12 @@ replays, one resident BN+ReLU forward and backward launch per BN layer
 and step at every window length, 2 + 2 + 2 cluster LSTM launches per
 chunk step of the char-RNN's fit_scan, 6 + 6 + 6 wgmma attention
 launches per bf16 LM step, and one resident forward and backward per BN
-vertex and step of the two-branch graph. The last two lines are a `{"kernels": [...]}` object and `{"ok":
+vertex and step of the two-branch graph; on the generation path (phase
+16) six primal attention launches (float32, "tiled") per prefill and none
+per decode tick, six bfloat16 ones per bf16 prefill, every tick replayed
+from a CUDA graph captured once per (pool, version, bucket) before its
+version went live and none on a request's path. The last two lines are a
+`{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
 """
@@ -226,6 +248,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1538,7 +1561,7 @@ def serve_and_check(pt, name, zips, cpu_nets, make_x, out_tail, rng):
                 r["output"], x, ref[lo:lo + len(x)], "concurrent request"))
             lo += len(x)
         n_batched += len(replies)
-        flushes = srv._batchers[name].flushes
+        flushes = srv._batchers[(name, "stable")].flushes
 
         info = http("POST", f"{base}/swap", {"source": zips[1]})
         check(info["version"] == 2, f"{name} swap gave version "
@@ -2723,7 +2746,7 @@ def nets_equal(torch, a, b):
 
 
 def launches_in(delta):
-    """Total launches in a `kernels.count_delta`."""
+    """Total launches in a `kernels.count_delta` (or `tally_delta`)."""
     return sum(sum(totals.values()) for totals, _ in delta.values())
 
 
@@ -2732,24 +2755,21 @@ def replay_check(torch, kernels, what, make, call):
     launches on the current stream, as a capture needs), replay it on
     three fresh inputs copied into the captured ones, and hold each replay
     bit-equal to an eager call on the same inputs. The capture's launches
-    come off the counters and every replay adds them back: 1 launch
-    captured, 3 counted after the replays. Returns the captured
+    go to a tally instead of the counters and every replay adds them:
+    1 launch captured, 3 counted after the replays. Returns the captured
     launches."""
     def quiet(fn):
-        snap = kernels.count_snapshot()
-        out = fn()
-        kernels.restore_counts(snap)
-        return out
+        with kernels.tally():
+            return fn()
 
     static = quiet(lambda: make(0))
     quiet(lambda: call(*static))            # first launch: attributes
     torch.cuda.synchronize()
     before = kernels.count_snapshot()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with kernels.tally() as launched, torch.cuda.graph(graph):
         out = call(*static)
-    captured = kernels.count_delta(before, kernels.count_snapshot())
-    kernels.restore_counts(before)
+    captured = kernels.tally_delta(launched)
     check(launches_in(captured) == 1, f"{what}: the capture recorded "
           f"{launches_in(captured)} launches, want 1")
     outs = [o for o in (out if isinstance(out, (tuple, list)) else (out,))]
@@ -3343,6 +3363,925 @@ def loop_path(pt, torch, tag, tmp, root, reset_counts):
     return out
 
 
+# ---- main path 12: generation, the decode plane ----------------------------
+# The LM of phase 5 (nanoGPT's shakespeare-char widths) generates through
+# the serving plane's decode engine: prefill through kernel 1's primal (one
+# launch per block), ticks replayed from CUDA graphs captured per (pool,
+# version, decode bucket) before each version goes live.
+GEN_BLOCK_LEN = 16
+GEN_DECODE_BUCKETS = (1, 2, 4, 8, 16, 32)
+GEN_PROMPT, GEN_TICKS = 24, 64      # teacher-forced prefill + ticks
+# engine logits against the full forward, of the largest |logit|: the LM's
+# serving limit (SERVE_TOL)
+GEN_LOGIT_TOL = SERVE_TOL
+GEN_CLIENTS = (8, 32)
+GEN_REQUESTS = {8: 40, 32: 10}      # requests per client, a window
+GEN_PROMPT_LEN, GEN_MAX_TOKENS = (8, 201), (16, 65)   # [lo, hi) a request
+GEN_POOL_BLOCKS = 64
+GEN_POOL_PROMPT, GEN_POOL_MAX_TOKENS = (8, 41), (16, 33)
+GEN_BENCH_PROMPT = (8, 129)
+GEN_TIME_POS = 128                  # cached positions a row, tick times
+GEN_BF16_TOKENS = 32
+# the bf16 engine's logits (prefill at every prompt bucket, teacher-forced
+# ticks) against the CPU's bf16 full forward, of the largest |logit|: set
+# from the sound runs' largest reading, below the wrong paths' (PERF.md)
+BF16_ENGINE_TOL = 5e-2
+
+
+def http_traced(method, url, body=None, timeout=300):
+    """(status, JSON body, headers) of one request, error statuses
+    included."""
+    req = urllib.request.Request(
+        url, None if body is None else json.dumps(body).encode(),
+        {"Content-Type": "application/json"}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            ct = resp.headers.get("Content-Type", "")
+            data = resp.read()
+            return (resp.status, json.loads(data) if "json" in ct
+                    else data.decode(), dict(resp.headers))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def gen_full_logits(torch, net, ids, params=None, dtype=None):
+    """The next-token logits after every prefix of `ids`: one causal full
+    forward, [len(ids), V] float32 on the host; on `params` (the net's by
+    default) with the ids cast to `dtype` (a bf16 snapshot's). A reference
+    for the checks: its kernel launches go to a tally, not the counters."""
+    from deeplearning4j_tpu_torch import kernels
+    params = net.params if params is None else params
+    x = torch.tensor(np.asarray(ids), dtype=torch.float32,
+                     device=net.device)[None, :, None]
+    if dtype is not None:
+        x = x.to(dtype)
+    with torch.no_grad(), kernels.tally():
+        h = net._forward(params, net.state, x, upto=len(net.layers) - 1)[0]
+        return net.layers[-1].preout(params[-1], {}, h)[0] \
+            .float().cpu().numpy()
+
+
+def logit_err(got, want):
+    """max |got - want| over the largest |want| (host arrays)."""
+    return float(np.max(np.abs(got - want)) / np.abs(want).max())
+
+
+def greedy_ties(torch, net, prompt, tokens, what):
+    """Each of `tokens` (greedy generation after `prompt`) is the argmax of
+    the full forward over its context, or lies within GEN_LOGIT_TOL of the
+    largest |logit| of it (a near-tie, which float order may flip).
+    Returns the number of near-tie steps it took."""
+    if not tokens:
+        return 0
+    full = gen_full_logits(torch, net, list(prompt) + list(tokens[:-1]))
+    ties = 0
+    for i, tok in enumerate(tokens):
+        row = full[len(prompt) - 1 + i]
+        best = int(np.argmax(row))
+        if best != tok:
+            gap = (row[best] - row[tok]) / np.abs(row).max()
+            check(gap <= GEN_LOGIT_TOL, f"{what}: generated token {i} is "
+                  f"{tok}, the full forward's argmax {best}, {gap:.3e} of "
+                  f"the largest |logit| apart (limit {GEN_LOGIT_TOL})")
+            ties += 1
+    return ties
+
+
+def percentile_ms(values, q):
+    return float(np.percentile(np.asarray(values), q)) if values else None
+
+
+def decode_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 12 (phase 16): the decode plane at nanoGPT's LM widths.
+    Returns the phase's numbers."""
+    from deeplearning4j_tpu_torch.kernels import attention
+    from deeplearning4j_tpu_torch.serving.bench import run_serving_bench
+    from deeplearning4j_tpu_torch.serving.decode import (DecodeEngine,
+                                                         GenerationScheduler)
+    from deeplearning4j_tpu_torch.serving.decode.bench import \
+        run_decode_bench
+    from deeplearning4j_tpu_torch.telemetry.obs_bench import \
+        run_obs_overhead_bench
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "captures": {}, "times": {}}
+    text = text_windows(root, LM_ALPHABET, 64, LM_SEQ)
+    zips = []
+    for seed in (1, 2):
+        path = os.path.join(tmp, f"gen_lm_{seed}.zip")
+        pt.ModelSerializer.write_model(make_lm(pt, torch, seed), path)
+        zips.append(path)
+    cpu_net = pt.ModelSerializer.restore(zips[0], device="cpu")
+    opts = dict(block_len=GEN_BLOCK_LEN, decode_buckets=GEN_DECODE_BUCKETS)
+    engines = {}                # what captured graphs: {what: engine}
+    # kernel-1 launches of the decode plane's prefills, by instantiation:
+    # read from the counters at every bank(), less the stateless plane's
+    # forwards (LM_BLOCKS launches each, warm-ups included)
+    kernel1 = {"float32": 0, "bfloat16": 0}
+    direct = {"float32": 0, "bfloat16": 0}    # run_prefill calls made here
+    seen, marks = {}, {}        # versions phase 16 made; their forwards
+
+    def dtype_of(v):
+        return "bfloat16" if v.precision == "bf16" else "float32"
+
+    def see():
+        for name in reg.names():
+            vs = [reg.get(name)]
+            cs = reg.canary_state(name)
+            if cs is not None:
+                vs.append(cs.version)
+            for v in vs:
+                seen[id(v)] = v
+
+    def bank():
+        """Add the kernel-1 launches counted since the last bank, less the
+        stateless forwards, to `kernel1`, and reset the counters. Returns
+        this interval's share."""
+        see()
+        dts = attention.dtype_counts()
+        got = {k: dts[k] for k in kernel1}
+        for key, v in seen.items():
+            n = v.forwards - marks.get(key, 0)
+            marks[key] = v.forwards
+            got[dtype_of(v)] -= LM_BLOCKS * n
+        for k in kernel1:
+            kernel1[k] += got[k]
+        reset_counts()
+        return got
+
+    def prefill(eng, v, pool, prompt, blocks):
+        direct[dtype_of(v)] += 1
+        return eng.run_prefill(v, pool, prompt, blocks)
+
+    def prefills(name):
+        c = sess.registry.counter("dl4j_decode_admissions_total",
+                                  labels=("model",))
+        return int(c.value(model=name))
+
+    sess = pt.TelemetrySession()
+    with pt.telemetry.enabled(sess):
+        reg = pt.ModelRegistry(buckets=BUCKETS, metrics=sess.registry,
+                               device=DEVICE)
+        srv = pt.InferenceServer(reg, port=0).start()
+        base = f"http://{srv.host}:{srv.port}/v1/models"
+        try:
+            bank()
+            # -- generation set-up: register, enable, capture -----------
+            t0 = time.perf_counter()
+            v1 = reg.register("lm", zips[0])
+            sched = srv.enable_generation("lm", **opts)
+            eng = sched.engine
+            engines["lm (stable arm)"] = eng
+            check(eng.captures == len(GEN_DECODE_BUCKETS),
+                  f"enable_generation captured {eng.captures} tick graphs "
+                  f"for {len(GEN_DECODE_BUCKETS)} decode buckets")
+            out["setup_s"] = time.perf_counter() - t0
+            print(f"{tag} generation enabled on the LM (block_len "
+                  f"{GEN_BLOCK_LEN}, decode buckets {GEN_DECODE_BUCKETS}, "
+                  f"prompt buckets {eng.prompt_buckets}, {eng.spec.num_blocks}"
+                  f" KV blocks, {eng.spec.arena_nbytes() / 2**20:.1f} MiB "
+                  f"arena): register + {eng.captures} tick captures + "
+                  f"{len(eng.prompt_buckets)} prefill warm-ups "
+                  f"{out['setup_s']:.2f} s")
+
+            # -- engine against the full forward, teacher-forced ---------
+            eng2 = DecodeEngine(reg, "lm", **opts)
+            pool = eng2.new_pool()
+            eng2.prepare(v1, pool)
+            engines["scratch engine"] = eng2
+            ids = [int(t) for t in text[0][:GEN_PROMPT + GEN_TICKS]]
+            prompt = ids[:GEN_PROMPT]
+            blocks = pool.alloc(eng2.spec.blocks_for(len(ids)))
+            bank()
+            logits = [prefill(eng2, v1, pool, prompt, blocks)]
+            counts = attention.launch_counts()
+            check(counts["launches"] == LM_BLOCKS
+                  and attention.dtype_counts()["float32"] == LM_BLOCKS
+                  and attention.variant_counts()["fwd"]["tiled"]
+                  == LM_BLOCKS, f"a prefill launched {counts}, "
+                  f"{attention.dtype_counts()}; want {LM_BLOCKS} float32 "
+                  "tiled primal launches")
+            for i in range(GEN_TICKS):
+                p = GEN_PROMPT + i
+                logits.append(eng2.run_tick(v1, pool, [ids[p]], [p],
+                                            [blocks], 1)[0])
+            check(attention.launch_counts() == counts,
+                  f"ticks launched hand kernels: {attention.launch_counts()}")
+            got = np.stack(logits)
+            card = gen_full_logits(torch, v1.model, ids)[GEN_PROMPT - 1:]
+            host = gen_full_logits(torch, cpu_net, ids)[GEN_PROMPT - 1:]
+            err = {k: logit_err(got, w) for k, w in (("card", card),
+                                                    ("cpu", host))}
+            err["card_full_vs_cpu"] = logit_err(card, host)
+            for k in ("card", "cpu"):
+                check(err[k] <= GEN_LOGIT_TOL, f"engine logits against the "
+                      f"{k}'s full forward: {err[k]:.3e} of the largest "
+                      f"|logit| > {GEN_LOGIT_TOL}")
+            pool.release(blocks)
+            # greedy: the engine's own tokens against the card's full
+            # forward over them
+            blocks = pool.alloc(eng2.spec.blocks_for(len(ids)))
+            row = prefill(eng2, v1, pool, prompt, blocks)
+            toks = []
+            for i in range(GEN_TICKS):
+                toks.append(int(np.argmax(row)))
+                row = eng2.run_tick(v1, pool, [toks[-1]], [GEN_PROMPT + i],
+                                    [blocks], 1)[0]
+            ties = greedy_ties(torch, v1.model, prompt, toks, "greedy")
+            # a row beside neighbours: bit-equal within its bucket, and
+            # printed across buckets
+            p = GEN_PROMPT + GEN_TICKS - 1
+            alone = {b: eng2.run_tick(v1, pool, [toks[-1]], [p], [blocks],
+                                      b)[0] for b in (1, 8, 32)}
+            nb = []
+            for w in text[1:8]:
+                nbl = pool.alloc(eng2.spec.blocks_for(GEN_PROMPT + 1))
+                tok = int(np.argmax(prefill(
+                    eng2, v1, pool, [int(t) for t in w[:GEN_PROMPT]], nbl)))
+                nb.append((tok, GEN_PROMPT, nbl))
+            both = eng2.run_tick(v1, pool, [toks[-1]] + [n[0] for n in nb],
+                                 [p] + [n[1] for n in nb],
+                                 [blocks] + [n[2] for n in nb], 8)[0]
+            check(np.array_equal(both, alone[8]), "a row's bucket-8 tick "
+                  "logits changed with 7 neighbours in the batch")
+            across = {f"b1_vs_b{b}": float(np.max(np.abs(alone[b]
+                                                          - alone[1])))
+                      for b in (8, 32)}
+            for n in nb:
+                pool.release(n[2])
+            pool.release(blocks)
+            out["engine"] = {"rel_err": err, "near_ties": ties,
+                             "across_buckets_max_abs": across}
+            print(f"{tag} engine: prefill ({GEN_PROMPT} tokens, "
+                  f"{LM_BLOCKS} kernel-1 launches) + {GEN_TICKS} "
+                  f"teacher-forced ticks (0 launches) against the full "
+                  f"forward, max err / max |logit|: card {err['card']:.3e}, "
+                  f"CPU {err['cpu']:.3e} (limit {GEN_LOGIT_TOL}; card full "
+                  f"forward vs CPU {err['card_full_vs_cpu']:.3e}); greedy "
+                  f"{GEN_TICKS} tokens = the card's full-forward argmax "
+                  f"but at {ties} near-tie steps; a row's tick bit-equal "
+                  f"with 7 neighbours at bucket 8; the same row across "
+                  f"buckets, max abs diff {across}")
+
+            # -- concurrent generation over HTTP, a swap mid-run ---------
+            def window(n_clients, requests, swap_to=None):
+                """`requests` generations a client; with `swap_to`, a
+                /swap lands mid-run and every client goes on (up to 4x
+                `requests`) until the swap has returned."""
+                results, errors, swap_s = [], [], []
+                swapped = threading.Event()
+                barrier = threading.Barrier(n_clients + 1
+                                            + (swap_to is not None))
+
+                def client(i):
+                    r = np.random.default_rng(100 + i)
+                    last = 0
+                    barrier.wait()
+                    for k in range(4 * requests):
+                        if k >= requests and (swap_to is None
+                                              or swapped.is_set()):
+                            break
+                        n = int(r.integers(*GEN_PROMPT_LEN))
+                        w = text[(i * requests + k) % len(text)]
+                        s = int(r.integers(0, LM_SEQ - n + 1))
+                        prompt = [int(t) for t in w[s:s + n]]
+                        mt = int(r.integers(*GEN_MAX_TOKENS))
+                        t0 = time.perf_counter()
+                        try:
+                            code, body, hdr = http_traced(
+                                "POST", f"{base}/lm/generate",
+                                {"prompt": prompt, "max_tokens": mt})
+                        except Exception as e:   # counted as a failure
+                            errors.append(f"{type(e).__name__}: {e}")
+                            return
+                        if code != 200:
+                            errors.append(f"{code}: {body}")
+                            return
+                        if body["version"] < last:
+                            errors.append("version went back")
+                        last = body["version"]
+                        results.append(dict(
+                            prompt=prompt, tokens=body["tokens"],
+                            version=body["version"],
+                            ms=1e3 * (time.perf_counter() - t0),
+                            trace=hdr["X-DL4J-Trace"]))
+
+                def swapper():
+                    barrier.wait()
+                    time.sleep(0.3)
+                    t0 = time.perf_counter()
+                    try:
+                        code, body, _ = http_traced(
+                            "POST", f"{base}/lm/swap", {"source": swap_to})
+                        swap_s.append(time.perf_counter() - t0)
+                        if code != 200:
+                            errors.append(f"swap {code}: {body}")
+                    finally:
+                        swapped.set()
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(n_clients)]
+                if swap_to is not None:
+                    threads.append(threading.Thread(target=swapper))
+                for t in threads:
+                    t.start()
+                barrier.wait()
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t0
+                return results, errors, wall, swap_s
+
+            def phase_stats(name):
+                h = sess.registry.histogram("dl4j_decode_phase_seconds",
+                                            labels=("model", "phase"))
+                return {ph: (h.count(model=name, phase=ph),
+                             h.sum(model=name, phase=ph))
+                        for ph in ("prefill", "decode")}
+
+            def ttft_ms(results):
+                """Request start (the HTTP root span) to its first prefill's
+                end, per request, from the session's trace."""
+                spans = {}
+                for e in sess.tracer.events():
+                    a = e.get("args") or {}
+                    if e.get("ph") == "X" and "trace_id" in a:
+                        spans.setdefault(a["trace_id"], []).append(e)
+                out_ = []
+                for res in results:
+                    evs = spans.get(res["trace"], [])
+                    root_ = [e for e in evs if e["name"] == "http/generate"]
+                    pre = sorted(e["ts"] + e["dur"] for e in evs
+                                 if e["name"] == "prefill")
+                    if root_ and pre:
+                        out_.append((pre[0] - root_[0]["ts"]) / 1e3)
+                return out_
+
+            gen = {}
+            windows = [(n, None) for n in GEN_CLIENTS] \
+                + [(GEN_CLIENTS[-1], zips[1])]
+            for n_clients, swap_to in windows:
+                key = f"{n_clients}" + ("_swap" if swap_to else "")
+                bank()
+                admitted = prefills("lm")
+                before = phase_stats("lm")
+                results, errors, wall, swap_s = window(
+                    n_clients, GEN_REQUESTS[n_clients], swap_to)
+                check(not errors and len(results) >= n_clients
+                      * GEN_REQUESTS[n_clients], f"generation at "
+                      f"{n_clients} clients: {len(results)} served, "
+                      f"{len(errors)} failed: {errors[:3]}")
+                admitted = prefills("lm") - admitted
+                after = phase_stats("lm")
+                steps = {ph: (after[ph][0] - before[ph][0],
+                              after[ph][1] - before[ph][1])
+                         for ph in after}
+                n_launch = attention.launch_counts()["launches"]
+                # a swap's stateless warm-up forwards (one per batch
+                # bucket) launch kernel 1 too; its decode warm-ups do not
+                # count (kernels.tally)
+                warm = (reg.get("lm").forwards if swap_to is not None
+                        else 0)
+                check(n_launch == LM_BLOCKS * (admitted + warm),
+                      f"{n_clients} clients: {n_launch} kernel-1 launches "
+                      f"for {admitted} prefills and {warm} warm-up "
+                      f"forwards (want {LM_BLOCKS} each)")
+                tokens = sum(len(r["tokens"]) for r in results)
+                ttft = ttft_ms(results)
+                check(len(ttft) == len(results), "a request's trace lacks "
+                      "its root or prefill span")
+                lat = [r["ms"] for r in results]
+                g = {"requests": len(results), "generated_tokens": tokens,
+                     "wall_s": wall, "tokens_per_s": tokens / wall,
+                     "ttft_p50_ms": percentile_ms(ttft, 50),
+                     "ttft_p99_ms": percentile_ms(ttft, 99),
+                     "latency_p50_ms": percentile_ms(lat, 50),
+                     "latency_max_ms": max(lat),
+                     "prefills": admitted, "launches": n_launch,
+                     "prefill_steps": steps["prefill"],
+                     "ticks": steps["decode"], "swap_s": swap_s,
+                     "versions": sorted({r["version"] for r in results})}
+                if swap_to is None:
+                    cur = reg.get("lm")
+                    g["near_ties"] = sum(
+                        greedy_ties(torch, cur.model, r["prompt"],
+                                    r["tokens"], f"request at {n_clients}"
+                                    " clients") for r in results)
+                else:
+                    check(reg.get("lm").version == 2 and 2 in g["versions"],
+                          f"the swap under generation: versions "
+                          f"{g['versions']}, current "
+                          f"{reg.get('lm').version}")
+                gen[key] = g
+                print(f"{tag} generation over HTTP, {n_clients} clients, "
+                      f"{len(results)} requests (prompts "
+                      f"{GEN_PROMPT_LEN[0]}-{GEN_PROMPT_LEN[1] - 1}, "
+                      f"max_tokens {GEN_MAX_TOKENS[0]}-"
+                      f"{GEN_MAX_TOKENS[1] - 1})"
+                      f"{' with a /swap mid-run' if swap_to else ''}"
+                      f": 0 failed, {tokens} tokens in {wall:.2f} s = "
+                      f"{g['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                      f"{g['ttft_p50_ms']:.2f} ms p99 {g['ttft_p99_ms']:.2f} "
+                      f"ms, request p50 {g['latency_p50_ms']:.1f} ms max "
+                      f"{g['latency_max_ms']:.1f} ms; {admitted} prefills "
+                      f"({steps['prefill'][1]:.3f} s), {steps['decode'][0]} "
+                      f"ticks ({steps['decode'][1]:.3f} s), {n_launch} "
+                      f"kernel-1 launches; versions {g['versions']}"
+                      + (f"; swap {swap_s[0]:.3f} s" if swap_s else "")
+                      + (f"; greedy, {g['near_ties']} near-tie steps"
+                         if swap_to is None else ""))
+            out["generation"] = gen
+            check(eng.captures == 2 * len(GEN_DECODE_BUCKETS)
+                  and eng.lazy_captures == 0,
+                  f"the stable arm captured {eng.captures} tick graphs for "
+                  "2 versions")
+
+            # -- KV-pool pressure: eviction and resume --------------------
+            reg.register("lm_pool", zips[0])
+            psched = srv.enable_generation("lm_pool",
+                                           num_blocks=GEN_POOL_BLOCKS, **opts)
+            engines["lm_pool"] = psched.engine
+            pv = reg.get("lm_pool")
+            reqs = []
+            r = np.random.default_rng(7)
+            for i in range(32):
+                n = int(r.integers(*GEN_POOL_PROMPT))
+                reqs.append(([int(t) for t in text[i][:n]],
+                             int(r.integers(*GEN_POOL_MAX_TOKENS))))
+            res = [None] * len(reqs)
+            errors = []
+
+            def pclient(i):
+                try:
+                    res[i] = srv.generate("lm_pool", reqs[i][0],
+                                          max_tokens=reqs[i][1], timeout=600)
+                except Exception as e:   # surfaced by the check below
+                    errors.append(f"{type(e).__name__}: {e}")
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=pclient, args=(i,))
+                       for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            check(not errors, f"pool pressure: {errors[:3]}")
+            evictions = int(sess.registry.counter(
+                "dl4j_decode_evictions_total",
+                labels=("model",)).value(model="lm_pool"))
+            check(evictions >= 1, "a pool of 64 blocks forced no eviction")
+            check(psched.pool.used_blocks() == 0,
+                  f"{psched.pool.used_blocks()} blocks held after the run")
+            ties = sum(greedy_ties(torch, pv.model, p, x["tokens"],
+                                   "pool pressure")
+                       for (p, _), x in zip(reqs, res))
+            out["pool_pressure"] = {"evictions": evictions,
+                                    "prefills": prefills("lm_pool"),
+                                    "near_ties": ties, "wall_s": wall}
+            print(f"{tag} pool of {GEN_POOL_BLOCKS} blocks, 32 concurrent "
+                  f"requests: {evictions} evictions, "
+                  f"{prefills('lm_pool')} prefills for 32 requests, all "
+                  f"greedy against the full forward ({ties} near-tie "
+                  f"steps), {wall:.2f} s")
+
+            # -- int8 KV ---------------------------------------------------
+            v2 = reg.get("lm")
+            q = [int(t) for t in text[9][:GEN_PROMPT]]
+            first = sched.submit(q, max_tokens=1, timeout=300)["tokens"][0]
+            ksched = GenerationScheduler(reg, "lm", kv_dtype="int8",
+                                         metrics=None, **opts)
+            engines["lm int8 KV"] = ksched.engine
+            try:
+                kv = ksched.pool.cache["kv"]
+                check(kv.dtype == torch.int8 and kv.is_cuda,
+                      f"int8 arena is {kv.dtype} on {kv.device}")
+                kres = ksched.submit(q, max_tokens=32, timeout=300)
+            finally:
+                ksched.stop()
+            check(kres["tokens"][0] == first and kres[
+                "generated_tokens"] == 32, f"int8 KV: first token "
+                f"{kres['tokens'][0]}, fp32's {first}")
+            out["int8_kv"] = {"arena_mib": ksched.engine.spec.arena_nbytes()
+                              / 2**20, "first_token_equal": True}
+            print(f"{tag} int8 KV arena ({kv.dtype}, "
+                  f"{out['int8_kv']['arena_mib']:.1f} MiB against "
+                  f"{eng.spec.arena_nbytes() / 2**20:.1f} MiB fp32): 32 "
+                  f"tokens, the first equal to fp32's ({first})")
+
+            # -- bf16 and int8 precision -----------------------------------
+            # each one's gap to fp32 on the card within twice the CPU's
+            # own gap plus 1e-3 (at these widths the gaps exceed JAX's
+            # small-model limits on both devices, ROADMAP C); int8 (the
+            # same int8 weights, float32 compute) against the CPU's at the
+            # LM's serving limit; bf16 against the CPU's printed
+            x = text[10:42, :, None].astype(np.float32)
+            ref, _ = reg.predict("lm_pool", x)
+            cpu_reg = pt.ModelRegistry(buckets=(32,), device="cpu")
+            cpu_reg.register("fp32", zips[0])
+            cpu_ref, _ = cpu_reg.predict("fp32", x)
+            prec = {}
+            for precision in ("bf16", "int8"):
+                reg.register(f"lm_{precision}", zips[0], precision=precision)
+                cpu_reg.register(precision, zips[0], precision=precision)
+                got, _ = reg.predict(f"lm_{precision}", x)
+                host, _ = cpu_reg.predict(precision, x)
+                e = {"card_vs_fp32": float(np.max(np.abs(got - ref))),
+                     "cpu_vs_fp32": float(np.max(np.abs(host - cpu_ref))),
+                     "card_vs_cpu": float(np.max(np.abs(got - host)))}
+                prec[precision] = dict(e, param_mb=reg.get(
+                    f"lm_{precision}").param_bytes / 1e6)
+            for precision, e in prec.items():
+                check(e["card_vs_fp32"] <= 2 * e["cpu_vs_fp32"] + 1e-3,
+                      f"{precision} against fp32: card {e['card_vs_fp32']},"
+                      f" CPU {e['cpu_vs_fp32']}")
+            check(prec["int8"]["card_vs_cpu"] <= SERVE_TOL,
+                  f"int8 bucket-32 predict, card against CPU: "
+                  f"{prec['int8']['card_vs_cpu']} > {SERVE_TOL}")
+            check(prec["int8"]["param_mb"] < prec["bf16"]["param_mb"],
+                  f"int8 snapshot {prec['int8']['param_mb']} MB, bf16 "
+                  f"{prec['bf16']['param_mb']} MB")
+
+            # the bf16 engine, teacher-forced, against the CPU's bf16 full
+            # forward (plain attention): the prefill at every prompt
+            # bucket, then a prefill and GEN_TICKS ticks; the same readings
+            # on two wrong paths (the row before the right one; ticks one
+            # position off) must exceed the limit
+            bv, cpu_bv = reg.get("lm_bf16"), cpu_reg.get("bf16")
+            cpu_bp = cpu_bv.snapshot.rebuild(cpu_bv.snapshot.data)
+            beng = DecodeEngine(reg, "lm_bf16", **opts)
+            bpool = beng.new_pool()
+            beng.prepare(bv, bpool)
+            engines["bf16 scratch engine"] = beng
+            bank()
+            sound, wrong = {}, {"previous_row": 0.0}
+            for tb in beng.prompt_buckets:
+                p_ids = [int(t) for t in text[13][:tb]]
+                bl = bpool.alloc(beng.spec.blocks_for(tb))
+                row = prefill(beng, bv, bpool, p_ids, bl)
+                bpool.release(bl)
+                want = gen_full_logits(torch, cpu_bv.model, p_ids, cpu_bp,
+                                       torch.bfloat16)
+                sound[f"prefill_t{tb}"] = logit_err(row, want[-1])
+                wrong["previous_row"] = max(wrong["previous_row"],
+                                            logit_err(row, want[-2]))
+            want = gen_full_logits(torch, cpu_bv.model, ids, cpu_bp,
+                                   torch.bfloat16)[GEN_PROMPT - 1:]
+            runs = {}
+            for shift in (0, 1):
+                bl = bpool.alloc(beng.spec.blocks_for(len(ids) + shift))
+                rows = [prefill(beng, bv, bpool, prompt, bl)]
+                for i in range(GEN_TICKS):
+                    p = GEN_PROMPT + i
+                    rows.append(beng.run_tick(bv, bpool, [ids[p]],
+                                              [p + shift], [bl], 1)[0])
+                bpool.release(bl)
+                runs[shift] = np.stack(rows)
+            sound["ticks"] = logit_err(runs[0][1:], want[1:])
+            wrong["previous_row"] = max(wrong["previous_row"],
+                                        logit_err(runs[0][1:], want[:-1]))
+            wrong["position_off_by_one"] = logit_err(runs[1][1:], want[1:])
+            n_bf = len(beng.prompt_buckets) + 2
+            got = bank()
+            check(got == {"float32": 0, "bfloat16": LM_BLOCKS * n_bf},
+                  f"the bf16 engine's {n_bf} prefills launched {got}")
+            top_sound, low_wrong = max(sound.values()), min(wrong.values())
+            print(f"{tag} bf16 engine against the CPU's bf16 full forward, "
+                  f"max err / max |logit|: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in sound.items())
+                  + f" (limit {BF16_ENGINE_TOL}); wrong paths: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in wrong.items())
+                  + f"; {LM_BLOCKS * n_bf} bfloat16 kernel-1 launches for "
+                  f"{n_bf} prefills")
+            check(top_sound <= BF16_ENGINE_TOL < low_wrong,
+                  f"bf16 engine against the CPU: sound paths up to "
+                  f"{top_sound:.3e}, wrong paths from {low_wrong:.3e}, "
+                  f"limit {BF16_ENGINE_TOL}")
+            prec["bf16"]["engine_vs_cpu"] = sound
+            prec["bf16"]["engine_wrong_paths"] = wrong
+
+            bsched = srv.enable_generation("lm_bf16", **opts)
+            engines["lm_bf16"] = bsched.engine
+            bank()
+            bres = srv.generate("lm_bf16", q, max_tokens=GEN_BF16_TOKENS,
+                                timeout=300)
+            check(bres["generated_tokens"] == GEN_BF16_TOKENS,
+                  f"bf16 generation: {bres}")
+            dts = attention.dtype_counts()
+            check(dts == {"float32": 0, "bfloat16": LM_BLOCKS,
+                          "float16": 0}, f"a bf16 prefill launched {dts}")
+            prec["bf16"]["generated"] = bres["tokens"]
+            prec["bf16"]["prefill_launches"] = dts
+            out["precisions"] = prec
+            print(f"{tag} precisions at bucket 32 (max abs, softmax): "
+                  + "; ".join(f"{k}: card vs fp32 {v['card_vs_fp32']:.3e}, "
+                              f"CPU vs fp32 {v['cpu_vs_fp32']:.3e}, card vs "
+                              f"CPU {v['card_vs_cpu']:.3e}, "
+                              f"{v['param_mb']:.2f} MB"
+                              for k, v in prec.items())
+                  + f"; bf16 generated {GEN_BF16_TOKENS} tokens, its "
+                  f"prefill {dts}")
+
+            # -- canary: start 0.25, promote; start, rollback --------------
+            def canary(action, **body):
+                code, b, _ = http_traced("POST", f"{base}/lm/canary",
+                                         dict(action=action, **body))
+                check(code == 200, f"canary {action}: {code} {b}")
+                return b
+
+            def burst(n_clients=8, per=5):
+                errs = []
+
+                def c(i):
+                    for k in range(per):
+                        w = text[(i * per + k) % len(text)]
+                        try:
+                            code, b, _ = http_traced(
+                                "POST", f"{base}/lm/generate",
+                                {"prompt": [int(t) for t in w[:12]],
+                                 "max_tokens": 6})
+                        except Exception as e:   # counted as a failure
+                            code, b = None, f"{type(e).__name__}: {e}"
+                        if code != 200:
+                            errs.append(f"{code} {b}")
+                ts = [threading.Thread(target=c, args=(i,))
+                      for i in range(n_clients)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+                check(not errs, f"canary traffic failed: {errs[:3]}")
+                return n_clients * per
+
+            cand = canary("start", source=zips[0], fraction=0.25)
+            see()
+            cached = srv._schedulers.get(("lm", "canary"))
+            check(cached is not None and cached.engine.captures
+                  == len(GEN_DECODE_BUCKETS), "the canary arm's scheduler "
+                  "did not capture its graphs at the start")
+            engines["lm canary 1"] = cached.engine
+            n = burst()
+            stats = reg.canary_state("lm").stats()["arms"]
+            check(stats["canary"]["requests"] == 25
+                  and stats["stable"]["requests"] == n - 25
+                  and stats["canary"]["errors"] == 0,
+                  f"canary arms after {n} requests: {stats}")
+            promoted = canary("promote")
+            check(promoted["version"] == cand["version"]
+                  and reg.get("lm").version == cand["version"]
+                  and ("lm", "canary") not in srv._schedulers,
+                  f"promote: {promoted}")
+            check(eng.captures == 3 * len(GEN_DECODE_BUCKETS),
+                  f"the stable arm captured {eng.captures} tick graphs for "
+                  "3 versions")
+            n2 = burst(4, 2)
+            cand2 = canary("start", source=zips[1], fraction=0.25)
+            see()
+            engines["lm canary 2"] = srv._schedulers[("lm", "canary")].engine
+            n3 = burst(4, 2)
+            back = canary("rollback")
+            check(back["version"] == cand["version"]
+                  and reg.get("lm").version == cand["version"],
+                  f"rollback: {back}")
+            out["canary"] = {"arms": stats, "versions": [
+                cand["version"], cand2["version"]], "requests": n + n2 + n3}
+            print(f"{tag} canary at 0.25: {stats['canary']['requests']} of "
+                  f"{n} requests on v{cand['version']}, promoted; then "
+                  f"v{cand2['version']} started and rolled back; "
+                  f"{n + n2 + n3} generate requests, 0 failed")
+
+            # -- captures: one per (pool, version, bucket), none lazy ------
+            for what, e in engines.items():
+                check(e.lazy_captures == 0, f"{what}: {e.lazy_captures} "
+                      "tick graphs captured on a request's path")
+                check(e.captures % len(GEN_DECODE_BUCKETS) == 0,
+                      f"{what}: {e.captures} captures")
+            out["captures"] = {what: e.captures
+                               for what, e in engines.items()}
+            rep = {k: v["count"] for k, v in sess.compiles.report().items()
+                   if k.startswith("serving/")}
+            out["compile_report"] = rep
+            print(f"{tag} tick-graph captures by scheduler (6 decode buckets "
+                  f"a version, none on a request's path): {out['captures']};"
+                  f" watcher: {rep}")
+
+            # -- observability --------------------------------------------
+            code, _, hdr = http_traced("POST", f"{base}/lm_pool/predict",
+                                       {"features": x[:2].tolist()})
+            check(code == 200 and hdr.get("X-DL4J-Trace"),
+                  "predict: no X-DL4J-Trace")
+            code, body, hdr = http_traced("POST", f"{base}/nope/generate",
+                                          {"prompt": [1]})
+            check(code == 404 and body.get("trace_id")
+                  == hdr.get("X-DL4J-Trace"), f"error reply {code} {body} "
+                  f"{hdr.get('X-DL4J-Trace')}")
+            code, text_m, _ = http_traced(
+                "GET", f"http://{srv.host}:{srv.port}/metrics")
+            families = ("dl4j_serving_requests_total",
+                        "dl4j_serving_latency_seconds",
+                        "dl4j_serving_swaps_total",
+                        "dl4j_serving_compiles_total",
+                        "dl4j_serving_compile_seconds",
+                        "dl4j_serving_model_version",
+                        "dl4j_serving_batch_size",
+                        "dl4j_serving_batch_rows_total",
+                        "dl4j_serving_queue_wait_seconds",
+                        "dl4j_decode_tokens_total",
+                        "dl4j_decode_admissions_total",
+                        "dl4j_decode_evictions_total",
+                        "dl4j_decode_phase_seconds",
+                        "dl4j_decode_kv_blocks", "dl4j_slo_latency_seconds",
+                        "dl4j_continual_canary_requests_total")
+            missing = [f for f in families if f not in text_m]
+            check(code == 200 and not missing, f"/metrics lacks {missing}")
+            code, body, hdr = http_traced(
+                "GET", f"http://{srv.host}:{srv.port}/debug/flightrecord")
+            kinds = {e["kind"] for e in body.get("events", [])}
+            check(code == 200 and "decode/admit" in kinds
+                  and "decode/evict" in kinds, f"/debug/flightrecord: "
+                  f"{code}, kinds {sorted(kinds)}")
+            print(f"{tag} /metrics: {len(families)} families present; "
+                  f"/debug/flightrecord: {body.get('total_events')} events "
+                  f"({sorted(kinds)[:6]}...); X-DL4J-Trace on a success and "
+                  "on a 404, whose body carries the same trace id")
+            # -- times -----------------------------------------------------
+            # (each prompt bucket's f32 prefill is held to the CPU's full
+            # forward too)
+            times = out["times"]
+            pre, pre_err = {}, {}
+            for tb in eng2.prompt_buckets:
+                p_ids = [int(t) for t in text[11][:tb]]
+                bl = pool.alloc(eng2.spec.blocks_for(tb))
+                ms = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    row = prefill(eng2, v1, pool, p_ids, bl)
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                pool.release(bl)
+                pre[tb] = float(np.median(ms))
+                pre_err[tb] = logit_err(row, gen_full_logits(
+                    torch, cpu_net, p_ids)[-1])
+            times["prefill_p50_ms"] = pre
+            out["engine"]["prefill_vs_cpu"] = pre_err
+            print(f"{tag} f32 prefill against the CPU's full forward at "
+                  f"every prompt bucket, max err / max |logit|: " + ", ".join(
+                      f"{k}: {v:.3e}" for k, v in pre_err.items())
+                  + f" (limit {GEN_LOGIT_TOL})")
+            check(max(pre_err.values()) <= GEN_LOGIT_TOL, f"f32 prefill "
+                  f"against the CPU: {pre_err} > {GEN_LOGIT_TOL}")
+            rows = []
+            for i in range(max(GEN_DECODE_BUCKETS)):
+                w = [int(t) for t in text[12 + i % 40][:GEN_TIME_POS]]
+                bl = pool.alloc(eng2.spec.blocks_for(GEN_TIME_POS + 1))
+                tok = int(np.argmax(prefill(eng2, v1, pool, w, bl)))
+                rows.append((tok, GEN_TIME_POS, bl))
+            tick = {}
+            for b in GEN_DECODE_BUCKETS:
+                sub = rows[:b]
+                args = ([r_[0] for r_ in sub], [r_[1] for r_ in sub],
+                        [r_[2] for r_ in sub])
+                cap = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    eng2.run_tick(v1, pool, *args, b)
+                    cap.append(1e3 * (time.perf_counter() - t0))
+                inp = np.zeros((b, 2 + eng2.spec.table_width), np.int64)
+                for i, (t_, p_, bl) in enumerate(sub):
+                    inp[i, 0], inp[i, 1] = t_, p_
+                    inp[i, 2:] = eng2._pad_table(bl)
+                step = eng2.decode_exec(v1, b)
+                eager = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    xt = torch.from_numpy(inp).to(DEVICE)
+                    with torch.no_grad():
+                        step(v1.snapshot.data, pool.cache, xt[:, 0],
+                             xt[:, 1], xt[:, 2:], eng2.spec).cpu()
+                    eager.append(1e3 * (time.perf_counter() - t0))
+                tick[b] = {"captured_p50_ms": float(np.median(cap)),
+                           "eager_p50_ms": float(np.median(eager))}
+            times["tick_p50_ms"] = tick
+            print(f"{tag} prefill p50 by prompt bucket (host wall, ms): "
+                  + ", ".join(f"{k}: {v:.3f}" for k, v in pre.items()))
+            print(f"{tag} tick p50 by decode bucket (host wall, ms, rows at "
+                  f"position {GEN_TIME_POS}), captured / eager: " + ", ".join(
+                      f"{b}: {t['captured_p50_ms']:.3f} / "
+                      f"{t['eager_p50_ms']:.3f}" for b, t in tick.items()))
+            top = max(GEN_DECODE_BUCKETS)
+            graph = eng2._tick_graph(v1, pool, top)
+            sub = rows[:top]
+            inp = np.zeros((top, 2 + eng2.spec.table_width), np.int64)
+            for i, (t_, p_, bl) in enumerate(sub):
+                inp[i, 0], inp[i, 1] = t_, p_
+                inp[i, 2:] = eng2._pad_table(bl)
+
+            def replay():
+                graph.replay(inp)
+
+            events, busy, wall = profile_device(
+                torch, replay, f"decode tick at bucket {top} (captured, "
+                f"{GEN_TIME_POS} cached positions a row)", tag, reps=20)
+            times["tick_profile"] = {"busy_ms": busy, "wall_ms": wall,
+                                     "idle_share": 1 - busy / wall,
+                                     "top": events[:8]}
+            for r_ in rows:
+                pool.release(r_[2])
+
+            # -- kernel-1 launches of every prefill above, from the counters
+            bank()
+            admitted = {k: sum(prefills(n) for n in names) for k, names in
+                        (("float32", ("lm", "lm_pool")),
+                         ("bfloat16", ("lm_bf16",)))}
+            # + the int8-KV scheduler's one prefill (it keeps no metrics)
+            want = {"float32": LM_BLOCKS * (direct["float32"]
+                                            + admitted["float32"] + 1),
+                    "bfloat16": LM_BLOCKS * (direct["bfloat16"]
+                                             + admitted["bfloat16"])}
+            check(kernel1 == want, f"kernel-1 launches of main path 12's "
+                  f"prefills, read from the counters less the stateless "
+                  f"forwards: {kernel1}; {LM_BLOCKS} per prefill gives "
+                  f"{want} ({direct} direct, {admitted} admitted)")
+            out["launches"] = {"per_prefill": LM_BLOCKS, "per_tick": 0,
+                               "counted": kernel1, "prefills": {
+                                   "direct": direct, "admitted": admitted,
+                                   "int8_kv": 1}}
+            print(f"{tag} kernel-1 launches of main path 12's prefills, read "
+                  f"from the counters (stateless forwards taken off): "
+                  f"{kernel1} = {LM_BLOCKS} x ({direct} run here + "
+                  f"{admitted} admitted + 1 int8-KV)")
+            out["generation_times"] = {
+                k: {m: gen[k][m] for m in ("tokens_per_s", "ttft_p50_ms",
+                                           "ttft_p99_ms")}
+                for k in gen if "swap" not in k}
+        finally:
+            srv.stop()
+
+    # -- the benches -------------------------------------------------------
+    t0 = time.perf_counter()
+    dec = run_decode_bench(
+        n_clients=32, requests_per_client=2, pairs=2, device=DEVICE,
+        block_len=GEN_BLOCK_LEN, decode_buckets=GEN_DECODE_BUCKETS,
+        model=lambda seed: make_lm(pt, torch, seed),
+        prompt_len=GEN_BENCH_PROMPT, max_tokens=GEN_MAX_TOKENS)
+    check(dec["failed_requests"] == 0 and dec["one_compile_per_phase_bucket"]
+          and dec["swap_under_generation"]["failed"] == 0,
+          f"run_decode_bench: {json.dumps(dec)[:400]}")
+    out["decode_bench"] = {k: dec[k] for k in (
+        "continuous_vs_static", "paired_ratios", "failed_requests",
+        "tick_captures", "compiles_per_phase_bucket")}
+    out["decode_bench"]["windows"] = [
+        {m: {k: w[m].get(k) for k in ("tokens_per_s", "p50_ms", "p99_ms")}
+         for m in w} for w in dec["windows"]]
+    print(f"{tag} run_decode_bench at the LM's widths (32 clients x 2, "
+          f"prompts 8-128, max_tokens 16-64, 2 pairs): continuous / static "
+          f"tokens/s {dec['paired_ratios']} (median "
+          f"{dec['continuous_vs_static']}), 0 failed, a swap mid-window; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sb = run_serving_bench(clients=(1, 8, 32), requests_per_client=30,
+                           pairs_at_top=2, device=DEVICE)
+    for m in ("lenet", "mlp128"):
+        check(sb[m]["one_compile_per_bucket"], f"serving bench {m}: "
+              f"{sb[m]['compiles_per_bucket']}")
+    check(sb["lenet"]["swap_under_load"]["failed"] == 0,
+          f"swap under load: {sb['lenet']['swap_under_load']}")
+    top = str(max(sb["clients"]))
+    out["serving_bench"] = {m: {"speedup": sb[m][
+        "batched_vs_unbatched_speedup"], top: sb[m][top]}
+        for m in ("lenet", "mlp128")}
+    print(f"{tag} run_serving_bench (1 / 8 / 32 clients x 30): batched / "
+          f"direct req/s at 32 clients, median of 2 pairs: lenet "
+          f"{sb['lenet']['batched_vs_unbatched_speedup']}, mlp128 "
+          f"{sb['mlp128']['batched_vs_unbatched_speedup']}; {top} clients "
+          f"batched: lenet {sb['lenet'][top]['batched']}, "
+          f"mlp128 {sb['mlp128'][top]['batched']}; swap under load "
+          f"{sb['lenet']['swap_under_load']['failed']} failed; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ob = run_obs_overhead_bench(pairs=2, clients=8, requests_per_client=40,
+                                device=DEVICE)
+    split = ob["serving"]["cost_split"]
+    out["obs_bench"] = {"serving_ratio": ob["serving"]["ratio"],
+                        "fit_ratio": ob["fit"]["ratio"],
+                        "pass_0p95": ob["pass_0p95"], "cost_split": split}
+    print(f"{tag} obs_bench (tracing on / off, paired): serving "
+          f"{ob['serving']['paired_ratios']}, fit {ob['fit']['paired_ratios']}"
+          f" (pass_0p95 {ob['pass_0p95']}); {time.perf_counter() - t0:.1f} s")
+    print(f"{tag} obs_bench serving cost split (host us; one thread, each "
+          f"piece alone): {split['span_costs_us']}; a request: "
+          f"{split['child_spans_per_request']} child spans on the flush "
+          f"thread = {split['flush_thread_us']} us, context + root + SLO on "
+          f"the client = {split['client_thread_us']} us; wall a request "
+          f"gained against the untraced window's "
+          f"{split['request_wall_off_us']} us: "
+          f"{split['request_wall_gained_us']['client']} us with the "
+          f"client's part alone, {split['request_wall_gained_us']['on']} "
+          f"us traced")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} main path 12 (phase 16): {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3400,6 +4339,17 @@ def main():
                       reset_counts)
         print(f"{tag} --loop-only run: {time.perf_counter() - t_start:.1f} "
               "s (kernel build included)")
+        return 0
+    if "--decode-only" in sys.argv:
+        # main path 12 alone, for work on the decode plane; prints no
+        # result lines
+        with tempfile.TemporaryDirectory() as tmp:
+            decode = decode_path(pt, torch, tag, tmp,
+                                 os.path.dirname(os.path.abspath(__file__)),
+                                 reset_counts)
+        print(json.dumps({"generation": decode}, default=str))
+        print(f"{tag} --decode-only run: {time.perf_counter() - t_start:.1f}"
+              " s (kernel build included)")
         return 0
 
     # ---- 2. kernels vs plain on the card --------------------------------
@@ -5340,11 +6290,18 @@ def main():
 
     # ---- 15. main path 11: the training loop ------------------------------
     loop = loop_path(pt, torch, tag, tmp, root, reset_counts)
+    # ---- 16. main path 12: generation, the decode plane -----------------
+    decode = decode_path(pt, torch, tag, tmp, root, reset_counts)
+    check(set(lstm.launch_counts().values()) == {0}
+          and set(bn_relu.launch_counts().values()) == {0},
+          "the decode path launched LSTM or BN+ReLU kernels: "
+          f"{lstm.launch_counts()} {bn_relu.launch_counts()}")
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
     print(json.dumps({"training_loop": loop, "captured_variants":
                       n_captured}, default=str))
+    print(json.dumps({"generation": decode}, default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -5431,7 +6388,20 @@ def main():
         "library_ms": a_lib,
         "device_ms": a_dev,
         "library_device_ms": a_lib_dev,
-        "bf16": typed_entry("primal", bf16_serve_counts["launches"]),
+        "bf16": dict(typed_entry("primal", bf16_serve_counts["launches"]),
+                     decode_launches=decode["launches"]["counted"][
+                         "bfloat16"],
+                     decode_per="main path 12: the bf16 LM's prefills (its "
+                                "teacher-forced engine checks and /generate),"
+                                " one launch per block, bfloat16 "
+                                "instantiation; read from the counters"),
+        "decode_launches": decode["launches"]["counted"]["float32"],
+        "decode_per": "main path 12: every prefill of its engine checks, "
+                      "HTTP windows, pool pressure, int8 KV, canary and "
+                      f"times ({LM_BLOCKS} a prefill, float32 "
+                      "instantiation, prompt buckets 8-256; none per decode "
+                      "tick), read from the counters less the stateless "
+                      "plane's forwards; the benches after it not counted",
         "card": card,
     }] + [{
         "name": name,

@@ -14,14 +14,20 @@ bound with ctypes. Nothing is built when this package is imported.
 
 Launch counts are kept in Python, by each wrapper where it launches its
 kernel. A CUDA graph captured around wrappers records their launches once,
-at capture, and replays them without Python: `count_snapshot`,
-`count_delta`, `add_counts` and `restore_counts` let the capture code
-(`nn/superstep.py`, chip_smoke.py's phase 2) take the capture's launches
-off the counters and add them back at every replay, so `launch_counts()`
-and `variant_counts()` count what ran on the card.
+at capture, and replays them without Python: the capture code
+(`nn/superstep.py`, chip_smoke.py's phase 2) makes its warm-up and its
+capture inside `tally()`, whose launches go to a tally of their own instead
+of the counters, and `add_counts(tally_delta(t))` adds the capture's at
+every replay, so `launch_counts()` and `variant_counts()` count what ran on
+the card. A tally holds one thread's launches (a capture made while other
+threads launch and count: the decode plane captures a new version's ticks
+while the old version serves) or, with `all_threads=True`, every thread's
+(a process-wide capture: a training step's backward launches on autograd's
+device thread). `count_snapshot` and `count_delta` read the counters.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -30,13 +36,16 @@ import time
 from typing import Optional
 
 __all__ = ["library", "BUILD_DIR", "CUDA_FLAGS", "count_snapshot",
-           "count_delta", "add_counts", "restore_counts"]
+           "count_delta", "add_counts", "tally", "tallied", "tally_delta"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
+_tls = threading.local()          # .tally: this thread's tally
+_all_tally: Optional[dict] = None  # the tally of every thread's launches
+_tally_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 
@@ -112,10 +121,52 @@ def add_counts(delta: dict, times: int = 1):
             _set_counts(mod, now_t, now_v)
 
 
-def restore_counts(snapshot: dict):
-    """Put the counters back to a `count_snapshot` (after a warm-up or a
-    capture, which launch nothing that the run keeps)."""
+@contextlib.contextmanager
+def tally(all_threads: bool = False):
+    """The launches this thread (with `all_threads`, every thread) makes
+    inside the block go to a tally of their own (yielded) instead of the
+    counters, which the other threads go on counting into."""
+    global _all_tally
+    t = {}
+    if all_threads:
+        prev, _all_tally = _all_tally, t
+    else:
+        prev, _tls.tally = getattr(_tls, "tally", None), t
+    try:
+        yield t
+    finally:
+        if all_threads:
+            _all_tally = prev
+        else:
+            _tls.tally = prev
+
+
+def tallied(module: str, counter: str, kind: Optional[str] = None,
+            variant: Optional[str] = None) -> bool:
+    """Called by a kernel module where it counts a launch: True when a
+    `tally()` holds this thread's launches, which then holds this one, and
+    the counters must not."""
+    t = getattr(_tls, "tally", None)
+    if t is None:
+        t = _all_tally
+    if t is None:
+        return False
+    key = (module, counter, kind, variant)
+    with _tally_lock:
+        t[key] = t.get(key, 0) + 1
+    return True
+
+
+def tally_delta(t: dict) -> dict:
+    """A `tally()` in `count_delta`'s form, for `add_counts`."""
+    out = {}
     for name, mod in _counted_modules():
-        totals, variants = snapshot[name]
-        with mod._launch_lock:
-            _set_counts(mod, totals, variants)
+        out[name] = (dict.fromkeys(mod.launch_counts(), 0),
+                     {kind: dict.fromkeys(vs, 0)
+                      for kind, vs in mod.variant_counts().items()})
+    for (name, counter, kind, variant), n in t.items():
+        totals, variants = out[name]
+        totals[counter] += n
+        if kind is not None and variant is not None:
+            variants[kind][variant] += n
+    return out

@@ -3,7 +3,9 @@
 Counterpart of `deeplearning4j_tpu/kernels/attention.py:flash_attention`,
 its custom VJP included. The kernels are in `csrc/attention.cu`; its header
 says what bounds each and how its design answers that. The decode plane's
-`q_positions` / `kv_length` masks wait for the decode slice.
+`q_positions` / `kv_length` masks are in the plain versions only, as JAX
+has them only in its `attention_reference`: the decode tick attends through
+them, the prefill through the causal primal kernel.
 
   * `flash_attention` — the JAX contract: q [B, T, D], k/v [B, S, D].
   * `flash_attention_heads` — the entry the transformer layer calls:
@@ -26,8 +28,10 @@ says what bounds each and how its design answers that. The decode plane's
     account. The backward ones are written out as the TPU kernels' math
     (p from the saved logsumexp), not as autograd of the forward.
   * Launch counts, one per kernel: `launches` (primal forward),
-    `lse_launches`, `dq_launches`, `dkv_launches` (`launch_counts()`), and
-    the same launches by kernel variant (`variant_counts()`).
+    `lse_launches`, `dq_launches`, `dkv_launches` (`launch_counts()`), the
+    same launches by kernel variant (`variant_counts()`), and the primal
+    forward's eager launches by dtype, that is by template instantiation
+    (`dtype_counts()`; graph replays add to the first two only).
   * `backward_variant`, `forward_variant` — which kernel variant a launch
     takes (`csrc/attention.cu`'s header describes them): the backward
     runs "wgmma" (tensor cores) for bfloat16 / float16 at head dimensions
@@ -59,12 +63,13 @@ __all__ = ["flash_attention", "flash_attention_heads",
            "attention_bwd_dq_reference", "attention_bwd_dkv_reference",
            "attention_bwd_reference_heads", "launches", "lse_launches",
            "dq_launches", "dkv_launches", "reset_launches", "launch_counts",
-           "variant_counts", "backward_variant", "forward_variant",
-           "TILED_HEAD_DIM"]
+           "variant_counts", "dtype_counts", "backward_variant",
+           "forward_variant", "TILED_HEAD_DIM"]
 
 TILED_HEAD_DIM = 256     # the widest head the tiled kernels take (Gemma's);
                          # above it the "wide" kernels run
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 _VARIANTS = {"fwd": ("tiled", "wide"), "lse": ("tiled", "wide"),
              "dq": ("simt", "wgmma", "wide"),
              "dkv": ("simt", "wgmma", "wide")}
@@ -76,6 +81,7 @@ dkv_launches = 0         # backward: dk and dv
 _COUNTS = ("launches", "lse_launches", "dq_launches", "dkv_launches")
 _by_variant = {kind: dict.fromkeys(names, 0)
                for kind, names in _VARIANTS.items()}
+_by_dtype = dict.fromkeys(_DTYPE_NAMES.values(), 0)
 _launch_lock = threading.Lock()
 _fns = {}
 
@@ -88,6 +94,7 @@ def reset_launches() -> int:
             globals()[name] = 0
         for counts in _by_variant.values():
             counts.update(dict.fromkeys(counts, 0))
+        _by_dtype.update(dict.fromkeys(_by_dtype, 0))
     return n
 
 
@@ -102,6 +109,13 @@ def variant_counts() -> dict:
     variants add up to its total in `launch_counts()`."""
     with _launch_lock:
         return {kind: dict(counts) for kind, counts in _by_variant.items()}
+
+
+def dtype_counts() -> dict:
+    """{dtype name: eager primal-forward launches}: which instantiation of
+    the forward kernel ran (float32, bfloat16 or float16)."""
+    with _launch_lock:
+        return dict(_by_dtype)
 
 
 def forward_variant(head_dim: int) -> str:
@@ -132,24 +146,45 @@ def _scale(q, sm_scale):
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def _masked_logits(q, k, causal, scale):
+def _masked_logits(q, k, causal, scale, q_positions=None, kv_length=None):
     """float32 logits [B, H, T, S], -inf above the top-left causal diagonal
-    (kv <= q attends), and the live mask (None when not causal)."""
+    (kv <= q attends), and the live mask (None when nothing is masked).
+    `q_positions` [B, T] moves each query's diagonal to its absolute key
+    index (kv <= q_positions[b, t] attends); `kv_length` [B] (or a scalar)
+    masks the keys at kv >= kv_length[b]."""
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    if not causal:
-        return logits, None
     T, S = logits.shape[-2:]
-    live = (torch.arange(S, device=q.device)[None, :]
-            <= torch.arange(T, device=q.device)[:, None])
+    ki = torch.arange(S, device=q.device)
+    live = None
+    if causal:
+        if q_positions is None:
+            qi = torch.arange(T, device=q.device)[None, :]
+        else:
+            qi = torch.as_tensor(q_positions, device=q.device)
+        live = (ki[None, None, :] <= qi[:, :, None])[:, None]  # [B|1,1,T,S]
+    if kv_length is not None:
+        lengths = torch.as_tensor(kv_length, device=q.device).reshape(-1)
+        valid = (ki[None, :] < lengths[:, None])[:, None, None, :]
+        live = valid if live is None else live & valid
+    if live is None:
+        return logits, None
     return logits.masked_fill(~live, float("-inf")), live
 
 
 def attention_reference_heads(q, k, v, causal: bool = False,
-                              sm_scale: Optional[float] = None):
+                              sm_scale: Optional[float] = None,
+                              q_positions=None, kv_length=None):
     """Plain version on q [B, T, H, Dh], k/v [B, S, H, Dh]: float32
     logits, -inf above the top-left causal diagonal (kv <= q attends),
-    softmax, output in q's dtype."""
-    logits, _ = _masked_logits(q, k, causal, _scale(q, sm_scale))
+    softmax, output in q's dtype. The decode masks are JAX's
+    `attention_reference`'s: `q_positions` [B, T], each query's absolute
+    key index (causal then means kv <= q_positions[b, t]), and `kv_length`
+    [B], the valid cache slots of each row (keys at kv >= kv_length[b] get
+    no weight). A row that admits no key gives NaN, as in JAX. k and v may
+    have another float dtype than q (a float32 cache under bfloat16
+    queries)."""
+    logits, _ = _masked_logits(q, k, causal, _scale(q, sm_scale),
+                               q_positions, kv_length)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bshd->bthd", w, v.float()).to(q.dtype)
 
@@ -214,12 +249,13 @@ def attention_bwd_reference_heads(q, k, v, o, lse, do, causal: bool = False,
 
 
 def attention_reference(q, k, v, causal: bool = False,
-                        sm_scale: Optional[float] = None):
-    """Plain version on q [B, T, D], k/v [B, S, D] (the JAX
-    `attention_reference` without its decode arguments)."""
+                        sm_scale: Optional[float] = None,
+                        q_positions=None, kv_length=None):
+    """Plain version on q [B, T, D], k/v [B, S, D] (JAX's
+    `attention_reference`, its decode masks included)."""
     return attention_reference_heads(
         q[:, :, None], k[:, :, None], v[:, :, None], causal,
-        _scale(q, sm_scale))[:, :, 0]
+        _scale(q, sm_scale), q_positions, kv_length)[:, :, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +286,9 @@ def _kernel_fn(name: str):
 
 def _launch(name: str, counter: str, variant, device, *args):
     """Launch `name` on the current stream of `device`, counted under
-    `counter` and `variant` = (kind, variant name); tensors are passed by
-    pointer (None is a null pointer)."""
+    `counter` and `variant` = (kind, variant name) (or in this thread's
+    `kernels.tally()`); tensors are passed by pointer (None is a null
+    pointer)."""
     fn = _kernel_fn(name)
     ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
     with torch.cuda.device(device):
@@ -260,9 +297,14 @@ def _launch(name: str, counter: str, variant, device, *args):
     if err != 0:
         raise RuntimeError(f"attention kernel {name} launch failed: CUDA "
                            f"error {err}")
+    from . import tallied
+    if tallied("attention", counter, *variant):
+        return
     with _launch_lock:
         globals()[counter] += 1
         _by_variant[variant[0]][variant[1]] += 1
+        if counter == "launches":
+            _by_dtype[_DTYPE_NAMES[args[-1]]] += 1
 
 
 def _check_placed(tensors, device, dtype):

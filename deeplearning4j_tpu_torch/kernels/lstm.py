@@ -101,6 +101,9 @@ def variant_counts() -> dict:
 
 
 def _count(name: str, variant: Optional[str] = None):
+    from . import tallied
+    if tallied("lstm", name, _KINDS.get(name), variant):
+        return
     with _launch_lock:
         globals()[name] += 1
         if variant is not None:

@@ -17,8 +17,9 @@ backward; under `no_grad` / `inference_mode` (serving) the primal forward,
 one launch per block. The JAX block's `flash` switch has no counterpart:
 the tensor's device picks the implementation. Input dropout draws from the
 network's `torch.Generator`, so only dropout-free runs are compared with
-JAX. The decode-mode methods (`decode_qkv`, ...) wait for the decode slice
-and the tensor-parallel hooks for the parallel stack.
+JAX. The decode-mode methods (`decode_qkv`, `decode_attend`,
+`decode_finish`, `decode_embed`) serve the KV-cache generation plane
+(`serving/decode`); the tensor-parallel hooks wait for the parallel stack.
 """
 from __future__ import annotations
 
@@ -130,6 +131,47 @@ class TransformerBlock(LayerConf):
         x = x + f @ params["W_ffn_out"] + params["b_ffn_out"]
         return x, state
 
+    # -- decode mode (KV-cache generation, serving/decode) -----------------
+    # The generation plane splits the block in three so that the paged
+    # cache's scatter and gather run between them (the layer owns the math,
+    # the decode engine the block tables):
+    #   q, k, v = blk.decode_qkv(p, x)        # LN1 + projections
+    #   <the engine scatters k / v into its arena, gathers the cache view>
+    #   a = blk.decode_attend(q, k_all, v_all, positions, lengths)
+    #   y = blk.decode_finish(p, x, a)        # out-projection + FFN
+    # Over a whole causal prompt (k_all = k, positions = arange) the three
+    # are `apply`.
+    def decode_qkv(self, params, x):
+        """LN1 + QKV projection: x [B, T, D] -> q, k, v, each [B, T, H,
+        Dh]."""
+        b, t, d = x.shape
+        hd = d // self.n_heads
+        h1 = _layer_norm(x, params["ln1_g"], params["ln1_b"])
+        split = lambda z: z.reshape(b, t, self.n_heads, hd)
+        return (split(h1 @ params["W_q"] + params["b_q"]),
+                split(h1 @ params["W_k"] + params["b_k"]),
+                split(h1 @ params["W_v"] + params["b_v"]))
+
+    def decode_attend(self, q, k_all, v_all, positions, lengths):
+        """Attention over a cache view: q [B, Tn, H, Dh] (the Tn newest
+        tokens, at absolute key indices `positions` [B, Tn]), k_all / v_all
+        [B, S, H, Dh] the whole view (the new keys written in), `lengths`
+        [B] valid slots a row. The plain masked attention on any device, as
+        JAX runs `attention_reference` here: no kernel takes these masks."""
+        from ...kernels.attention import attention_reference_heads
+        return attention_reference_heads(q, k_all, v_all, self.causal,
+                                         q_positions=positions,
+                                         kv_length=lengths)
+
+    def decode_finish(self, params, x, attn):
+        """The half after attention: the out-projection residual, then the
+        FFN residual. attn [B, Tn, H, Dh] -> [B, Tn, D]."""
+        b, t, d = x.shape
+        x = x + attn.reshape(b, t, d) @ params["W_o"] + params["b_o"]
+        h2 = _layer_norm(x, params["ln2_g"], params["ln2_b"])
+        f = self._act(h2 @ params["W_ffn_in"] + params["b_ffn_in"])
+        return x + f @ params["W_ffn_out"] + params["b_ffn_out"]
+
 
 @register_layer
 @dataclass
@@ -175,3 +217,9 @@ class EmbeddingSequenceLayer(LayerConf):
         z = take_rows(params["W"], idx)
         t = z.shape[1]
         return z + params["P"][:t][None], state
+
+    def decode_embed(self, params, idx, positions):
+        """Token + position embedding at absolute positions: idx and
+        positions [B, T] integer -> [B, T, n_out]. Positions must lie below
+        the positional table's length, which bounds the context window."""
+        return take_rows(params["W"], idx) + params["P"][positions]

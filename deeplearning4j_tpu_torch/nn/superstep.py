@@ -328,65 +328,70 @@ class _Graph:
     """One CUDA graph of `commit(compute())`. `compute` reads only tensors
     that exist before the capture (the statics) and returns new ones;
     `commit` copies what must persist into statics. The warm-up runs
-    `compute` alone on a side stream (so nothing persists), under
-    `_sync_errors`; the dropout generators' states and the kernel launch
-    counters are put back after it, and the capture's launches are taken
-    off the counters and added back at every replay."""
+    `compute` alone on a side stream (so nothing persists); the dropout
+    generators' states are put back after it and registered with the
+    graph. The warm-up's and the capture's kernel launches go to a
+    `kernels.tally()` instead of the counters, and the capture's are added
+    to the counters at every replay.
 
-    def __init__(self, name, compute, commit, device, generators):
+    What the capture claims is the process (the training step: its
+    backward launches on autograd's device thread), or, with
+    `thread_local=True`, this thread alone (the decode plane captures a new
+    version's ticks while other threads serve the old one). The scope sets
+    the tally's, the capture's error mode, and where a host sync inside
+    `compute` is caught: by `_sync_errors` in the warm-up, which is
+    process-wide, or by the capture itself. `mempool` shares one memory
+    pool between graphs that replay one after another."""
+
+    def __init__(self, name, compute, commit, device, generators=(),
+                 thread_local=False, mempool=None):
         from .. import kernels
         self.name = name
         gens = list(generators)
         states = [g.get_state() for g in gens]
-        counts = kernels.count_snapshot()
         cur = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
+        probe = contextlib.nullcontext() if thread_local else _sync_errors()
         # no cyclic collection while capturing: a collected model's graphs
         # would be destroyed mid-capture, which invalidates the capture
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            self._capture(name, compute, commit, device, gens, states,
-                          counts, cur, side)
+            try:
+                with kernels.tally(all_threads=not thread_local), \
+                        torch.cuda.stream(side):
+                    with probe:
+                        outs = compute()
+                    del outs
+                cur.wait_stream(side)
+                side.synchronize()
+            except Exception as e:
+                raise CaptureError(
+                    f"{name}: the step cannot be captured as a CUDA graph; "
+                    f"its warm-up failed at: {type(e).__name__}: {e}") from e
+            finally:
+                for g, s in zip(gens, states):
+                    g.set_state(s)
+            self.graph = _cuda_graph()
+            try:
+                for g in gens:
+                    self.graph.register_generator_state(g)
+                with kernels.tally(all_threads=not thread_local) as launched:
+                    with torch.cuda.graph(
+                            self.graph, pool=mempool,
+                            capture_error_mode=("thread_local" if thread_local
+                                                else "global")):
+                        commit(compute())
+            except Exception as e:
+                raise CaptureError(
+                    f"{name}: capturing the step as a CUDA graph failed at: "
+                    f"{type(e).__name__}: {e}") from e
+            self.launches = kernels.tally_delta(launched)
         finally:
             if collecting:
                 gc.enable()
-
-    def _capture(self, name, compute, commit, device, gens, states, counts,
-                 cur, side):
-        from .. import kernels
-        try:
-            with torch.cuda.stream(side):
-                with _sync_errors():
-                    outs = compute()
-                del outs
-            cur.wait_stream(side)
-            torch.cuda.synchronize(device)
-        except Exception as e:
-            raise CaptureError(
-                f"{name}: the training step cannot be captured as a CUDA "
-                f"graph; its warm-up failed at: {type(e).__name__}: {e}"
-            ) from e
-        finally:
-            for g, s in zip(gens, states):
-                g.set_state(s)
-            kernels.restore_counts(counts)
-        self.graph = _cuda_graph()
-        try:
-            for g in gens:
-                self.graph.register_generator_state(g)
-            with torch.cuda.graph(self.graph):
-                commit(compute())
-        except Exception as e:
-            raise CaptureError(
-                f"{name}: capturing the training step as a CUDA graph "
-                f"failed at: {type(e).__name__}: {e}") from e
-        finally:
-            after = kernels.count_snapshot()
-            kernels.restore_counts(counts)
-        self.launches = kernels.count_delta(counts, after)
 
     def replay(self):
         from .. import kernels

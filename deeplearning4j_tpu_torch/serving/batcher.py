@@ -1,6 +1,5 @@
 """Dynamic request batching (the port of
-`deeplearning4j_tpu/serving/batcher.py`, without its metrics and tracing
-hooks, which arrive with a later slice).
+`deeplearning4j_tpu/serving/batcher.py`).
 
 A request enqueues its rows and blocks on an event; the single worker thread
 drains the queue when either enough rows have accumulated to fill
@@ -9,6 +8,13 @@ drained rows are stacked, padded with zero rows up to the smallest bucket
 that fits, run through one forward, and scattered back to their waiters.
 Shape validation happens on the caller's thread, so a malformed request
 fails alone; a failure inside a batched forward fails exactly that batch.
+
+A request may carry a `TraceContext` (`telemetry/trace_context.py`): the
+flush emits its `queue_wait`, `batch_forward` and `scatter` child spans.
+With `metrics`, the flushes feed `dl4j_serving_batch_size`,
+`dl4j_serving_queue_wait_seconds` and `dl4j_serving_batch_rows_total`.
+`FlushEma` is shared with the decode plane, which picks each tick's bucket
+with it.
 """
 from __future__ import annotations
 
@@ -25,10 +31,16 @@ __all__ = ["DynamicBatcher", "BatcherClosedError", "FlushEma"]
 
 
 class FlushEma:
-    """Per-bucket EMA of flush wall seconds. Unsampled buckets are
-    estimated by linear scaling from the smallest sampled bucket above
-    (floored by the largest sampled bucket below), a deliberately
-    pessimistic guess that real samples soon replace."""
+    """Per-bucket EMA of flush wall seconds, shared by the DynamicBatcher
+    and the decode plane's GenerationScheduler (its tick bucket).
+
+    `estimate` extrapolates an unsampled bucket by linear scaling from the
+    smallest sampled bucket above it, floored by the largest sampled bucket
+    below it (a bigger batch never flushes faster than a measured smaller
+    one); past the largest sample it scales from that one. The linear guess
+    is deliberately pessimistic (no batching amortization), so an
+    unsampled small bucket looks break-even, gets tried, and its real cost
+    takes over."""
 
     __slots__ = ("_ema",)
 
@@ -81,9 +93,9 @@ class BatcherClosedError(RuntimeError):
 
 class _Pending:
     __slots__ = ("x", "rows", "event", "result", "version", "error",
-                 "enqueued_at")
+                 "enqueued_at", "ctx")
 
-    def __init__(self, x: np.ndarray):
+    def __init__(self, x: np.ndarray, ctx=None):
         self.x = x
         self.rows = int(x.shape[0])
         self.event = threading.Event()
@@ -91,6 +103,7 @@ class _Pending:
         self.version: Optional[int] = None
         self.error: Optional[BaseException] = None
         self.enqueued_at = time.perf_counter()
+        self.ctx = ctx      # TraceContext riding the request, or None
 
 
 class DynamicBatcher:
@@ -102,12 +115,14 @@ class DynamicBatcher:
     max_batch: row budget per flush.
     max_wait_us: the oldest request never waits longer than this for
         co-batching before the worker flushes a partial batch.
+    arm: the canary arm it serves ("stable" outside a canary).
     """
 
     def __init__(self, runner: Callable, bucket_for: Callable[[int], int],
                  max_batch: int, max_wait_us: int = 2000,
-                 name: str = "model",
-                 buckets: Optional[Tuple[int, ...]] = None):
+                 name: str = "model", metrics=None,
+                 buckets: Optional[Tuple[int, ...]] = None,
+                 arm: str = "stable"):
         self._runner = runner
         self._bucket_for = bucket_for
         self.max_batch = int(max_batch)
@@ -115,6 +130,7 @@ class DynamicBatcher:
         self.buckets = tuple(sorted(buckets)) if buckets else None
         self._flush_ema = FlushEma()
         self.name = name
+        self.arm = arm
         self.flushes = 0
         self._stop_lock = threading.Lock()
         # clients only append (atomic under the GIL) and the worker is the
@@ -122,23 +138,39 @@ class DynamicBatcher:
         self._queue: collections.deque = collections.deque()
         self._wake = threading.Event()
         self._stopped = False
+        self._batch_size_h = self._queue_wait_h = self._rows_c = None
+        if metrics is not None:
+            self._batch_size_h = metrics.histogram(
+                "dl4j_serving_batch_size",
+                "real (unpadded) rows per batched forward",
+                labels=("model",),
+                buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+            self._queue_wait_h = metrics.histogram(
+                "dl4j_serving_queue_wait_seconds",
+                "seconds a request waited in the batching queue before "
+                "its flush started", labels=("model",))
+            self._rows_c = metrics.counter(
+                "dl4j_serving_batch_rows_total",
+                "rows through the batched path by kind (real vs padding)",
+                labels=("model", "kind"))
         self._worker = threading.Thread(
             target=self._loop, name=f"dl4j-torch-serving-batcher-{name}",
             daemon=True)
         self._worker.start()
 
     # -- client side -----------------------------------------------------
-    def submit(self, x: np.ndarray, timeout: float = 30.0
+    def submit(self, x: np.ndarray, timeout: float = 30.0, ctx=None
                ) -> Tuple[np.ndarray, int]:
         """Block until this request's rows come back from a batched
-        forward. Returns `(outputs, version)`."""
+        forward. Returns `(outputs, version)`. `ctx` is an optional
+        TraceContext, which the flush's spans hang from."""
         if int(x.shape[0]) > self.max_batch:
             raise ServingError(
                 f"request of {int(x.shape[0])} rows exceeds max_batch "
                 f"{self.max_batch} for '{self.name}'")
         if self._stopped:
             raise BatcherClosedError(f"batcher for '{self.name}' is stopped")
-        p = _Pending(x)
+        p = _Pending(x, ctx)
         self._queue.append(p)
         self._wake.set()
         if self._stopped and not p.event.is_set():
@@ -230,21 +262,49 @@ class DynamicBatcher:
 
     def _flush(self, taken: List[_Pending]):
         rows = sum(p.rows for p in taken)
+        t_flush = time.perf_counter()
         scattered = 0
+        for p in taken:
+            if self._queue_wait_h is not None:
+                self._queue_wait_h.observe(t_flush - p.enqueued_at,
+                                           model=self.name)
+            if p.ctx is not None:
+                # enqueue -> flush start, the enqueue time taken on the
+                # client's thread
+                p.ctx.emit("queue_wait", p.enqueued_at, t_flush,
+                           model=self.name, rows=p.rows)
         try:
             x = (taken[0].x if len(taken) == 1
                  else np.concatenate([p.x for p in taken], axis=0))
             bucket = self._bucket_for(rows)
             t0 = time.perf_counter()
             out, version = self._runner(pad_rows(x, bucket - rows), bucket)
-            self._flush_ema.observe(bucket, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self._flush_ema.observe(bucket, dt)
             self.flushes += 1
+            for p in taken:
+                if p.ctx is not None:
+                    p.ctx.emit("batch_forward", t0, t0 + dt,
+                               model=self.name, bucket=bucket,
+                               batch_rows=rows)
+            if self._batch_size_h is not None:
+                self._batch_size_h.observe(rows, model=self.name)
+                self._rows_c.inc(rows, model=self.name, kind="real")
+                if bucket - rows:
+                    self._rows_c.inc(bucket - rows, model=self.name,
+                                     kind="pad")
             lo = 0
+            t_scatter = time.perf_counter()
             for p in taken:
                 p.result = out[lo:lo + p.rows]
                 p.version = version
                 lo += p.rows
                 scattered += 1
+                if p.ctx is not None:
+                    # emitted before event.set(): the waiter wakes to its
+                    # whole trace in the buffer
+                    p.ctx.emit("scatter", t_scatter, time.perf_counter(),
+                               model=self.name, rows=p.rows)
                 p.event.set()
         except BaseException as e:   # fail this batch, keep serving
             for p in taken[scattered:]:

@@ -1,7 +1,6 @@
 """Runtime observability of the port: metrics registry, step tracing,
-capture watching, resource watermarks (the port of
-`deeplearning4j_tpu/telemetry/`, bar `trace_context` and `obs_bench`,
-which come with serving's ROADMAP A9).
+capture watching, resource watermarks, request tracing (the port of
+`deeplearning4j_tpu/telemetry/`).
 
   * `MetricsRegistry` (registry.py): thread-safe counters / gauges /
     histograms / timers with Prometheus-text and JSONL exporters.
@@ -14,6 +13,10 @@ which come with serving's ROADMAP A9).
     allocated bytes, current and peak.
   * `FlightRecorder` (recorder.py): an always-on ring of structured
     events that `fault/guard.py` dumps when it trips.
+  * `TraceContext` / `SloSurface` (trace_context.py): one request's
+    correlation ids and spans through the serving planes, and the
+    per-tier latency targets with their burn rates.
+  * `obs_bench.py`: the tracing and recorder overhead, in paired windows.
 
 `TelemetrySession` (runtime.py) bundles them; `telemetry.enable()` installs
 the process-wide session the instrumented hot paths consult.
@@ -28,6 +31,8 @@ from .registry import (Counter, Gauge, Histogram, MetricsRegistry, Timer)
 from .resources import ResourceWatermarks
 from .runtime import (TelemetrySession, active, disable, enable, enabled,
                       null_span)
+from .trace_context import (DEFAULT_SLO_TARGETS, DEFAULT_TIER, SloSurface,
+                            TraceContext)
 from .tracing import Tracer
 
 __all__ = [
@@ -37,4 +42,5 @@ __all__ = [
     "TelemetrySession", "TelemetryListener",
     "FlightRecorder", "flight_recorder", "install",
     "active", "enable", "disable", "enabled", "null_span",
+    "TraceContext", "SloSurface", "DEFAULT_SLO_TARGETS", "DEFAULT_TIER",
 ]

@@ -16,7 +16,11 @@ capture. So a compile here is
   * for an eager entry point (the per-batch step, the CPU's window step),
     the first call with a batch signature it has not seen
     (`watch_compiles`): the call where the card would capture, so the
-    counts, and a storm of ragged shapes, read the same on both devices.
+    counts, and a storm of ragged shapes, read the same on both devices;
+  * for the serving registry, one runner built per (model, signature,
+    bucket) and kept across same-architecture swaps (`record_aot`); the
+    decode plane's CUDA graphs, one per (version, arena, bucket), are
+    captures.
 
 `watch_compiles(fn, name)` wraps a callable; with no active telemetry
 session the wrapper is one global read and the call.
@@ -129,6 +133,12 @@ class CompileWatcher:
         out = fn(*args, **kwargs)
         self._record(name, 1, time.perf_counter() - t0)
         return out
+
+    def record_aot(self, name: str, wall_s: float, n: int = 1):
+        """Record a compile made ahead of its calls (`name` built once for a
+        signature, as the serving registry builds a runner per bucket), of
+        `wall_s` seconds."""
+        self._record(name, n, wall_s)
 
     def record_capture(self, name: str, wall_s: float, n: int = 1):
         """Record a CUDA-graph capture of `name` (its warm-up step and the

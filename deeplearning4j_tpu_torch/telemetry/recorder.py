@@ -6,8 +6,7 @@ The training/serving planes record a few events per step (step scores at
 their sanctioned host-sync points, collective-sequence digests, KV-pool
 pressure, swap/eviction decisions); `fault/guard.py` dumps the ring
 atomically the moment a non-finite step trips skip/rollback/halt, and
-the JAX package's server exposes the same view at `/debug/flightrecord`
-(the port's serving plane takes it with ROADMAP A9).
+the serving plane exposes the same view at `/debug/flightrecord`.
 
 Write-path concurrency contract:
 `record()` takes NO lock. `next(itertools.count())` is a GIL-atomic

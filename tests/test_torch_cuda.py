@@ -1474,17 +1474,18 @@ def _replay_check(cuda, make, call):
     """Capture one wrapper call, replay it on 3 fresh inputs: each replay
     bit-equal to an eager call, the counters at 3 replayed launches."""
     from deeplearning4j_tpu_torch import kernels
-    quiet = lambda fn: (lambda s: (fn(), kernels.restore_counts(s))[0])(
-        kernels.count_snapshot())
+    def quiet(fn):
+        with kernels.tally():
+            return fn()
+
     static = quiet(lambda: make(0))
     quiet(lambda: call(*static))
     torch.cuda.synchronize()
     before = kernels.count_snapshot()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with kernels.tally() as launched, torch.cuda.graph(g):
         out = call(*static)
-    captured = kernels.count_delta(before, kernels.count_snapshot())
-    kernels.restore_counts(before)
+    captured = kernels.tally_delta(launched)
     outs = out if isinstance(out, (tuple, list)) else (out,)
     for seed in (1, 2, 3):
         fresh = quiet(lambda: make(seed))
@@ -1743,3 +1744,156 @@ def test_fit_takes_batches_already_on_the_card(cuda, k):
         [pt.MultiDataSet(features=[d.features], labels=[d.labels])
          for d in dev]), superstep=k)
     _same_run(ga, gb)
+
+
+# ---- the decode plane (generation) ----------------------------------------
+
+def _gen_lm(device, seed=3, width=64, heads=4, blocks=2, t=64):
+    b = (pt.NeuralNetConfiguration.builder().seed(seed).list()
+         .layer(pt.EmbeddingSequenceLayer(n_in=48, n_out=width)))
+    for _ in range(blocks):
+        b = b.layer(pt.TransformerBlock(n_heads=heads))
+    conf = (b.layer(pt.RnnOutputLayer(n_out=48, activation="softmax",
+                                      loss="mcxent"))
+            .set_input_type(pt.InputType.recurrent(1, t)).build())
+    return pt.MultiLayerNetwork(conf, device=device).init()
+
+
+def _gen_registry(device, precision="fp32", seed=3):
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()
+    reg = ModelRegistry(buckets=(1,), device=device)
+    reg.register("lm", _gen_lm(device, seed=seed), precision=precision)
+    return reg
+
+
+def _full_logits(net, ctx):
+    x = torch.tensor(ctx, dtype=torch.float32,
+                     device=net.device)[None, :, None]
+    with torch.no_grad():
+        h = net._forward(net.params, net.state, x,
+                         upto=len(net.layers) - 1)[0]
+        return net.layers[-1].preout(net.params[-1], {}, h)[0, -1].float()
+
+
+@pytest.mark.parametrize("n", [5, 9, 40])
+def test_decode_prefill_launches_kernel_one_per_block(cuda, n):
+    """A prefill attends through kernel 1's primal, "tiled", float32: one
+    launch per block; a tick launches no hand kernel. Its logits are the
+    full forward's."""
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    reg = _gen_registry(cuda)
+    v = reg.get("lm")
+    eng = DecodeEngine(reg, "lm", block_len=8, decode_buckets=(1, 2))
+    pool = eng.new_pool()
+    eng.prepare(v, pool)
+    prompt = list(np.random.default_rng(n).integers(0, 48, n))
+    blocks = pool.alloc(eng.spec.blocks_for(n + 1))
+    attention.reset_launches()
+    logits = eng.run_prefill(v, pool, prompt, blocks)
+    assert attention.launch_counts()["launches"] == 2
+    assert attention.variant_counts()["fwd"]["tiled"] == 2
+    assert attention.dtype_counts()["float32"] == 2
+    eng.run_tick(v, pool, [int(np.argmax(logits))], [n], [blocks], bucket=1)
+    assert attention.launch_counts()["launches"] == 2
+    assert eng.lazy_captures == 0 and eng.captures == 2
+    want = _full_logits(v.model, prompt).cpu().numpy()
+    assert np.abs(logits - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bucket", [1, 8])
+def test_decode_tick_replays_bit_equal_to_an_eager_tick(cuda, bucket):
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    reg = _gen_registry(cuda)
+    v = reg.get("lm")
+    eng = DecodeEngine(reg, "lm", block_len=8, decode_buckets=(1, 8))
+    pool = eng.new_pool()
+    eng.prepare(v, pool)
+    r = np.random.default_rng(bucket)
+    rows = []
+    for i in range(bucket):
+        n = int(r.integers(3, 30))
+        prompt = list(r.integers(0, 48, n))
+        blocks = pool.alloc(eng.spec.blocks_for(n + 1))
+        tok = int(np.argmax(eng.run_prefill(v, pool, prompt, blocks)))
+        rows.append((tok, n, blocks))
+    toks, pos, tabs = zip(*rows)
+    replayed = eng.run_tick(v, pool, toks, pos, tabs, bucket)
+    inp = np.zeros((bucket, 2 + eng.spec.table_width), np.int64)
+    for i, (t, p, b) in enumerate(rows):
+        inp[i, 0], inp[i, 1] = t, p
+        inp[i, 2:] = eng._pad_table(b)
+    x = torch.from_numpy(inp).to(cuda)
+    with torch.no_grad():
+        eager = eng.decode_exec(v, bucket)(v.snapshot.data, pool.cache,
+                                           x[:, 0], x[:, 1], x[:, 2:],
+                                           eng.spec)
+    np.testing.assert_array_equal(replayed, eager.cpu().numpy())
+
+
+def test_failed_tick_capture_raises_and_keeps_the_live_version(
+        cuda, monkeypatch):
+    """A tick with a host sync cannot be captured: the swap that would
+    bring it in raises AotCompileError, the live version keeps serving
+    from its graphs, and nothing runs a tick eagerly."""
+    from deeplearning4j_tpu_torch.nn.layers.transformer import \
+        TransformerBlock
+    from deeplearning4j_tpu_torch.serving import AotCompileError
+    from deeplearning4j_tpu_torch.serving.decode import GenerationScheduler
+    reg = _gen_registry(cuda)
+    v1 = reg.get("lm")
+    sched = GenerationScheduler(reg, "lm", block_len=8,
+                                decode_buckets=(1, 2))
+    try:
+        before = sched.submit([1, 2, 3], max_tokens=6, timeout=120)
+        orig = TransformerBlock.decode_attend
+
+        def syncing(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            out.sum().item()
+            return out
+        monkeypatch.setattr(TransformerBlock, "decode_attend", syncing)
+        with pytest.raises(AotCompileError, match="tick-b1"):
+            reg.swap("lm", _gen_lm(cuda, seed=4))
+        assert reg.get("lm") is v1
+        assert sched.submit([1, 2, 3], max_tokens=6,
+                            timeout=120) == before
+        assert sched.engine.lazy_captures == 0
+    finally:
+        sched.stop()
+
+
+def test_int8_kv_arena_on_the_card(cuda):
+    from deeplearning4j_tpu_torch.serving.decode import GenerationScheduler
+    reg = _gen_registry(cuda)
+    first = {}
+    for kv in ("fp32", "int8"):
+        sched = GenerationScheduler(reg, "lm", block_len=8, kv_dtype=kv,
+                                    decode_buckets=(1,))
+        try:
+            cache = sched.pool.cache
+            assert cache["kv"].device.type == "cuda"
+            assert cache["kv"].dtype == (torch.int8 if kv == "int8"
+                                         else torch.float32)
+            res = sched.submit([4, 9, 1, 7], max_tokens=8, timeout=120)
+            assert res["generated_tokens"] == 8
+            first[kv] = res["tokens"][0]
+        finally:
+            sched.stop()
+    assert first["int8"] == first["fp32"]
+
+
+def test_bf16_prefill_takes_the_bf16_instantiation(cuda):
+    from deeplearning4j_tpu_torch.serving.decode import GenerationScheduler
+    reg = _gen_registry(cuda, precision="bf16")
+    sched = GenerationScheduler(reg, "lm", block_len=8, decode_buckets=(1,))
+    try:
+        attention.reset_launches()
+        res = sched.submit([4, 9, 1, 7], max_tokens=8, timeout=120)
+        assert res["generated_tokens"] == 8
+        assert attention.dtype_counts() == {"float32": 0, "bfloat16": 2,
+                                            "float16": 0}
+        assert attention.launch_counts()["launches"] == 2
+    finally:
+        sched.stop()

@@ -119,8 +119,11 @@ def test_http_error_codes(zips, server):
     code, r = _http("POST", f"{base}/v1/models/m/predict", {"rows": 1})
     assert code == 400 and "features" in r["error"]
     code, r = _http("POST", f"{base}/v1/models/m/swap",
+                    {"source": zips[1], "precision": "fp64"})
+    assert code == 400 and "fp64" in r["error"]
+    code, r = _http("POST", f"{base}/v1/models/m/swap",
                     {"source": zips[1], "precision": "bf16"})
-    assert code == 400 and "bf16" in r["error"]
+    assert code == 200 and r["precision"] == "bf16"
 
 
 def test_http_listing_and_health(zips, server):
@@ -202,13 +205,21 @@ def test_checkpoint_directory_serves_newest_loadable(zips, tmp_path):
 
 def test_registry_refusals(zips, monkeypatch):
     reg = ModelRegistry(device="cpu")
-    for precision in ("bf16", "int8"):
-        with pytest.raises(ServingError, match="not in the PyTorch port"):
-            reg.register("m", zips[0], precision=precision)
-    with pytest.raises(ServingError, match="unknown precision"):
-        ModelRegistry(precision="fp64", device="cpu")
     with pytest.raises(UnknownModelError):
         reg.get("m")
+    # bf16 and int8 serve now: each is accepted and stays near fp32
+    # (JAX's limits, atol 2e-2 and 5e-2)
+    x = _features(3, seed=2)
+    want = ModelSerializer.restore(zips[0], device="cpu").output(x).numpy()
+    for precision, atol in (("bf16", 2e-2), ("int8", 5e-2)):
+        v = reg.register(precision, zips[0], precision=precision)
+        assert v.precision == precision
+        out, _ = reg.predict(precision, x)
+        np.testing.assert_allclose(out, want, rtol=0, atol=atol)
+    with pytest.raises(ServingError, match="unknown precision"):
+        ModelRegistry(precision="fp64", device="cpu")
+    with pytest.raises(ServingError, match="unknown precision"):
+        reg.register("m", zips[0], precision="fp64")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry()

@@ -646,3 +646,50 @@ def test_superstep_trajectory_matches_jax(jax_window_run, k):
         assert len(la) == len(lb) > 0
         for a, b in zip(la, lb):
             np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=TRAJ_TOL)
+
+
+def test_tally_scopes_keep_launches_off_the_counters():
+    """A capture's launches go to its `kernels.tally()` instead of the
+    counters: this thread's alone, or with `all_threads` every thread's (a
+    training step's backward launches on autograd's device thread). A
+    replay adds the tally back through `add_counts`."""
+    import threading
+
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.kernels import bn_relu, lstm
+
+    def launched(before):
+        return sum(sum(t.values()) for t, _ in
+                   kernels.count_delta(before, kernels.count_snapshot())
+                   .values())
+
+    def elsewhere():
+        t = threading.Thread(target=bn_relu._count, args=("fwd", "resident"))
+        t.start()
+        t.join()
+
+    before = kernels.count_snapshot()
+    try:
+        with kernels.tally() as mine:
+            lstm._count("launches", "cluster")
+            elsewhere()
+        assert launched(before) == 1        # the other thread's launch
+        delta = kernels.tally_delta(mine)
+        assert delta["lstm"][0]["launches"] == 1
+        assert delta["lstm"][1]["fwd"]["cluster"] == 1
+        assert delta["bn_relu"][0]["fwd_launches"] == 0
+        with kernels.tally(all_threads=True) as every:
+            lstm._count("launches", "cluster")
+            elsewhere()
+        assert launched(before) == 1
+        delta = kernels.tally_delta(every)
+        assert delta["lstm"][0]["launches"] == 1
+        assert delta["bn_relu"][1]["fwd"]["resident"] == 1
+        kernels.add_counts(delta, times=3)
+        assert launched(before) == 1 + 6
+        assert lstm.variant_counts()["fwd"]["cluster"] \
+            == before["lstm"][1]["fwd"]["cluster"] + 3
+    finally:
+        kernels.add_counts(kernels.count_delta(kernels.count_snapshot(),
+                                               before))
+    assert kernels.count_snapshot() == before

@@ -16,6 +16,7 @@ can while the JAX package's timed tests run on the other workers. XLA
 sizes its thread pools from the schedulable cores when it creates them,
 so the first pin in a process comes after one warm-up compile: the JAX
 package's tests that the worker runs later keep their full pools."""
+import contextlib
 import os
 
 import pytest
@@ -53,17 +54,29 @@ def _warm_up_jax():
         _warm.append(True)
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the port's side of each comparison, and in
-    a parallel run the worker's threads on one core."""
+@contextlib.contextmanager
+def pinned():
+    """One intra-op torch thread and, in a parallel run, every thread of
+    the worker on its one core, for the block. The per-test fixture below
+    uses it; a module-scoped fixture that computes JAX references uses it
+    too, since pytest sets such a fixture up before the per-test pin."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     core = _worker_core()
     if core is not None:
         _warm_up_jax()
         _pin(core)
-    yield
-    if core is not None:
-        _pin(_ALL_CORES)
-    torch.set_num_threads(threads)
+    try:
+        yield
+    finally:
+        if core is not None:
+            _pin(_ALL_CORES)
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's side of each comparison, and in
+    a parallel run the worker's threads on one core."""
+    with pinned():
+        yield
