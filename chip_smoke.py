@@ -197,7 +197,27 @@ Phases:
      promoted, another rolled back; /metrics, /debug/flightrecord and the
      X-DL4J-Trace header on a success and an error; prefill and tick (CUDA
      graph and eager) times, a profiled tick, `run_decode_bench`
-     (continuous against static), `run_serving_bench` and `obs_bench`.
+     (continuous against static), `run_serving_bench` and `obs_bench`;
+ 17. main path 13, the continual train-to-serve loop and streaming: the
+     BN-MLP of phase 8 (bf16, Adam 1e-3) served from a seeded zip by a
+     registry on the card and fine-tuned by a `ContinualTrainer` from a
+     `FileTopic` of the bundled digits (records of 64 rows [784 features |
+     10 one-hot], windows of 4 records, batch 128, gated on the 64
+     held-out digits, canaried at a quarter of live traffic): an
+     improvement window at superstep 1 and one at superstep 2 promoted, a
+     NaN window under the guard rolled back as empty_window, a NaN window
+     without it rejected by the gate, a canary with an injected latency
+     regression rolled back; every candidate against the same window
+     fine-tuned on the CPU from the same stable zip (phase 8's bf16
+     limits) with the same decision, no failed request, the stable outputs
+     bit-equal across each rollback, each cycle's fine-tune / save / gate /
+     canary seconds and the promotion latency; then the crash drill at the
+     ten continual/* points (the narrow BN network, windows of one
+     record), each recovered on the card to its last promoted checkpoint;
+     then phase 3's char-RNN zip behind an `InferenceRoute` on the card,
+     batches of 1, 8 and 32 published over TCP, every output against the
+     CPU, p50 latency and arrays/s. (Keras import, `modelimport/`, runs on
+     the CPU only: the card's machine has no h5py.)
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -234,7 +254,11 @@ vertex and step of the two-branch graph; on the generation path (phase
 16) six primal attention launches (float32, "tiled") per prefill and none
 per decode tick, six bfloat16 ones per bf16 prefill, every tick replayed
 from a CUDA graph captured once per (pool, version, bucket) before its
-version went live and none on a request's path. The last two lines are a
+version went live and none on a request's path; on the continual path
+(phase 17) one resident BN+ReLU forward and backward launch per BN layer
+and fine-tune step, counted through the replays at superstep 2, none in
+gate scoring, canary warm-up or serving, and two cluster LSTM launches per
+batch through the InferenceRoute. The last two lines are a
 `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
@@ -2920,6 +2944,36 @@ def window_profile(torch, fn, reps=1):
     return busy, wall, h2d
 
 
+def bn_mlp_err(a, b, steps, pre_bn=(0, 2)):
+    """Largest per-tensor relative L2 error of the parameters (against
+    Adam's reach where a tensor is small) and of the running
+    variances, with the name of that tensor; the pre-BN biases, whose
+    gradient is 0 up to rounding (Adam moves them by noise, up to its
+    reach lr x steps an entry, either way), are held as phase 8 holds
+    them: both sides within that reach."""
+    worst, name = 0.0, ""
+    reach_entry = MLP_LR * steps
+    for i, (p, q) in enumerate(zip(a.params, b.params)):
+        for k in q:
+            x, y = p[k].detach().cpu(), q[k].detach().cpu()
+            if i in pre_bn and k == "b":
+                check(max(x.abs().max().item(), y.abs().max().item())
+                      <= reach_entry * 1.001, f"pre-BN bias {i} moved "
+                      f"past Adam's reach {reach_entry}")
+                continue
+            scale = max(y.norm().item(),
+                        reach_entry * y.numel() ** 0.5)
+            err = (x - y).norm().item() / scale
+            if err > worst:
+                worst, name = err, f"{i}/{k}"
+    for i in (1, 3):
+        x, y = (n.state[i]["var"].detach().cpu() for n in (a, b))
+        err = ((x - y).norm() / y.norm()).item()
+        if err > worst:
+            worst, name = err, f"{i}/var"
+    return worst, name
+
+
 class EdgeLog:
     """Listener: the score and the host time (after a device sync) of every
     iteration_done; under a window they come at the window's edge."""
@@ -2972,36 +3026,8 @@ def loop_path(pt, torch, tag, tmp, root, reset_counts):
         pt.MultiLayerConfiguration.from_json(mlp_json), device=DEVICE).init(
         generator=torch.Generator().manual_seed(72)), zpath)
     net = lambda dev=DEVICE: pt.ModelSerializer.restore(zpath, device=dev)
-    pre_bn = (0, 2)
 
-    def mlp_err(a, b, steps):
-        """Largest per-tensor relative L2 error of the parameters (against
-        Adam's reach where a tensor is small) and of the running
-        variances, with the name of that tensor; the pre-BN biases, whose
-        gradient is 0 up to rounding (Adam moves them by noise, up to its
-        reach lr x steps an entry, either way), are held as phase 8 holds
-        them: both sides within that reach."""
-        worst, name = 0.0, ""
-        reach_entry = MLP_LR * steps
-        for i, (p, q) in enumerate(zip(a.params, b.params)):
-            for k in q:
-                x, y = p[k].detach().cpu(), q[k].detach().cpu()
-                if i in pre_bn and k == "b":
-                    check(max(x.abs().max().item(), y.abs().max().item())
-                          <= reach_entry * 1.001, f"pre-BN bias {i} moved "
-                          f"past Adam's reach {reach_entry}")
-                    continue
-                scale = max(y.norm().item(),
-                            reach_entry * y.numel() ** 0.5)
-                err = (x - y).norm().item() / scale
-                if err > worst:
-                    worst, name = err, f"{i}/{k}"
-        for i in (1, 3):
-            x, y = (n.state[i]["var"].detach().cpu() for n in (a, b))
-            err = ((x - y).norm() / y.norm()).item()
-            if err > worst:
-                worst, name = err, f"{i}/var"
-        return worst, name
+    mlp_err = bn_mlp_err
 
     def run(k, dev=DEVICE, data=None, m=1, **kw):
         n = net(dev)
@@ -4282,6 +4308,465 @@ def decode_path(pt, torch, tag, tmp, root, reset_counts):
     return out
 
 
+# the continual train-to-serve loop (main path 13): the BN-MLP of phase 8
+# fine-tuned from a topic of bundled digits (records of 64 rows, windows of
+# 4 records: two steps at batch 128), gated on the 64 held-out digits,
+# canaried at a quarter of the traffic; the crash drill at windows of one
+# record; the char-RNN of phase 3 behind an InferenceRoute
+CONT_ROWS, CONT_WINDOW, CONT_FRACTION = 64, 4, 0.25
+# a canary decides after 50 candidate requests; the candidate rolls back
+# when its mean latency passes 5x the stable arm's (the regression cycle
+# adds CONT_SLOW_S to each candidate request's observed latency)
+CONT_MIN_REQUESTS, CONT_LATENCY_RATIO, CONT_SLOW_S = 50, 5.0, 0.02
+CONT_POINTS = ("stable_registered", "window_consumed", "window_trained",
+               "candidate_saved", "window_record", "offset_committed",
+               "gate_record", "canary_started", "decision_record",
+               "decision_applied")
+ROUTE_REPS = 16                     # batches of each size through the route
+
+
+def continual_path(pt, torch, tag, tmp, reset_counts):
+    """Main path 13 (phase 17): the continual train-to-serve loop on the
+    card (fine-tunes through kernels 4-5, each candidate held against the
+    same window fine-tuned on the CPU from the same stable zip), the crash
+    drill at the ten continual/* points, and the streaming route serving
+    the char-RNN through kernel 6. Returns the phase's numbers."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.continual import (CanaryPolicy,
+                                                    ContinualJournal,
+                                                    ContinualTrainer)
+    from deeplearning4j_tpu_torch.fault import SimulatedCrash, crash_at_write
+    from deeplearning4j_tpu_torch.fault import injection
+    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
+    from deeplearning4j_tpu_torch.streaming import (InferenceRoute,
+                                                    NDArrayConsumer,
+                                                    NDArrayPublisher,
+                                                    NDArraySerde)
+    from deeplearning4j_tpu_torch.streaming.topic import (FileTopic,
+                                                          TopicPublisher)
+    from deeplearning4j_tpu_torch.telemetry import runtime as tel_runtime
+    t_phase = time.perf_counter()
+    out = {"card": tag.strip("[]")}
+    root = os.path.join(tmp, "continual")
+
+    def counts():
+        return {f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
+                for mod in (lstm, attention, bn_relu)
+                for k, n in mod.launch_counts().items()}
+
+    def since(before):
+        now = counts()
+        return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+    # -- (a) the loop at full width ----------------------------------------
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    gate = pt.DataSet(x_te, y_te)
+    boot = os.path.join(tmp, "continual_boot.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(bn_mlp_json(pt)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(81)),
+        boot)
+
+    def window(seed, poison=False):
+        """CONT_WINDOW records of CONT_ROWS training digits, [x | one-hot]."""
+        order = np.random.default_rng(seed).permutation(len(x_tr))
+        rows = order[:CONT_WINDOW * CONT_ROWS]
+        x = x_tr[rows].copy()
+        if poison:
+            x[:] = np.nan
+        rec = np.concatenate([x, y_tr[rows]], axis=1)
+        return [rec[i:i + CONT_ROWS] for i in range(0, len(rec), CONT_ROWS)]
+
+    name = "bn_mlp"
+    topic = FileTopic(root, "digits")
+    pub = TopicPublisher(topic)
+    lat = {"stable": [], "canary": []}
+    failures = {"stable": 0, "canary": 0}
+    slow = [False]
+    probe = x_te[:8]
+    marks = []          # (point, host time, launch counts) per crash point
+
+    kept = os.path.join(tmp, "continual_candidate.zip")
+
+    def mark(point, info):
+        """Crash-point observer: the time and launch counts at each
+        boundary of a cycle; the candidate's zip copied when it is saved
+        (a rollback deletes it)."""
+        torch.cuda.synchronize()
+        point = point.split("/", 1)[1]
+        if point == "candidate_saved":
+            shutil.copyfile(info["ckpt"], kept)
+        marks.append((point, time.perf_counter(), counts(), dict(info)))
+
+    with tel_runtime.enabled() as tel:
+        reg = pt.ModelRegistry(buckets=BUCKETS, device=DEVICE,
+                               metrics=tel.registry)
+
+        def traffic():
+            """100 requests, one digit each, on the arm the registry
+            routes them to; each request's latency observed on its arm."""
+            for i in range(100):
+                arm = reg.route_arm(name)
+                t0 = time.perf_counter()
+                err = False
+                try:
+                    reg.predict(name, x_te[i % len(x_te)][None], arm=arm)
+                except Exception:
+                    failures[arm] += 1
+                    err = True
+                dt = time.perf_counter() - t0
+                lat[arm].append(dt)
+                if arm == "canary" and slow[0]:
+                    dt += CONT_SLOW_S
+                reg.observe_canary(name, arm, latency_s=dt, error=err)
+
+        trainer = ContinualTrainer(
+            reg, name, topic, workdir=os.path.join(root, "loop"),
+            gate_set=gate, initial_source=boot, feature_width=784,
+            window_records=CONT_WINDOW, batch_size=MLP_B, gate_margin=0.0,
+            canary_fraction=CONT_FRACTION,
+            canary_policy=CanaryPolicy(min_requests=CONT_MIN_REQUESTS,
+                                       max_latency_ratio=CONT_LATENCY_RATIO),
+            canary_timeout_s=120.0, canary_poll_s=0.0, buckets=BUCKETS,
+            traffic_hook=traffic)
+        # each cycle's candidate, kept to read its captured steps
+        candidates = []
+        fine_tune = trainer._fine_tune
+
+        def keep_candidate(arrays):
+            res = fine_tune(arrays)
+            candidates.append(res[0])
+            return res
+
+        trainer._fine_tune = keep_candidate
+        cpu_reg = pt.ModelRegistry(buckets=(1,), device="cpu")
+        cpu_twin = ContinualTrainer(
+            cpu_reg, name, topic, workdir=os.path.join(root, "cpu"),
+            gate_set=gate, feature_width=784, window_records=CONT_WINDOW,
+            batch_size=MLP_B)
+        reset_counts()
+        c_boot = counts()
+        t0 = time.perf_counter()
+        v1 = trainer.recover()
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        check(not since(c_boot), f"bootstrap (restore, register, warm-up) "
+              f"launched kernels: {since(c_boot)}")
+        traffic()
+
+        # (window seed, poison, superstep, guard, slow canary, expected)
+        plan = [(1, False, 1, "skip_batch", False, ("promoted", None)),
+                (2, False, 2, "skip_batch", False, ("promoted", None)),
+                (3, True, 2, "skip_batch", False,
+                 ("rolled_back", "empty_window")),
+                (4, True, 2, None, False, ("rolled_back", "gate_fail")),
+                (5, False, 2, "skip_batch", True,
+                 ("rolled_back", "latency"))]
+        cycles, steps_total = [], 0
+        for seed, poison, k, guard, is_slow, want in plan:
+            for rec in window(seed, poison):
+                pub.publish(rec)
+            trainer.superstep, trainer.guard_policy = k, guard
+            slow[0] = is_slow
+            stable_ckpt, stable_v = trainer.stable_ckpt, reg.get(name)
+            before_out = reg.predict(name, probe)[0]
+            marks.clear()
+            hooks = {}
+            for p in CONT_POINTS:
+                hooks[p] = f"continual/{p}"
+                injection._crash_hooks[hooks[p]] = mark
+            try:
+                c0 = counts()
+                t0 = time.perf_counter()
+                res = trainer.run_cycle()
+                wall = time.perf_counter() - t0
+            finally:
+                for h in hooks.values():
+                    injection._crash_hooks.pop(h, None)
+            at = {p: (t, c, info) for p, t, c, info in marks}
+            outcome = (res["outcome"], res.get("reason"))
+            check(outcome == want, f"continual cycle {res['cycle']}: "
+                  f"{outcome}, want {want}")
+            ft = {kk: at["window_trained"][1][kk] - at["window_consumed"][1][kk]
+                  for kk in c0}
+            rest = since(at["window_trained"][1])
+            win = [r for r in trainer.journal.replay()
+                   if r["kind"] == "window"][-1]
+            steps = win["batches"]
+            want_bn = {"bn_relu/fwd_launches": 2 * steps,
+                       "bn_relu/bwd_launches": 2 * steps}
+            got_bn = {kk: v for kk, v in ft.items() if v}
+            check(got_bn == want_bn, f"continual cycle {res['cycle']} "
+                  f"(superstep {k}): fine-tune launches {got_bn}, want "
+                  f"{want_bn} (2 + 2 a step)")
+            check(not rest, f"continual cycle {res['cycle']}: gate scoring, "
+                  f"canary warm-up or serving launched kernels: {rest}")
+            graphs = len(candidates[-1].__dict__.get("_captured_steps", {}))
+            check(graphs == (1 if k > 1 else 0), f"continual cycle "
+                  f"{res['cycle']} (superstep {k}): the candidate holds "
+                  f"{graphs} captured steps (want {1 if k > 1 else 0}: a "
+                  "window's steps replay one CUDA graph)")
+            if outcome[0] == "rolled_back":
+                check(reg.get(name) is stable_v, "a rollback moved the "
+                      "stable version")
+                after_out = reg.predict(name, probe)[0]
+                check(np.array_equal(after_out, before_out), f"stable "
+                      f"outputs differ across the {outcome[1]} rollback")
+            t = {p: v[0] for p, v in at.items()}
+            split = {
+                "fine_tune_s": t["window_trained"] - t["window_consumed"],
+                "save_s": t["candidate_saved"] - t["window_trained"],
+                "gate_s": t.get("gate_record", t["offset_committed"])
+                - t["offset_committed"]}
+            if "canary_started" in t:
+                split["canary_build_s"] = t["canary_started"] \
+                    - t["gate_record"]
+                split["canary_watch_s"] = t["decision_record"] \
+                    - t["canary_started"]
+            # the same window on the CPU from the same stable zip
+            card_cand = pt.ModelSerializer.restore(kept, device="cpu")
+            arrays = [NDArraySerde.from_bytes(topic.read(o))
+                      for o in range(win["start"], win["end"])]
+            cpu_twin.stable_ckpt = stable_ckpt
+            cpu_twin.superstep, cpu_twin.guard_policy = k, guard
+            cpu_cand, c_batches, c_skipped, _ = cpu_twin._fine_tune(arrays)
+            cpu_stable = pt.ModelSerializer.restore(stable_ckpt, device="cpu")
+            cpu_stable_score = cpu_stable.score(gate)
+            cpu_score = cpu_cand.score(gate)
+            if c_skipped >= c_batches:
+                cpu_decision = "empty_window"
+            elif np.isfinite(cpu_score) and cpu_score <= cpu_stable_score:
+                cpu_decision = "gate_pass"
+            else:
+                cpu_decision = "gate_fail"
+            gate_rec = [r for r in trainer.journal.replay()
+                        if r["kind"] == "gate" and r["cycle"] == res["cycle"]]
+            card_decision = ("empty_window" if not gate_rec else
+                             "gate_pass" if gate_rec[0]["passed"] else
+                             "gate_fail")
+            check(card_decision == cpu_decision, f"continual cycle "
+                  f"{res['cycle']}: the card decided {card_decision}, the "
+                  f"CPU {cpu_decision}")
+            entry = {"cycle": res["cycle"], "superstep": k, "guard": guard,
+                     "outcome": outcome, "steps": steps, "wall_s": wall,
+                     "launches": got_bn, "captures": graphs, **split,
+                     "decision": card_decision}
+            if card_decision in ("gate_pass", "empty_window"):
+                err, at_t = bn_mlp_err(card_cand, cpu_cand,
+                                       steps_total + steps)
+                score_err = abs(gate_rec[0]["cand_score"] - cpu_score) \
+                    if gate_rec else abs(card_cand.score(gate) - cpu_score)
+                check(err <= BF16_PARAM_TOL, f"continual cycle "
+                      f"{res['cycle']}: card vs CPU candidate parameters / "
+                      f"running variances {err} at {at_t} > "
+                      f"{BF16_PARAM_TOL}")
+                check(score_err <= BF16_SCORE_TOL, f"continual cycle "
+                      f"{res['cycle']}: card vs CPU gate score {score_err} "
+                      f"> {BF16_SCORE_TOL}")
+                entry.update(param_err=err, param_at=at_t,
+                             score_err=score_err)
+            if gate_rec:
+                entry.update(cand_score=gate_rec[0]["cand_score"],
+                             stable_score=gate_rec[0]["stable_score"],
+                             cpu_cand_score=cpu_score)
+            if outcome[0] == "promoted":
+                steps_total += steps
+            cycles.append(entry)
+            traffic()
+        summary = tel.summary().get("continual", {})
+    check(failures == {"stable": 0, "canary": 0},
+          f"failed requests during the continual loop: {failures}")
+    n_steps = sum(c["steps"] for c in cycles)
+    loop_bn = {kind: sum(c["launches"].get(f"bn_relu/{kind}_launches", 0)
+                         for c in cycles) for kind in ("fwd", "bwd")}
+    check(loop_bn == {"fwd": 2 * n_steps, "bwd": 2 * n_steps},
+          f"continual loop BN launches {loop_bn} for {n_steps} steps")
+    arm_p50 = {arm: percentile_ms([v * 1e3 for v in lat[arm]], 50)
+               for arm in lat}
+    out["loop"] = {"cycles": cycles, "boot_s": boot_s, "steps": n_steps,
+                   "launches": loop_bn, "telemetry": summary,
+                   "p50_ms": arm_p50,
+                   "requests": {a: len(v) for a, v in lat.items()}}
+    for c in cycles:
+        print(f"{tag} continual cycle {c['cycle']} (superstep "
+              f"{c['superstep']}, guard {c['guard']}): {c['outcome']}, "
+              f"{c['steps']} steps, BN launches {c['launches']}, step "
+              f"captures {c['captures']}; "
+              + ", ".join(f"{kk} {c[kk]:.3f}" for kk in
+                          ("wall_s", "fine_tune_s", "save_s", "gate_s",
+                           "canary_build_s", "canary_watch_s") if kk in c)
+              + (f"; card vs CPU parameters {c['param_err']:.3e} at "
+                 f"{c['param_at']}, gate score {c['score_err']:.3e}"
+                 if "param_err" in c else "")
+              + f"; decision {c['decision']} on both devices")
+    print(f"{tag} continual loop: bootstrap {boot_s:.3f} s; "
+          f"{n_steps} fine-tune steps, BN launches {loop_bn} (2 + 2 a "
+          f"step, none in gate scoring or serving); promotion latency "
+          f"{summary.get('promotion_latency_s')} s (mean); canary "
+          f"requests {summary.get('canary_requests')}; request p50 ms by "
+          f"arm {arm_p50}; failed requests {failures}; rollbacks "
+          f"{summary.get('rollbacks')}")
+
+    # -- (b) the crash drill: windows of one record ------------------------
+    # on the narrow BN network of phase 8 (bf16), whose zips write in
+    # milliseconds: each point restarts the loop and writes up to six zips
+    t_drill = time.perf_counter()
+    drill = {}
+    x_probe = x_te[:3]
+    drill_boot = os.path.join(tmp, "continual_drill_boot.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(bn_narrow_json(pt)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(82)),
+        drill_boot)
+    for point in CONT_POINTS:
+        d = os.path.join(root, f"drill_{point}")
+        dtopic = FileTopic(d, "t")
+        dpub = TopicPublisher(dtopic)
+        for seed in (1, 2):
+            dpub.publish(window(10 + seed)[0])
+
+        def mk(r):
+            return ContinualTrainer(
+                r, name, dtopic, workdir=os.path.join(d, "loop"),
+                gate_set=gate, initial_source=drill_boot, feature_width=784,
+                window_records=1, batch_size=MLP_B, gate_margin=100.0,
+                canary_fraction=CONT_FRACTION,
+                canary_policy=CanaryPolicy(min_requests=4),
+                canary_timeout_s=30.0, canary_poll_s=0.0, buckets=(1, 8),
+                fsync_journal=False,
+                traffic_hook=lambda: [r.observe_canary(
+                    name, "canary", latency_s=1e-3) for _ in range(4)])
+
+        r1 = pt.ModelRegistry(buckets=(1, 8), device=DEVICE)
+        crashed = False
+        try:
+            with crash_at_write(f"continual/{point}"):
+                t1 = mk(r1)
+                t1.recover()
+                t1.run(max_cycles=4, poll_timeout_s=0)
+        except SimulatedCrash:
+            crashed = True
+        check(crashed, f"drill {point}: the crash point never fired")
+        jpath = os.path.join(d, "loop", "journal.jsonl")
+        pre = ContinualJournal(jpath).replay()
+        promoted = [rec for rec in pre if rec["kind"] == "promoted"][-1]
+        expect = pt.ModelRegistry(buckets=(1, 8), device=DEVICE)
+        expect.register(name, pt.ModelSerializer.restore(promoted["ckpt"],
+                                                         device=DEVICE))
+        want = expect.predict(name, x_probe)[0]
+        r2 = pt.ModelRegistry(buckets=(1, 8), device=DEVICE)
+        t2 = mk(r2)
+        t2.recover()
+        got = r2.predict(name, x_probe)[0]
+        check(np.array_equal(got, want), f"drill {point}: the recovered "
+              "stable version is not the last promoted checkpoint")
+        check(r2.canary_state(name) is None, f"drill {point}: a candidate "
+              "is live after recovery")
+        post = ContinualJournal(jpath).replay()
+        if pre and pre[-1]["kind"] in ("window", "gate", "canary"):
+            check(post[len(pre)]["kind"] == "rolled_back"
+                  and post[len(pre)]["reason"] == "crash_recovery",
+                  f"drill {point}: the open cycle was not closed as "
+                  "crash_recovery")
+        t2.run(max_cycles=8, poll_timeout_s=0)
+        spans = sorted((rec["start"], rec["end"]) for rec in
+                       ContinualJournal(jpath).replay()
+                       if rec["kind"] == "window")
+        check(spans[0][0] == 0 and spans[-1][1] == 2 and all(
+            s2 == e1 for (_, e1), (s2, _) in zip(spans, spans[1:])),
+            f"drill {point}: windows replayed or skipped: {spans}")
+        check(dtopic.committed("continual") == 2, f"drill {point}: "
+              f"committed offset {dtopic.committed('continual')}")
+        drill[point] = [rec["kind"] for rec in
+                        ContinualJournal(jpath).replay()]
+    drill_s = time.perf_counter() - t_drill
+    out["drill"] = {"points": len(drill), "seconds": drill_s,
+                    "journals": drill}
+    print(f"{tag} continual crash drill (narrow BN network, windows of one "
+          f"record): {len(drill)} points, each "
+          "recovered on the card to its last promoted checkpoint "
+          "(bit-equal outputs), no candidate live, windows tiled once; "
+          f"{drill_s:.2f} s")
+
+    # -- (c) the streaming route: the char-RNN through kernel 6 ------------
+    net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=SEQ,
+                      device=DEVICE)
+    net.init(generator=torch.Generator().manual_seed(1))
+    rnn_zip = os.path.join(tmp, "continual_char_rnn.zip")
+    pt.ModelSerializer.write_model(net, rnn_zip)
+    cpu_rnn = pt.ModelSerializer.restore(rnn_zip, device="cpu")
+    rng = np.random.default_rng(17)
+    route_stats, route_err, n_batches = {}, 0.0, 0
+    reset_counts()
+    with NDArrayConsumer() as sink:
+        route = InferenceRoute(rnn_zip, device=DEVICE,
+                               forward=NDArrayPublisher(sink.host,
+                                                        sink.port)).start()
+        try:
+            with NDArrayPublisher("127.0.0.1", route.port) as src:
+                for b in BUCKETS:
+                    xs = [one_hot_batch(rng, b) for _ in range(ROUTE_REPS)]
+                    outs, times = [], []
+                    for x in xs:            # one at a time: latency
+                        t0 = time.perf_counter()
+                        src.publish(x)
+                        outs.append(sink.take(timeout=60))
+                        times.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    for x in xs:            # all at once: throughput
+                        src.publish(x)
+                    outs += [sink.take(timeout=60) for _ in xs]
+                    wall = time.perf_counter() - t0
+                    check(all(o is not None for o in outs), f"route B={b}: "
+                          f"{sum(o is None for o in outs)} of {len(outs)} "
+                          "outputs never arrived")
+                    for x, o in zip(xs + xs, outs):
+                        want = cpu_rnn.output(x).numpy()
+                        err = float(np.abs(o - want).max())
+                        route_err = max(route_err, err)
+                    n_batches += len(outs)
+                    route_stats[b] = {
+                        "p50_ms": percentile_ms([v * 1e3 for v in times],
+                                                50),
+                        "arrays_per_s": len(xs) / wall,
+                        "rows_per_s": len(xs) * b / wall}
+        finally:
+            route.stop()
+            route.forward.close()
+    check(route_err <= SERVE_TOL, f"route outputs vs the CPU: max abs err "
+          f"{route_err} > {SERVE_TOL}")
+    route_launches = lstm.launches
+    check(route_launches == 2 * n_batches, f"the route launched the LSTM "
+          f"kernel {route_launches} times for {n_batches} batches (want 2 "
+          "a batch)")
+    check(lstm.variant_counts()["fwd"] == {"cluster": route_launches,
+                                           "streamed": 0},
+          f"route LSTM variants {lstm.variant_counts()['fwd']}")
+    lc = lstm.launch_counts()
+    check(lc["residual_launches"] == lc["adjoint_launches"]
+          == lc["reduction_launches"] == 0
+          and set(attention.launch_counts().values()) == {0}
+          and set(bn_relu.launch_counts().values()) == {0},
+          f"the route launched other kernels: {lc} "
+          f"{attention.launch_counts()} {bn_relu.launch_counts()}")
+    out["route"] = {"batches": n_batches, "launches": route_launches,
+                    "max_abs_err": route_err, "by_batch": route_stats}
+    print(f"{tag} continual route (char-RNN zip, InferenceRoute on the "
+          f"card): {n_batches} batches, every output arrived, max abs err "
+          f"vs CPU {route_err:.3e} (limit {SERVE_TOL}); {route_launches} "
+          "LSTM launches (2 a batch, cluster), no training launch; "
+          + "; ".join(f"B={b}: p50 {s['p50_ms']:.3f} ms, "
+                      f"{s['arrays_per_s']:.1f} arrays/s "
+                      f"({s['rows_per_s']:.1f} rows/s)"
+                      for b, s in route_stats.items()))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} phase 17 (continual, drill, route): "
+          f"{out['seconds']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4339,6 +4824,16 @@ def main():
                       reset_counts)
         print(f"{tag} --loop-only run: {time.perf_counter() - t_start:.1f} "
               "s (kernel build included)")
+        return 0
+    if "--continual-only" in sys.argv:
+        # main path 13 alone, for work on the continual plane, streaming
+        # and model import; prints no result lines
+        with tempfile.TemporaryDirectory() as tmp:
+            cont = continual_path(pt, torch, tag, tmp, reset_counts)
+        print(json.dumps({"continual": cont}, default=str))
+        print(f"{tag} --continual-only run: "
+              f"{time.perf_counter() - t_start:.1f} s (kernel build "
+              "included)")
         return 0
     if "--decode-only" in sys.argv:
         # main path 12 alone, for work on the decode plane; prints no
@@ -6296,12 +6791,15 @@ def main():
           and set(bn_relu.launch_counts().values()) == {0},
           "the decode path launched LSTM or BN+ReLU kernels: "
           f"{lstm.launch_counts()} {bn_relu.launch_counts()}")
+    # ---- 17. main path 13: the continual loop, its crash drill, the route
+    cont = continual_path(pt, torch, tag, tmp, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
     print(json.dumps({"training_loop": loop, "captured_variants":
                       n_captured}, default=str))
     print(json.dumps({"generation": decode}, default=str))
+    print(json.dumps({"continual": cont}, default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -6370,6 +6868,10 @@ def main():
                      f"the seq2seq graph (encoder F={VOCAB} and decoder F="
                      f"{VOCAB + HIDDEN}, H={HIDDEN}, B={S2S_STEP_B}), 2 "
                      "launches a call, all cluster",
+        "route_launches": cont["route"]["launches"],
+        "route_per": f"main path 13: {cont['route']['batches']} batches "
+                     "of the char-RNN through the InferenceRoute (B 1, 8 "
+                     "and 32), 2 launches a batch, all cluster",
         "card": card,
     }, {
         "name": "flash_attention_heads",
@@ -6593,7 +7095,14 @@ def main():
                 "loop_launches": loop["bn_mlp"]["launches"][key]["resident"],
                 "loop_per": f"main path 11: {LOOP_BATCHES} steps of the "
                             "BN-MLP under superstep=4 (CUDA-graph replays), "
-                            "one launch per BN layer a step"}
+                            "one launch per BN layer a step",
+                "continual_launches": cont["loop"]["launches"][key],
+                "continual_per": f"main path 13: the continual loop's "
+                                 f"{cont['loop']['steps']} fine-tune steps "
+                                 f"of the BN-MLP (N={MLP_B}, C={MLP_WIDTH}, "
+                                 "bf16; superstep 1 and 2, the windows at 2 "
+                                 "replayed from CUDA graphs), one launch "
+                                 "per BN layer a step"}
                if variant == "resident" else {}),
             "card": card,
         } for name, key, replaces, library in (

@@ -65,6 +65,16 @@ captured per batch signature; `nn/superstep.py`), gradient accumulation,
 buckets and pinned device prefetch (`datasets/pipeline.py`), the
 asynchronous iterators, the TrainingGuard, crash-safe checkpoints with
 resume and fault injection (`fault/`), and the telemetry (`telemetry/`).
+
+The fifteenth slice is the train-to-serve loop and model import: the
+streaming plane (`streaming/`: the length-prefixed `.npy` wire format, the
+`InferenceRoute`, the file-backed topic with committed offsets), the
+continual plane (`continual/`: the `ContinualTrainer` that fine-tunes the
+served model from a topic on the registry's device, gates, canaries and
+promotes or rolls back, with its crash-consistent journal), and Keras
+import (`modelimport/`, `util.serializer.ModelGuesser`, the registry's
+HDF5 source and the Keras backend server). An imported Keras LSTM is a
+GravesLSTM without peepholes, so it runs the LSTM sequence kernels.
 """
 from .datasets import (ArrayDataSetIterator, DataSet, DataSetIterator,
                        ListDataSetIterator, bundled_mnist_subset)

@@ -32,7 +32,8 @@ snapshots and canary routing (the port of
     stable version; `promote_canary` / `rollback_canary` end it.
   * **Verified sources.** Zip checkpoints are checked against their sha256
     manifest on restore; a checkpoint directory serves its newest loadable
-    `ckpt_*.zip`, skipping corrupt ones.
+    `ckpt_*.zip`, skipping corrupt ones; a Keras HDF5 file is imported
+    through `ModelGuesser`.
 
 A model is a MultiLayerNetwork or a single-input ComputationGraph (whose
 first output is served); a multi-input graph raises `ServingError`. The
@@ -98,8 +99,9 @@ def pad_rows(a: np.ndarray, n_pad: int) -> np.ndarray:
 
 
 def load_source(source, device: torch.device):
-    """Resolve a servable source to a live model: a model object (anything
-    with `predict_fn`), a ModelSerializer zip path, or a checkpoint
+    """Resolve a servable source to a live model on `device`: a model
+    object (anything with `predict_fn`), a ModelSerializer zip path, a Keras
+    HDF5 path (through `util.serializer.ModelGuesser`), or a checkpoint
     directory of `ckpt_<iteration>.zip` files (newest loadable wins)."""
     from ..fault.atomic import CorruptCheckpointError
     from ..util.serializer import ModelSerializer
@@ -129,11 +131,16 @@ def load_source(source, device: torch.device):
                if last_err else ""))
     if not os.path.exists(path):
         raise ServingError(f"model source {path!r} does not exist")
-    if not zipfile.is_zipfile(path):
-        raise ServingError(f"{path!r} is not a ModelSerializer zip (the "
-                           "PyTorch port serves no other format yet)")
-    return ModelSerializer.restore(path, load_updater=False,
-                                   device=device), path
+    from ..util.serializer import ModelGuesser
+    kind = ModelGuesser.guess_format(path)
+    if kind == "dl4j_tpu_zip":
+        return ModelSerializer.restore(path, load_updater=False,
+                                       device=device), path
+    if kind == "keras_h5":
+        return ModelGuesser.load(path, device=device), path
+    raise ServingError(
+        f"{path!r} is not a servable model file (sniffed: {kind}): expected "
+        "a ModelSerializer zip or a Keras HDF5 file")
 
 
 def _example_shape(model, override: Optional[Sequence[int]]) -> Tuple[int, ...]:

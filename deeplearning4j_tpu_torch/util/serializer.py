@@ -17,7 +17,8 @@ Both model kinds, MultiLayerNetwork and ComputationGraph, are written and
 restored (`metadata.json`'s `kind` picks the class). Writes are crash-safe
 (fault/atomic.py), with the `zip/temp_written` crash point of
 fault/injection.py; `restore_into` restores a checkpoint into a model that
-already exists (the resume path). `from_jax_params` loads the JAX model's parameters (and
+already exists (the resume path). `ModelGuesser` sniffs a model file's
+format and loads it (a zip, or a Keras HDF5 file through `modelimport/`). `from_jax_params` loads the JAX model's parameters (and
 optionally its layer state and updater state), as numpy arrays, straight
 into a port network or graph.
 """
@@ -34,8 +35,8 @@ import torch
 from ..fault.atomic import CorruptCheckpointError, atomic_replace, sha256_hex
 from ..util.platform import DeviceLike
 
-__all__ = ["ModelSerializer", "tree_to_arrays", "arrays_to_tree",
-           "from_jax_params"]
+__all__ = ["ModelSerializer", "ModelGuesser", "tree_to_arrays",
+           "arrays_to_tree", "from_jax_params"]
 
 
 def _flatten(tree, prefix, out):
@@ -315,3 +316,92 @@ def _restore_generators(model, rec: Optional[Dict]):
                                       for c, x in zip(cur, h)])
         else:
             setattr(model, attr, _put_state(cur, h, model.device))
+
+
+class ModelGuesser:
+    """Format sniffing and dispatch loading (reference `ModelGuesser.java`;
+    the port of the JAX package's `util/serializer.ModelGuesser`): given a
+    model file, detect what it is and load it with the right loader onto
+    `device` (the GPU unless the caller passes `device="cpu"`).
+
+    Recognized: ModelSerializer zips (MultiLayerNetwork or
+    ComputationGraph), Keras HDF5 models (Sequential or functional, through
+    `modelimport/`), and word-vector files (Google binary, text, the
+    word2vec zip), which are named but not loaded: `nlp/` is not in the
+    port yet (ROADMAP A12)."""
+
+    WORD_VECTOR_KINDS = ("word_vectors_binary", "word_vectors_text",
+                         "word_vectors_zip")
+
+    @staticmethod
+    def _sniff_vector_bytes(head: bytes) -> Optional[str]:
+        """Classify a word-vector payload from its first bytes."""
+        try:
+            first_line, _, rest = head.partition(b"\n")
+            tokens = first_line.decode("utf-8").strip().split()
+        except UnicodeDecodeError:
+            return None
+        if len(tokens) == 2 and all(t.isdigit() for t in tokens):
+            # "<V> <D>\n" header: Google binary OR text-with-header.
+            # Binary payload after the word is raw f32; text stays ASCII.
+            printable = sum(32 <= b < 127 or b in (9, 10, 13)
+                            for b in rest)
+            return ("word_vectors_text" if rest and
+                    printable / len(rest) > 0.95 else
+                    "word_vectors_binary")
+        if len(tokens) >= 2:
+            try:
+                float(tokens[1])
+                return "word_vectors_text"
+            except ValueError:
+                return None
+        return None
+
+    @staticmethod
+    def guess_format(path: str) -> str:
+        with open(path, "rb") as f:
+            head = f.read(4096)
+        if head[:4] == b"PK\x03\x04":
+            with zipfile.ZipFile(path) as z:
+                names = set(z.namelist())
+            if "configuration.json" in names:
+                return "dl4j_tpu_zip"
+            if "syn0.txt" in names and "config.json" in names:
+                return "word_vectors_zip"
+            return "unknown_zip"
+        if head[:8] == b"\x89HDF\r\n\x1a\n":
+            return "keras_h5"
+        if head[:2] == b"\x1f\x8b":
+            # gzipped text vectors
+            import gzip
+            try:
+                inner = gzip.GzipFile(fileobj=io.BytesIO(head)).read(1024)
+            except (OSError, EOFError):
+                return "unknown"
+            kind = ModelGuesser._sniff_vector_bytes(inner)
+            return kind or "unknown"
+        kind = ModelGuesser._sniff_vector_bytes(head)
+        return kind or "unknown"
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None):
+        kind = ModelGuesser.guess_format(path)
+        if kind == "dl4j_tpu_zip":
+            return ModelSerializer.restore(path, device=device)
+        if kind == "keras_h5":
+            from ..modelimport.keras import (
+                KerasImportError, import_keras_model_and_weights,
+                import_keras_sequential_model_and_weights)
+            try:
+                return import_keras_sequential_model_and_weights(path,
+                                                                 device)
+            except KerasImportError as e:
+                if "Not a Sequential model" not in str(e):
+                    raise   # keep the actionable sequential-import error
+                return import_keras_model_and_weights(path, device)
+        if kind in ModelGuesser.WORD_VECTOR_KINDS:
+            raise NotImplementedError(
+                f"{path!r} holds word vectors ({kind}); word vectors (nlp/) "
+                "are not in the PyTorch port yet (ROADMAP A12)")
+        raise ValueError(f"cannot determine model format of {path!r} "
+                         f"(sniffed: {kind})")

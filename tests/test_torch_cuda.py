@@ -1897,3 +1897,109 @@ def test_bf16_prefill_takes_the_bf16_instantiation(cuda):
         assert attention.launch_counts()["launches"] == 2
     finally:
         sched.stop()
+
+
+# ---------------------------------------------------------------------------
+# the continual loop and the streaming route on the card
+# ---------------------------------------------------------------------------
+def _bn_mlp_zip(path, width=256):
+    conf = (pt.NeuralNetConfiguration.builder().seed(3)
+            .updater(pt.Adam(1e-3)).compute_dtype("bfloat16").list()
+            .layer(pt.DenseLayer(n_out=width, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(784)).build())
+    net = pt.MultiLayerNetwork(conf, device="cpu").init()
+    pt.ModelSerializer.write_model(net, str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("superstep", [1, 2])
+def test_continual_cycle_fine_tunes_through_the_bn_kernels(cuda, tmp_path,
+                                                           superstep):
+    """One promoted cycle on the card: one resident BN+ReLU forward and
+    backward launch a step (through the replays at superstep 2), none in
+    gate scoring or serving; the candidate on the CPU from the same zip
+    and window within the bf16 limits."""
+    from deeplearning4j_tpu_torch.continual import (CanaryPolicy,
+                                                    ContinualTrainer)
+    from deeplearning4j_tpu_torch.streaming.topic import (FileTopic,
+                                                          TopicPublisher)
+    x, y, xt, yt = pt.bundled_mnist_subset()
+    boot = _bn_mlp_zip(tmp_path / "boot.zip")
+    topic = FileTopic(str(tmp_path), "t")
+    rec = np.concatenate([x[:256], y[:256]], axis=1)
+    for i in range(0, 256, 64):
+        TopicPublisher(topic).publish(rec[i:i + 64])
+    reg = pt.ModelRegistry(buckets=(1, 8), device=cuda)
+    gate = pt.DataSet(xt, yt)
+
+    def traffic():
+        for i in range(40):
+            arm = reg.route_arm("m")
+            reg.predict("m", xt[i][None], arm=arm)
+            reg.observe_canary("m", arm, latency_s=1e-3)
+
+    t = ContinualTrainer(reg, "m", topic, workdir=str(tmp_path / "loop"),
+                         gate_set=gate, initial_source=boot,
+                         feature_width=784, window_records=4,
+                         batch_size=128, superstep=superstep,
+                         canary_policy=CanaryPolicy(min_requests=8),
+                         buckets=(1, 8), traffic_hook=traffic)
+    t.recover()
+    bn_relu.reset_launches()
+    cand = []
+    fine_tune = t._fine_tune
+    t._fine_tune = lambda arrays: cand.append(fine_tune(arrays)) or cand[-1]
+    res = t.run_cycle()
+    assert res["outcome"] == "promoted"
+    assert bn_relu.launch_counts() == {"fwd_launches": 2, "bwd_launches": 2}
+    assert len(cand[0][0].__dict__.get("_captured_steps", {})) == \
+        (1 if superstep > 1 else 0)
+    cpu = ContinualTrainer(pt.ModelRegistry(buckets=(1,), device="cpu"),
+                           "m", topic, workdir=str(tmp_path / "cpu"),
+                           gate_set=gate, feature_width=784,
+                           batch_size=128, superstep=superstep)
+    cpu.stable_ckpt = t.journal.replay()[0]["ckpt"]
+    arrays = [np.asarray(rec[i:i + 64]) for i in range(0, 256, 64)]
+    cpu_cand = cpu._fine_tune(arrays)[0]
+    assert abs(cpu_cand.score(gate) - res["score"]) <= 2e-2
+    for p, q in zip(cand[0][0].params, cpu_cand.params):
+        for k in ("W",):
+            if k in q:
+                a, b = p[k].detach().cpu(), q[k]
+                assert ((a - b).norm() / b.norm()).item() <= 5e-2
+
+
+def test_inference_route_serves_the_char_rnn_on_the_card(cuda, tmp_path):
+    """Arrays over TCP through the route on the card: two cluster LSTM
+    launches a batch, outputs within 1e-4 of the CPU."""
+    from deeplearning4j_tpu_torch.streaming import (InferenceRoute,
+                                                    NDArrayConsumer,
+                                                    NDArrayPublisher)
+    net = pt.char_rnn(vocab_size=77, lstm_size=200, seq_len=64,
+                      device="cpu")
+    net.init(generator=torch.Generator().manual_seed(1))
+    path = str(tmp_path / "rnn.zip")
+    pt.ModelSerializer.write_model(net, path)
+    r = np.random.default_rng(0)
+    xs = [np.eye(77, dtype=np.float32)[r.integers(0, 77, (b, 64))]
+          for b in (1, 8, 32)]
+    lstm.reset_launches()
+    with NDArrayConsumer() as sink:
+        route = InferenceRoute(path, device=cuda, forward=NDArrayPublisher(
+            sink.host, sink.port)).start()
+        try:
+            with NDArrayPublisher("127.0.0.1", route.port) as src:
+                for x in xs:
+                    src.publish(x)
+            outs = [sink.take(timeout=60) for _ in xs]
+        finally:
+            route.stop()
+            route.forward.close()
+    for x, o in zip(xs, outs):
+        assert o is not None
+        np.testing.assert_allclose(o, net.output(x).numpy(), atol=1e-4)
+    assert lstm.variant_counts()["fwd"] == {"cluster": 6, "streamed": 0}
+    assert lstm.launch_counts()["residual_launches"] == 0
