@@ -218,6 +218,19 @@ Phases:
      batches of 1, 8 and 32 published over TCP, every output against the
      CPU, p50 latency and arrays/s. (Keras import, `modelimport/`, runs on
      the CPU only: the card's machine has no h5py.)
+ 18. main path 14, the data-parallel trainer on a one-rank NCCL group
+     (rendezvous on localhost; NCCL refuses two ranks on one device, so
+     collectives across cards are not run): phase 9's bf16 LM (batch 64 x
+     256, 8 steps) by `ParallelTrainer` under REPLICATED, ZERO1, ZERO2,
+     ZERO2 with the bf16 wire and FSDP at superstep 1 and 4 against the
+     model's own fit on the same zip and batches (REPLICATED bit-equal,
+     the others at the bf16 limits, their gaps printed), step p50 a
+     strategy, device busy and idle share; phase 8's BN-MLP (bf16, batch
+     128, 10 steps on the digits) in AVERAGING and ZERO2 with evaluate,
+     score and score_examples against the model's; ZERO2 killed in its
+     second sharded save and resumed, bit-equal to the uninterrupted run;
+     the CLI training the BN-MLP's zip one step on the card, the zip
+     restored on the CPU.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -258,7 +271,11 @@ version went live and none on a request's path; on the continual path
 (phase 17) one resident BN+ReLU forward and backward launch per BN layer
 and fine-tune step, counted through the replays at superstep 2, none in
 gate scoring, canary warm-up or serving, and two cluster LSTM launches per
-batch through the InferenceRoute. The last two lines are a
+batch through the InferenceRoute; on the data-parallel path (phase 18),
+counted through the replays, 6 + 6 + 6 wgmma attention launches per bf16
+LM step in every strategy, and one resident BN+ReLU forward and backward
+launch per BN layer and step, none in evaluation (the kernels line's
+`parallel_launches`). The last two lines are a
 `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
@@ -4767,6 +4784,392 @@ def continual_path(pt, torch, tag, tmp, reset_counts):
     return out
 
 
+# ---- main path 14: the data-parallel trainer ------------------------------
+# ParallelTrainer on a one-rank NCCL group (torch.distributed, rendezvous on
+# localhost): the bf16 LM of phase 9 at nanoGPT's widths and batch 64 x 256
+# (kernels 1-3) under every SYNC strategy at superstep 1 and 4 against the
+# model's own fit on the card; the BN-MLP of phase 8 at batch 128 (kernels
+# 4-5) in AVERAGING and SYNC ZERO2 with the evaluation plane; a sharded
+# checkpoint and resume; the CLI. NCCL refuses two ranks on one device,
+# so collectives across cards stay unverified here.
+PAR_LM_STEPS = 8
+PAR_STRATEGIES = (("replicated", {}), ("zero1", {"strategy": "zero1"}),
+                  ("zero2", {"strategy": "zero2"}),
+                  ("zero2_bf16", {"strategy": "zero2",
+                                  "zero_reduce_dtype": "bfloat16"}),
+                  ("fsdp", {"strategy": "fsdp"}))
+PAR_MLP_EPOCHS = 5             # 2 batches of 128 digits an epoch: 10 steps
+PAR_CKPT_AT = 4
+# the bf16 wire's parameter gap to fit over the norm of fit's move from
+# the zip: it read 9.09e-3 on the H100, its controls 1 (no update) and
+# 0.194 (the last step lost); the limit sits 5.5x above the one and under
+# a third of the other
+PAR_WIRE_TOL = 5e-2
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _flat(torch, tree):
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in flat_leaves(tree)])
+
+
+def flat_rel_l2(torch, a, b, origin=None):
+    """L2 of a - b over two trees' leaves, all together, relative to b's
+    norm, or with `origin` to the norm of b's move from it."""
+    x, y = _flat(torch, a), _flat(torch, b)
+    ref = y if origin is None else y - _flat(torch, origin)
+    return float((x - y).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _f32_compute(net):
+    """`net` computing in float32 (its masters' dtype)."""
+    net._compute_dtype = None
+    return net
+
+
+def add_parallel_launches(line, par):
+    """Each attention and BN+ReLU row (kernels 1-5) of the kernels line
+    gains `parallel_launches`: its launches on main path 14 (the bf16 LM's
+    8 REPLICATED steps at superstep 4, the BN-MLP's 10 ZERO2 steps)."""
+    att, var, bn = par["attention"], par["attention_variants"], par["bn"]
+    for e in line["kernels"]:
+        name, v = e["name"], e.get("variant")
+        if name.startswith("bn_relu"):
+            kind = "fwd" if "forward" in name else "bwd"
+            n = bn[kind].get(v or "resident", 0)
+        elif name.startswith("attention_bwd"):
+            kind = "dkv" if "_dkv" in name else "dq"
+            n = var[kind].get(v or "simt", 0)
+        elif name.startswith("flash_attention"):
+            if "wide" in name:
+                n = 0
+            elif "lse" in name:
+                n = att["lse_launches"]
+            else:
+                n = att["launches"]
+        else:
+            continue
+        e["parallel_launches"] = n
+        e["parallel_per"] = ("main path 14: 8 steps of the bf16 LM (B=64, "
+                             "T=256) by ParallelTrainer REPLICATED at "
+                             "superstep 4 on a one-rank NCCL group, 6 a "
+                             "step" if "attention" in name else
+                             "main path 14: 10 steps of the BN-MLP (N=128, "
+                             "C=1024, bf16) by ParallelTrainer ZERO2, one "
+                             "launch per BN layer a step")
+
+
+def parallel_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 14 (phase 18): the data-parallel trainer on a one-rank
+    NCCL group through kernels 1-5. Returns its launches and numbers."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.fault import SimulatedCrash, crash_at_write
+    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
+    from deeplearning4j_tpu_torch.parallel import (ParallelTrainer,
+                                                   ShardedCheckpoint,
+                                                   initialize, make_mesh)
+    t_phase = time.perf_counter()
+    out = {"card": tag.strip("[]"), "lm": {}, "times": {}}
+    L = pt.ListDataSetIterator
+    own_group = not dist.is_initialized()
+    if own_group:
+        check(initialize(f"localhost:{_free_port()}", 1, 0) is True,
+              "initialize did not make a process group")
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, "
+          "want nccl on the card")
+    mesh = make_mesh()
+    check(mesh.distributed and mesh.size == 1 and mesh.device.type == "cuda",
+          f"the one-rank mesh is {mesh}")
+
+    def same(a, b):
+        return (trees_equal(torch, a.params, b.params)
+                and trees_equal(torch, a.updater_state, b.updater_state)
+                and trees_equal(torch, a.state, b.state)
+                and a.iteration_count == b.iteration_count)
+
+    # -- (a) the bf16 LM, kernels 1-3 --------------------------------------
+    ids, lab = lm_text_batches(root)
+    lm_batches = [pt.DataSet(ids[i:i + LM_TRAIN_B], lab[i:i + LM_TRAIN_B])
+                  for i in range(0, PAR_LM_STEPS * LM_TRAIN_B, LM_TRAIN_B)]
+    lzip = os.path.join(tmp, "par_lm.zip")
+    pt.ModelSerializer.write_model(make_lm(
+        pt, torch, 81, updater=pt.Adam(LM_LR, beta2=0.99),
+        compute_dtype="bfloat16", warmup=True), lzip)
+    per = LM_BLOCKS * PAR_LM_STEPS
+    want_a = {"launches": 0, "lse_launches": per, "dq_launches": per,
+              "dkv_launches": per}
+    # one restore of the zip; every run starts from a clone of it
+    base = pt.ModelSerializer.restore(lzip, device=DEVICE)
+    fresh = base.clone
+    refs = {}
+    for k in (1, 4):
+        n = fresh()
+        n.fit(L(lm_batches), superstep=k)
+        torch.cuda.synchronize()
+        refs[k] = n
+    check(same(refs[1], refs[4]), "bf16 LM fit superstep=4 differs from 1")
+    # the bf16 wire is held to fit by its gap over fit's move from the
+    # zip; two wrong updates read against the same yardstick: none at
+    # all (1 by construction) and the last step lost (a stale update)
+    stale = fresh()
+    stale.fit(L(lm_batches[:-1]))
+    torch.cuda.synchronize()
+    wire_controls = {
+        "no_update": flat_rel_l2(torch, base.params, refs[1].params,
+                                 base.params),
+        "last_step_lost": flat_rel_l2(torch, stale.params, refs[1].params,
+                                      base.params)}
+    check(min(wire_controls.values()) > PAR_WIRE_TOL,
+          f"the wire check's controls {wire_controls} do not exceed its "
+          f"limit {PAR_WIRE_TOL}")
+    out["wire_controls"] = wire_controls
+    print(f"{tag} parallel (a) the bf16 wire's controls against fit's move: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in wire_controls.items()))
+    par_launches = None
+    for name, kw in PAR_STRATEGIES:
+        for k in (1, 4):
+            n = fresh()
+            tr = ParallelTrainer(n, mesh=mesh, **kw)
+            reset_counts()
+            t0 = time.perf_counter()
+            if k == 1:
+                step_ms = []
+                for ds in lm_batches:
+                    t1 = time.perf_counter()
+                    tr._fit_batch(ds)
+                    torch.cuda.synchronize()
+                    step_ms.append(1e3 * (time.perf_counter() - t1))
+                tr._sync_back()
+            else:
+                tr.fit(L(lm_batches), superstep=k)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = attention.launch_counts()
+            var = attention.variant_counts()
+            check(counts == want_a and var["dq"]["wgmma"] == per
+                  and var["dkv"]["wgmma"] == per
+                  and var["dq"].get("simt", 0) == var["dkv"].get("simt", 0)
+                  == 0, f"parallel {name} superstep={k}: attention launches "
+                  f"{counts} {var}, want {want_a}, all wgmma")
+            check(set(lstm.launch_counts().values()) == {0}
+                  and set(bn_relu.launch_counts().values()) == {0},
+                  f"parallel {name}: LSTM or BN launches")
+            if name == "replicated" and k == 4:
+                par_launches = {"attention": dict(counts),
+                                "attention_variants": {
+                                    kk: dict(v) for kk, v in var.items()}}
+            ref = refs[k]
+            bit = same(n, ref)
+            p_err = flat_rel_l2(torch, n.params, ref.params)
+            o_err = flat_rel_l2(torch, n.updater_state, ref.updater_state)
+            s_err = abs(float(tr.score()) - float(ref._score)) / max(
+                abs(float(ref._score)), 1e-30)
+            m_err = flat_rel_l2(torch, n.params, ref.params, base.params)
+            if name != "zero2_bf16":
+                # one rank: the mean is an identity, and the ZeRO chunks
+                # are the whole tensors, updated by the same arithmetic
+                check(bit, f"parallel {name} superstep={k} is not "
+                      "bit-equal to fit on the card")
+            else:
+                check(s_err <= BF16_SCORE_TOL and p_err <= BF16_PARAM_TOL
+                      and m_err <= PAR_WIRE_TOL,
+                      f"parallel {name} superstep={k}: score {s_err:.3e} "
+                      f"(limit {BF16_SCORE_TOL}), params {p_err:.3e} "
+                      f"(limit {BF16_PARAM_TOL}), {m_err:.3e} of fit's "
+                      f"move (limit {PAR_WIRE_TOL}; controls "
+                      f"{wire_controls}) against fit")
+            caps = len(tr.__dict__.get("_captured_steps", {}))
+            check(caps == (1 if k == 4 else 0), f"parallel {name} "
+                  f"superstep={k}: {caps} captures")
+            row = {"bit_equal": bit, "param_rel_l2": p_err,
+                   "param_rel_move": m_err, "opt_rel_l2": o_err,
+                   "score_rel": s_err, "wall_s": wall}
+            if k == 1:
+                row["step_p50_ms"] = float(np.median(step_ms))
+            else:
+                # steady state: a second fit replays the captured step
+                t1 = time.perf_counter()
+                tr.fit(L(lm_batches), superstep=k)
+                torch.cuda.synchronize()
+                row["step_ms"] = 1e3 * (time.perf_counter() - t1) / \
+                    PAR_LM_STEPS
+            out["lm"][f"{name} K={k}"] = row
+            print(f"{tag} parallel (a) bf16 LM {name} superstep={k}: "
+                  + ("bit-equal to fit" if bit else
+                     f"params {p_err:.3e} ({m_err:.3e} of fit's move), "
+                     f"updater {o_err:.3e}, score {s_err:.3e} from fit "
+                     f"(limits {BF16_PARAM_TOL}, {PAR_WIRE_TOL}, "
+                     f"{BF16_SCORE_TOL})")
+                  + f"; attention {counts} (dq / dk/dv all wgmma); "
+                  + (f"step p50 {row['step_p50_ms']:.3f} ms"
+                     if k == 1 else f"step {row['step_ms']:.3f} ms "
+                     "(replays)") + f"; wall {wall:.2f} s")
+    # device time and idle share of a replayed window, two strategies
+    for name, kw in (("replicated", {}), ("zero2", {"strategy": "zero2"})):
+        tr = ParallelTrainer(fresh(), mesh=mesh, **kw)
+        tr.fit(L(lm_batches), superstep=4)                  # captures
+        busy, pwall, _ = window_profile(
+            torch, lambda: tr.fit(L(lm_batches), superstep=4))
+        out["times"][name] = {"busy_ms_per_step": busy / PAR_LM_STEPS,
+                              "idle_share": 1 - busy / pwall,
+                              "wall_ms_per_step": pwall / PAR_LM_STEPS}
+        print(f"{tag} parallel (a) bf16 LM {name} superstep=4 under the "
+              f"profiler: device busy {busy / PAR_LM_STEPS:.3f} ms a step, "
+              f"idle share {1 - busy / pwall:.3f}")
+
+    out["seconds_a"] = time.perf_counter() - t_phase
+    # -- (b) the BN-MLP, kernels 4-5 ---------------------------------------
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    mb = [pt.DataSet(x_tr[i:i + MLP_B], y_tr[i:i + MLP_B])
+          for i in (0, MLP_B)]
+    mzip = os.path.join(tmp, "par_mlp.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(bn_mlp_json(pt)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(82)),
+        mzip)
+    mref = pt.ModelSerializer.restore(mzip, device=DEVICE)
+    mref.fit(L(mb), epochs=PAR_MLP_EPOCHS)
+    test = pt.DataSet(x_te, y_te)
+    steps = PAR_MLP_EPOCHS * len(mb)
+    out["mlp"] = {}
+    for name, kw in (("averaging", {"mode": "averaging",
+                                    "averaging_frequency": 5,
+                                    "average_updaters": True}),
+                     ("zero2", {"strategy": "zero2"})):
+        n = pt.ModelSerializer.restore(mzip, device=DEVICE)
+        tr = ParallelTrainer(n, mesh=mesh, **kw)
+        reset_counts()
+        tr.fit(L(mb), epochs=PAR_MLP_EPOCHS)
+        torch.cuda.synchronize()
+        got = bn_relu.variant_counts()
+        want_b = {kind: {"resident": 2 * steps, "streamed": 0}
+                  for kind in ("fwd", "bwd")}
+        check(got == want_b, f"parallel BN-MLP {name}: BN launches {got}, "
+              f"want {want_b}")
+        if name == "zero2":
+            par_launches["bn"] = {kk: dict(v) for kk, v in got.items()}
+        reset_counts()
+        ev = tr.evaluate(L([test]))
+        score = tr.score(test)
+        per_ex = tr.score_examples(test)
+        check(set(bn_relu.launch_counts().values()) == {0},
+              f"parallel BN-MLP {name} evaluation launched BN kernels")
+        bit = same(n, mref)
+        ref_ev = mref.evaluate(L([test]))
+        ref_score = mref.score(test)
+        ref_ex = mref.score_examples(test)
+        ex_err = float(np.abs(per_ex - ref_ex).max())
+        s_err = abs(score - ref_score)
+        p_err = flat_rel_l2(torch, n.params, mref.params)
+        check((ev.confusion.matrix == ref_ev.confusion.matrix).all(),
+              f"parallel BN-MLP {name}: evaluation differs from fit's")
+        # one rank: AVERAGING's mean and ZERO2's chunks are identities
+        check(bit and s_err == 0 and ex_err == 0,
+              f"parallel BN-MLP {name} is not bit-equal to fit: score "
+              f"{s_err:.3e}, per-example {ex_err:.3e}, params {p_err:.3e}")
+        out["mlp"][name] = {"launches": got, "bit_equal": bit,
+                            "score_err": s_err,
+                            "examples_err": ex_err, "param_rel_l2": p_err,
+                            "accuracy": ev.accuracy()}
+        print(f"{tag} parallel (b) BN-MLP {name}, {steps} steps: BN "
+              f"launches {got}, none in evaluation; bit-equal to fit "
+              f"(score, score_examples, confusion; accuracy "
+              f"{ev.accuracy():.4f})")
+
+    out["seconds_b"] = time.perf_counter() - t_phase
+    # -- (c) a sharded checkpoint of the ZERO2 run at step 4, resumed ------
+    ck = os.path.join(tmp, "par_ckpt")
+    ref = fresh()
+    ParallelTrainer(ref, mesh=mesh, strategy="zero2").fit(L(lm_batches))
+    n = fresh()
+    crashed = False
+    with crash_at_write("sharded/tree_written", nth=2):
+        try:
+            ParallelTrainer(n, mesh=mesh, strategy="zero2").fit(
+                L(lm_batches), checkpoint_dir=ck,
+                checkpoint_every=PAR_CKPT_AT)
+        except SimulatedCrash:
+            crashed = True
+    mgr = ShardedCheckpoint(ck)
+    check(crashed and mgr.latest_step() == PAR_CKPT_AT,
+          f"sharded checkpoint: crashed={crashed}, latest committed step "
+          f"{mgr.latest_step()}, want {PAR_CKPT_AT}")
+    n2 = fresh()
+    t0 = time.perf_counter()
+    tr2 = ParallelTrainer(n2, mesh=mesh, strategy="zero2")
+    tr2.fit(L(lm_batches), checkpoint_dir=ck, checkpoint_every=PAR_CKPT_AT,
+            resume=True)
+    torch.cuda.synchronize()
+    check(same(n2, ref), "ZERO2 resumed from the step-4 sharded checkpoint "
+          "is not bit-equal to the uninterrupted run (parameters, updater "
+          "state, counters)")
+    print(f"{tag} parallel (c) ZERO2 killed in its second sharded save, "
+          f"resumed from step {PAR_CKPT_AT}: parameters and updater state "
+          f"bit-equal to the uninterrupted run ({time.perf_counter() - t0:.2f}"
+          " s with the restore)")
+    out["resume_bit_equal"] = True
+
+    out["seconds_c"] = time.perf_counter() - t_phase
+    # -- (d) the CLI --------------------------------------------------------
+    csv = os.path.join(tmp, "par_digits.csv")
+    rows = np.concatenate([x_tr[:MLP_B], y_tr[:MLP_B].argmax(1)[:, None]],
+                          axis=1)
+    np.savetxt(csv, rows, delimiter=",", fmt="%.6g")
+    czip = os.path.join(tmp, "par_cli.zip")
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.parallel",
+         "--model", mzip, "--data", csv, "--label-index", "-1",
+         "--num-classes", "10", "--batch-size", str(MLP_B),
+         "--coordinator", f"localhost:{_free_port()}", "--num-processes",
+         "1", "--process-id", "0", "--save-to", czip],
+        capture_output=True, text=True, cwd=root, timeout=300)
+    check(proc.returncode == 0, f"the parallel CLI failed: {proc.stderr}")
+    card_net = pt.ModelSerializer.restore(czip, device=DEVICE)
+    cpu_net = pt.ModelSerializer.restore(czip, device="cpu")
+    check(trees_equal(torch, card_net.params, cpu_net.params),
+          "the CLI's zip restores different parameters on the CPU")
+    # the zip on both devices in float32 compute: the transfer, at the
+    # serving limit
+    f32 = lambda dev: _f32_compute(pt.ModelSerializer.restore(czip,
+                                                              device=dev))
+    zip_err = float(np.abs(f32("cpu").output(x_te).numpy()
+                           - f32(DEVICE).output(x_te).float().cpu().numpy()
+                           ).max())
+    check(zip_err <= SERVE_TOL, f"the CLI's zip in float32: CPU outputs "
+          f"{zip_err:.3e} from the card's > {SERVE_TOL}")
+    # the same step trained on the CPU (one rank: the model's own fit)
+    cpu_ref = pt.ModelSerializer.restore(mzip, device="cpu")
+    cpu_ref.fit(pt.DataSet(x_tr[:MLP_B], y_tr[:MLP_B]))
+    got = cpu_net.output(x_te).float().numpy()
+    want = cpu_ref.output(x_te).float().numpy()
+    cli_err = float(np.abs(got - want).max())
+    out["cli"] = {"zip_output_err": zip_err, "train_output_err": cli_err}
+    print(f"{tag} parallel (d) CLI: one step of the BN-MLP zip on the card "
+          "(a one-rank NCCL group); the zip restores on the CPU bit-equal "
+          f"in parameters, its float32 outputs {zip_err:.3e} from the "
+          f"card's (limit {SERVE_TOL}); its bf16 outputs {cli_err:.3e} from "
+          f"the same step trained on the CPU (limit {BF16_SCORE_TOL}: one "
+          "bf16 Adam step on each device)")
+    check(cli_err <= BF16_SCORE_TOL, f"parallel CLI outputs {cli_err:.3e} "
+          f"from the CPU-trained step's > {BF16_SCORE_TOL}")
+    out["launches"] = par_launches
+    if own_group:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} main path 14 (data-parallel trainer): "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4832,6 +5235,18 @@ def main():
             cont = continual_path(pt, torch, tag, tmp, reset_counts)
         print(json.dumps({"continual": cont}, default=str))
         print(f"{tag} --continual-only run: "
+              f"{time.perf_counter() - t_start:.1f} s (kernel build "
+              "included)")
+        return 0
+    if "--parallel-only" in sys.argv:
+        # main path 14 alone, for work on the data-parallel trainer;
+        # prints no result lines
+        with tempfile.TemporaryDirectory() as tmp:
+            par = parallel_path(pt, torch, tag, tmp,
+                                os.path.dirname(os.path.abspath(__file__)),
+                                reset_counts)
+        print(json.dumps({"parallel": par}, default=str))
+        print(f"{tag} --parallel-only run: "
               f"{time.perf_counter() - t_start:.1f} s (kernel build "
               "included)")
         return 0
@@ -6793,6 +7208,8 @@ def main():
           f"{lstm.launch_counts()} {bn_relu.launch_counts()}")
     # ---- 17. main path 13: the continual loop, its crash drill, the route
     cont = continual_path(pt, torch, tag, tmp, reset_counts)
+    # ---- 18. main path 14: the data-parallel trainer --------------------
+    par = parallel_path(pt, torch, tag, tmp, root, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -6800,6 +7217,7 @@ def main():
                       n_captured}, default=str))
     print(json.dumps({"generation": decode}, default=str))
     print(json.dumps({"continual": cont}, default=str))
+    print(json.dumps({"parallel": par}, default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -6847,7 +7265,7 @@ def main():
     streamed_err = {"fwd": lstm_err["streamed"],
                     "residual": res_err["streamed"],
                     "adjoint": adj_err["streamed"][0]}
-    print(json.dumps({"kernels": [{
+    kernels_line = {"kernels": [{
         "name": "fused_lstm_sequence",
         "route": "cuda",
         "source": "deeplearning4j_tpu_torch/kernels/csrc/lstm_cluster.cu",
@@ -7125,7 +7543,9 @@ def main():
              f"one launch at the narrow BN network's N={NARROW_B}, "
              f"C={NARROW_C}, bf16 (1 per step; launches: its step and "
              "first-step gradients); by_shape: its entry point alone, at "
-             "shapes its plan gives the resident variant"))]}))
+             "shapes its plan gives the resident variant"))]}
+    add_parallel_launches(kernels_line, par["launches"])
+    print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,12 @@
 """Datasets of the port: DataSet and the iterators, the fetchers (the
 bundled MNIST digits, Iris, Curves, and MNIST / CIFAR-10 / LFW over a local
 cache), the record and image readers, LabeledPoint ingestion, the
-asynchronous iterators and the input pipeline (padding, time buckets,
-device prefetch, microbatch splitting)."""
+asynchronous iterators, the input pipeline (padding, time buckets,
+device prefetch, microbatch splitting) and the export plane (minibatch
+files, per-rank shard files)."""
+from .export import (LocalShardDataSet, PathDataSetIterator,
+                     ShardedPathDataSetIterator, export_datasets,
+                     export_sharded, load_dataset)
 from .fetchers import (CifarDataFetcher, CurvesDataFetcher, IrisDataFetcher,
                        LFWDataFetcher, MnistDataFetcher, augment_digits,
                        bundled_mnist_stratified, bundled_mnist_subset,
@@ -39,4 +43,6 @@ __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
            "CSVRecordReader", "RecordReaderDataSetIterator",
            "BinaryRecordReader", "BinaryRecordDataSetIterator",
            "LabeledPoint", "LabeledPointDataSetIterator",
-           "labeled_points_to_dataset"]
+           "labeled_points_to_dataset", "export_datasets",
+           "export_sharded", "load_dataset", "PathDataSetIterator",
+           "ShardedPathDataSetIterator", "LocalShardDataSet"]

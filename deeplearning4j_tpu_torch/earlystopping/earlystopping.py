@@ -3,8 +3,8 @@
 `EarlyStoppingGraphTrainer` names too: both model types expose fit / score /
 clone), the validation score calculator, the epoch and iteration
 termination conditions, and the model savers (in memory, or zips in a
-directory through `ModelSerializer`). `EarlyStoppingParallelTrainer` waits
-for the parallel trainer (ROADMAP A11) and raises.
+directory through `ModelSerializer`), and `EarlyStoppingParallelTrainer`
+over the data-parallel `parallel.ParallelTrainer`.
 """
 from __future__ import annotations
 
@@ -249,6 +249,12 @@ class EarlyStoppingTrainer:
         skip the per-call param publish)."""
         self.model.fit(ds)
 
+    def _epoch_score(self) -> float:
+        """The epoch's score: the calculator's, else the last step's."""
+        cfg = self.config
+        return (cfg.score_calculator.calculate_score(self.model)
+                if cfg.score_calculator else self.model.score())
+
     def fit(self) -> EarlyStoppingResult:
         cfg = self.config
         result = EarlyStoppingResult()
@@ -272,8 +278,7 @@ class EarlyStoppingTrainer:
             if terminate:
                 break
             if (epoch % cfg.evaluate_every_n_epochs) == 0:
-                score = (cfg.score_calculator.calculate_score(self.model)
-                         if cfg.score_calculator else self.model.score())
+                score = self._epoch_score()
                 result.score_vs_epoch[epoch] = score
                 if score < result.best_model_score:
                     result.best_model_score = score
@@ -302,9 +307,50 @@ EarlyStoppingGraphTrainer = EarlyStoppingTrainer
 
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
-    """Early stopping over the multi-device parallel trainer: not in the
-    port until the parallel trainer is (ROADMAP A11)."""
+    """Early stopping driving a data-parallel ParallelTrainer — reference
+    `EarlyStoppingParallelTrainer.java` (there: a ParallelWrapper feeding
+    the early-stopping loop; here the ParallelTrainer IS the model-like:
+    `fit` runs its step over the ranks, `score` computes validation scores
+    over them, and every termination condition and the best-model save
+    path work unchanged).
 
-    def __init__(self, *args, **kwargs):
-        from ..nn.multilayer import _not_in_port
-        raise _not_in_port("EarlyStoppingParallelTrainer", "11")
+    Pass a ParallelTrainer via `trainer`, or a model plus ParallelTrainer
+    kwargs (mesh / mode / strategy / ...) to build one. A
+    `DataSetLossCalculator` is scored through the trainer's lockstep
+    scoring of its whole iterator, so ranks with unequal validation
+    shards still agree on every epoch's score."""
+
+    def __init__(self, config: EarlyStoppingConfiguration, model=None,
+                 train_iter=None, trainer=None, **trainer_kwargs):
+        if trainer is None:
+            if model is None:
+                raise ValueError("need a model or a ParallelTrainer")
+            from ..parallel.trainer import ParallelTrainer
+            trainer = ParallelTrainer(model, **trainer_kwargs)
+        super().__init__(config, trainer, train_iter)
+        self.trainer = trainer
+
+    def _fit_one(self, ds):
+        # the trainer's step directly: fit() would publish after every
+        # minibatch, and in AVERAGING mode its sync-back averages the
+        # replicas, collapsing the local-SGD window
+        self.trainer._fit_batch(ds)
+
+    def _epoch_score(self) -> float:
+        calc = self.config.score_calculator
+        if isinstance(calc, DataSetLossCalculator):
+            total = count = 0.0
+            for s, n in self.trainer._batch_scores(calc.iterator):
+                total += s * n
+                count += n
+            if count == 0:
+                raise ValueError(
+                    "DataSetLossCalculator: validation iterator yielded no "
+                    "examples — the score would be meaningless (0/0)")
+            return total / count if calc.average else total
+        return super()._epoch_score()
+
+    def _model_for_saving(self):
+        # non-destructive publish: AVERAGING binds the averaged view
+        # without collapsing the live replicas
+        return self.trainer.publish_view()

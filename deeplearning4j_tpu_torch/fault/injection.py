@@ -3,12 +3,19 @@
 Two injection surfaces:
 
   * **Crash points**: named hook points in the durable-write paths
-    (`util/serializer.py`). A registered hook fires at the point;
-    `crash_at_write` installs one that raises `SimulatedCrash` on the nth
-    firing, so "the process died exactly between writing the payload and
-    committing it" is a reproducible test case. The point in use:
+    (`util/serializer.py`, `parallel/checkpoint.py`). A registered hook
+    fires at the point; `crash_at_write` installs one that raises
+    `SimulatedCrash` on the nth firing, so "the process died exactly
+    between writing the payload and committing it" is a reproducible test
+    case. The points:
       - ``zip/temp_written``    after the temp file's bytes are written,
                                 before fsync+atomic rename (ModelSerializer)
+      - ``sharded/tree_written`` the parallel trainer's step directory:
+                                every rank's slices down, DURABLE / COMMIT
+                                not yet (ShardedCheckpoint.save)
+      - ``elastic/shards_written``, ``elastic/durable_marked``,
+        ``elastic/commit_marker``  the coordinated store's three commit
+                                boundaries (CoordinatedShardStore)
   * **FaultyIterator**: a DataSetIterator wrapper injecting data-plane
     faults at exact global batch ordinals: transient/permanent raise,
     all-NaN feature batches (numerically poisoned data), stalls.
@@ -22,9 +29,9 @@ this interpreter, `kill_at_step` / `hang_at_step` / `sigterm_at_step`
 model the death, stall or preemption notice of a whole worker (`os._exit`
 with no teardown, an indefinite sleep, a SIGTERM to itself) at an exact
 optimizer step. They ride the ``elastic/step`` crash point that the
-elastic trainer's supervision loop fires once per step (in the port that
-loop comes with the parallel stack, ROADMAP A11; `fire_crash_point`
-drives the point directly meanwhile), and `install_faults_from_env` arms
+elastic trainer's supervision loop fires once per step (that loop is
+ROADMAP A11b; `fire_crash_point` drives the point directly meanwhile),
+and `install_faults_from_env` arms
 them, and the write-boundary injectors, from ``DL4J_*`` environment
 variables so a child process can be killed at an exact step or write.
 """

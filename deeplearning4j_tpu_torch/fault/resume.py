@@ -19,8 +19,8 @@ order and dropout draws — the resumed run matches an uninterrupted one.
 The zip is the JAX package's, so a checkpoint directory written by either
 package resumes in the other (a generator state, or JAX's PRNG key, is
 restored only by the package and device kind that wrote it: dropout
-streams do not cross). The sharded store of the parallel trainer comes
-with ROADMAP A11.
+streams do not cross). The parallel trainer saves through the sharded
+store (`_ShardedTrainerStore`, `parallel/checkpoint.py`).
 """
 from __future__ import annotations
 
@@ -176,19 +176,52 @@ class _ZipModelStore:
         return self.manager.restore_latest(self.model)
 
 
-def _sharded_not_in_port():
-    return NotImplementedError(
-        "the sharded checkpoint store of the parallel trainer is not in "
-        "the PyTorch port yet (ROADMAP A11)")
-
-
 class _ShardedTrainerStore:
-    """Mesh store of the parallel trainer (ROADMAP A11)."""
+    """Mesh store: ParallelTrainer through `parallel/checkpoint.py`'s
+    ShardedCheckpoint — each rank writes its slices of the model-level
+    trees, each step dir commits via its COMMIT marker."""
 
     kind = "sharded"
 
     def __init__(self, trainer, directory: str, keep: int = 3):
-        raise _sharded_not_in_port()
+        from ..parallel.checkpoint import ShardedCheckpoint
+
+        self.trainer = trainer
+        mesh = trainer.mesh
+        self.manager = ShardedCheckpoint(directory, keep=keep,
+                                         n_workers=mesh.size,
+                                         worker_id=mesh.rank)
+
+    def iteration(self) -> int:
+        return self.trainer.iteration_count
+
+    def save(self, extra: Dict):
+        tr = self.trainer
+        model = tr.publish_view()
+        score = None
+        try:
+            score = tr.score()
+            if not math.isfinite(score):
+                score = None
+        except Exception:
+            pass
+        self.manager.save(model, tr.iteration_count, score=score,
+                          extra=dict(extra))
+
+    def restore(self) -> Optional[Dict]:
+        tr = self.trainer
+        step = self.manager.restore_latest(tr.model)
+        if step is None:
+            return None
+        meta = self.manager.meta(step) or {}
+        # re-place the restored trees on the mesh (resets the counters, so
+        # reinstate them from the checkpoint after)
+        gens = [g.get_state() for g in tr.model._dropout_generators()]
+        tr._prepare()
+        tr.iteration_count = tr.model.iteration_count
+        for g, st in zip(tr.model._dropout_generators(), gens):
+            g.set_state(st)
+        return meta
 
 
 # ----------------------------------------------------------------------
@@ -399,5 +432,12 @@ def sharded_fit_checkpointer(trainer, checkpoint_dir: Optional[str],
                              checkpoint_every: int, resume: bool,
                              keep: int = 3, context: Optional[Dict] = None
                              ) -> Optional[FitCheckpointer]:
-    """Sharded checkpointer for parallel-trainer fits (ROADMAP A11)."""
-    raise _sharded_not_in_port()
+    """Sharded checkpointer for ParallelTrainer fits."""
+    if checkpoint_dir is None:
+        if resume or checkpoint_every:
+            raise ValueError(
+                "resume=True / checkpoint_every need checkpoint_dir=")
+        return None
+    return FitCheckpointer(
+        _ShardedTrainerStore(trainer, checkpoint_dir, keep=keep),
+        every=checkpoint_every, resume=resume, context=context)

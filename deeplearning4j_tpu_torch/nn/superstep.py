@@ -451,8 +451,13 @@ class CapturedStep:
                                   self._commit_step, dev, self.generators)]
         else:
             self.skip_nonfinite = bool(skip_nonfinite)
-            # the gradients have the parameters' tree and shapes
-            p_leaves, self._rebuild_grads = flatten_tree(self._trees()[0])
+            # the gradients have the parameters' tree and shapes, or the
+            # model's own template's (a ZERO2 trainer reduces them to its
+            # shard)
+            hook = getattr(model, "_grad_template", None)
+            tmpl = hook() if hook is not None else None
+            p_leaves, self._rebuild_grads = flatten_tree(
+                self._trees()[0] if tmpl is None else tmpl)
             self.acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                         for p in p_leaves]
             self.n_ok = torch.zeros((), dtype=torch.float32, device=dev)

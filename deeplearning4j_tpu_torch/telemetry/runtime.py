@@ -145,9 +145,10 @@ class TelemetrySession:
         return out
 
     def dp_summary(self) -> Dict:
-        """Data-parallel collective-traffic metrics (filled by the parallel
-        stack, ROADMAP A11). Empty dict when none ran under this
-        session."""
+        """Data-parallel collective-traffic metrics (parallel/zero.py's
+        plan, counted by the trainer's `_record_zero_metrics`): logical
+        payload bytes per collective op and gradient bucket flushes. Empty
+        dict when no ZeRO step ran under this session."""
         out: Dict = {}
         c = self.registry.get("dl4j_collective_bytes_total")
         if c is not None and c.values():
@@ -162,7 +163,7 @@ class TelemetrySession:
 
     def fault_summary(self) -> Dict:
         """Fault-tolerance metrics (fault/): checkpoint save/restore
-        counts + wall seconds per kind (zip), non-finite steps
+        counts + wall seconds per kind (zip|sharded), non-finite steps
         seen, data-source retries and guard rollbacks. Empty dict when no
         fault-path code ran under this session."""
         out: Dict = {}
@@ -183,8 +184,10 @@ class TelemetrySession:
         return out
 
     def elastic_summary(self) -> Dict:
-        """Elastic-training metrics (filled by the elastic loop, ROADMAP
-        A11). Empty dict when none ran under this session."""
+        """Elastic-training metrics (`fault/metrics.count_elastic`,
+        `elastic_snapshot_timer`; the elastic trainer's loop that drives
+        them is ROADMAP A11b). Empty dict when none ran under this
+        session."""
         out: Dict = {}
         for event in ("worker_losses", "rejoins", "resizes", "drains"):
             c = self.registry.get(f"dl4j_elastic_{event}_total")

@@ -1,5 +1,6 @@
 """PyTorch port, `fit(grad_accumulation=M)` on the CPU: the twins of
-`tests/test_accumulation.py` (bar its ParallelTrainer cases, ROADMAP A11),
+`tests/test_accumulation.py` (its ParallelTrainer cases are in
+`tests/test_torch_parallel_loop.py`),
 the accumulated step's replay plumbing, and the port against JAX.
 
 Within the port: M microbatches of b rows and one batch of M·b rows split

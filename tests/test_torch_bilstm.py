@@ -2,8 +2,9 @@
 package: GravesBidirectionalLSTM (a nested parameter tree, `{"fwd": {W, b,
 peep}, "bwd": {...}}`) and LastTimeStep, through every place that walks a
 parameter tree, and the twins of the JAX package's `tests/test_recurrent.py`
-and `tests/test_bilstm_subsystems.py` (bar its parallel case, which waits
-for ROADMAP A11; its `fit_scan` half is in `tests/test_torch_fit_scan.py`).
+and `tests/test_bilstm_subsystems.py` (its parallel case is in
+`tests/test_torch_parallel_loop.py`, its `fit_scan` half in
+`tests/test_torch_fit_scan.py`).
 
 The same numpy inputs, made from a seed, go through both packages; the
 parameters and updater state cross through `from_jax_params` or the zip.

@@ -2003,3 +2003,113 @@ def test_inference_route_serves_the_char_rnn_on_the_card(cuda, tmp_path):
         np.testing.assert_allclose(o, net.output(x).numpy(), atol=1e-4)
     assert lstm.variant_counts()["fwd"] == {"cluster": 6, "streamed": 0}
     assert lstm.launch_counts()["residual_launches"] == 0
+
+
+# ----------------------------------------------------------------------
+# the data-parallel trainer on a one-rank NCCL group (ROADMAP A11a)
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A one-rank NCCL process group on the card (rendezvous on a free
+    localhost port); skips without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import initialize
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert initialize(f"localhost:{port}", 1, 0) is True
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def _par_mlp(seed=5):
+    conf = (pt.NeuralNetConfiguration.builder().seed(seed)
+            .updater(pt.Adam(1e-3)).compute_dtype("bfloat16").list()
+            .layer(pt.DenseLayer(n_out=256, activation="identity"))
+            .layer(pt.BatchNormalization(activation="relu"))
+            .layer(pt.OutputLayer(n_out=10, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(64)).build())
+    return pt.MultiLayerNetwork(conf, device="cuda").init(
+        generator=torch.Generator().manual_seed(seed))
+
+
+def _par_batches(n=4, b=128):
+    r = np.random.default_rng(3)
+    x = r.normal(size=(n * b, 64)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, n * b)]
+    return [pt.DataSet(x[i:i + b], y[i:i + b]) for i in range(0, n * b, b)]
+
+
+def _trees_equal(a, b):
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    la, lb = flat_leaves(a), flat_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("strategy", ["replicated", "zero1", "zero2",
+                                      "fsdp"])
+def test_one_rank_nccl_trainer_matches_fit(cuda, nccl_world, strategy, k):
+    """ParallelTrainer on the one-rank NCCL group: the bf16 BN-MLP through
+    kernels 4-5, bit-equal to the model's own fit at superstep 1 and 2
+    (parameters, updater state, running statistics), one resident BN
+    forward and backward launch a BN layer and step."""
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer, make_mesh
+    batches = _par_batches()
+    ref, net = _par_mlp(), _par_mlp()
+    ref.fit(pt.ListDataSetIterator(batches), superstep=k)
+    tr = ParallelTrainer(net, mesh=make_mesh(), strategy=strategy)
+    assert tr.mesh.backend == "nccl"
+    bn_relu.reset_launches()
+    tr.fit(pt.ListDataSetIterator(batches), superstep=k)
+    torch.cuda.synchronize()
+    got = bn_relu.variant_counts()
+    assert got["fwd"]["resident"] == got["bwd"]["resident"] == 4
+    for a, b in ((net.params, ref.params),
+                 (net.updater_state, ref.updater_state),
+                 (net.state, ref.state)):
+        assert _trees_equal(a, b)
+    assert net.iteration_count == ref.iteration_count == 4
+
+
+def test_captured_window_replays_its_collective(cuda, nccl_world,
+                                                monkeypatch):
+    """A superstep window of the ZERO2 trainer is replays of one CUDA graph
+    that holds the step's NCCL collectives: the Python collective calls
+    happen only in the capture's warm-up and capture (never per replayed
+    step), the replays are bit-equal to the eager per-batch steps, and a
+    step whose collective cannot be captured would raise CaptureError."""
+    from deeplearning4j_tpu_torch.parallel import (ParallelTrainer,
+                                                   make_mesh, zero)
+    calls = {"rs": 0}
+    orig = zero.reduce_scatter_
+
+    def counting(out, inp, group=None):
+        calls["rs"] += 1
+        return orig(out, inp, group)
+
+    monkeypatch.setattr(zero, "reduce_scatter_", counting)
+    batches = _par_batches(n=8)
+    eager, windowed = _par_mlp(), _par_mlp()
+    te = ParallelTrainer(eager, mesh=make_mesh(), strategy="zero2")
+    te.fit(pt.ListDataSetIterator(batches))
+    per_step = calls["rs"] // 8
+    assert per_step >= 1
+    calls["rs"] = 0
+    tw = ParallelTrainer(windowed, mesh=make_mesh(), strategy="zero2")
+    tw.fit(pt.ListDataSetIterator(batches), superstep=4)
+    torch.cuda.synchronize()
+    assert len(tw.__dict__["_captured_steps"]) == 1
+    assert calls["rs"] == 2 * per_step      # warm-up + capture, 8 replays
+    for a, b in ((windowed.params, eager.params),
+                 (windowed.updater_state, eager.updater_state),
+                 (windowed.state, eager.state)):
+        assert _trees_equal(a, b)

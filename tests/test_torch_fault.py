@@ -1,6 +1,6 @@
 """PyTorch port, fault tolerance on the CPU: the twins of
 `tests/test_fault.py` (bar the sharded store's and ParallelTrainer's cases,
-ROADMAP A11): crash-safe writes and manifests, the commit markers, the
+which `tests/test_torch_parallel_loop.py` holds): crash-safe writes and manifests, the commit markers, the
 checkpoint manager, kill-mid-save -> resume equal to the uninterrupted run,
 SIGTERM snapshots, the TrainingGuard's four policies and its retries, the
 fault injectors; and a checkpoint directory crossing the packages.
@@ -41,12 +41,10 @@ from deeplearning4j_tpu_torch.fault import (COMMIT_MARKER, CheckpointManager,
                                             install_faults_from_env,
                                             kill_at_step,
                                             read_commit_marker,
-                                            sharded_fit_checkpointer,
                                             sigterm_at_step,
                                             write_commit_marker)
 from deeplearning4j_tpu_torch.fault import injection as _inj
-from deeplearning4j_tpu_torch.fault.resume import (_ShardedTrainerStore,
-                                                   _ZipModelStore)
+from deeplearning4j_tpu_torch.fault.resume import _ZipModelStore
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from jax_reference import jax_init
 from torch_threads import one_torch_thread  # noqa: F401
@@ -179,13 +177,6 @@ def test_commit_marker_roundtrip_and_absence(tmp_path):
     with open(os.path.join(d, COMMIT_MARKER), "wb") as f:
         f.write(b"{torn")
     assert read_commit_marker(d) is None
-
-
-def test_sharded_store_waits_for_the_parallel_stack(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        sharded_fit_checkpointer(object(), str(tmp_path), 0, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        _ShardedTrainerStore(object(), str(tmp_path))
 
 
 # ======================================================================

@@ -1,6 +1,6 @@
 """PyTorch port, the input pipeline on the CPU: the twins of
-`tests/test_input_pipeline.py` (bar its ParallelTrainer case, ROADMAP
-A11): weight-zero padding as a learning no-op, one batch signature per
+`tests/test_input_pipeline.py` (its ParallelTrainer case is in
+`tests/test_torch_parallel_loop.py`): weight-zero padding as a learning no-op, one batch signature per
 padded epoch (one capture on the card), time buckets, the device prefetch
 (its thread, its errors, its telemetry) and the asynchronous iterators;
 and the staging of a superstep window.

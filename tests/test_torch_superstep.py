@@ -1,5 +1,6 @@
 """PyTorch port, `fit(superstep=K)` on the CPU: the twins of
-`tests/test_superstep.py` (bar its ParallelTrainer cases, ROADMAP A11),
+`tests/test_superstep.py` (its ParallelTrainer cases are in
+`tests/test_torch_parallel_loop.py`),
 the window's replay plumbing, and the port against JAX.
 
 Within the port every check is bit-exact: K windows regroup the per-batch

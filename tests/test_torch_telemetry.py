@@ -1,5 +1,6 @@
 """PyTorch port, telemetry on the CPU: the twins of `tests/test_telemetry.py`
-(bar its ParallelTrainer and Word2Vec cases, ROADMAP A11 and A12): the
+(its ParallelTrainer case is in `tests/test_torch_parallel_loop.py`, its
+Word2Vec case waits for ROADMAP A12): the
 metrics registry and its exporters, the tracer, the capture watcher, the
 resource watermarks, TelemetryListener on a fit, and the listener
 satellites.

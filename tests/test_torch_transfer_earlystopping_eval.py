@@ -1,8 +1,8 @@
 """PyTorch port, transfer learning, early stopping and the ROC / regression
 evaluations on the CPU against the JAX package: twins of
-`tests/test_transfer_earlystopping_eval.py` (bar its parallel-trainer
-cases, which wait for ROADMAP A11, and its evaluation metadata and
-recompile-tracking cases, which belong to other slices).
+`tests/test_transfer_earlystopping_eval.py` (its parallel-trainer cases
+are in `tests/test_torch_parallel_loop.py`; bar its evaluation metadata
+and recompile-tracking cases, which belong to other slices).
 
 Transfer learning: both packages edit the same trained network (the port's
 twin holds the JAX parameters); the edited configurations' JSON, the
@@ -367,7 +367,7 @@ def test_early_stopping_errors():
             return False
     with pytest.raises(ValueError, match="yielded no examples"):
         es.DataSetLossCalculator(Empty()).calculate_score(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(ValueError, match="need a model or a ParallelTrainer"):
         es.EarlyStoppingParallelTrainer(
             es.EarlyStoppingConfiguration(), model=None)
 

@@ -15,7 +15,16 @@ machine; unpinned, one port worker's compiles take as many cores as they
 can while the JAX package's timed tests run on the other workers. XLA
 sizes its thread pools from the schedulable cores when it creates them,
 so the first pin in a process comes after one warm-up compile: the JAX
-package's tests that the worker runs later keep their full pools."""
+package's tests that the worker runs later keep their full pools.
+
+A pinned port test also runs at a lower scheduling priority (nice
+`PORT_NICE`, every thread of the worker; Linux nice values are per
+thread, and the worker's module fixtures and the rank processes they fork
+inherit it): the JAX package's timed tests on the other workers spread
+their XLA threads over every core, and where one of them shares a core
+with a port test, the port test yields. The priority is given back with
+the affinity, and only where the process may raise it again (a probe at
+import)."""
 import contextlib
 import os
 
@@ -24,6 +33,32 @@ import torch
 
 _ALL_CORES = os.sched_getaffinity(0)
 _warm = []
+PORT_NICE = 19
+
+
+def _can_restore_priority() -> bool:
+    """Whether this process may lower a thread's nice value back (root
+    with CAP_SYS_NICE): probed on a throwaway thread."""
+    import threading
+    ok = []
+
+    def probe():
+        tid = threading.get_native_id()
+        base = os.getpriority(os.PRIO_PROCESS, tid)
+        try:
+            os.setpriority(os.PRIO_PROCESS, tid, base + 1)
+            os.setpriority(os.PRIO_PROCESS, tid, base)
+            ok.append(True)
+        except OSError:
+            pass
+    t = threading.Thread(target=probe)
+    t.start()
+    t.join()
+    return bool(ok)
+
+
+_BASE_NICE = os.getpriority(os.PRIO_PROCESS, 0)
+_RENICE = _can_restore_priority()
 
 
 def _worker_core():
@@ -36,11 +71,13 @@ def _worker_core():
     return {cores[int(wid[2:]) % len(cores)]}
 
 
-def _pin(cores):
-    """Every thread of this process on `cores`."""
+def _pin(cores, nice=None):
+    """Every thread of this process on `cores` (and at `nice`)."""
     for tid in os.listdir("/proc/self/task"):
         try:
             os.sched_setaffinity(int(tid), cores)
+            if nice is not None:
+                os.setpriority(os.PRIO_PROCESS, int(tid), nice)
         except OSError:                         # the thread has ended
             pass
 
@@ -65,12 +102,12 @@ def pinned():
     core = _worker_core()
     if core is not None:
         _warm_up_jax()
-        _pin(core)
+        _pin(core, _BASE_NICE + PORT_NICE if _RENICE else None)
     try:
         yield
     finally:
         if core is not None:
-            _pin(_ALL_CORES)
+            _pin(_ALL_CORES, _BASE_NICE if _RENICE else None)
         torch.set_num_threads(threads)
 
 
