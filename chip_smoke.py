@@ -75,7 +75,7 @@ Phases:
   9. main path 6: the LM of phase 7 in bf16 compute
      (`compute_dtype("bfloat16")`, float32 masters) with nanoGPT's lr
      warm-up, through the bf16 instantiations of the attention kernels:
-     first-step gradients at batch 16 and a 20-step trajectory at batch 16
+     first-step gradients at batch 16 and a 10-step trajectory at batch 16
      held against the same zip on the CPU, 20 steps at batch 64 x 256
      counted, and the trained zip's bucket-32 forward through the primal
      kernel against the CPU; the same trajectory without the warm-up,
@@ -230,7 +230,30 @@ Phases:
      score and score_examples against the model's; ZERO2 killed in its
      second sharded save and resumed, bit-equal to the uninterrupted run;
      the CLI training the BN-MLP's zip one step on the card, the zip
-     restored on the CPU.
+     restored on the CPU;
+ 19. main path 15, the model-parallel trainer: phase 9's bf16 LM (6
+     blocks, batch 64 x 256, 8 steps, one zip) by TENSOR_PARALLEL and
+     ZERO1_TP at m = 2 (each rank attends over its 3 heads through kernels
+     1-3), PP at p = 2 and ZERO1_TP_PP at (1, 2, 2), each over processes
+     sharing the one card (gloo; every collective staged through pinned
+     host memory by parallel/collectives.py, the copies counted), by
+     PIPELINE (the host-driven GPipe: 2 stages of 3 blocks, 4
+     microbatches) in process, and by TENSOR_PARALLEL and ZERO1_TP on a
+     one-rank NCCL group at superstep 4 (bit-equal to 1), each against
+     the model's own fit on the same zip and batches at the bf16 limits;
+     phase 8's BN-MLP (bf16, global batch 128, 10 steps) under SYNC
+     REPLICATED over 2 ranks through the four split BN+ReLU kernels
+     against the one-rank fused run; ring attention over 2 ranks (B 4,
+     T 512, H 6, Dh 64, causal, f32) against kernel 1's primal on the
+     whole sequence and its gradients against autograd of the plain
+     attention; the ElasticTrainer on the LM over 4 ranks, drained by a
+     SIGTERM at an edge and resumed, bit-equal to the uninterrupted run.
+     Phase 2 also holds the split kernels against their plain versions
+     (N 64 and 2048 rows a rank, C 1024, bf16; two ranks' statistics
+     merged by Chan's formula against the fused forward's) and phase 10
+     times them beside their plain versions, a library call and their
+     bound. `--model-parallel-only` runs phase 1, those checks and phase
+     19.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -275,7 +298,12 @@ batch through the InferenceRoute; on the data-parallel path (phase 18),
 counted through the replays, 6 + 6 + 6 wgmma attention launches per bf16
 LM step in every strategy, and one resident BN+ReLU forward and backward
 launch per BN layer and step, none in evaluation (the kernels line's
-`parallel_launches`). The last two lines are a
+`parallel_launches`); on the model-parallel path (phase 19), a rank's
+6 + 6 + 6 wgmma attention launches per bf16 LM step under TP / ZERO1_TP,
+3 + 3 + 3 under PP / ZERO1_TP_PP (a stage's blocks), 24 + 24 + 24 per
+GPipe step (4 microbatches), two of each split BN kernel per step at 2
+data ranks and no fused BN launch (the kernels line's
+`model_parallel_launches`). The last two lines are a
 `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
 device, exits non-zero before either.
@@ -354,8 +382,12 @@ LM_ALPHABET = ("\n !$&',-.3:;?ABCDEFGHIJKLMNOPQRSTUVWXYZ"
 LM_TRAIN_B, LM_STEPS, LM_LR = 64, 20, 1e-3
 # The card-against-CPU trajectory runs at batch 16: a batch-64 step of the
 # full-width LM takes seconds on the CPU (printed below), 20 of them more
-# than a minute.
-LM_CMP_B = 16
+# than a minute. The bf16 LM's (phase 9) runs 10 steps: bf16 on the CPU
+# made its 20 steps the costliest part of a whole run (185 s of phase 9
+# on a slow host); its warmed-up score falls from the first step, where
+# the f32 LM's trajectory without the warm-up (phase 7) needs its 20
+# steps to come down from its loss spikes.
+LM_CMP_B, LM_CMP_STEPS = 16, 10
 # Scores of the LM's 20 steps, card against CPU (absolute). Without
 # nanoGPT's warm-up, Adam at 1e-3 drives the score through spikes (4.2 ->
 # 8.2 -> 3.1 at batch 16) that amplify float32 rounding about 1000-fold:
@@ -1466,6 +1498,32 @@ def device_ms(torch, fn, reps=20):
             break
     check(total > 0, "torch.profiler recorded no device time")
     return total / 1e3 / reps
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device ms per call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed, timed with CUDA events (the host's launch path
+    left out, without a torch.profiler session: the profiler stops
+    recording device events after a few dozen sessions on the H100
+    machine, `device_ms`)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms_by_kind(events):
@@ -5170,6 +5228,764 @@ def parallel_path(pt, torch, tag, tmp, root, reset_counts):
     return out
 
 
+# ---------------------------------------------------------------------------
+# main path 15 (phase 19): the model-parallel half of the parallel stack
+# ---------------------------------------------------------------------------
+# Ranks that share the one card run gloo (NCCL refuses two ranks on a
+# device), their compute on the card and every collective staged through
+# pinned host memory by the port's collective layer
+# (parallel/collectives.py; the H100 machine's gloo has no CUDA transport).
+MP_WORLD = 4                   # worker processes on the one card
+MP_LM_STEPS = PAR_LM_STEPS     # the bf16 LM's steps, batch 64 x 256
+MP_GPIPE_STAGES, MP_GPIPE_MICRO = 2, 4
+MP_BN_RANKS = 2
+MP_RING = (4, 512, 6, 64)      # B, T, H, Dh of the ring's check (f32)
+# the ring's output against kernel 1's primal on the whole sequence:
+# float32 sums in another order, relative to the largest |output|
+RING_TOL = 1e-5
+MP_ELASTIC_STEPS, MP_ELASTIC_EVERY, MP_ELASTIC_SIGTERM = 4, 2, 1
+# Each run is held to its reference by its parameter gap over the norm of
+# the reference's move from the zip (`flat_rel_l2(..., origin)`): the LM
+# runs to the model's own fit at PAR_WIRE_TOL, beside three wrong updates
+# that must read past it (no update, the last step lost, each step on
+# half its batch). The BN-MLP of (d) against the one-rank fused run: its
+# bf16 noise alone reads about 5e-2 of that move (a 2-rank split on the
+# CPU, 4.9e-2; 10 steps of Adam flip the near-zero gradients' steps), the
+# level of one lost step of ten, so its parameters are held at
+# MP_BN_MOVE_TOL, which its fault (each rank's own statistics, 0.42 on
+# the CPU) reads past, and its running statistics, which that noise
+# hardly moves (4.2e-3 on the CPU), at MP_BN_STATE_MOVE_TOL, which the
+# last step lost reads past (5.8e-2 on the CPU).
+MP_BN_MOVE_TOL = 0.15
+MP_BN_STATE_MOVE_TOL = 2e-2
+SPLIT_ROWS = (64, 2048)        # rows a rank of the split BN kernels
+SPLIT_C = MLP_WIDTH
+# the strategies of (a) and (c): (name, mesh axes, trainer kwargs)
+MP_LM_RUNS = (
+    ("tensor_parallel", {"data": 1, "model": 2},
+     {"strategy": "tensor_parallel"}),
+    ("zero1_tp", {"data": 1, "model": 2}, {"strategy": "zero1_tp"}),
+    ("pp", {"data": 1, "model": 1, "pipe": 2}, {"strategy": "pp"}),
+    ("zero1_tp_pp", {"data": 1, "model": 2, "pipe": 2},
+     {"strategy": "zero1_tp_pp"}))
+
+
+def split_bound(kind, N, C, itemsize):
+    """The least time of one split kernel over an [N, C] rank: the bytes
+    it must move (x, dy read once; y, dx written once; the [C] vectors and
+    the [3, C] / [2, C] results) over HBM, a few FLOPs an element."""
+    nc = N * C * itemsize
+    nbytes, flops = {"stats": (nc + 12 * C, 4 * N * C),
+                     "apply": (2 * nc + 16 * C, 5 * N * C),
+                     "bwd_sums": (2 * nc + 24 * C, 8 * N * C),
+                     "bwd_dx": (3 * nc + 32 * C, 10 * N * C)}[kind]
+    return bound(nbytes, flops)
+
+
+def split_bn_checks(torch, tag):
+    """Phase 2 and 10 for the four split BN+ReLU kernels: each against its
+    plain version at SPLIT_ROWS rows a rank, C = 1024, bf16 (y and dx
+    within one bf16 ulp plus BN_TOL of the largest magnitude; the [3, C]
+    and [2, C] sums at BN_TOL), the ranks' stats merged by Chan's formula
+    against the fused forward's over the union; then each timed at 2048
+    rows beside its plain version and a library call, with its bound.
+    Launches here are comparisons: the counts are reset after."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import bn_relu, bn_split as s
+    out = {"errors": {}, "times": {}}
+    for N in SPLIT_ROWS:
+        x, g, b, dy = bn_args(torch, N, SPLIT_C, "bfloat16", 190 + N)
+        st = s.split_stats(x)
+        want_st = s.split_stats_reference(x)
+        n, mean, var = s.chan_merge([s.split_stats(x[:N // 2]),
+                                     s.split_stats(x[N // 2:])])
+        _, f_mean, f_var = bn_relu.bn_relu_forward(x, g, b)
+        y = s.split_apply(x, g, b, mean, var)
+        want_y = s.split_apply_reference(x, g, b, mean, var)
+        sums = s.split_bwd_sums(x, g, b, mean, var, dy)
+        want_sums = s.split_bwd_sums_reference(x, g, b, mean, var, dy)
+        dx = s.split_bwd_dx(x, g, b, mean, var, dy, want_sums, float(N))
+        want_dx = s.split_bwd_dx_reference(x, g, b, mean, var, dy, want_sums,
+                                           float(N))
+        torch.cuda.synchronize()
+        err = lambda a, w: float((a.float() - w.float()).abs().max())
+        rel = lambda a, w: err(a, w) / max(float(w.float().abs().max()),
+                                           1e-30)
+        sums_rel = {"stats": rel(st, want_st),
+                    "bwd_sums": rel(sums, want_sums),
+                    "merge_mean": rel(mean, f_mean),
+                    "merge_var": rel(var, f_var)}
+        for k, r in sums_rel.items():
+            check(r <= BN_TOL, f"split BN {k} at N={N}: {r:.3e} of the "
+                  f"largest magnitude > {BN_TOL}")
+        errs = {"stats": err(st, want_st), "bwd_sums": err(sums, want_sums)}
+        for k, got, want in (("apply", y, want_y), ("bwd_dx", dx, want_dx)):
+            ok, errs[k], _ = ulp_err(got, want, "bfloat16")
+            check(ok, f"split BN {k} at N={N}: {errs[k]:.3e} beyond one "
+                  f"bf16 ulp + {BN_TOL}")
+        out["errors"][N] = dict(errs, relative=sums_rel)
+        print(f"{tag} split BN+ReLU kernels vs plain at N={N} (a rank's "
+              f"rows), C={SPLIT_C}, bf16, max abs err: stats "
+              f"{errs['stats']:.3e} ({sums_rel['stats']:.3e} of the largest"
+              f" value), apply {errs['apply']:.3e}, bwd_sums "
+              f"{errs['bwd_sums']:.3e} ({sums_rel['bwd_sums']:.3e}), bwd_dx"
+              f" {errs['bwd_dx']:.3e}; two halves merged by Chan's formula "
+              f"vs the fused forward's stats: mean "
+              f"{sums_rel['merge_mean']:.3e}, var "
+              f"{sums_rel['merge_var']:.3e} of the largest")
+    # times at 2048 rows a rank
+    N = SPLIT_ROWS[-1]
+    x, g, b, dy = bn_args(torch, N, SPLIT_C, "bfloat16", 199)
+    n, mean, var = s.chan_merge([s.split_stats(x)])
+    sums = s.split_bwd_sums(x, g, b, mean, var, dy)
+    yl = torch.relu(F.batch_norm(x, mean, var, g, b, training=False,
+                                 eps=1e-5))
+    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    invstd = torch.rsqrt(var + 1e-5)
+
+    def lib_bwd():
+        # the library's backward of the apply: the ReLU mask, then ATen's
+        # given-statistics BatchNorm backward (dx, dgamma, dbeta; its CUDA
+        # path wants the saved statistics defined even in eval mode)
+        return torch.ops.aten.native_batch_norm_backward(
+            torch.where(yl > 0, dy, zero), x, g, mean, var, mean, invstd,
+            False, 1e-5, [True, True, True])
+    calls = {
+        "stats": (lambda: s.split_stats(x),
+                  lambda: s.split_stats_reference(x),
+                  lambda: torch.var_mean(x, dim=0, correction=0),
+                  "torch.var_mean over the rank's rows (bf16 in)"),
+        "apply": (lambda: s.split_apply(x, g, b, mean, var),
+                  lambda: s.split_apply_reference(x, g, b, mean, var),
+                  lambda: torch.relu(F.batch_norm(x, mean, var, g, b,
+                                                  training=False,
+                                                  eps=1e-5)),
+                  "F.batch_norm(training=False) with the given statistics,"
+                  " then relu"),
+        "bwd_sums": (lambda: s.split_bwd_sums(x, g, b, mean, var, dy),
+                     lambda: s.split_bwd_sums_reference(x, g, b, mean, var,
+                                                        dy),
+                     lib_bwd,
+                     "the apply's library backward: the ReLU mask and "
+                     "aten.native_batch_norm_backward with the given "
+                     "statistics (dx, dgamma, dbeta; beside both backward "
+                     "kernels)"),
+        "bwd_dx": (lambda: s.split_bwd_dx(x, g, b, mean, var, dy, sums,
+                                          float(N)),
+                   lambda: s.split_bwd_dx_reference(x, g, b, mean, var, dy,
+                                                    sums, float(N)),
+                   lib_bwd, "the apply's library backward, as bwd_sums'"),
+    }
+    for kind, (kern, plain, lib, what) in calls.items():
+        bms, by = split_bound(kind, N, SPLIT_C, 2)
+        out["times"][kind] = {"ms": graph_ms(torch, kern),
+                              "wall_ms": cuda_ms(torch, kern),
+                              "plain_ms": graph_ms(torch, plain),
+                              "library_ms": graph_ms(torch, lib),
+                              "library": what, "bound_ms": bms,
+                              "bound_by": by}
+        t = out["times"][kind]
+        print(f"{tag} split BN {kind} at N={N} a rank, C={SPLIT_C}, bf16 "
+              f"(device ms a call, replayed from a CUDA graph): "
+              f"{t['ms']:.4f} ({t['wall_ms']:.4f} a call launched back to "
+              f"back), plain {t['plain_ms']:.4f}, library "
+              f"{t['library_ms']:.4f}, bound {bms:.4f} ({by})")
+    s.reset_launches()
+    bn_relu.reset_launches()
+    return out
+
+
+def _mp_flat(torch, tree):
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for t in flat_leaves(tree)]).numpy()
+
+
+def _mp_lm_job(pt, torch, rank, tmp, name, axes, kw):
+    """One LM run of (a) / (c) on the ranks of its mesh: 8 steps of the
+    bf16 LM from the zip; rank 0's parameters, every rank's launches,
+    host copies and step times."""
+    from deeplearning4j_tpu_torch.kernels import attention
+    from deeplearning4j_tpu_torch.parallel import (ParallelTrainer,
+                                                   collectives, make_mesh)
+    n = int(np.prod(list(axes.values())))
+    mesh = make_mesh(dict(axes), devices=list(range(n)), device=DEVICE)
+    if rank >= n:
+        return None
+    net = pt.ModelSerializer.restore(os.path.join(tmp, "mp_lm.zip"),
+                                     device=DEVICE)
+    d = np.load(os.path.join(tmp, "mp_lm.npz"))
+    batches = [pt.DataSet(d["x"][i:i + LM_TRAIN_B], d["y"][i:i + LM_TRAIN_B])
+               for i in range(0, MP_LM_STEPS * LM_TRAIN_B, LM_TRAIN_B)]
+    tr = ParallelTrainer(net, mesh=mesh, **kw)
+    attention.reset_launches()
+    collectives.reset_host_copies()
+    step_ms = []
+    for ds in batches:
+        t0 = time.perf_counter()
+        tr._fit_batch(ds)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = attention.launch_counts()
+    var = attention.variant_counts()
+    copies = collectives.host_copies()
+    score = float(tr.score())
+    tr._sync_back()
+    return {"flat": _mp_flat(torch, net.params) if rank == 0 else None,
+            "counts": counts, "variants": {k: dict(v) for k, v in
+                                           var.items()},
+            "copies": copies, "step_ms": step_ms, "score": score,
+            "flash": tr.flash_mode}
+
+
+def _mp_bn_job(pt, torch, rank, tmp):
+    """(d): the BN-MLP under SYNC REPLICATED over MP_BN_RANKS ranks (the
+    global batch of 128 split), 10 steps; the split kernels' launches."""
+    from deeplearning4j_tpu_torch.kernels import bn_relu, bn_split
+    from deeplearning4j_tpu_torch.parallel import (ParallelTrainer,
+                                                   collectives, make_mesh)
+    mesh = make_mesh({"data": MP_BN_RANKS},
+                     devices=list(range(MP_BN_RANKS)), device=DEVICE)
+    if rank >= MP_BN_RANKS:
+        return None
+    net = pt.ModelSerializer.restore(os.path.join(tmp, "mp_mlp.zip"),
+                                     device=DEVICE)
+    d = np.load(os.path.join(tmp, "mp_mlp.npz"))
+    mb = [pt.DataSet(d["x"][i:i + MLP_B], d["y"][i:i + MLP_B])
+          for i in (0, MLP_B)]
+    tr = ParallelTrainer(net, mesh=mesh)
+    bn_split.reset_launches()
+    bn_relu.reset_launches()
+    collectives.reset_host_copies()
+    t0 = time.perf_counter()
+    tr.fit(pt.ListDataSetIterator(mb), epochs=PAR_MLP_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"flat": _mp_flat(torch, net.params) if rank == 0 else None,
+           "state": _mp_flat(torch, net.state) if rank == 0 else None,
+           "split": bn_split.launch_counts(),
+           "fused": bn_relu.launch_counts(),
+           "copies": collectives.host_copies(), "wall_s": wall,
+           "score": float(tr.score())}
+    # the control: the fault the split kernels fix, each rank normalising
+    # by its own rows' statistics (the gradients still all-reduced)
+    ctl = pt.ModelSerializer.restore(os.path.join(tmp, "mp_mlp.zip"),
+                                     device=DEVICE)
+    tr = ParallelTrainer(ctl, mesh=mesh)
+    tr._bn_global = False
+    tr.fit(pt.ListDataSetIterator(mb), epochs=PAR_MLP_EPOCHS)
+    torch.cuda.synchronize()
+    out["per_rank_flat"] = _mp_flat(torch, ctl.params) if rank == 0 \
+        else None
+    out["per_rank_state"] = _mp_flat(torch, ctl.state) if rank == 0 \
+        else None
+    return out
+
+
+def _mp_ring_job(pt, torch, rank, tmp):
+    """(e): ring attention over a sequence group of 2 ranks, f32: this
+    rank's block of the output and of the gradients (sum of the output)."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        ring_self_attention
+    mesh = make_mesh({"seq": 2}, devices=[0, 1], device=DEVICE)
+    if rank >= 2:
+        return None
+    B, T, H, Dh = MP_RING
+    r = np.random.default_rng(195)
+    q, k, v = (torch.tensor(r.normal(size=(B, T, H, Dh)).astype(np.float32),
+                            device=DEVICE) for _ in range(3))
+    sl = slice(rank * T // 2, (rank + 1) * T // 2)
+    qb, kb, vb = (a[:, sl].clone().requires_grad_(True) for a in (q, k, v))
+    t0 = time.perf_counter()
+    out = ring_self_attention(qb, kb, vb, mesh, axis="seq", causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"out": out.detach().cpu().numpy(),
+            "dq": qb.grad.cpu().numpy(), "dk": kb.grad.cpu().numpy(),
+            "dv": vb.grad.cpu().numpy(), "wall_s": wall}
+
+
+def _mp_elastic_job(pt, torch, rank, tmp):
+    """(f): ElasticTrainer over the whole world on the bf16 LM (data
+    parallel): a SIGTERM to rank 1 at step MP_ELASTIC_SIGTERM drains every
+    rank at the next edge; a new trainer resumes from the directory; an
+    uninterrupted run in another directory is the control."""
+    from deeplearning4j_tpu_torch.fault import injection
+    from deeplearning4j_tpu_torch.parallel import ElasticTrainer
+    d = np.load(os.path.join(tmp, "mp_lm.npz"))
+    batches = [pt.DataSet(d["x"][i:i + LM_TRAIN_B], d["y"][i:i + LM_TRAIN_B])
+               for i in range(0, MP_ELASTIC_STEPS * LM_TRAIN_B, LM_TRAIN_B)]
+    factory = lambda: pt.ModelSerializer.restore(
+        os.path.join(tmp, "mp_lm.zip"), device=DEVICE)
+    kw = dict(mesh_shape=(MP_WORLD, 1), snapshot_every=MP_ELASTIC_EVERY,
+              lease_ttl_s=120.0, commit_timeout_s=120.0, timeout_s=120.0,
+              device=DEVICE)
+    if rank == 1:
+        injection.sigterm_at_step(MP_ELASTIC_SIGTERM)
+    et = ElasticTrainer(factory, os.path.join(tmp, "elastic"), **kw)
+    first = (et.fit(batches, MP_ELASTIC_STEPS), et.trainer.iteration_count)
+    injection._crash_hooks.pop(injection.STEP_POINT, None)
+    et = ElasticTrainer(factory, os.path.join(tmp, "elastic"), **kw)
+    second = (et.fit(batches, MP_ELASTIC_STEPS), et.trainer.iteration_count)
+    resumed = _mp_flat(torch, et.trainer.publish_view().params)
+    ctl = ElasticTrainer(factory, os.path.join(tmp, "elastic_ctl"), **kw)
+    third = (ctl.fit(batches, MP_ELASTIC_STEPS), ctl.trainer.iteration_count)
+    control = _mp_flat(torch, ctl.trainer.publish_view().params)
+    return {"first": first, "second": second, "control": third,
+            "bit_equal": bool(np.array_equal(resumed, control))}
+
+
+def _mp_worker(rank, port, tmp, results):
+    """A rank of phase 19's world: gloo over localhost, tensors on the one
+    card; runs every job in order (each job makes its mesh with every
+    rank, as making a group takes) and puts (rank, ok, results)."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import deeplearning4j_tpu_torch as pt
+        from deeplearning4j_tpu_torch import kernels
+        kernels.library()
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}",
+            world_size=MP_WORLD, rank=rank,
+            timeout=datetime.timedelta(seconds=180))
+        out = {"probe": _gloo_probe(torch, dist, rank)}
+        for name, axes, kw in MP_LM_RUNS:
+            out[name] = _mp_lm_job(pt, torch, rank, tmp, name, axes, kw)
+        out["bn"] = _mp_bn_job(pt, torch, rank, tmp)
+        out["ring"] = _mp_ring_job(pt, torch, rank, tmp)
+        out["elastic"] = _mp_elastic_job(pt, torch, rank, tmp)
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _gloo_probe(torch, dist, rank):
+    """Which collectives gloo takes on CPU tensors between these
+    processes (the transport the collective layer stages CUDA tensors
+    through); a CUDA tensor handed to gloo itself aborts the process on
+    this machine's build, so it is not tried."""
+    res = {}
+    t = torch.full((4,), float(rank + 1))
+    dist.all_reduce(t)
+    res["all_reduce"] = t.tolist() == [float(sum(range(1, MP_WORLD + 1)))] * 4
+    out = torch.empty(4 * MP_WORLD)
+    dist.all_gather_into_tensor(out, torch.full((4,), float(rank)))
+    res["all_gather_into_tensor"] = out.reshape(MP_WORLD, 4)[:, 0].tolist() \
+        == [float(r) for r in range(MP_WORLD)]
+    o2 = torch.empty(1)
+    dist.reduce_scatter_tensor(o2, torch.ones(MP_WORLD))
+    res["reduce_scatter_tensor"] = float(o2) == float(MP_WORLD)
+    buf = torch.empty(2)
+    peer = rank ^ 1
+    for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, torch.full((2,), float(rank)), peer),
+            dist.P2POp(dist.irecv, buf, peer)]):
+        w.wait()
+    res["batch_isend_irecv"] = buf.tolist() == [float(peer)] * 2
+    return res
+
+
+def model_parallel_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 15 (phase 19): the model-parallel strategies through
+    kernels 1-5 on the one card. Returns its launches and numbers."""
+    import torch.multiprocessing as tmp_mp
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, bn_split
+    from deeplearning4j_tpu_torch.parallel import (ParallelTrainer,
+                                                   PipelinedNetworkTrainer,
+                                                   initialize, make_mesh)
+    t_phase = time.perf_counter()
+    L = pt.ListDataSetIterator
+    out = {"card": tag.strip("[]"), "lm": {}}
+    # -- the zips, batches and the single-process references --------------
+    ids, lab = lm_text_batches(root)
+    n_rows = MP_LM_STEPS * LM_TRAIN_B
+    np.savez(os.path.join(tmp, "mp_lm.npz"), x=ids[:n_rows], y=lab[:n_rows])
+    lm_batches = [pt.DataSet(ids[i:i + LM_TRAIN_B], lab[i:i + LM_TRAIN_B])
+                  for i in range(0, n_rows, LM_TRAIN_B)]
+    lzip = os.path.join(tmp, "mp_lm.zip")
+    pt.ModelSerializer.write_model(make_lm(
+        pt, torch, 91, updater=pt.Adam(LM_LR, beta2=0.99),
+        compute_dtype="bfloat16", warmup=True), lzip)
+    base = pt.ModelSerializer.restore(lzip, device=DEVICE)
+    ref = base.clone()
+    ref.fit(L(lm_batches))
+    torch.cuda.synchronize()
+    ref_flat = _mp_flat(torch, ref.params)
+    base_flat = _mp_flat(torch, base.params)
+
+    def move_gap(flat, ref_, base_):
+        """|flat - ref_| over the norm of ref_'s move from base_."""
+        return float(np.linalg.norm(flat - ref_)
+                     / max(np.linalg.norm(ref_ - base_), 1e-30))
+
+    # three wrong updates against the LM runs' yardstick: none at all (1
+    # by construction), the last step lost, each step on half its rows
+    stale, half = base.clone(), base.clone()
+    stale.fit(L(lm_batches[:-1]))
+    half.fit(L([pt.DataSet(ids[i:i + LM_TRAIN_B // 2],
+                           lab[i:i + LM_TRAIN_B // 2])
+                for i in range(0, n_rows, LM_TRAIN_B)]))
+    torch.cuda.synchronize()
+    lm_controls = {name: move_gap(_mp_flat(torch, n.params), ref_flat,
+                                  base_flat)
+                   for name, n in (("no_update", base),
+                                   ("last_step_lost", stale),
+                                   ("half_batch", half))}
+    check(min(lm_controls.values()) > PAR_WIRE_TOL,
+          f"the LM runs' controls {lm_controls} do not exceed their limit "
+          f"{PAR_WIRE_TOL}")
+    out["lm_controls"] = lm_controls
+    print(f"{tag} model parallel: the bf16 LM runs are held to fit at "
+          f"{PAR_WIRE_TOL} of fit's move; its controls read "
+          + ", ".join(f"{k} {v:.3e}" for k, v in lm_controls.items()))
+    del stale, half
+    x_tr, y_tr, _, _ = pt.bundled_mnist_subset()
+    np.savez(os.path.join(tmp, "mp_mlp.npz"), x=x_tr[:2 * MLP_B],
+             y=y_tr[:2 * MLP_B])
+    mzip = os.path.join(tmp, "mp_mlp.zip")
+    pt.ModelSerializer.write_model(pt.MultiLayerNetwork(
+        pt.MultiLayerConfiguration.from_json(bn_mlp_json(pt)),
+        device=DEVICE).init(generator=torch.Generator().manual_seed(92)),
+        mzip)
+    mref = pt.ModelSerializer.restore(mzip, device=DEVICE)
+    m_base = (_mp_flat(torch, mref.params), _mp_flat(torch, mref.state))
+    mb = [pt.DataSet(x_tr[i:i + MLP_B], y_tr[i:i + MLP_B])
+          for i in (0, MLP_B)]
+    mref.fit(L(mb), epochs=PAR_MLP_EPOCHS)
+    m_stale = pt.ModelSerializer.restore(mzip, device=DEVICE)
+    m_stale.fit(L((mb * PAR_MLP_EPOCHS)[:-1]))
+    torch.cuda.synchronize()
+
+    def lm_gap(flat, what):
+        p_err = float(np.linalg.norm(flat - ref_flat)
+                      / max(np.linalg.norm(ref_flat), 1e-30))
+        m_err = move_gap(flat, ref_flat, base_flat)
+        check(p_err <= BF16_PARAM_TOL and m_err <= PAR_WIRE_TOL,
+              f"{what}: parameters {p_err:.3e} from the model's own fit "
+              f"(limit {BF16_PARAM_TOL}), {m_err:.3e} of its move (limit "
+              f"{PAR_WIRE_TOL}; controls {lm_controls})")
+        return p_err, m_err
+
+    # -- (b) PIPELINE: the host-driven GPipe in this process ---------------
+    n = base.clone()
+    gp = PipelinedNetworkTrainer(
+        n, n_stages=MP_GPIPE_STAGES, n_microbatches=MP_GPIPE_MICRO,
+        boundaries=[1 + LM_BLOCKS // 2],            # 3 blocks a stage
+        devices=[DEVICE] * MP_GPIPE_STAGES)
+    reset_counts()
+    bn_split.reset_launches()
+    t0 = time.perf_counter()
+    gp.fit(L(lm_batches))
+    gp.sync_back()
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    counts, var = attention.launch_counts(), attention.variant_counts()
+    per = LM_BLOCKS * MP_GPIPE_MICRO * MP_LM_STEPS
+    check(counts == {"launches": 0, "lse_launches": per, "dq_launches": per,
+                     "dkv_launches": per}
+          and var["dq"]["wgmma"] == var["dkv"]["wgmma"] == per,
+          f"pipeline (GPipe): attention launches {counts} {var}, want "
+          f"{per} each, wgmma")
+    p_err, m_err = lm_gap(_mp_flat(torch, n.params), "pipeline (GPipe)")
+    out["lm"]["pipeline"] = {"param_rel_l2": p_err, "param_rel_move": m_err,
+                             "launches": counts, "wall_s": g_wall,
+                             "step_ms": 1e3 * g_wall / MP_LM_STEPS}
+    gpipe_launches = {k: counts[k] // MP_LM_STEPS
+                      for k in ("lse_launches", "dq_launches",
+                                "dkv_launches")}
+    print(f"{tag} model parallel (b) bf16 LM by PIPELINE (GPipe, "
+          f"{MP_GPIPE_STAGES} stages of {LM_BLOCKS // 2} blocks on the one "
+          f"card, {MP_GPIPE_MICRO} microbatches), {MP_LM_STEPS} steps: "
+          f"params {p_err:.3e} from the model's own fit, {m_err:.3e} of "
+          f"its move (limits {BF16_PARAM_TOL}, {PAR_WIRE_TOL}); attention "
+          f"{counts}, dq / "
+          f"dk/dv all wgmma; {1e3 * g_wall / MP_LM_STEPS:.1f} ms a step")
+
+    # -- TENSOR_PARALLEL and ZERO1_TP at one NCCL rank, superstep 4 --------
+    own_group = not dist.is_initialized()
+    if own_group:
+        check(initialize(f"localhost:{_free_port()}", 1, 0) is True,
+              "initialize did not make a process group")
+    mesh = make_mesh({"data": 1, "model": 1}, device=DEVICE)
+    out["nccl_superstep"] = {}
+    for strategy in ("tensor_parallel", "zero1_tp"):
+        runs = []
+        for k in (1, 4):
+            n = base.clone()
+            ParallelTrainer(n, mesh=mesh, strategy=strategy).fit(
+                L(lm_batches), superstep=k)
+            torch.cuda.synchronize()
+            runs.append(n)
+        bit = (trees_equal(torch, runs[0].params, runs[1].params)
+               and trees_equal(torch, runs[0].updater_state,
+                               runs[1].updater_state))
+        check(bit, f"{strategy} at one NCCL rank: superstep=4 is not "
+              "bit-equal to superstep=1")
+        out["nccl_superstep"][strategy] = bit
+    print(f"{tag} model parallel: TENSOR_PARALLEL and ZERO1_TP on a "
+          "one-rank NCCL group (data 1, model 1) at superstep 4 (CUDA-graph"
+          " replays) bit-equal to superstep 1")
+    if own_group:
+        dist.destroy_process_group()
+
+    # -- (a), (c), (d), (e), (f): the world of MP_WORLD processes ----------
+    ctx = tmp_mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mp_worker, args=(r, port, tmp, results))
+             for r in range(MP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            rank, ok, val = results.get(timeout=900)
+            if ok:
+                got[rank] = val
+            else:
+                errors.append(f"rank {rank}:\n{val}")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    check(not errors, "phase 19's world failed:\n" + "\n".join(errors))
+    out["world_s"] = time.perf_counter() - t0
+    out["gloo_cpu_probe"] = got[0]["probe"]
+    print(f"{tag} model parallel: {MP_WORLD} processes on the one card, "
+          "gloo between them; every collective of a CUDA tensor staged "
+          "through pinned host memory (this machine's gloo has no CUDA "
+          "transport); gloo's CPU collectives between the processes: "
+          + ", ".join(f"{k} {'ok' if v else 'WRONG'}"
+                      for k, v in got[0]["probe"].items()))
+    check(all(got[0]["probe"].values()), "gloo's CPU collectives gave "
+          f"wrong results: {got[0]['probe']}")
+    launches = {"pipeline": {"per_rank_per_step": gpipe_launches,
+                             "blocks_per_rank": LM_BLOCKS, "ranks": 1}}
+    for name, axes, kw in MP_LM_RUNS:
+        n_ranks = int(np.prod(list(axes.values())))
+        rows = [got[r][name] for r in range(n_ranks)]
+        blocks = LM_BLOCKS // axes.get("pipe", 1)
+        per = blocks * MP_LM_STEPS
+        for r, row in enumerate(rows):
+            c, v = row["counts"], row["variants"]
+            check(c == {"launches": 0, "lse_launches": per,
+                        "dq_launches": per, "dkv_launches": per}
+                  and v["dq"]["wgmma"] == v["dkv"]["wgmma"] == per,
+                  f"{name} rank {r}: attention launches {c} {v}, want "
+                  f"{per} each (wgmma)")
+        p_err, m_err = lm_gap(rows[0]["flat"], name)
+        s_err = abs(rows[0]["score"] - float(ref._score))
+        check(s_err <= BF16_SCORE_TOL, f"{name}: last score {s_err:.3e} "
+              f"from the model's own fit > {BF16_SCORE_TOL}")
+        step = float(np.median(rows[0]["step_ms"]))
+        copies = rows[0]["copies"]
+        out["lm"][name] = {"param_rel_l2": p_err, "param_rel_move": m_err,
+                           "score_err": s_err, "step_p50_ms": step,
+                           "launches_rank0": rows[0]["counts"],
+                           "host_copies_rank0": copies,
+                           "flash": rows[0]["flash"], "ranks": n_ranks}
+        launches[name] = {"per_rank_per_step": {
+            k: rows[0]["counts"][k] // MP_LM_STEPS
+            for k in ("lse_launches", "dq_launches", "dkv_launches")},
+            "blocks_per_rank": blocks, "ranks": n_ranks}
+        print(f"{tag} model parallel {'(a)' if 'pp' not in name else '(c)'}"
+              f" bf16 LM by {name} on {axes} ({n_ranks} processes): params "
+              f"{p_err:.3e} from the model's own fit, {m_err:.3e} of its "
+              f"move (limits {BF16_PARAM_TOL}, {PAR_WIRE_TOL}), last score "
+              f"{s_err:.3e} "
+              f"(limit {BF16_SCORE_TOL}); attention a rank "
+              f"{rows[0]['counts']} ({blocks} blocks x {MP_LM_STEPS} steps, "
+              f"wgmma; flash mode {rows[0]['flash']}); step p50 "
+              f"{step:.1f} ms; host staging on rank 0: "
+              f"{copies['to_host']} + {copies['to_device']} copies, "
+              f"{copies['bytes'] / 1e6:.1f} MB")
+    # (d) global-batch BN over two ranks against the one-rank fused run
+    rows = [got[r]["bn"] for r in range(MP_BN_RANKS)]
+    steps = PAR_MLP_EPOCHS * 2
+    want = {k: 2 * steps for k in ("stats_launches", "apply_launches",
+                                   "bwd_sums_launches", "bwd_dx_launches")}
+    for r, row in enumerate(rows):
+        check(row["split"] == want and set(row["fused"].values()) == {0},
+              f"BN-MLP over {MP_BN_RANKS} ranks, rank {r}: split launches "
+              f"{row['split']} (want {want}), fused {row['fused']} (want "
+              "none)")
+    m_flat = _mp_flat(torch, mref.params)
+    bn_err = float(np.linalg.norm(rows[0]["flat"] - m_flat)
+                   / np.linalg.norm(m_flat))
+    st_flat = _mp_flat(torch, mref.state)
+    st_err = float(np.linalg.norm(rows[0]["state"] - st_flat)
+                   / np.linalg.norm(st_flat))
+    bs_err = abs(rows[0]["score"] - float(mref._score))
+
+    def bn_move(params, state):
+        """(parameter, running-statistics) gaps over their moves."""
+        return (move_gap(params, m_flat, m_base[0]),
+                move_gap(state, st_flat, m_base[1]))
+
+    def bn_held(gaps):
+        return (gaps[0] <= MP_BN_MOVE_TOL
+                and gaps[1] <= MP_BN_STATE_MOVE_TOL)
+
+    bn_gaps = bn_move(rows[0]["flat"], rows[0]["state"])
+    bn_controls = {
+        "no_update": bn_move(*m_base),
+        "last_step_lost": bn_move(_mp_flat(torch, m_stale.params),
+                                  _mp_flat(torch, m_stale.state)),
+        "per_rank_statistics": bn_move(rows[0]["per_rank_flat"],
+                                       rows[0]["per_rank_state"])}
+    ctl_text = ", ".join(f"{k} {a:.3e} / {b:.3e}"
+                         for k, (a, b) in bn_controls.items())
+    check(not any(bn_held(g) for g in bn_controls.values()),
+          f"(d)'s controls (parameters / running statistics over their "
+          f"moves) {ctl_text} do not exceed the limits {MP_BN_MOVE_TOL} / "
+          f"{MP_BN_STATE_MOVE_TOL}")
+    check(bn_held(bn_gaps) and bn_err <= BF16_PARAM_TOL
+          and st_err <= BF16_PARAM_TOL and bs_err <= BF16_SCORE_TOL,
+          f"BN-MLP over {MP_BN_RANKS} ranks vs the one-rank fused run: "
+          f"params {bn_err:.3e}, running stats {st_err:.3e} (limit "
+          f"{BF16_PARAM_TOL}); over their moves {bn_gaps[0]:.3e} / "
+          f"{bn_gaps[1]:.3e} (limits {MP_BN_MOVE_TOL} / "
+          f"{MP_BN_STATE_MOVE_TOL}; controls {ctl_text}); score "
+          f"{bs_err:.3e} (limit {BF16_SCORE_TOL})")
+    out["bn"] = {"param_rel_l2": bn_err, "state_rel_l2": st_err,
+                 "param_rel_move": bn_gaps[0], "state_rel_move": bn_gaps[1],
+                 "controls": bn_controls,
+                 "score_err": bs_err, "split_launches_rank0": rows[0]["split"],
+                 "host_copies_rank0": rows[0]["copies"],
+                 "wall_s": rows[0]["wall_s"]}
+    launches["bn"] = {"per_rank_per_step": {k: v // steps for k, v in
+                                            rows[0]["split"].items()},
+                      "ranks": MP_BN_RANKS}
+    print(f"{tag} model parallel (d) BN-MLP (bf16, global batch {MLP_B}, "
+          f"{steps} steps) under SYNC REPLICATED over {MP_BN_RANKS} "
+          f"processes through the split kernels: params {bn_err:.3e}, "
+          f"running stats {st_err:.3e}, score {bs_err:.3e} from the "
+          f"one-rank fused run (limits {BF16_PARAM_TOL}, {BF16_SCORE_TOL}); "
+          f"over their moves {bn_gaps[0]:.3e} / {bn_gaps[1]:.3e} (limits "
+          f"{MP_BN_MOVE_TOL} / {MP_BN_STATE_MOVE_TOL}); controls "
+          f"{ctl_text}; split launches a rank {rows[0]['split']}, fused "
+          "none")
+    # (e) ring attention against kernel 1's primal on the whole sequence
+    from deeplearning4j_tpu_torch.kernels.attention import \
+        flash_attention_heads
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        local_attention_reference
+    B, T, H, Dh = MP_RING
+    r = np.random.default_rng(195)
+    q, k, v = (torch.tensor(r.normal(size=(B, T, H, Dh)).astype(np.float32),
+                            device=DEVICE) for _ in range(3))
+    ring_out = np.concatenate([got[i]["ring"]["out"] for i in (0, 1)], 1)
+    with torch.no_grad():
+        want_o = flash_attention_heads(q, k, v, True).cpu().numpy()
+    ring_err = float(np.abs(ring_out - want_o).max() / np.abs(want_o).max())
+    qq, kk, vv = (a.clone().requires_grad_(True) for a in (q, k, v))
+    local_attention_reference(qq, kk, vv, True).sum().backward()
+    grad_err = max(
+        float(np.abs(np.concatenate([got[i]["ring"][nm] for i in (0, 1)], 1)
+                     - t.grad.cpu().numpy()).max()
+              / np.abs(t.grad.cpu().numpy()).max())
+        for nm, t in (("dq", qq), ("dk", kk), ("dv", vv)))
+    check(ring_err <= RING_TOL and grad_err <= RING_TOL,
+          f"ring attention over 2 ranks: output {ring_err:.3e} from kernel "
+          f"1's primal, gradients {grad_err:.3e} from plain autograd "
+          f"(limit {RING_TOL})")
+    out["ring"] = {"out_rel_err": ring_err, "grad_rel_err": grad_err,
+                   "wall_s": got[0]["ring"]["wall_s"]}
+    print(f"{tag} model parallel (e) ring attention over 2 processes "
+          f"(B={B}, T={T}, H={H}, Dh={Dh}, causal, f32): output "
+          f"{ring_err:.3e} of the largest |o| from kernel 1's primal on the "
+          f"whole sequence, dq/dk/dv {grad_err:.3e} from autograd of the "
+          f"plain attention (limit {RING_TOL})")
+    # (f) the elastic drain and resume
+    el = got[0]["elastic"]
+    check(all(tuple(got[r]["elastic"]["first"]) ==
+              ("drained", MP_ELASTIC_EVERY) for r in range(MP_WORLD))
+          and tuple(el["second"]) == ("completed", MP_ELASTIC_STEPS)
+          and el["bit_equal"],
+          "elastic drain / resume: "
+          f"{[got[r]['elastic'] for r in range(MP_WORLD)]}")
+    out["elastic"] = el
+    print(f"{tag} model parallel (f) ElasticTrainer on the bf16 LM over "
+          f"{MP_WORLD} processes: SIGTERM to rank 1 at step "
+          f"{MP_ELASTIC_SIGTERM}, every rank drained at edge "
+          f"{MP_ELASTIC_EVERY}; a new trainer resumed to step "
+          f"{MP_ELASTIC_STEPS}, final parameters bit-equal to the "
+          "uninterrupted run")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} main path 15 (model-parallel trainer): "
+          f"{out['seconds']:.1f} s ({out['world_s']:.1f} s in the world of "
+          f"{MP_WORLD})")
+    return out
+
+
+def add_model_parallel_launches(line, mp, split):
+    """The attention rows (kernels 1-3) gain `model_parallel_launches`:
+    per rank and step on main path 15; the BN rows (kernels 4-5) the
+    split path's; and the four split kernels their rows."""
+    for e in line["kernels"]:
+        name = e["name"]
+        if name.startswith("attention_bwd") and e.get("variant") == "wgmma" \
+                or name == "flash_attention_fwd_lse_heads":
+            key = ("dq_launches" if "_dq" in name else "dkv_launches"
+                   if "_dkv" in name else "lse_launches")
+            e["model_parallel_launches"] = {
+                run: v["per_rank_per_step"][key]
+                for run, v in mp["launches"].items() if run != "bn"}
+            e["model_parallel_per"] = ("main path 15: launches a rank a "
+                                       "step of the bf16 LM (B=64, T=256)")
+        elif name.startswith("bn_relu") and e.get("variant") == "resident":
+            e["model_parallel_launches"] = 0
+            e["model_parallel_per"] = ("main path 15: at 2 data ranks the "
+                                       "split kernels take the BN layer")
+    rows = []
+    for kind, replaces in (
+            ("stats", "deeplearning4j_tpu/kernels/bn_relu.py:38 "
+                      "(_fwd_kernel's two-pass statistics via _fwd_call's "
+                      "pallas_call :88, over a rank's rows)"),
+            ("apply", "deeplearning4j_tpu/kernels/bn_relu.py:38 "
+                      "(_fwd_kernel's normalise + ReLU via :88, global "
+                      "statistics)"),
+            ("bwd_sums", "deeplearning4j_tpu/kernels/bn_relu.py:50 "
+                         "(_bwd_kernel's dgamma / dbeta sums via _bwd_call's"
+                         " pallas_call :123, over a rank's rows)"),
+            ("bwd_dx", "deeplearning4j_tpu/kernels/bn_relu.py:50 "
+                       "(_bwd_kernel's dx via :123, global sums)")):
+        t = split["times"][kind]
+        rows.append({
+            "name": f"bn_split_{kind}", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/kernels/csrc/bn_relu.cu",
+            "replaces": replaces, "variant": "split",
+            "launches": mp["bn"]["split_launches_rank0"][f"{kind}_launches"],
+            "model_parallel_launches": mp["launches"]["bn"][
+                "per_rank_per_step"][f"{kind}_launches"],
+            "max_abs_err": max(split["errors"][n][kind]
+                               for n in SPLIT_ROWS),
+            "per": f"one launch at N={SPLIT_ROWS[-1]} rows a rank, "
+                   f"C={SPLIT_C}, bf16; launches: rank 0 of main path 15's "
+                   "BN-MLP over 2 ranks (N=64 a rank, 2 BN layers, 10 "
+                   "steps)",
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "card": mp["card"]})
+    line["kernels"].extend(rows)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5180,13 +5996,15 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import deeplearning4j_tpu_torch as pt
     from deeplearning4j_tpu_torch import kernels
-    from deeplearning4j_tpu_torch.kernels import attention, bn_relu, lstm
+    from deeplearning4j_tpu_torch.kernels import (attention, bn_relu, bn_split,
+                                                  lstm)
     from deeplearning4j_tpu_torch.nn.weights import Distribution
 
     def reset_counts():
         lstm.reset_launches()
         attention.reset_launches()
         bn_relu.reset_launches()
+        bn_split.reset_launches()
 
     def check_no_bn_launches(path):
         check(set(bn_relu.launch_counts().values()) == {0},
@@ -5250,6 +6068,20 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s (kernel build "
               "included)")
         return 0
+    if "--model-parallel-only" in sys.argv:
+        # the split BN kernels' checks and main path 15 alone, for work on
+        # the model-parallel trainer; prints no result lines
+        split = split_bn_checks(torch, tag)
+        with tempfile.TemporaryDirectory() as tmp:
+            mp = model_parallel_path(
+                pt, torch, tag, tmp,
+                os.path.dirname(os.path.abspath(__file__)), reset_counts)
+        print(json.dumps({"model_parallel": mp, "split": split},
+                         default=str))
+        print(f"{tag} --model-parallel-only run: "
+              f"{time.perf_counter() - t_start:.1f} s (kernel build "
+              "included)")
+        return 0
     if "--decode-only" in sys.argv:
         # main path 12 alone, for work on the decode plane; prints no
         # result lines
@@ -5263,6 +6095,7 @@ def main():
         return 0
 
     # ---- 2. kernels vs plain on the card --------------------------------
+    print(f"{tag} phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     # the LSTM sequence kernels: each shape takes the variant its plan
     # picks (lstm.sequence_plan): "cluster" at the char-RNN's widths,
     # "streamed" past a cluster CTA's shared memory (H = 512, or a
@@ -5627,8 +6460,12 @@ def main():
     # each kernel variant captured in a CUDA graph and replayed
     n_captured = capture_checks(torch, kernels, lstm, attention, bn_relu,
                                 tag)
+    # the split BN+ReLU kernels of the data-parallel BN layer: against
+    # their plain versions, and their times (phase 10's)
+    split = split_bn_checks(torch, tag)
 
     # ---- 3. main path 1: serve the char-RNN -----------------------------
+    print(f"{tag} phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     rnn_zips = []
     for seed in (1, 2):
         net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=SEQ)
@@ -5656,6 +6493,7 @@ def main():
           f"CPU {serve_err:.3e}")
 
     # ---- 4. stateful sampling ------------------------------------------
+    print(f"{tag} phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     sampler = pt.ModelSerializer.restore(rnn_zips[0])
     steps = []
     step = sampler.rnn_time_step
@@ -5692,6 +6530,7 @@ def main():
           f"{sample_err:.3e}, text {text!r}")
 
     # ---- 5. main path 2: serve the transformer LM -----------------------
+    print(f"{tag} phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     lm_zips = []
     for seed in (1, 2):
         path = os.path.join(tmp, f"lm_{seed}.zip")
@@ -5719,6 +6558,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 6. main path 3: train the char-RNN -----------------------------
+    print(f"{tag} phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     root = os.path.dirname(os.path.abspath(__file__))
     x_text, y_text = readme_batches(root)
     net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=TRAIN_T,
@@ -5875,6 +6715,7 @@ def main():
           f"relative L2 {word_param_err:.3e} (limit {PARAM_TOL})")
 
     # ---- 7. main path 4: train the transformer LM ------------------------
+    print(f"{tag} phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     lm_x, lm_y = lm_text_batches(root)
     lm_zip = os.path.join(tmp, "lm_train.zip")
     # nanoGPT's init (normal, std 0.02): from Xavier at this depth, with no
@@ -6077,6 +6918,7 @@ def main():
           "attention launches")
 
     # ---- 8. main path 5: train the BN-MLP in bf16 -----------------------
+    print(f"{tag} phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
     mlp_json = bn_mlp_json(pt)
     mlp_zip = os.path.join(tmp, "bn_mlp.zip")
@@ -6343,6 +7185,7 @@ def main():
         f"batch {NARROW_B}")
 
     # ---- 9. main path 6: the LM in bf16 compute --------------------------
+    print(f"{tag} phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     # the LM of phase 7 under compute_dtype("bfloat16") (float32 masters),
     # with nanoGPT's warm-up: every block's attention runs the bf16
     # instantiations of kernels 1-3
@@ -6406,7 +7249,8 @@ def main():
         check(all(t.dtype == torch.float32 for t in p.values()),
               "bf16 LM masters not float32")
 
-    # card against CPU: 20 steps at batch LM_CMP_B from the same zip
+    # card against CPU: LM_CMP_STEPS steps at batch LM_CMP_B from the
+    # same zip
     bf16_nets = [pt.ModelSerializer.restore(bf16_zip),
                  pt.ModelSerializer.restore(bf16_zip, device="cpu")]
     bf16_logs = [StepLog(), StepLog()]
@@ -6414,14 +7258,15 @@ def main():
     t0 = time.perf_counter()
     for n, log in zip(bf16_nets, bf16_logs):
         n.set_listeners(log)
-        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+        n.fit(lm_batches(LM_CMP_STEPS * LM_CMP_B, LM_CMP_B))
     bf16_cmp_s = time.perf_counter() - t0
-    check(attention.launch_counts()["lse_launches"] == LM_BLOCKS * LM_STEPS,
+    check(attention.launch_counts()["lse_launches"]
+          == LM_BLOCKS * LM_CMP_STEPS,
           f"bf16 comparison run launches {attention.launch_counts()}")
     bf16_cmp = [[float(v) for v in log.scores] for log in bf16_logs]
     bf16_score_err = float(np.abs(np.subtract(*bf16_cmp)).max())
-    bf16_param_err = adam_param_err(*bf16_nets, LM_LR, LM_STEPS)
-    check_key_bias(bf16_nets, LM_STEPS, "bf16 LM comparison")
+    bf16_param_err = adam_param_err(*bf16_nets, LM_LR, LM_CMP_STEPS)
+    check_key_bias(bf16_nets, LM_CMP_STEPS, "bf16 LM comparison")
 
     # served: a bucket-32 forward of the trained network through the
     # primal kernel, against the same zip on the CPU
@@ -6453,7 +7298,7 @@ def main():
           f"{bf16_scores[-1]:.4f}; card vs CPU: first-step gradients at "
           f"batch {LM_CMP_B} {bf16_grad_err:.3e} of max (limit "
           f"{BF16_GRAD_TOL}; key bias {bf16_bk:.3e} of its W_k's max), "
-          f"{LM_STEPS}-step scores at batch {LM_CMP_B} max abs err "
+          f"{LM_CMP_STEPS}-step scores at batch {LM_CMP_B} max abs err "
           f"{bf16_score_err:.3e} (limit {BF16_SCORE_TOL}; {bf16_cmp_s:.1f} s "
           f"for both), final parameters {bf16_param_err:.3e} (limit "
           f"{BF16_PARAM_TOL}); the trained zip served at bucket 32: "
@@ -6465,13 +7310,13 @@ def main():
     check(bf16_score_err <= BF16_SCORE_TOL, f"bf16 LM scores card vs CPU: "
           f"max abs err {bf16_score_err} > {BF16_SCORE_TOL}")
     check(bf16_param_err <= BF16_PARAM_TOL, f"bf16 LM parameters after "
-          f"{LM_STEPS} steps: {bf16_param_err} > {BF16_PARAM_TOL}")
+          f"{LM_CMP_STEPS} steps: {bf16_param_err} > {BF16_PARAM_TOL}")
     check(bf16_cmp[0][-1] < bf16_cmp[0][0], "the bf16 LM score did not fall "
           f"at batch {LM_CMP_B}: {bf16_cmp[0]}")
     check(bf16_serve_err <= BF16_SCORE_TOL, f"bf16 LM served vs CPU: max abs "
           f"err {bf16_serve_err} > {BF16_SCORE_TOL}")
 
-    # the same 20 steps without the warm-up, through the kernels and
+    # the same steps without the warm-up, through the kernels and
     # through the plain attention on the card, against the CPU: the LM's
     # own amplification of bf16 rounding, printed, not held
     nowarm_zip = os.path.join(tmp, "lm_bf16_nowarm.zip")
@@ -6491,7 +7336,7 @@ def main():
                 nowarm_zip, **({} if device is None else {"device": device}))
             log = StepLog()
             n.set_listeners(log)
-            n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+            n.fit(lm_batches(LM_CMP_STEPS * LM_CMP_B, LM_CMP_B))
         finally:
             block._attend = kernel_attend
         nowarm[name] = [float(v) for v in log.scores]
@@ -6561,6 +7406,7 @@ def main():
               "card vs CPU beyond its limits")
 
     # ---- 10. times (counted launches end above) --------------------------
+    print(f"{tag} phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     # the LSTM sequence kernels: per launch and per step (ms / T of one
     # layer), the cluster variant at the char-RNN's shapes, the streamed one
     # at the word-level layer's
@@ -7175,11 +8021,13 @@ def main():
     print(json.dumps({"bn_mlp_training": bn_mlp}))
 
     # ---- 11. main path 7: the convolutional path -----------------------
+    print(f"{tag} phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     cnn_path(pt, torch, tag, tmp, reset_counts, lambda: {
         f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
         for mod in (lstm, attention, bn_relu)
         for k, n in mod.launch_counts().items()})
     # ---- 12. main path 8: the bidirectional LSTM ------------------------
+    print(f"{tag} phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     hand_counts = lambda: {
         f"{mod.__name__.rsplit('.', 1)[-1]}/{k}": n
         for mod in (lstm, attention, bn_relu)
@@ -7190,26 +8038,35 @@ def main():
     check_no_bn_launches("BiLSTM")
 
     # ---- 13. main path 9: layerwise pretraining; the MoE step -----------
+    print(f"{tag} phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     pretrain_path(pt, torch, tag, tmp, reset_counts, hand_counts)
     moe_step(pt, torch, tag, hand_counts)
 
     # ---- 14. main path 10: ComputationGraphs ----------------------------
+    print(f"{tag} phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     graph = graph_path(pt, torch, tag, tmp, root, reset_counts, hand_counts)
     check(set(attention.launch_counts().values()) == {0}, "the graph path "
           f"launched attention kernels: {attention.launch_counts()}")
 
     # ---- 15. main path 11: the training loop ------------------------------
+    print(f"{tag} phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     loop = loop_path(pt, torch, tag, tmp, root, reset_counts)
     # ---- 16. main path 12: generation, the decode plane -----------------
+    print(f"{tag} phase 16 starts at {time.perf_counter() - t_start:.1f} s")
     decode = decode_path(pt, torch, tag, tmp, root, reset_counts)
     check(set(lstm.launch_counts().values()) == {0}
           and set(bn_relu.launch_counts().values()) == {0},
           "the decode path launched LSTM or BN+ReLU kernels: "
           f"{lstm.launch_counts()} {bn_relu.launch_counts()}")
     # ---- 17. main path 13: the continual loop, its crash drill, the route
+    print(f"{tag} phase 17 starts at {time.perf_counter() - t_start:.1f} s")
     cont = continual_path(pt, torch, tag, tmp, reset_counts)
     # ---- 18. main path 14: the data-parallel trainer --------------------
+    print(f"{tag} phase 18 starts at {time.perf_counter() - t_start:.1f} s")
     par = parallel_path(pt, torch, tag, tmp, root, reset_counts)
+    # ---- 19. main path 15: the model-parallel trainer -------------------
+    print(f"{tag} phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+    mp = model_parallel_path(pt, torch, tag, tmp, root, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -7218,6 +8075,7 @@ def main():
     print(json.dumps({"generation": decode}, default=str))
     print(json.dumps({"continual": cont}, default=str))
     print(json.dumps({"parallel": par}, default=str))
+    print(json.dumps({"model_parallel": mp}, default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -7545,6 +8403,7 @@ def main():
              "first-step gradients); by_shape: its entry point alone, at "
              "shapes its plan gives the resident variant"))]}
     add_parallel_launches(kernels_line, par["launches"])
+    add_model_parallel_launches(kernels_line, mp, split)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

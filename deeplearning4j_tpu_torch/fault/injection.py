@@ -29,9 +29,8 @@ this interpreter, `kill_at_step` / `hang_at_step` / `sigterm_at_step`
 model the death, stall or preemption notice of a whole worker (`os._exit`
 with no teardown, an indefinite sleep, a SIGTERM to itself) at an exact
 optimizer step. They ride the ``elastic/step`` crash point that the
-elastic trainer's supervision loop fires once per step (that loop is
-ROADMAP A11b; `fire_crash_point` drives the point directly meanwhile),
-and `install_faults_from_env` arms
+elastic trainer's supervision loop fires once per step
+(`parallel/elastic.py`), and `install_faults_from_env` arms
 them, and the write-boundary injectors, from ``DL4J_*`` environment
 variables so a child process can be killed at an exact step or write.
 """

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, and the builder that compiles them.
 
-Each kernel module here (lstm.py, attention.py, bn_relu.py) holds, for
+Each kernel module here (lstm.py, attention.py, bn_relu.py, bn_split.py)
+holds, for
 every kernel, the wrapper the layers call, the kernel's plain PyTorch
 version and a launch count. A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises. There is no
@@ -71,7 +72,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-_COUNTED = ("lstm", "attention", "bn_relu")
+_COUNTED = ("lstm", "attention", "bn_relu", "bn_split")
 
 
 def _counted_modules():

@@ -57,6 +57,7 @@ from typing import Optional
 import torch
 
 __all__ = ["flash_attention", "flash_attention_heads",
+           "flash_attention_spmd",
            "flash_attention_fwd_lse_heads", "flash_attention_bwd_heads",
            "attention_bwd_dq", "attention_bwd_dkv", "attention_reference",
            "attention_reference_heads", "attention_reference_heads_lse",
@@ -518,3 +519,79 @@ def flash_attention(q, k, v, causal: bool = False,
                              f"{tuple(t.shape)}")
     return flash_attention_heads(q[:, :, None], k[:, :, None],
                                  v[:, :, None], causal, sm_scale)[:, :, 0]
+
+
+class _Blocks(torch.autograd.Function):
+    """The global [B, T, H, Dh] from each rank's [B/d, T, H/m, Dh] block
+    (gathered over the model group on the head axis, then the data group
+    on the batch axis); backward: this rank's block of the gradient (every
+    rank holds the same global loss, so the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, data_axis, model_axis):
+        from ..parallel.collectives import all_gather_list
+        ctx.index = (mesh.axis_index(data_axis),
+                     mesh.axis_index(model_axis))
+        ctx.shape = tuple(block.shape)
+        heads = torch.cat(all_gather_list(
+            block.contiguous(), mesh.axis_group(model_axis)), dim=2)
+        return torch.cat(all_gather_list(
+            heads, mesh.axis_group(data_axis)), dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (i, j), (b, _, h, _) = ctx.index, ctx.shape
+        return (g[i * b:(i + 1) * b, :, j * h:(j + 1) * h].contiguous(),
+                None, None, None)
+
+
+class _Block(torch.autograd.Function):
+    """This rank's [B/d, T, H/m, Dh] block of a global [B, T, H, Dh]
+    input that every rank holds; backward: the block's gradient in place,
+    summed over the mesh's two groups, so every rank holds the whole
+    input's gradient (as JAX's global array does)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, data_axis, model_axis, rows, heads):
+        ctx.mesh, ctx.axes = mesh, (data_axis, model_axis)
+        ctx.rows, ctx.heads, ctx.shape = rows, heads, tuple(x.shape)
+        return x[rows, :, heads].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collectives import all_reduce_
+        full = g.new_zeros(ctx.shape)
+        full[ctx.rows, :, ctx.heads] = g
+        for axis in ctx.axes:
+            all_reduce_(full, ctx.mesh.axis_group(axis))
+        return full, None, None, None, None, None
+
+
+def flash_attention_spmd(q, k, v, causal: bool = False, *, mesh,
+                         data_axis: str = "data", model_axis: str = "model",
+                         sm_scale: Optional[float] = None):
+    """JAX's `flash_attention_spmd` over the ranks of a (data, model)
+    mesh: q/k/v [B, T, H, Dh] (every rank passes the whole arrays, as
+    JAX's global ones), the batch axis split over `data_axis` and the head
+    axis over `model_axis` (the Megatron layout). Each rank runs
+    `flash_attention_heads` (kernels 1-3 on a CUDA tensor) on its own
+    [B/d, T, H/m, Dh] block, with no collective inside attention; the
+    blocks are gathered into the global result; differentiable, the
+    inputs' gradients whole on every rank (summed over the mesh). Requires
+    B % d == 0 and H % m == 0. Inside the TENSOR_PARALLEL trainer the
+    block is all a rank computes (`TransformerBlock._apply_tp`)."""
+    d, m = mesh.axis_size(data_axis), mesh.axis_size(model_axis)
+    B, H = q.shape[0], q.shape[2]
+    if B % d or H % m:
+        raise ValueError(f"flash_attention_spmd needs B % {d} == 0 and "
+                         f"H % {m} == 0, got B={B}, H={H}")
+    i, j = mesh.axis_index(data_axis), mesh.axis_index(model_axis)
+    rows = slice(i * B // d, (i + 1) * B // d)
+    heads = slice(j * H // m, (j + 1) * H // m)
+    if d * m == 1 or not mesh.distributed:
+        return flash_attention_heads(q, k, v, causal, sm_scale)
+    cut = lambda a: _Block.apply(a, mesh, data_axis, model_axis, rows,
+                                 heads)
+    block = flash_attention_heads(cut(q), cut(k), cut(v), causal, sm_scale)
+    return _Blocks.apply(block, mesh, data_axis, model_axis)
+

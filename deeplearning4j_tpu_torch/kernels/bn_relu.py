@@ -399,7 +399,8 @@ def fused_bn_relu(x, gamma, beta, eps: float = 1e-5):
     """Fused training-mode BatchNorm + ReLU. x: [N, C] or channels-last
     [N, H, W, C] (statistics over every axis but the last). Returns (y,
     batch_mean, batch_var), y shaped like x; the caller updates its running
-    statistics from the batch stats, as the JAX layer does."""
+    statistics from the batch stats, as the JAX layer does. A batch spread
+    over data ranks takes `kernels/bn_split.py`'s `split_bn_relu`."""
     shape = x.shape
     if x.dim() < 2:
         raise ValueError(f"x must be [N, C] or [..., C], got {tuple(shape)}")

@@ -907,3 +907,343 @@ extern "C" long long dl4j_bn_relu_plan_bytes(int resident, int rows,
           : cudaFuncGetAttributes(&a, bn_relu_fwd_kernel<__nv_bfloat16, 8>);
   return e == cudaSuccess ? (long long)a.sharedSizeBytes : -(long long)e;
 }
+
+// ---------------------------------------------------------------------------
+// "split": BN + ReLU over a batch whose rows are spread across ranks
+// ---------------------------------------------------------------------------
+// A data-parallel rank holds only its rows, so the statistics of the global
+// batch cannot come from one resident slab. The layer's pass is split in
+// four launches around two small collectives (kernels/bn_relu.py:
+// split_bn_relu):
+//
+//   stats    per channel, over this rank's rows, the triple
+//            (count, mean, M2 = sum((x - mean)^2)): two passes, as the
+//            fused forward takes them; the ranks all-gather the [3, C]
+//            triples and every rank merges them with Chan's formula in
+//            rank order, so all hold the same global mean and biased var;
+//   apply    y = max((x - mean) * inv * gamma + beta, 0) with the global
+//            statistics: elementwise;
+//   bwd_sums per channel, over this rank's rows, db = sum(dyr) and
+//            dg = sum(dyr * xhat) (dyr: dy under the ReLU mask recomputed
+//            from x); the ranks sum the [2, C] pairs in rank order;
+//   bwd_dx   dx = (gamma * inv / n) * (n * dyr - db - xhat * dg) with the
+//            global sums and the global row count n: elementwise.
+//
+// stats and bwd_sums reuse the streamed variant's layout (a block of 256
+// threads owns 32 channels and loops over the rank's rows, 16-byte packs
+// where C and the pointers allow); apply and bwd_dx add a second grid axis
+// over row blocks, since they reduce nothing. What bounds them: bytes, as
+// the fused kernels (x read twice by stats; x and dy read twice, dx written
+// once, across the backward pair). The same _rn chains as the fused
+// kernels keep their rounding to the plain PyTorch version's.
+namespace {
+
+// rows a thread of the elementwise kernels covers, at most
+constexpr int kSplitRowsPerThread = 4;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_split_stats_kernel(const T* __restrict__ x, float* __restrict__ out,
+                      int N, int C) {
+  using P = Pack<T, V>;
+  __shared__ float red[kWarps][kChannels];
+  __shared__ float tot[kChannels];
+  const Layout<V> L(C);
+  constexpr int kRows = Layout<V>::kRows;
+  const float n = (float)N;
+
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  if (L.live) {
+#pragma unroll 4
+    for (int r = L.rslot; r < N; r += kRows) {
+      const P p = *reinterpret_cast<const P*>(x + (size_t)r * C + L.c);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] += to_f32(p.v[j]);
+    }
+  }
+  block_channel_sums<V, false>(acc, nullptr, red, nullptr, tot, nullptr);
+  float mean[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) mean[j] = N > 0 ? __fdiv_rn(acc[j], n) : 0.0f;
+  __syncthreads();   // tot is reused below
+
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  if (L.live) {
+#pragma unroll 4
+    for (int r = L.rslot; r < N; r += kRows) {
+      const P p = *reinterpret_cast<const P*>(x + (size_t)r * C + L.c);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = __fsub_rn(to_f32(p.v[j]), mean[j]);
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(d, d));
+      }
+    }
+  }
+  block_channel_sums<V, false>(acc, nullptr, red, nullptr, tot, nullptr);
+  if (!L.live || L.rslot != 0) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    out[L.c + j] = n;
+    out[C + L.c + j] = mean[j];
+    out[2 * C + L.c + j] = acc[j];
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_split_apply_kernel(const T* __restrict__ x,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta,
+                      const float* __restrict__ mean_in,
+                      const float* __restrict__ var_in, T* __restrict__ y,
+                      int N, int C, float eps) {
+  using P = Pack<T, V>;
+  const Layout<V> L(C);
+  if (!L.live) return;
+  constexpr int kRows = Layout<V>::kRows;
+  float mean[V], inv[V], g[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mean[j] = mean_in[L.c + j];
+    inv[j] = __frcp_rn(__fsqrt_rn(__fadd_rn(var_in[L.c + j], eps)));
+    g[j] = gamma[L.c + j];
+    b[j] = beta[L.c + j];
+  }
+  const int step = kRows * gridDim.y;
+  for (int r = L.rslot + blockIdx.y * kRows; r < N; r += step) {
+    const size_t off = (size_t)r * C + L.c;
+    const P p = *reinterpret_cast<const P*>(x + off);
+    P q;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float t = __fmul_rn(__fsub_rn(to_f32(p.v[j]), mean[j]), inv[j]);
+      t = __fadd_rn(__fmul_rn(t, g[j]), b[j]);
+      q.v[j] = from_f32<T>(t < 0.0f ? 0.0f : t);   // NaN passes, as relu
+    }
+    *reinterpret_cast<P*>(y + off) = q;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_split_bwd_sums_kernel(const T* __restrict__ x,
+                         const float* __restrict__ gamma,
+                         const float* __restrict__ beta,
+                         const float* __restrict__ mean_in,
+                         const float* __restrict__ var_in,
+                         const T* __restrict__ dy, float* __restrict__ out,
+                         int N, int C, float eps) {
+  using P = Pack<T, V>;
+  __shared__ float red[kWarps][kChannels];
+  __shared__ float red2[kWarps][kChannels];
+  __shared__ float tot[kChannels];
+  __shared__ float tot2[kChannels];
+  const Layout<V> L(C);
+  constexpr int kRows = Layout<V>::kRows;
+
+  float mean[V], inv[V], g[V], b[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = L.live ? L.c + j : 0;
+    mean[j] = mean_in[c];
+    inv[j] = __frcp_rn(__fsqrt_rn(__fadd_rn(var_in[c], eps)));
+    g[j] = gamma[c];
+    b[j] = beta[c];
+  }
+  float sg[V], sb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sg[j] = sb[j] = 0.0f;
+  if (L.live) {
+#pragma unroll 4
+    for (int r = L.rslot; r < N; r += kRows) {
+      const size_t off = (size_t)r * C + L.c;
+      const P px = *reinterpret_cast<const P*>(x + off);
+      const P pd = *reinterpret_cast<const P*>(dy + off);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = __fmul_rn(__fsub_rn(to_f32(px.v[j]), mean[j]),
+                                   inv[j]);
+        const float pre = __fadd_rn(__fmul_rn(xh, g[j]), b[j]);
+        const float d = pre > 0.0f ? to_f32(pd.v[j]) : 0.0f;
+        sg[j] = __fadd_rn(sg[j], __fmul_rn(d, xh));
+        sb[j] += d;
+      }
+    }
+  }
+  block_channel_sums<V, true>(sg, sb, red, red2, tot, tot2);
+  if (!L.live || L.rslot != 0) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    out[L.c + j] = sb[j];
+    out[C + L.c + j] = sg[j];
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+bn_split_bwd_dx_kernel(const T* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       const float* __restrict__ mean_in,
+                       const float* __restrict__ var_in,
+                       const T* __restrict__ dy,
+                       const float* __restrict__ sums, T* __restrict__ dx,
+                       int N, int C, float n, float eps) {
+  using P = Pack<T, V>;
+  const Layout<V> L(C);
+  if (!L.live) return;
+  constexpr int kRows = Layout<V>::kRows;
+  float mean[V], inv[V], g[V], b[V], k[V], sb[V], sg[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = L.c + j;
+    mean[j] = mean_in[c];
+    inv[j] = __frcp_rn(__fsqrt_rn(__fadd_rn(var_in[c], eps)));
+    g[j] = gamma[c];
+    b[j] = beta[c];
+    k[j] = __fdiv_rn(__fmul_rn(g[j], inv[j]), n);
+    sb[j] = sums[c];
+    sg[j] = sums[C + c];
+  }
+  const int step = kRows * gridDim.y;
+  for (int r = L.rslot + blockIdx.y * kRows; r < N; r += step) {
+    const size_t off = (size_t)r * C + L.c;
+    const P px = *reinterpret_cast<const P*>(x + off);
+    const P pd = *reinterpret_cast<const P*>(dy + off);
+    P q;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float xh = __fmul_rn(__fsub_rn(to_f32(px.v[j]), mean[j]),
+                                 inv[j]);
+      const float pre = __fadd_rn(__fmul_rn(xh, g[j]), b[j]);
+      const float d = pre > 0.0f ? to_f32(pd.v[j]) : 0.0f;
+      const float t = __fsub_rn(__fsub_rn(__fmul_rn(n, d), sb[j]),
+                                __fmul_rn(xh, sg[j]));
+      q.v[j] = from_f32<T>(__fmul_rn(k[j], t));
+    }
+    *reinterpret_cast<P*>(dx + off) = q;
+  }
+}
+
+// The elementwise kernels' grid: channel blocks x row blocks, each thread
+// covering at most kSplitRowsPerThread of its column's rows.
+template <int V>
+dim3 split_grid(int N, int C) {
+  constexpr int kRows = Layout<V>::kRows;
+  const int per = kRows * kSplitRowsPerThread;
+  int rb = (N + per - 1) / per;
+  if (rb < 1) rb = 1;
+  if (rb > 65535) rb = 65535;
+  return dim3((C + kChannels - 1) / kChannels, rb);
+}
+
+template <typename T, int V>
+int launch_split_stats(const void* x, float* out, int N, int C,
+                       void* stream) {
+  bn_split_stats_kernel<T, V>
+      <<<(C + kChannels - 1) / kChannels, kThreads, 0,
+         (cudaStream_t)stream>>>(static_cast<const T*>(x), out, N, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_split_apply(const void* x, const float* gamma, const float* beta,
+                       const float* mean, const float* var, void* y, int N,
+                       int C, float eps, void* stream) {
+  bn_split_apply_kernel<T, V>
+      <<<split_grid<V>(N, C), kThreads, 0, (cudaStream_t)stream>>>(
+          static_cast<const T*>(x), gamma, beta, mean, var,
+          static_cast<T*>(y), N, C, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_split_bwd_sums(const void* x, const float* gamma,
+                          const float* beta, const float* mean,
+                          const float* var, const void* dy, float* out,
+                          int N, int C, float eps, void* stream) {
+  bn_split_bwd_sums_kernel<T, V>
+      <<<(C + kChannels - 1) / kChannels, kThreads, 0,
+         (cudaStream_t)stream>>>(static_cast<const T*>(x), gamma, beta,
+                                 mean, var, static_cast<const T*>(dy), out,
+                                 N, C, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_split_bwd_dx(const void* x, const float* gamma,
+                        const float* beta, const float* mean,
+                        const float* var, const void* dy, const float* sums,
+                        void* dx, int N, int C, float n, float eps,
+                        void* stream) {
+  bn_split_bwd_dx_kernel<T, V>
+      <<<split_grid<V>(N, C), kThreads, 0, (cudaStream_t)stream>>>(
+          static_cast<const T*>(x), gamma, beta, mean, var,
+          static_cast<const T*>(dy), sums, static_cast<T*>(dx), N, C, n,
+          eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The split kernels. x, dy, y, dx are [N, C] (this rank's rows); gamma,
+// beta, mean, var are [C] float32; `out` of stats is [3, C] (count, mean,
+// M2), of bwd_sums [2, C] (db, dg); `sums` of bwd_dx is the global [2, C]
+// and `n` the global row count. dtype and wide as above.
+#define DL4J_SPLIT_SWITCH(CALL)                                              \
+  switch (dtype * 2 + (wide ? 1 : 0)) {                                      \
+    case 0: return CALL(float, 1);                                           \
+    case 1: return CALL(float, 4);                                           \
+    case 2: return CALL(__nv_bfloat16, 1);                                   \
+    case 3: return CALL(__nv_bfloat16, 8);                                   \
+    case 4: return CALL(__half, 1);                                          \
+    case 5: return CALL(__half, 8);                                          \
+    default: return (int)cudaErrorInvalidValue;                              \
+  }
+
+extern "C" int dl4j_bn_split_stats(const void* x, float* out, int N, int C,
+                                   int dtype, int wide, void* stream) {
+#define DL4J_CALL(T, V) launch_split_stats<T, V>(x, out, N, C, stream)
+  DL4J_SPLIT_SWITCH(DL4J_CALL)
+#undef DL4J_CALL
+}
+
+extern "C" int dl4j_bn_split_apply(const void* x, const float* gamma,
+                                   const float* beta, const float* mean,
+                                   const float* var, void* y, int N, int C,
+                                   float eps, int dtype, int wide,
+                                   void* stream) {
+#define DL4J_CALL(T, V)                                                      \
+  launch_split_apply<T, V>(x, gamma, beta, mean, var, y, N, C, eps, stream)
+  DL4J_SPLIT_SWITCH(DL4J_CALL)
+#undef DL4J_CALL
+}
+
+extern "C" int dl4j_bn_split_bwd_sums(const void* x, const float* gamma,
+                                      const float* beta, const float* mean,
+                                      const float* var, const void* dy,
+                                      float* out, int N, int C, float eps,
+                                      int dtype, int wide, void* stream) {
+#define DL4J_CALL(T, V)                                                      \
+  launch_split_bwd_sums<T, V>(x, gamma, beta, mean, var, dy, out, N, C, eps, \
+                              stream)
+  DL4J_SPLIT_SWITCH(DL4J_CALL)
+#undef DL4J_CALL
+}
+
+extern "C" int dl4j_bn_split_bwd_dx(const void* x, const float* gamma,
+                                    const float* beta, const float* mean,
+                                    const float* var, const void* dy,
+                                    const float* sums, void* dx, int N,
+                                    int C, float n, float eps, int dtype,
+                                    int wide, void* stream) {
+#define DL4J_CALL(T, V)                                                      \
+  launch_split_bwd_dx<T, V>(x, gamma, beta, mean, var, dy, sums, dx, N, C,   \
+                            n, eps, stream)
+  DL4J_SPLIT_SWITCH(DL4J_CALL)
+#undef DL4J_CALL
+}
+#undef DL4J_SPLIT_SWITCH

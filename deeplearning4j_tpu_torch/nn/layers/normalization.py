@@ -79,8 +79,11 @@ class BatchNormalization(LayerConf):
         return {"mean": torch.zeros(nf, dtype=torch.float32, device=device),
                 "var": torch.ones(nf, dtype=torch.float32, device=device)}
 
-    def _helper(self, x, train) -> Optional[str]:
-        """JAX's selection: 'pallas' | 'fused' | None (plain path)."""
+    def _helper(self, x, train, ranks: int = 1) -> Optional[str]:
+        """JAX's selection: 'pallas' | 'fused' | None (plain path). x holds
+        this rank's rows of a global batch spread evenly over `ranks`
+        ranks; the tier is chosen on the global row count, as JAX's GSPMD
+        step sees the global batch."""
         act = self.activation or "identity"
         if not train or act not in ("identity", "relu"):
             return None
@@ -88,7 +91,7 @@ class BatchNormalization(LayerConf):
             return None  # f32 / f64: the exact two-pass path (gradchecks)
         if x.dim() == 2 and act == "relu" and not self.lock_gamma_beta:
             from ...kernels.bn_relu import _block_c
-            if _block_c(x.shape[1], x.shape[0]) is not None:
+            if _block_c(x.shape[1], x.shape[0] * ranks) is not None:
                 return "pallas"
         return "fused"
 
@@ -107,7 +110,13 @@ class BatchNormalization(LayerConf):
 
     def apply(self, params, state, x, *, train=False, generator=None,
               mask=None):
-        helper = self._helper(x, train)
+        bg = None
+        if train:
+            from ...parallel.collectives import active_batch_group
+            bg = active_batch_group()
+        helper = self._helper(x, train, 1 if bg is None else bg.n)
+        if bg is not None:
+            return self._apply_global(params, state, x, helper, bg)
         if helper is None:
             return self._apply_plain(params, state, x, train=train)
         gamma, beta = self._gamma_beta(params, x.shape[-1], torch.float32,
@@ -125,6 +134,22 @@ class BatchNormalization(LayerConf):
                                         self.activation or "identity",
                                         str(sdt))
         return y, self._running(state, mean, var)   # activation applied
+
+    def _apply_global(self, params, state, x, helper, bg):
+        """Training over a batch spread across the ranks of `bg`: the
+        statistics of the global batch, as JAX's GSPMD step takes them.
+        The kernel tier takes the split kernels (`kernels/bn_split.py`);
+        the others their plain versions, with the same merge."""
+        from ...kernels.bn_split import split_bn_relu
+        gamma, beta = self._gamma_beta(params, x.shape[-1], torch.float32,
+                                       x.device)
+        act = self.activation or "identity"
+        y, mean, var = split_bn_relu(x, gamma, beta, float(self.eps), bg,
+                                     relu=act == "relu",
+                                     kernel=helper == "pallas")
+        if act not in ("identity", "relu"):
+            y = self._act(y)
+        return y, self._running(state, mean, var)
 
     def _apply_plain(self, params, state, x, *, train=False):
         dims = tuple(range(x.dim() - 1))    # all but the feature axis

@@ -19,7 +19,14 @@ the tensor's device picks the implementation. Input dropout draws from the
 network's `torch.Generator`, so only dropout-free runs are compared with
 JAX. The decode-mode methods (`decode_qkv`, `decode_attend`,
 `decode_finish`, `decode_embed`) serve the KV-cache generation plane
-(`serving/decode`); the tensor-parallel hooks wait for the parallel stack.
+(`serving/decode`).
+
+Megatron roles (JAX's `_TP_ROLES`, `tp_shard_axis`, `tp_validate`): inside
+the parallel stack's `tp_region` a block handed its model-axis shards
+(column-parallel W_q / W_k / W_v / W_ffn_in, row-parallel W_o / W_ffn_out)
+attends over its H/m heads and all-reduces once after attention and once
+after the FFN (`parallel/tp.py`); the embedding, handed its vocab rows,
+looks up the ids in them and all-reduces.
 """
 from __future__ import annotations
 
@@ -54,10 +61,39 @@ class TransformerBlock(LayerConf):
     ffn_mult: int = 4           # FFN hidden = ffn_mult * n_model
     causal: bool = True
 
+    # Megatron tensor-parallel roles (JAX's): the axis sharded over
+    # "model", or "replicated"
+    _TP_ROLES = {
+        "W_q": -1, "W_k": -1, "W_v": -1,        # column parallel
+        "b_q": 0, "b_k": 0, "b_v": 0,
+        "W_ffn_in": -1, "b_ffn_in": 0,
+        "W_o": 0, "W_ffn_out": 0,               # row parallel
+        "b_o": "replicated", "b_ffn_out": "replicated",
+        "ln1_g": "replicated", "ln1_b": "replicated",
+        "ln2_g": "replicated", "ln2_b": "replicated",
+    }
+    #: the sharded leaves the block computes with as shards
+    tp_local_keys = ("W_q", "W_k", "W_v", "b_q", "b_k", "b_v", "W_ffn_in",
+                     "b_ffn_in", "W_o", "W_ffn_out")
+
     def __post_init__(self):
         # FFN nonlinearity defaults to gelu (GPT convention), not identity
         if self.activation is None:
             self.activation = "gelu"
+
+    def tp_shard_axis(self, key: str, shape):
+        return self._TP_ROLES.get(key)
+
+    def tp_validate(self, model_size: int):
+        """The QKV reshape [.., F] -> [.., H, Dh] stays local only when the
+        model axis divides the head count (JAX's check and message)."""
+        if model_size > 1 and self.n_heads % model_size:
+            raise ValueError(
+                f"TransformerBlock(n_heads={self.n_heads}) cannot shard "
+                f"over a model axis of size {model_size}: heads must "
+                "split evenly across the axis (n_heads % model_size == "
+                "0). Use a head count divisible by the model-axis size, "
+                "or a smaller model axis")
 
     def _width(self, it: Optional[InputType] = None) -> int:
         if self.n_model:
@@ -117,6 +153,10 @@ class TransformerBlock(LayerConf):
         x = self.maybe_dropout_input(x, train, generator)
         b, t, d = x.shape
         hd = d // self.n_heads
+        from ...parallel.tp import tp_active
+        tp = tp_active()
+        if tp is not None and params["W_q"].shape[1] * tp.size == d:
+            return self._apply_tp(params, x, mask, tp), state
 
         h1 = _layer_norm(x, params["ln1_g"], params["ln1_b"])
         split = lambda z: z.reshape(b, t, self.n_heads, hd)
@@ -130,6 +170,26 @@ class TransformerBlock(LayerConf):
         f = self._act(h2 @ params["W_ffn_in"] + params["b_ffn_in"])
         x = x + f @ params["W_ffn_out"] + params["b_ffn_out"]
         return x, state
+
+    def _apply_tp(self, params, x, mask, tp):
+        """The block on this rank's shards: its H/m heads, the row-parallel
+        partial products summed over the model group in float32."""
+        from ...parallel.tp import copy_to_tp, reduce_from_tp
+        b, t, d = x.shape
+        hd = d // self.n_heads
+        hl = self.n_heads // tp.size
+        h1 = copy_to_tp(_layer_norm(x, params["ln1_g"], params["ln1_b"]), tp)
+        split = lambda z: z.reshape(b, t, hl, hd)
+        q = split(h1 @ params["W_q"] + params["b_q"])
+        k = split(h1 @ params["W_k"] + params["b_k"])
+        v = split(h1 @ params["W_v"] + params["b_v"])
+        a = self._attend(q, k, v, mask).reshape(b, t, hl * hd)
+        o = reduce_from_tp(a @ params["W_o"], tp).to(x.dtype)
+        x = x + o + params["b_o"]
+        h2 = copy_to_tp(_layer_norm(x, params["ln2_g"], params["ln2_b"]), tp)
+        f = self._act(h2 @ params["W_ffn_in"] + params["b_ffn_in"])
+        o = reduce_from_tp(f @ params["W_ffn_out"], tp).to(x.dtype)
+        return x + o + params["b_ffn_out"]
 
     # -- decode mode (KV-cache generation, serving/decode) -----------------
     # The generation plane splits the block in three so that the paged
@@ -188,8 +248,16 @@ class EmbeddingSequenceLayer(LayerConf):
     max_timesteps: Optional[int] = None   # positional table length
                                           # (default: input type timesteps)
 
+    #: the vocab-sharded token table is looked up as its shard
+    tp_local_keys = ("W",)
+
     def output_type(self, it: InputType) -> InputType:
         return InputType.recurrent(self.n_out, it.timesteps)
+
+    def tp_shard_axis(self, key: str, shape):
+        # JAX's: the token table vocab-sharded, the positional table on its
+        # width axis (gathered before the lookup)
+        return 0 if key == "W" else -1
 
     @property
     def has_params(self) -> bool:
@@ -214,9 +282,25 @@ class EmbeddingSequenceLayer(LayerConf):
     def apply(self, params, state, x, *, train=False, generator=None,
               mask=None):
         idx = x[..., 0] if x.dim() == 3 and x.shape[-1] == 1 else x
-        z = take_rows(params["W"], idx)
+        from ...parallel.tp import tp_active
+        tp = tp_active()
+        rows = params["W"].shape[0]
+        if tp is not None and rows * tp.size == self.n_in:
+            z = self._lookup_tp(params["W"], idx, rows, tp)
+        else:
+            z = take_rows(params["W"], idx)
         t = z.shape[1]
         return z + params["P"][:t][None], state
+
+    def _lookup_tp(self, W, idx, rows, tp):
+        """The ids in this rank's vocab rows looked up, the others zero,
+        summed over the model group (exactly one rank holds each id)."""
+        from ...parallel.tp import reduce_from_tp
+        ids = idx.to(torch.int64) - tp.index * rows
+        inside = (ids >= 0) & (ids < rows)
+        z = take_rows(W, torch.where(inside, ids, torch.zeros_like(ids)))
+        z = z * inside.unsqueeze(-1).to(z.dtype)
+        return reduce_from_tp(z, tp).to(W.dtype)
 
     def decode_embed(self, params, idx, positions):
         """Token + position embedding at absolute positions: idx and

@@ -13,8 +13,15 @@ this rank. The axes are JAX's:
   * "pipe"  — pipeline stages
   * "seq"   — sequence parallelism
 
-This slice shards over "data" only; a mesh may carry the other axes, and
-the strategies that use them raise (ROADMAP A11b).
+Each axis has its process groups: `mesh.axis_group(axis)` is the group
+of the ranks that share this rank's coordinates on every other axis (the
+data group of a (data, model) mesh reduces gradients, its model group
+carries the tensor-parallel all-reduces, the pipe group the pipeline's
+point-to-point handoffs). They are made when a mesh of more than one axis
+is made, every group of every axis in the same order, and kept for the
+life of the default process group: `make_mesh` of such a mesh is a
+collective call of every rank of the world (members or not), as making a
+`torch.distributed` group is.
 
 With no process group initialized, `make_mesh` is a world of one rank on
 the caller's device: every collective of the trainer is then skipped by
@@ -83,6 +90,32 @@ class Mesh:
         idx = np.unravel_index(self.rank, self.devices.shape)
         return {k: int(i) for k, i in zip(self.axis_names, idx)}
 
+    def axis_ranks(self, axis: str) -> tuple:
+        """The global ranks along `axis` through this rank, in axis
+        order."""
+        if axis not in self.shape:
+            return (self.ranks[self.rank] if self.distributed else 0,)
+        idx = list(np.unravel_index(self.rank, self.devices.shape))
+        pos = self.axis_names.index(axis)
+        idx[pos] = slice(None)
+        return tuple(int(r) for r in self.devices[tuple(idx)].reshape(-1))
+
+    def axis_index(self, axis: str) -> int:
+        return int(self.coords().get(axis, 0))
+
+    def axis_size(self, axis: str) -> int:
+        return int(self.shape.get(axis, 1))
+
+    def axis_group(self, axis: str):
+        """The process group along `axis` through this rank (None with no
+        process group; the mesh's own group when the axis spans it)."""
+        if not self.distributed:
+            return None
+        ranks = self.axis_ranks(axis)
+        if len(ranks) == self.size:
+            return self.group
+        return _subgroup(ranks)
+
     @property
     def backend(self) -> str:
         dist = _dist()
@@ -91,6 +124,40 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({self.shape}, ranks={self.ranks}, "
                 f"device={self.device}, backend={self.backend})")
+
+
+_GROUPS: Dict[tuple, object] = {}
+
+
+def _subgroup(ranks: tuple):
+    """The process group of `ranks` (global ranks), made once for the
+    default process group's life (every rank of the world takes part in
+    making it: `_make_axis_groups`)."""
+    dist = _dist()
+    key = (id(dist.distributed_c10d._get_default_group()), tuple(ranks))
+    g = _GROUPS.get(key)
+    if g is None:
+        g = dist.new_group(list(ranks))
+        _GROUPS[key] = g
+    return g
+
+
+def _make_axis_groups(mesh: "Mesh"):
+    """Every group of every axis of the mesh, axis by axis, lines in
+    order: the same sequence of group-making calls on every rank."""
+    arr = mesh.devices
+    for pos in range(arr.ndim):
+        if arr.shape[pos] == arr.size:
+            continue
+        lines = np.moveaxis(arr, pos, -1).reshape(-1, arr.shape[pos])
+        for line in lines:
+            _subgroup(tuple(int(r) for r in line))
+
+
+def forget_groups():
+    """Drop the cached axis groups (the elastic trainer re-forms the
+    world)."""
+    _GROUPS.clear()
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
@@ -111,6 +178,9 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
                 "group (parallel.initialize / torch.distributed)")
     elif devices is not None:
         ranks = [int(r) for r in devices]
+        if group is None and len(ranks) < dist.get_world_size():
+            # a mesh over some of the world's ranks: its own group
+            group = _subgroup(tuple(ranks))
     elif group is not None:
         ranks = list(dist.get_process_group_ranks(group))
     else:
@@ -135,7 +205,10 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
         import os
         local = int(os.environ.get("LOCAL_RANK", "0"))
         dev = torch.device("cuda", local % max(1, torch.cuda.device_count()))
-    return Mesh(axes, ranks, dev, group=group)
+    mesh = Mesh(axes, ranks, dev, group=group)
+    if dist is not None and len(axes) > 1:
+        _make_axis_groups(mesh)
+    return mesh
 
 
 def surviving_mesh_shape(n_devices: int, want: Sequence[int]) -> tuple:
@@ -187,7 +260,8 @@ def replicated(mesh: Mesh, tensor: torch.Tensor, src: int = 0
     dist = _dist()
     if dist is not None and mesh.size > 1:
         t = t.contiguous()
-        dist.broadcast(t, src=mesh.ranks[src], group=mesh.group)
+        from .collectives import broadcast_
+        broadcast_(t, mesh.ranks[src], mesh.group)
     return t
 
 

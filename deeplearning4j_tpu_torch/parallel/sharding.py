@@ -7,13 +7,16 @@ to `jax.jit` and XLA inserts the collectives; the port's trainer reads
 them to decide which leaves its ZeRO / FSDP plan shards
 (`parallel/zero.py`), and issues the collectives itself.
 
-Strategies of this slice (ROADMAP A11a): REPLICATED (pure data
-parallelism), FSDP (each tensor sharded over "data" on its largest
-divisible axis, gathered before use), ZERO1 / ZERO2 (params replicated,
-optimizer state, and for stage 2 the reduced gradients, sharded over
-"data"). The tensor-parallel and pipeline strategies (TENSOR_PARALLEL,
-ZERO1_TP, PIPELINE, PP, ZERO1_TP_PP) keep their names and raise
-`NotImplementedError` citing ROADMAP A11b.
+Strategies: REPLICATED (pure data parallelism), FSDP (each tensor
+sharded over "data" on its largest divisible axis, gathered before use),
+ZERO1 / ZERO2 (params replicated, optimizer state, and for stage 2 the
+reduced gradients, sharded over "data"), TENSOR_PARALLEL (Megatron over
+"model": layers with a declared role pin their axis, `tp_shard_axis`;
+the generic rule shards expert tensors on axis 0 and everything else on
+its last axis when the model axis divides it; `parallel/tp.py` runs it),
+ZERO1_TP (TENSOR_PARALLEL's params, moments further sharded over
+"data"), PIPELINE (host-driven GPipe, `pipeline.py`), PP and ZERO1_TP_PP
+(the 1F1B pipeline over "pipe", `pipeline.py`).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from .mesh import MeshAxes
 from ..nn.trees import tree_map
 
 __all__ = ["PartitionSpec", "param_specs", "shard_model",
-           "ShardingStrategy", "model_layer_hints"]
+           "ShardingStrategy", "model_layer_hints", "batch_norm_layers"]
 
 
 class PartitionSpec(tuple):
@@ -58,33 +61,51 @@ class ShardingStrategy:
     #: steps (evaluation / scoring may read them locally)
     PARAMS_REPLICATED = (REPLICATED, ZERO1, ZERO2)
 
-    #: the model-parallel strategies: ROADMAP A11b
+    #: the model-parallel strategies
     MODEL_PARALLEL = (TENSOR_PARALLEL, ZERO1_TP, PIPELINE, PP, ZERO1_TP_PP)
 
 
-def _not_in_slice(what: str):
-    from ..nn.multilayer import _not_in_port
-    return _not_in_port(what, "11b")
-
-
-def _sync_batch_statistics_refusal(model, n_data: int):
-    """What SYNC training over `n_data` ranks cannot do for `model`, or
-    None. A BatchNormalization layer (frozen ones too) normalises by the
-    statistics of its batch: JAX's GSPMD takes them over the global batch,
-    a rank here over its own rows, so past one rank the step is refused
-    (ROADMAP A11b) rather than trained differently."""
+def batch_norm_layers(model):
+    """The names of the model's BatchNormalization layers (frozen ones
+    too): under SYNC over more than one data rank they take the global
+    batch's statistics (`kernels/bn_split.py`), as JAX's GSPMD step
+    does."""
     from ..nn.layers.normalization import BatchNormalization
-    if n_data <= 1:
-        return None
     named = (model.conf.vertices.items() if isinstance(model.params, dict)
              else enumerate(model.layers))
-    bn = [str(k) for k, layer in named
-          if isinstance(layer, BatchNormalization)]
-    if not bn:
-        return None
-    return (f"SYNC training over {n_data} ranks of a model with "
-            f"BatchNormalization (layers {', '.join(bn)}; batch statistics "
-            "over the global batch)")
+    return [str(k) for k, layer in named
+            if isinstance(layer, BatchNormalization)]
+
+
+def _tp_spec_for(key: str, shape, axis: str, mesh, layer=None
+                 ) -> PartitionSpec:
+    """Model-axis sharding of one parameter tensor (JAX's rule): a layer
+    that declares its Megatron role via `tp_shard_axis` pins the axis (or
+    "replicated"); otherwise expert tensors (`expert_*`, leading axis the
+    expert count) shard on axis 0 and everything else on its last axis,
+    when the model axis divides it."""
+    size = int(mesh.shape.get(axis, 1))
+    nd = len(shape)
+    if nd == 0:
+        return P()
+    role = None
+    if layer is not None and hasattr(layer, "tp_shard_axis"):
+        role = layer.tp_shard_axis(key, shape)
+    if role == "replicated":
+        return P()
+    if role is not None:
+        ax = role % nd
+        if shape[ax] % size == 0 and shape[ax] >= size:
+            spec = [None] * nd
+            spec[ax] = axis
+            return P(*spec)
+        return P()
+    if key.startswith("expert_") and shape[0] % size == 0 \
+            and shape[0] >= size:
+        return P(*([axis] + [None] * (nd - 1)))
+    if shape[-1] % size == 0 and shape[-1] >= size:
+        return P(*([None] * (nd - 1) + [axis]))
+    return P()
 
 
 def _fsdp_spec_for(shape, axis: str, mesh) -> PartitionSpec:
@@ -129,8 +150,31 @@ def param_specs(params, strategy: str, mesh,
     if strategy == ShardingStrategy.FSDP:
         return tree_map(lambda a: _fsdp_spec_for(tuple(a.shape), data_axis,
                                                  mesh), params)
-    if strategy in ShardingStrategy.MODEL_PARALLEL:
-        raise _not_in_slice(f"strategy '{strategy}'")
+    if strategy in (ShardingStrategy.TENSOR_PARALLEL,
+                    ShardingStrategy.ZERO1_TP):
+        if layers is not None:
+            size = int(mesh.shape.get(model_axis, 1))
+            items = layers.values() if isinstance(layers, dict) else layers
+            for hint in items:
+                validate = getattr(hint, "tp_validate", None)
+                if validate is not None:
+                    validate(size)
+        def layer_specs(p, layer):
+            # JAX keys a leaf by its last path key (a BiLSTM's fwd/W is "W")
+            if isinstance(p, dict):
+                return {n: (layer_specs(a, layer) if isinstance(a, dict)
+                            else _tp_spec_for(n, tuple(a.shape), model_axis,
+                                              mesh, layer))
+                        for n, a in p.items()}
+            return tree_map(lambda a: P(), p)
+        keys = params.keys() if isinstance(params, dict) \
+            else range(len(params))
+        out = {k: layer_specs(params[k],
+                              None if layers is None else layers[k])
+               for k in keys}
+        return out if isinstance(params, dict) else tuple(out[k]
+                                                           for k in keys)
+    # the pipeline strategies' layouts are their plans' (pipeline.py)
     raise ValueError(f"Unknown sharding strategy '{strategy}'")
 
 
@@ -162,7 +206,7 @@ def shard_model(model, mesh, strategy: str = ShardingStrategy.REPLICATED,
 def broadcast_model(model, mesh, src: int = 0):
     """Rank `src`'s parameters, layer state and updater state on every
     rank of the mesh (one broadcast a tensor, in place)."""
-    import torch.distributed as dist
+    from .collectives import broadcast_
 
     if not mesh.distributed or mesh.size == 1:
         return
@@ -171,4 +215,4 @@ def broadcast_model(model, mesh, src: int = 0):
     for tree in (model.params, model.state, model.updater_state):
         for t in flat_leaves(tree):
             if isinstance(t, torch.Tensor):
-                dist.broadcast(t.data, src=root, group=mesh.group)
+                broadcast_(t.data, root, mesh.group)

@@ -1,7 +1,7 @@
-"""Data-parallel training over `torch.distributed`: the port of
-`deeplearning4j_tpu/parallel/trainer.py`, bar its model-parallel half
-(ROADMAP A11b). It stands in for the reference's ParallelWrapper, Spark
-parameter averaging and parameter server, as JAX's trainer does.
+"""Training over `torch.distributed`: the port of
+`deeplearning4j_tpu/parallel/trainer.py`. It stands in for the reference's
+ParallelWrapper, Spark parameter averaging and parameter server, as JAX's
+trainer does.
 
 JAX runs one jitted SPMD step over a device mesh: the batch sharded over
 "data", XLA inserting the gradient reduction. The port runs one rank per
@@ -17,6 +17,17 @@ ZeRO counters are JAX's, which a wrapper would hide):
     JAX's SPMD step computes it. The update then runs on every rank.
   * SYNC / ZERO1, ZERO2, FSDP — `parallel/zero.py`'s plan: all-reduce or
     bucketed reduce-scatter, the update on this rank's chunks, all-gather.
+  * SYNC / TENSOR_PARALLEL, ZERO1_TP — Megatron over the mesh's "model"
+    axis (`parallel/tp.py`): params model-sharded between steps, the
+    gradient all-reduced over the data group; ZERO1_TP further chunks the
+    moments over "data" (a stage-1 `_ZeroPlan` over the shards).
+  * SYNC / PP, ZERO1_TP_PP — the 1F1B pipeline over "pipe"
+    (`parallel/pipeline.py` `PipelinePlan`), composed with TP and ZeRO-1.
+  * SYNC / PIPELINE — the host-driven GPipe of one process
+    (`PipelinedNetworkTrainer`, `PipelinedGraphTrainer`), one stage per
+    rank of the mesh's "pipe" axis (else its data axis), as JAX's; each
+    rank runs every stage. Other stage splits build those trainers
+    directly.
   * AVERAGING — every rank trains its own replica on its rows (local SGD)
     and every `averaging_frequency` steps the replicas' parameters (and,
     with `average_updaters`, their updater states) are averaged by an
@@ -25,17 +36,18 @@ ZeRO counters are JAX's, which a wrapper would hide):
 On the card `fit(superstep=K)` replays the trainer's step, collectives
 included, from one captured CUDA graph (`nn/superstep.py`); the NCCL
 communicator is made by an eager collective before any capture. A step
-that cannot be captured raises `CaptureError`.
+that cannot be captured (gloo's collectives, the pipeline's host-driven
+schedule) raises `CaptureError`.
 
 The model's layer state (an MoE layer's auxiliary loss) is averaged over
-the ranks after each SYNC step so the replicas stay equal. SYNC training
-of a model with BatchNormalization over more than one rank raises
-`NotImplementedError` (ROADMAP A11b): JAX's GSPMD takes the batch
-statistics over the global batch, and each rank here sees only its rows.
-One rank, and AVERAGING's independent replicas, train it as JAX does.
+the data ranks after each SYNC step so the replicas stay equal. A
+training BatchNormalization under SYNC over more than one data rank takes
+the statistics of the global batch, as JAX's GSPMD step does
+(`kernels/bn_split.py`: the split BN+ReLU kernels around an all-gather of
+the ranks' (count, mean, M2)).
 
 Evaluation, scoring and per-example scoring run in lockstep across the
-ranks: each rank takes its contiguous share of every batch, and the
+data ranks: each rank takes its contiguous share of every batch, and the
 results are merged (`distributed.allreduce_evaluation`,
 `allgather_rows`) so every rank returns the same value.
 """
@@ -49,8 +61,8 @@ import numpy as np
 import torch
 
 from .mesh import MeshAxes, make_mesh
-from .sharding import (ShardingStrategy, _not_in_slice,
-                       _sync_batch_statistics_refusal, broadcast_model)
+from .collectives import batch_statistics_group
+from .sharding import ShardingStrategy, batch_norm_layers, broadcast_model
 from .zero import (DEFAULT_BUCKET_MB, ZeroConfig, _ZeroPlan, all_reduce_,
                    collective_overlap_fraction)
 from ..datasets.iterators import DataSet, MultiDataSet
@@ -68,8 +80,7 @@ class TrainingMode:
     AVERAGING = "averaging"    # local SGD, average params every N iterations
 
 
-#: supported mode × strategy combinations (JAX's table; the
-#: model-parallel strategies raise ROADMAP A11b after this validation)
+#: supported mode × strategy combinations (JAX's table)
 _MODE_STRATEGIES = {
     TrainingMode.SYNC: (
         ShardingStrategy.REPLICATED, ShardingStrategy.TENSOR_PARALLEL,
@@ -78,6 +89,34 @@ _MODE_STRATEGIES = {
         ShardingStrategy.PIPELINE, ShardingStrategy.PP,
         ShardingStrategy.ZERO1_TP_PP),
     TrainingMode.AVERAGING: (ShardingStrategy.REPLICATED,),
+}
+
+#: the 1F1B strategies (parallel/pipeline.py)
+_PP_STRATEGIES = (ShardingStrategy.PP, ShardingStrategy.ZERO1_TP_PP)
+#: strategies whose params live model-sharded between steps
+_TP_STRATEGIES = (ShardingStrategy.TENSOR_PARALLEL, ShardingStrategy.ZERO1_TP)
+
+#: strategies that compose with a (data, model) mesh of model axis > 1
+_MESH2D_STRATEGIES = (ShardingStrategy.REPLICATED,
+                      ShardingStrategy.TENSOR_PARALLEL,
+                      ShardingStrategy.ZERO1_TP,
+                      ShardingStrategy.ZERO1_TP_PP)
+
+_MESH2D_HINTS = {
+    ShardingStrategy.ZERO1: (
+        "zero1 shards moments over 'data' only and would leave the model "
+        "axis training redundant replicas — use strategy='zero1_tp' to "
+        "shard params over 'model' AND moments over 'data'"),
+    ShardingStrategy.ZERO2: (
+        "zero2's bucketed reduce-scatter packs full-size gradient leaves "
+        "and is not generalized to model-sharded gradients yet — use "
+        "strategy='zero1_tp' (ZeRO-1 × tensor parallel)"),
+    ShardingStrategy.FSDP: (
+        "fsdp shards params over 'data'; composing it with a model axis "
+        "is not supported — use strategy='zero1_tp'"),
+    ShardingStrategy.PIPELINE: (
+        "the pipeline trainer stages over its own 'pipe' axis — build "
+        "the mesh with {'pipe': n} instead of a model axis"),
 }
 
 
@@ -107,26 +146,65 @@ def _validate_mode_strategy(mode: str, strategy: str, mesh=None,
         raise ValueError(
             f"mode={mode} does not support strategy='{strategy}'{hint}. "
             f"Supported mode -> strategies: {pairs}")
-    if strategy in ShardingStrategy.MODEL_PARALLEL:
-        raise _not_in_slice(f"strategy '{strategy}'")
-    if mesh is not None:
-        for axis in (model_axis, pipe_axis):
-            if int(mesh.shape.get(axis, 1)) > 1:
-                raise _not_in_slice(
-                    f"a mesh with a '{axis}' axis of size "
-                    f"{mesh.shape[axis]} (model-parallel meshes)")
+    if mesh is None:
+        return
+    axes = dict(mesh.shape)
+    model_size = int(axes.get(model_axis, 1))
+    pipe_size = int(axes.get(pipe_axis, 1))
+    if strategy in _TP_STRATEGIES and model_axis not in mesh.axis_names:
+        raise ValueError(
+            f"strategy='{strategy}' shards params over a '{model_axis}' "
+            f"mesh axis, but the mesh only carries {mesh.axis_names}. "
+            "Build a 2-D mesh: ParallelTrainer(model, mesh_shape=(d, m)) "
+            "or mesh=make_mesh({'data': d, 'model': m})")
+    if strategy in _PP_STRATEGIES:
+        if pipe_axis not in mesh.axis_names or pipe_size < 2:
+            raise ValueError(
+                f"strategy='{strategy}' stages the model over a "
+                f"'{pipe_axis}' mesh axis of size >= 2, but the mesh "
+                f"carries {dict(axes)}. Build a 3-D mesh: "
+                "ParallelTrainer(model, mesh_shape=(d, m, p))")
+        if strategy == ShardingStrategy.PP \
+                and (int(axes.get(data_axis, 1)) > 1 or model_size > 1):
+            raise ValueError(
+                f"strategy='pp' is the pure pipeline (data=model=1); the "
+                f"mesh carries {dict(axes)} — use strategy='zero1_tp_pp' "
+                "to compose data/model axes with the pipeline")
+    elif pipe_size > 1 and strategy != ShardingStrategy.PIPELINE:
+        raise ValueError(
+            f"the mesh carries a '{pipe_axis}' axis of size {pipe_size}, "
+            f"but strategy='{strategy}' does not stage over it — use "
+            "strategy='pp' or 'zero1_tp_pp' (mesh-native 1F1B), "
+            "strategy='pipeline' (host-driven GPipe), or drop the pipe "
+            "axis")
+    if model_size > 1:
+        if mode == TrainingMode.AVERAGING:
+            raise ValueError(
+                f"mode={mode} does not support a 2-D mesh (model axis "
+                f"size {model_size}) — parameter averaging keeps one "
+                "independent replica per DATA device; use "
+                "TrainingMode.SYNC with strategy='tensor_parallel' or "
+                "'zero1_tp' on 2-D meshes")
+        if strategy not in _MESH2D_STRATEGIES:
+            raise ValueError(
+                f"strategy='{strategy}' does not support a 2-D mesh "
+                f"(model axis size {model_size}): "
+                f"{_MESH2D_HINTS[strategy]}. Supported 2-D strategies: "
+                f"{', '.join(_MESH2D_STRATEGIES)}")
 
 
 def configure_flash_attention(model, mesh, strategy,
                               model_axis: str = MeshAxes.MODEL,
                               data_axis: str = MeshAxes.DATA, force=None):
-    """The attention implementation of the trainer's TransformerBlocks.
-    In the data-parallel strategies each rank's block runs kernel 1
-    (`kernels/attention.py`) on its own rows: the port's block takes the
-    kernel for every CUDA tensor and has no switch to set. The
-    `flash_attention_spmd` half (`force="spmd"`, the tensor-parallel
-    strategies) is ROADMAP A11b. Returns (mode, reason); (None, reason)
-    when the model has no attention layers."""
+    """The attention implementation of the trainer's TransformerBlocks
+    (JAX's probe, its choice and its log line). Under TENSOR_PARALLEL and
+    ZERO1_TP the mode is "spmd" (`flash_attention_spmd`): each rank runs
+    kernels 1-3 on its local [B/d, T, H/m, Dh] block, heads sharded by the
+    Megatron roles, no collective inside attention. Elsewhere each rank
+    runs the kernel on its rows ("kernel"). The port has no einsum
+    fallback: a CUDA tensor always takes the kernel, a CPU tensor its
+    plain version, so `force=False` (JAX's einsum) raises. Returns (mode,
+    reason); (None, reason) when the model has no attention layers."""
     from ..nn.layers.transformer import TransformerBlock
 
     layers = (model.conf.vertices.values()
@@ -135,16 +213,36 @@ def configure_flash_attention(model, mesh, strategy,
     blocks = [c for c in layers if isinstance(c, TransformerBlock)]
     if not blocks:
         return None, "no attention layers"
-    if force == "spmd":
-        raise _not_in_slice("flash_attention_spmd")
     if force is False:
         raise ValueError(
             "the port's TransformerBlock has no einsum switch: each rank "
             "runs the attention kernel on its rows")
-    reason = (f"kernel 1 per rank on its rows ({len(blocks)} block(s), "
-              f"strategy={strategy})")
-    log.info("flash attention: %s", reason)
-    return "kernel", reason
+    if force == "spmd" or (force is None and strategy in _TP_STRATEGIES):
+        mode = "spmd"
+        reason = ("kernels 1-3 per rank on its local [B/d, T, H/m, Dh] "
+                  f"block over ('{data_axis}', '{model_axis}') — zero "
+                  "collectives in the kernel region"
+                  + (" (forced)" if force == "spmd" else ""))
+    elif force is not None:
+        raise ValueError(f"unknown flash mode {force!r} (None, 'spmd')")
+    else:
+        mode = "kernel"
+        reason = (f"kernel 1 per rank on its rows ({len(blocks)} block(s), "
+                  f"strategy={strategy})")
+    log.info("flash attention [%d layer(s), strategy=%s]: %s", len(blocks),
+             strategy, reason)
+    return mode, reason
+
+
+def _first_ranks(axes):
+    """The first prod(axes) ranks of the world when the mesh is smaller
+    than it (JAX takes the first devices), else None (every rank)."""
+    import torch.distributed as dist
+    total = int(np.prod(list(axes.values())))
+    if dist.is_available() and dist.is_initialized() \
+            and 0 < total < dist.get_world_size():
+        return list(range(total))
+    return None
 
 
 def _none_rows(sl):
@@ -187,12 +285,8 @@ class ParallelTrainer:
                     f"pipe), got {mesh_shape!r}")
             names = (data_axis, model_axis, MeshAxes.PIPE)
             axes = {n: int(v) for n, v in zip(names, mesh_shape)}
-            for axis in names[1:]:
-                if axes.get(axis, 1) > 1:
-                    raise _not_in_slice(
-                        f"mesh_shape {tuple(mesh_shape)} (model-parallel "
-                        "meshes)")
-            mesh = make_mesh({data_axis: axes[data_axis]}, device=device)
+            mesh = make_mesh(axes, devices=_first_ranks(axes),
+                             device=device)
         if mesh is None:
             mesh = make_mesh(device=device)
         _validate_mode_strategy(mode, strategy, mesh, model_axis, data_axis)
@@ -222,14 +316,39 @@ class ParallelTrainer:
         self.zero_bucket_mb = (None if zero_bucket_mb is None
                                else float(zero_bucket_mb))
         self.zero_reduce_dtype = zero_reduce_dtype
-        self.n_data = int(mesh.shape[data_axis])
-        self._rank = int(mesh.coords()[data_axis])
-        self._bn_refusal = (
-            _sync_batch_statistics_refusal(model, self.n_data)
-            if mode == TrainingMode.SYNC else None)
         self._zero_info = None
         self._plan = None
+        self._tp = None
+        self._pp = None
         self._eval_cache = None
+        if strategy == ShardingStrategy.PIPELINE:
+            # stage-partitioned training in this process: the host-driven
+            # GPipe trainer over the stage devices
+            from .pipeline import (PipelinedGraphTrainer,
+                                   PipelinedNetworkTrainer,
+                                   _default_devices)
+            cls = (PipelinedGraphTrainer if isinstance(model.params, dict)
+                   else PipelinedNetworkTrainer)
+            axis = (MeshAxes.PIPE if MeshAxes.PIPE in mesh.axis_names
+                    else data_axis)
+            stages = int(mesh.shape[axis])
+            self._pipe = cls(model, n_stages=stages,
+                             devices=_default_devices(stages, mesh.device))
+            self.n_data = 1
+            self._rank = 0
+            self._bn_global = False
+            self.iteration_count = 0
+            self._score = float("nan")
+            self._data_group = None
+            return
+        self._pipe = None
+        self.n_data = int(mesh.shape[data_axis])
+        self._rank = int(mesh.coords()[data_axis])
+        # a training BatchNormalization takes the global batch's
+        # statistics (kernels/bn_split.py) past one data rank
+        self._bn_global = (mode == TrainingMode.SYNC and self.n_data > 1
+                           and bool(batch_norm_layers(model)))
+        self._data_group = mesh.axis_group(data_axis)
         self._prepare()
 
     # ------------------------------------------------------------------
@@ -239,7 +358,9 @@ class ParallelTrainer:
 
     @property
     def group(self):
-        return self.mesh.group
+        """The data group: the ranks that split the batch (and reduce the
+        gradient) with this one."""
+        return self._data_group
 
     @property
     def _dtype(self):
@@ -266,31 +387,65 @@ class ParallelTrainer:
         every rank) and build the strategy's trees and plan. A checkpoint
         restore and `load_elastic_state` re-prepare through here."""
         m = self.model
+        if self._pipe is not None:
+            self._pipe.place()
+            self.iteration_count = self._pipe.iteration_count = \
+                int(m.iteration_count)
+            self._score = float("nan")
+            return
         if m.device != self.mesh.device:
             m.to(self.mesh.device)
         broadcast_model(m, self.mesh)
         self._plan = None
+        self._tp = None
+        self._pp = None
         self._zero_info = None
         self._params, self._state = m.params, m.state
         self._opt = m.updater_state
-        if self.mode == TrainingMode.SYNC and self.strategy in (
+        layers = None
+        sync = self.mode == TrainingMode.SYNC
+        if sync and self.strategy in _PP_STRATEGIES:
+            from .pipeline import PipelinePlan
+            pp = PipelinePlan(m, self.mesh)
+            self._pp = pp
+            layers = pp.local_layers
+            self._params = pp.to_local(m.params)
+            self._state = pp.to_local(m.state)
+            self._opt = pp.to_local(m.updater_state)
+        if sync and (self.strategy in _TP_STRATEGIES
+                     or self.strategy == ShardingStrategy.ZERO1_TP_PP):
+            from .tp import TPPlan
+            tp = TPPlan(m, self.mesh, self.model_axis, params=self._params,
+                        layers=layers)
+            self._tp = tp
+            self._params = tp.shard_tree(self._params)
+            self._opt = tp.shard_opt(self._opt)
+        if sync and self.strategy in (
                 ShardingStrategy.ZERO1, ShardingStrategy.ZERO2,
-                ShardingStrategy.FSDP):
+                ShardingStrategy.FSDP, ShardingStrategy.ZERO1_TP,
+                ShardingStrategy.ZERO1_TP_PP):
             fsdp = self.strategy == ShardingStrategy.FSDP
+            stage2 = self.strategy in (ShardingStrategy.ZERO2,
+                                       ShardingStrategy.FSDP)
             cfg = ZeroConfig(
-                stage=2 if self.strategy != ShardingStrategy.ZERO1 else 1,
+                stage=2 if stage2 else 1,
                 bucket_mb=(DEFAULT_BUCKET_MB if self.zero_bucket_mb is None
                            else self.zero_bucket_mb),
                 reduce_dtype=self.zero_reduce_dtype)
-            plan = _ZeroPlan(m, self.mesh, self.data_axis, cfg, fsdp=fsdp)
+            plan = _ZeroPlan(m, self.mesh, self.data_axis, cfg, fsdp=fsdp,
+                             params=self._params, opt_state=self._opt,
+                             layers=layers,
+                             model_axis=(self.model_axis if self._tp
+                                         is not None else None))
             self._plan = plan
             if fsdp:
-                self._params = plan.shard_tree(m.params)
+                self._params = plan.shard_tree(self._params)
             else:
                 self._zero_info = dict(plan.info)
                 self._zero_info["expected_constraints"] = \
                     plan.expected_constraints()
-            self._opt = plan.to_plan_opt(m.updater_state)
+            self._opt = plan.to_plan_opt(self._opt)
+        self._layers = layers
         self.iteration_count = 0
         self._score = float("nan")
         self._eval_cache = None
@@ -298,9 +453,11 @@ class ParallelTrainer:
         self.__dict__.pop("_eager_steps", None)
         if self.mesh.distributed and self.device.type == "cuda":
             # NCCL makes its communicator at the first collective, with
-            # host syncs no CUDA-graph capture can hold: make it now
-            warm = torch.zeros(1, device=self.device)
-            all_reduce_(warm, self.group)
+            # host syncs no CUDA-graph capture can hold: make it now, for
+            # every axis group the step uses
+            for axis in self.mesh.axis_names:
+                warm = torch.zeros(1, device=self.device)
+                all_reduce_(warm, self.mesh.axis_group(axis))
             torch.cuda.current_stream(self.device).synchronize()
 
     # ------------------------------------------------------------------
@@ -319,7 +476,15 @@ class ParallelTrainer:
         return self.model._dropout_generators()
 
     def _step_scalars(self, step):
-        return self.model._step_scalars(step)
+        if self._layers is None:
+            return self.model._step_scalars(step)
+        # the pipeline's local layers: head, this stage's, tail
+        from ..nn.multilayer import layer_scalars
+        out = []
+        for layer, p in zip(self._layers, self._params):
+            if p and not layer.frozen:
+                out.extend(layer_scalars(self.model, layer, step))
+        return out
 
     def _grad_template(self):
         """The reduced gradients' tree (ZERO2's chunks), for the float32
@@ -330,37 +495,54 @@ class ParallelTrainer:
 
     def _grad_fn(self, params, state, batch, carries=None):
         """(global score, averaged layer state, reduced gradients, None) of
-        this rank's rows: the model's own gradient, weighted by the rank's
-        share of the global loss, then the strategy's reduction."""
+        this rank's rows: the model's own gradient (the pipeline's, with
+        the 1F1B schedule), weighted by the rank's share of the global
+        loss, then the strategy's reduction."""
         model = self.model
         if self.mode == TrainingMode.AVERAGING:
             return model._grad_fn(params, state, batch, carries)
-        if self._bn_refusal is not None:
-            raise _not_in_slice(self._bn_refusal)
         full = (self._plan.gather_params(params)
                 if self._plan is not None and self._plan.fsdp else params)
-        score, new_state, grads, _ = model._grad_fn(full, state, batch)
-        if self.n_data > 1:
-            grads, score = self._global_share(full, batch, score, grads)
+        fwd = full if self._tp is None else self._tp.forward_tree(full)
+        share = self._share(batch) if self.n_data > 1 else None
+        bn = (batch_statistics_group(self.group, self.n_data,
+                                     weight=share[0])
+              if self._bn_global else contextlib.nullcontext())
+        from .tp import tp_region
+        with tp_region(None if self._tp is None else self._tp.ctx), bn:
+            if self._pp is not None:
+                score, new_state, grads = self._pp.grad(fwd, state, batch)
+            else:
+                score, new_state, grads, _ = model._grad_fn(fwd, state,
+                                                            batch)
+        if share is not None:
+            grads, score = self._global_share(fwd, share, score, grads)
             score = all_reduce_(score.reshape(1).float(),
                                 self.group).reshape(())
             new_state = self._mean_state(new_state)
+        if self._tp is not None:
+            grads = self._tp.local_grads(grads)
         if self._plan is not None:
             grads = self._plan.reduce(grads)
         else:
             grads = _all_reduce_tree(grads, self.group)
         return score, new_state, grads, None
 
-    def _global_share(self, params, batch, score, grads):
+    def _share(self, batch):
+        """(w_r, d_r, the global live rows, the local l1/l2 denominator):
+        this rank's share of the global loss, w_r = D_r / D."""
+        d_r, live_r, n_r = self._shares(batch)
+        tot = all_reduce_(torch.stack([d_r, live_r]), self.group)
+        d_g, n_g = tot[0], torch.clamp(tot[1], min=1.0)
+        return d_r / torch.clamp(d_g, min=1.0), d_r, n_g, n_r
+
+    def _global_share(self, params, share, score, grads):
         """This rank's part of the global batch's gradient and score: the
         loss is a mean over the global denominator (rows, or live mask
         entries) plus l1/l2 over the global live rows, so rank r's mean
         is weighted by w_r = D_r / D and its l1/l2 term moved from 1/n_r
         to 1/(N·n) of the global rows n."""
-        d_r, live_r, n_r = self._shares(batch)
-        tot = all_reduce_(torch.stack([d_r, live_r]), self.group)
-        d_g, n_g = tot[0], torch.clamp(tot[1], min=1.0)
-        w = d_r / torch.clamp(d_g, min=1.0)
+        w, _, n_g, n_r = share
         grads = tree_map(lambda g: g * w.to(g.dtype), grads)
         score = score.float() * w
         reg = self._reg_and_grad(params)
@@ -409,7 +591,7 @@ class ParallelTrainer:
         pairs = (params.items() if isinstance(params, dict)
                  else enumerate(params))
         layers = (model.conf.vertices if isinstance(params, dict)
-                  else model.layers)
+                  else self._layers or model.layers)
         if not any((getattr(layers[k], "l1", 0) or 0)
                    or (getattr(layers[k], "l2", 0) or 0)
                    or (getattr(layers[k], "l1_bias", 0) or 0)
@@ -419,7 +601,8 @@ class ParallelTrainer:
         live = tree_map(lambda v: v.detach().requires_grad_(True), params)
         leaves = flat_leaves(live)
         with torch.enable_grad():
-            r = model._reg_score(live)
+            r = (self._pp.reg_score(live) if self._pp is not None
+                 else model._reg_score(live))
             if not isinstance(r, torch.Tensor):
                 return None
             found = torch.autograd.grad(r, leaves, allow_unused=True)
@@ -450,15 +633,36 @@ class ParallelTrainer:
     def _update_fn(self, params, grads, opt_state, scalars):
         """The update with a replayed step's scalar row."""
         if self._plan is None:
-            return self.model._update_fn(params, grads, opt_state, scalars)
+            if self._layers is None:
+                return self.model._update_fn(params, grads, opt_state,
+                                             scalars)
+            detached = tuple(tree_map(torch.Tensor.detach, p)
+                             for p in params)
+            p, o = self.model.apply_layer_updates(
+                self._layers, detached, grads, opt_state, None, scalars)
+            return tuple(p), tuple(o)
         return self._plan.update(params, grads, opt_state, scalars=scalars)
 
     def _eager_update(self, params, grads, opt_state, step):
-        if self._plan is None:
+        if self._plan is None and self._layers is None:
             return self.model._eager_update(params, grads, opt_state, step)
-        from ..nn.multilayer import scalar_row
+        scalars = None
+        if self.device.type == "cuda":
+            from ..nn.superstep import _scalar_rows
+            scalars = (_scalar_rows(self.model, [step])[0]
+                       if self._layers is None else torch.tensor(
+                           self._step_scalars(step), dtype=torch.float32,
+                           device=self.device))
+        if self._plan is None:
+            if scalars is None:
+                detached = tuple(tree_map(torch.Tensor.detach, p)
+                                 for p in params)
+                p, o = self.model.apply_layer_updates(
+                    self._layers, detached, grads, opt_state, step, None)
+                return tuple(p), tuple(o)
+            return self._update_fn(params, grads, opt_state, scalars)
         return self._plan.update(params, grads, opt_state, step=step,
-                                 scalars=scalar_row(self.model, step))
+                                 scalars=scalars)
 
     def _eager_step(self, params, state, opt_state, step, batch):
         score, new_state, grads, _ = self._grad_fn(params, state, batch)
@@ -516,6 +720,14 @@ class ParallelTrainer:
         store, `parallel/checkpoint.py`) and `guard` are the model fit's."""
         from ..nn.superstep import validate_grad_accumulation
         accum_m = validate_grad_accumulation(grad_accumulation)
+        if self._pipe is not None:
+            # the host-driven GPipe trains per batch, its microbatches
+            # inside the step
+            self._pipe.fit(data, epochs)
+            self.iteration_count = self._pipe.iteration_count
+            self._score = self._pipe.score()
+            self._sync_back()
+            return self
         if isinstance(data, (DataSet, MultiDataSet)):
             if checkpoint_dir is not None or resume:
                 raise ValueError(
@@ -823,14 +1035,24 @@ class ParallelTrainer:
         (REPLICATED / ZeRO); FSDP's gathered; AVERAGING's replica mean and
         rank 0's layer state, derived once a trained step (cached on
         iteration_count)."""
-        if self.mode == TrainingMode.SYNC and self._plan is None:
+        if self._pipe is not None:
+            return self.model.params, self.model.state
+        sharded = self._tp is not None or self._pp is not None
+        if self.mode == TrainingMode.SYNC and self._plan is None \
+                and not sharded:
             return self._params, self._state
-        if self.mode == TrainingMode.SYNC and not self._plan.fsdp:
+        if self.mode == TrainingMode.SYNC and not sharded \
+                and not self._plan.fsdp:
             return self._params, self._state
         cached = self._eval_cache
         if cached is not None and cached[0] == self.iteration_count:
             return cached[1], cached[2]
-        if self.mode == TrainingMode.SYNC:
+        if self.mode == TrainingMode.SYNC and sharded:
+            params, state = self._plan_params(), self._state
+            if self._pp is not None:
+                params = self._pp.from_local(params)
+                state = self._pp.from_local(state)
+        elif self.mode == TrainingMode.SYNC:
             params, state = self._plan.gather_params(self._params), \
                 self._state
         else:
@@ -988,19 +1210,43 @@ class ParallelTrainer:
     # ------------------------------------------------------------------
     # the model view
     # ------------------------------------------------------------------
+    def _plan_params(self):
+        """The whole parameter tree in the model's form (the pipeline's
+        local form under PP) from the sharded one."""
+        params = self._params
+        if self._plan is not None and self._plan.fsdp:
+            params = self._plan.gather_params(params)
+        if self._tp is not None:
+            params = self._tp.gather_tree(params)
+        return params
+
     def _full_opt(self):
-        if self._plan is None:
+        if self._pipe is not None:
+            return self.model.updater_state
+        if self._plan is None and self._tp is None and self._pp is None:
             if self.mode == TrainingMode.AVERAGING:
                 return _mean_tree(self._opt, self.n_data, self.group)
             return self._opt
-        params = self._eval_params_state()[0]
-        return self._plan.from_plan_opt(self._opt, params)
+        opt = self._opt
+        if self._plan is not None:
+            form = (self._params if not self._plan.fsdp
+                    else self._plan.gather_params(self._params))
+            opt = self._plan.from_plan_opt(opt, form)
+        if self._tp is not None:
+            opt = self._tp.gather_opt(opt)
+        if self._pp is not None:
+            opt = self._pp.from_local(opt)
+        return opt
 
     def publish_view(self):
         """Bind the current trained trees into the wrapped model without
         perturbing training (AVERAGING's replicas stay as they are; the
         view is their mean). Every rank must call it: the sharded
         strategies gather. Returns the wrapped model."""
+        if self._pipe is not None:
+            self._pipe.sync_back()
+            self.model.iteration_count = self.iteration_count
+            return self.model
         params, state = self._eval_params_state()
         self.model.params = params
         self.model.state = state
@@ -1155,13 +1401,13 @@ def _broadcast_tree(tree, mesh, src: int = 0):
     """Rank `src`'s values of the tree on every rank (copies)."""
     if not mesh.distributed or mesh.size == 1:
         return tree
-    import torch.distributed as dist
+    from .collectives import broadcast_
 
     def one(a):
         if not isinstance(a, torch.Tensor):
             return a
         b = a.detach().clone().contiguous()
-        dist.broadcast(b, src=mesh.ranks[src], group=mesh.group)
+        broadcast_(b, mesh.ranks[src], mesh.group)
         return b
     return tree_map(one, tree)
 

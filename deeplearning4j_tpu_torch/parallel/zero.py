@@ -43,15 +43,15 @@ across the packages.
 """
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .mesh import MeshAxes
-from .sharding import (PartitionSpec as P, _fsdp_spec_for, _not_in_slice,
-                       _sync_batch_statistics_refusal, model_updater_pairs)
+from .sharding import (PartitionSpec as P, _fsdp_spec_for,
+                       batch_norm_layers, model_updater_pairs)
 from ..nn.trees import flat_leaves, flatten_tree, tree_map
 
 __all__ = ["ZeroConfig", "assign_buckets", "collective_overlap_fraction",
@@ -79,49 +79,9 @@ class ZeroConfig:
     reduce_dtype: Optional[str] = None
 
 
-# ----------------------------------------------------------------------
-# collectives: torch.distributed primitives, or the identity when no
-# process group exists (a world of one rank)
-# ----------------------------------------------------------------------
-# torch 2.13 deprecates both calls in favour of `*_single`, which older
-# releases lack; these two are in every release the port runs on
-warnings.filterwarnings(
-    "ignore", category=FutureWarning,
-    message=r"`torch\.distributed\.(reduce_scatter_tensor|"
-            r"all_gather_into_tensor)` is deprecated")
-
-
-def _dist():
-    import torch.distributed as dist
-    return dist if dist.is_available() and dist.is_initialized() else None
-
-
-def all_reduce_(t: torch.Tensor, group=None):
-    """Sum over the group, in place."""
-    dist = _dist()
-    if dist is not None:
-        dist.all_reduce(t, group=group)
-    return t
-
-
-def reduce_scatter_(out: torch.Tensor, inp: torch.Tensor, group=None):
-    """`out` = this rank's block of the sum over the group of `inp`."""
-    dist = _dist()
-    if dist is None:
-        out.copy_(inp)
-        return out
-    dist.reduce_scatter_tensor(out, inp, group=group)
-    return out
-
-
-def all_gather_(out: torch.Tensor, inp: torch.Tensor, group=None):
-    """`out` = the ranks' `inp`, concatenated in rank order."""
-    dist = _dist()
-    if dist is None:
-        out.copy_(inp)
-        return out
-    dist.all_gather_into_tensor(out, inp, group=group)
-    return out
+# the collectives: the port's collective layer (`collectives.py`), which
+# stages CUDA tensors through the host for gloo where gloo needs it
+from .collectives import all_gather_, all_reduce_, reduce_scatter_  # noqa: E402,F401
 
 
 # ----------------------------------------------------------------------
@@ -131,11 +91,26 @@ def zero_grad_specs(params, mesh, data_axis: str = MeshAxes.DATA,
                     base=None):
     """Per-leaf PartitionSpec tree: each gradient / moment tensor sharded
     over `data` on its largest divisible dimension, the rest replicated
-    (JAX's). A tensor-parallel `base` is ROADMAP A11b."""
-    if base is not None:
-        raise _not_in_slice("ZeRO over tensor-parallel base specs")
-    return tree_map(lambda a: _fsdp_spec_for(tuple(a.shape), data_axis,
-                                             mesh), params)
+    (JAX's). With a tensor-parallel `base` (a spec tree of the params'
+    model-axis layout) a leaf keeps its base entries and takes `data` on
+    the largest other divisible axis of its model shard: moments over
+    (model, data)."""
+    if base is None:
+        return tree_map(lambda a: _fsdp_spec_for(tuple(a.shape), data_axis,
+                                                 mesh), params)
+    size = int(mesh.shape[data_axis])
+
+    def one(a, b):
+        spec = list(b) + [None] * (a.dim() - len(b))
+        shape = [d // int(mesh.shape[e]) if e is not None else d
+                 for d, e in zip(a.shape, spec)]
+        for ax in sorted(range(a.dim()), key=lambda i: -shape[i]):
+            if spec[ax] is None and shape[ax] % size == 0 \
+                    and shape[ax] >= size:
+                spec[ax] = data_axis
+                return P(*spec)
+        return P(*spec)
+    return tree_map(one, params, base)
 
 
 def zero_opt_shardings(opt_state, params, mesh,
@@ -222,7 +197,8 @@ class _ZeroPlan:
 
     def __init__(self, model, mesh, data_axis: str, config: ZeroConfig,
                  base_specs=None, model_axis: Optional[str] = None,
-                 params=None, opt_state=None, fsdp: bool = False):
+                 params=None, opt_state=None, fsdp: bool = False,
+                 layers=None):
         if params is None:
             params = model.params
         if opt_state is None:
@@ -235,16 +211,24 @@ class _ZeroPlan:
                 "reduce_dtype (zero_reduce_dtype=) only applies to ZERO2 "
                 "— stage 1 reduces gradients in their own dtype; use "
                 "ShardingStrategy.ZERO2 or drop the knob")
-        if base_specs is not None:
-            raise _not_in_slice("ZeRO over tensor-parallel base specs")
+        # `params` may be a tensor-parallel rank's shards (ZERO1_TP: the
+        # moments then shard over (model, data)); the shards' shapes carry
+        # the layout, `base_specs` says the caller composes with TP
+        if base_specs is not None and config.stage >= 2:
+            raise ValueError(
+                "ZeRO stage 2 does not compose with tensor-parallel base "
+                "specs yet — use stage 1 (ShardingStrategy.ZERO1_TP)")
         self.fsdp = bool(fsdp)
+        self.layers = layers
         self.stage = 2 if self.fsdp else config.stage
         _check_updaters(model)
         self.config = config
         self.model = model
         self.mesh = mesh
-        self.group = mesh.group
         self.n = int(mesh.shape[data_axis])
+        # the data group: the mesh's own when the data axis spans it
+        self.group = (mesh.group if self.n == int(np.prod(list(
+            mesh.shape.values()))) else mesh.axis_group(data_axis))
         self.r = int(mesh.coords()[data_axis])
         self.wire_dtype = (None if config.reduce_dtype is None
                            else getattr(torch, str(config.reduce_dtype)))
@@ -300,7 +284,9 @@ class _ZeroPlan:
             "sharded_leaves": len(sharded_idx),
             "replicated_leaves": len(leaves) - len(sharded_idx),
             "devices": n_dev,
-            "mesh_axes": {"data": n_dev, "model": 1},
+            "mesh_axes": {"data": n_dev,
+                          "model": int(mesh.shape.get(model_axis or
+                                                      "model", 1))},
             "collective_axis": data_axis,
             "accum_bytes": {"sharded": acc_sharded, "replicated": acc_repl},
             "per_device_bytes": {"params": param_local,
@@ -431,7 +417,8 @@ class _ZeroPlan:
         model = self.model
         graph = isinstance(params_form, dict)
         names = list(params_form) if graph else range(len(params_form))
-        layers = (model.conf.vertices if graph else model.layers)
+        layers = (model.conf.vertices if graph
+                  else self.layers or model.layers)
         new_p, new_o, off = {}, {}, 0
         for key in names:
             layer = layers[key]
@@ -508,10 +495,17 @@ class _ZeroPlan:
         return count
 
 
-def _refuse_batch_statistics(model, mesh, data_axis):
-    refusal = _sync_batch_statistics_refusal(model, mesh.shape[data_axis])
-    if refusal is not None:
-        raise _not_in_slice(refusal)
+def _batch_group(model, mesh, data_axis):
+    """The batch-statistics block of a ZeRO step: a BatchNormalization
+    normalises by the global batch's statistics past one data rank (the
+    caller pre-weights each rank's loss, so the ranks' gradients meet as
+    they are)."""
+    from .collectives import batch_statistics_group
+    n = int(mesh.shape[data_axis])
+    if n > 1 and batch_norm_layers(model):
+        return lambda: batch_statistics_group(mesh.axis_group(data_axis), n)
+    import contextlib
+    return contextlib.nullcontext
 
 
 def make_zero_step(model, mesh, *, data_axis: str = MeshAxes.DATA,
@@ -525,13 +519,15 @@ def make_zero_step(model, mesh, *, data_axis: str = MeshAxes.DATA,
     over the data axis, so each rank's loss must be pre-weighted by its
     share of the global batch (the trainer's `_global_grad` does that).
     Returns (step, info)."""
-    _refuse_batch_statistics(model, mesh, data_axis)
+    bn = _batch_group(model, mesh, data_axis)
     plan = _ZeroPlan(model, mesh, data_axis, config, base_specs=base_specs,
                      model_axis=model_axis)
     plan.info["expected_constraints"] = plan.expected_constraints()
 
     def step(params, state, opt_state, step_i, batch):
-        score, new_state, grads, _ = model._grad_fn(params, state, batch)
+        with bn():
+            score, new_state, grads, _ = model._grad_fn(params, state,
+                                                        batch)
         grads = plan.reduce(grads)
         new_params, new_opt = plan.update(params, grads, opt_state,
                                           step=step_i)
@@ -557,14 +553,16 @@ def make_zero_accum_superstep(model, mesh, *,
     step0, groups) -> (params, state, opt, scores[K], micro[K, M])`."""
     from ..nn.superstep import build_accum_superstep
 
-    _refuse_batch_statistics(model, mesh, data_axis)
+    bn = _batch_group(model, mesh, data_axis)
     plan = _ZeroPlan(model, mesh, data_axis, config, base_specs=base_specs,
                      model_axis=model_axis)
     plan.info["expected_constraints"] = plan.expected_constraints(
         accum=True)
 
     def grad_fn(params, state, batch):
-        score, new_state, grads, _ = model._grad_fn(params, state, batch)
+        with bn():
+            score, new_state, grads, _ = model._grad_fn(params, state,
+                                                        batch)
         return score, new_state, plan.reduce(grads)
 
     def update_fn(params, gmean, opt, step):

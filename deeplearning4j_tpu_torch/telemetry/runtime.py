@@ -185,8 +185,8 @@ class TelemetrySession:
 
     def elastic_summary(self) -> Dict:
         """Elastic-training metrics (`fault/metrics.count_elastic`,
-        `elastic_snapshot_timer`; the elastic trainer's loop that drives
-        them is ROADMAP A11b). Empty dict when none ran under this
+        `elastic_snapshot_timer`, driven by the elastic trainer's loop,
+        `parallel/elastic.py`). Empty dict when none ran under this
         session."""
         out: Dict = {}
         for event in ("worker_losses", "rejoins", "resizes", "drains"):

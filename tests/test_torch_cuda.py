@@ -2113,3 +2113,141 @@ def test_captured_window_replays_its_collective(cuda, nccl_world,
                  (windowed.updater_state, eager.updater_state),
                  (windowed.state, eager.state)):
         assert _trees_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the split BN+ReLU kernels (global-batch BN across data ranks)
+# ---------------------------------------------------------------------------
+def _split_args(N, C, dtype, device, seed):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(N, C)) * 1.5 + r.normal(size=C)
+    arrays = (x, 1 + 0.2 * r.normal(size=C), 0.3 * r.normal(size=C),
+              r.normal(size=(N, C)))
+    x, g, b, dy = (torch.as_tensor(a.astype(np.float32), device=device)
+                   for a in arrays)
+    return x.to(dtype), g, b, dy.to(dtype)
+
+
+def _ulp(dtype):
+    return {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("N,C", [(64, 1024), (2048, 1024), (2049, 200),
+                                 (300, 48)])
+def test_bn_split_kernels_match_plain(cuda, dtype, N, C):
+    """Each of the four split kernels against its plain version on the
+    same card tensors: the [3, C] and [2, C] sums at 1e-5 of the largest
+    magnitude, y and dx within one ulp of the dtype plus that; one launch
+    each, counted."""
+    from deeplearning4j_tpu_torch.kernels import bn_split as s
+    x, g, b, dy = _split_args(N, C, dtype, cuda, N + C)
+    before = s.launch_counts()
+    st = s.split_stats(x)
+    n, mean, var = s.chan_merge([st])
+    y = s.split_apply(x, g, b, mean, var)
+    sums = s.split_bwd_sums(x, g, b, mean, var, dy)
+    dx = s.split_bwd_dx(x, g, b, mean, var, dy, sums, float(N))
+    after = s.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after), (before, after)
+    rel = lambda a, w: float((a.float() - w.float()).abs().max()
+                             / w.float().abs().max())
+    assert rel(st, s.split_stats_reference(x)) <= 1e-5
+    assert rel(sums, s.split_bwd_sums_reference(x, g, b, mean, var, dy)) \
+        <= 1e-5
+    for got, want in ((y, s.split_apply_reference(x, g, b, mean, var)),
+                      (dx, s.split_bwd_dx_reference(x, g, b, mean, var, dy,
+                                                    sums, float(N)))):
+        got, want = got.float(), want.float()
+        limit = (_ulp(dtype) * got.abs().maximum(want.abs())
+                 + 1e-5 * want.abs().max())
+        assert bool(((got - want).abs() <= limit).all())
+
+
+def test_bn_split_merge_equals_fused_statistics(cuda):
+    """Four ranks' triples from the stats kernel, merged by Chan's formula,
+    give the fused forward kernel's mean and variance over the union (1e-5
+    of the largest magnitude)."""
+    from deeplearning4j_tpu_torch.kernels import bn_split as s
+    x, g, b, _ = _split_args(4096, 1024, torch.bfloat16, cuda, 7)
+    n, mean, var = s.chan_merge([s.split_stats(p) for p in x.chunk(4)])
+    _, f_mean, f_var = bn_relu.bn_relu_forward(x, g, b)
+    assert float(n[0]) == 4096.0
+    for got, want in ((mean, f_mean), (var, f_var)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_bn_split_autograd_one_rank_group_equals_fused(cuda):
+    """`split_bn_relu` over a one-rank group (no process group: the
+    gather is the identity) through autograd: y, dx, dgamma and dbeta
+    against the fused kernels' autograd Function, within one bf16 ulp /
+    1e-5; one launch of each split kernel."""
+    from deeplearning4j_tpu_torch.kernels import bn_split as s
+    from deeplearning4j_tpu_torch.parallel.collectives import BatchGroup
+    x, g, b, dy = _split_args(512, 1024, torch.bfloat16, cuda, 9)
+    xs, gs, bs = (t.clone().requires_grad_(True) for t in (x, g, b))
+    xf, gf, bf = (t.clone().requires_grad_(True) for t in (x, g, b))
+    before = s.launch_counts()
+    ys, _, _ = s.split_bn_relu(xs, gs, bs, 1e-5, BatchGroup(None, 2))
+    ys.backward(dy)
+    yf, _, _ = bn_relu.fused_bn_relu(xf, gf, bf)
+    yf.backward(dy)
+    after = s.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after), (before, after)
+    for got, want in ((ys, yf), (xs.grad, xf.grad)):
+        got, want = got.float(), want.float()
+        limit = 2.0 ** -7 * got.abs().maximum(want.abs()) + 1e-5 * \
+            want.abs().max()
+        assert bool(((got - want).abs() <= limit).all())
+    for got, want in ((gs.grad, gf.grad), (bs.grad, bf.grad)):
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+_GLOO_CAPTURE = r'''
+import socket, sys
+import torch
+import deeplearning4j_tpu_torch as pt
+from deeplearning4j_tpu_torch.nn.superstep import CaptureError
+from deeplearning4j_tpu_torch.parallel import ParallelTrainer, make_mesh
+import torch.distributed as dist
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=1, rank=0)
+conf = (pt.NeuralNetConfiguration.builder().seed(1).updater(pt.Sgd(0.1))
+        .list().layer(pt.DenseLayer(n_out=8, activation="tanh"))
+        .layer(pt.OutputLayer(n_out=4, loss="mcxent"))
+        .set_input_type(pt.InputType.feed_forward(8)).build())
+net = pt.MultiLayerNetwork(conf, device="cuda").init()
+tr = ParallelTrainer(net, mesh=make_mesh())
+x = torch.randn(32, 8).numpy()
+y = torch.eye(4)[torch.randint(0, 4, (32,))].numpy()
+it = pt.ListDataSetIterator([pt.DataSet(x[i:i + 8], y[i:i + 8])
+                             for i in range(0, 32, 8)])
+tr.fit(it)                       # superstep 1: eager, staged through host
+try:
+    tr.fit(it, superstep=2)
+except CaptureError as e:
+    print("CaptureError", "cannot be captured" in str(e))
+    sys.exit(0)
+print("no CaptureError")
+sys.exit(1)
+'''
+
+
+def test_gloo_window_on_the_card_raises_capture_error(cuda):
+    """Ranks sharing a card run gloo, whose collectives go through the
+    host (`parallel/collectives.py`): a window of superstep 2 cannot be
+    captured and raises CaptureError naming it; superstep 1 trains. Run
+    in its own process (one process group a process)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _GLOO_CAPTURE],
+                          capture_output=True, text=True, cwd=root,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CaptureError True" in proc.stdout

@@ -1,6 +1,7 @@
 """PyTorch port, the distributed evaluation and scoring plane on the CPU:
 the twins of 16 of `tests/test_distributed_eval.py`'s 17 (its
-tensor-parallel case is ROADMAP A11b), and the documented behaviour where
+tensor-parallel case is in `test_torch_tp_models.py`), and the documented
+behaviour where
 the JAX package's parallel plane has a known defect (ADVICE.md).
 
 Network-level per-example scoring is held to JAX's at 1e-6 (float32).

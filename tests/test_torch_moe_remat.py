@@ -1,8 +1,8 @@
 """PyTorch port, the MixtureOfExpertsLayer and remat on the CPU against the
-JAX package: the twins of `tests/test_moe.py` (bar its expert-parallel
-cases, which wait for ROADMAP A11b) and of `tests/test_precision_remat.py`'s
+JAX package: the twins of `tests/test_moe.py` (its expert-parallel cases
+are in `test_torch_tp_models.py`) and of `tests/test_precision_remat.py`'s
 remat cases (its superstep and accumulation paths wait for A8, its
-pipeline cases for A11b).
+pipeline cases are not twinned).
 
 MoE: the same parameters (through `from_jax_params`) and numpy inputs in
 both packages; outputs within 1e-5 (float32 einsums over 8-32 terms in

@@ -6,7 +6,8 @@ JAX twin is). Two OS processes run the parallel CLI
 `torch.distributed` (gloo) on a localhost rendezvous, and train the same
 zip on the same CSV; rank 0 writes the model. Its parameters equal the
 one-process CLI run's at 1e-5 (float32 sums in another order). The
-elastic drills of the JAX file are ROADMAP A11b.
+elastic drills of the JAX file have their twins in
+`test_torch_elastic.py`.
 """
 import os
 import socket

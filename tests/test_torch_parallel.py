@@ -1,6 +1,7 @@
 """PyTorch port, the data-parallel trainer on the CPU: the twins of the
 data-parallel half of `tests/test_parallel.py` (its tensor-parallel, ring
-attention and pipeline cases are ROADMAP A11b), and the port's
+attention and pipeline cases are in `tests/test_torch_model_parallel.py`
+and `tests/test_torch_pipeline_parallel.py`), and the port's
 ParallelTrainer held against JAX's.
 
 The port runs one rank per device over `torch.distributed`; here a world
@@ -15,9 +16,9 @@ wire at the bf16 limits (2e-2 score, 5e-2 relative L2 of the parameters).
 Within the port a world of one rank is bit-equal to the model's own fit.
 
 A training-mode BatchNormalization takes its batch statistics over the
-global batch in JAX's GSPMD step and over a rank's rows here, so SYNC
-training of a BN model over more than one rank raises (ROADMAP A11b);
-one rank, and AVERAGING's replicas, are held to JAX's mesh.
+global batch in JAX's GSPMD step, and so does the port's SYNC step over
+its ranks (`kernels/bn_split.py`); AVERAGING's replicas normalise by
+their own rows in both.
 """
 import jax
 import numpy as np
@@ -94,8 +95,11 @@ def _jax_trained(key, jnet, mesh_n, batches, **kw):
                         **kw)
         for x, y in batches:
             tr.fit(jx.DataSet(x, y))
-        tr._sync_back()
-        _JAX[key] = (np.asarray(jnet.params_flat()), float(tr.score()))
+        if getattr(tr, "_pipe", None) is None:   # the GPipe fit syncs back
+            tr._sync_back()
+        score = (tr._pipe.score() if getattr(tr, "_pipe", None) is not None
+                 else tr.score())
+        _JAX[key] = (np.asarray(jnet.params_flat()), float(score))
     return _JAX[key]
 
 
@@ -149,18 +153,59 @@ def test_entry_points_default_to_the_gpu():
                                       ShardingStrategy.PP,
                                       ShardingStrategy.ZERO1_TP_PP])
 def test_model_parallel_strategies_name_roadmap_a11b(strategy):
-    net = _pnet(_jnet())
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        ParallelTrainer(net, mesh=make_mesh(device="cpu"),
-                        strategy=strategy)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        param_specs(net.params, strategy, make_mesh(device="cpu"))
+    """The model-parallel strategies (ROADMAP A11b, now ported) on a
+    one-rank data mesh, as JAX's on its one-device mesh: the trainer
+    either raises JAX's ValueError (a model or pipe axis is missing) or,
+    for PIPELINE (one stage on the data axis), trains a step equal to
+    JAX's at 1e-5; `param_specs` gives JAX's specs, or its ValueError for
+    the pipeline strategies (their layouts are their plans')."""
+    jnet = _jnet()
+    net = _pnet(jnet)
+    mesh = make_mesh(device="cpu")
+    jmesh = jax_mesh({"data": 1}, devices=jax.devices()[:1])
+    try:
+        JaxTrainer(jnet, mesh=jmesh, strategy=strategy)
+        jax_err = None
+    except ValueError as e:
+        jax_err = str(e)
+    if jax_err is not None:
+        with pytest.raises(ValueError) as got:
+            ParallelTrainer(net, mesh=mesh, strategy=strategy)
+        assert str(got.value).split(" — ")[0].split(". ")[0] == \
+            jax_err.split(" — ")[0].split(". ")[0]
+    else:
+        x, y = _data(16)
+        ref, ref_score = _jax_trained(("one-rank", strategy), jnet, 1,
+                                      [(x, y)], strategy=strategy)
+        tr = ParallelTrainer(net, mesh=mesh, strategy=strategy)
+        tr.fit(pt.DataSet(x, y))
+        np.testing.assert_allclose(net.params_flat(), ref, **F32)
+        assert tr.score() == pytest.approx(ref_score, rel=1e-5)
+    from deeplearning4j_tpu.parallel import param_specs as jax_specs
+    mesh2 = make_mesh({"data": 1, "model": 1}, device="cpu")
+    jmesh2 = jax_mesh({"data": 1, "model": 1}, devices=jax.devices()[:1])
+    try:
+        want = jax_specs(jnet.params, strategy, jmesh2)
+    except ValueError as e:
+        with pytest.raises(ValueError, match="Unknown sharding strategy"):
+            param_specs(net.params, strategy, mesh2)
+        assert "Unknown sharding strategy" in str(e)
+    else:
+        got = param_specs(net.params, strategy, mesh2)
+        assert [{k: tuple(v) for k, v in p.items()} for p in got] == \
+            [{k: tuple(v) for k, v in p.items()} for p in want]
 
 
 def test_model_axis_mesh_shape_names_roadmap_a11b():
+    """mesh_shape=(d, m) builds the (data, model) mesh over the first d·m
+    ranks (ROADMAP A11b, now ported): a (1, 1) mesh here, with its axes;
+    one process cannot hold the 2 ranks of (1, 2)."""
     net = _pnet(_jnet())
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        ParallelTrainer(net, mesh_shape=(1, 2), device="cpu")
+    tr = ParallelTrainer(net, mesh_shape=(1, 1), device="cpu",
+                         strategy=ShardingStrategy.TENSOR_PARALLEL)
+    assert tr.mesh.shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        ParallelTrainer(_pnet(_jnet()), mesh_shape=(1, 2), device="cpu")
 
 
 # ----------------------------------------------------------------------
@@ -506,25 +551,31 @@ def _bn_conf(lib):
 
 def test_batchnorm_over_two_ranks_against_jax_mesh(world):
     """A float32 BatchNormalization MLP over two ranks. SYNC training
-    raises ROADMAP A11b's error in every strategy before a step is taken
-    (the ranks cannot take JAX's global-batch statistics), and so do the
-    ZeRO step builders; inference-mode scoring and evaluation stay allowed
-    and equal JAX's 8-device mesh at 1e-5. AVERAGING, whose replicas each
-    normalise by their own rows in JAX too, is held to JAX's
-    make_mesh({"data": 2}) at 1e-5 after 4 steps averaged every 2."""
+    takes the global batch's statistics in every strategy (the split path,
+    `kernels/bn_split.py`), as JAX's GSPMD step: one step each equals
+    JAX's 8-device mesh at 1e-5, and the ZeRO step builders take it too;
+    inference-mode scoring and evaluation equal JAX's at 1e-5. AVERAGING,
+    whose replicas each normalise by their own rows in JAX too, is held
+    to JAX's make_mesh({"data": 2}) at 1e-5 after 4 steps averaged every
+    2."""
     x, y = _data(64, seed=6)
     jnet = jax_init(JaxNet(_bn_conf(jx)))
     start = np.asarray(jnet.params_flat())
     conf = jnet.conf.to_json()
-    got = world.run(tasks.batchnorm_refusals, conf, start, (x, y), width=2)
+    got = world.run(tasks.batchnorm_sync, conf, start, (x, y), width=2)
+    for strategy in ("replicated", "zero1", "zero2", "fsdp"):
+        kw = {} if strategy == "replicated" else {"strategy": strategy}
+        ref, ref_score = _jax_trained(("bn-sync", strategy), jax_init(
+            JaxNet(_bn_conf(jx))), 8, [(x, y)], **kw)
+        for g in got:
+            np.testing.assert_allclose(g["params"][strategy], ref, **F32,
+                                       err_msg=strategy)
+            assert g["scores"][strategy] == pytest.approx(ref_score,
+                                                          rel=1e-5)
     for g in got:
-        assert set(g["errors"]) == {"replicated", "zero1", "zero2", "fsdp",
-                                    "make_zero_step",
-                                    "make_zero_accum_superstep"}
-        for msg, iters in g["errors"].values():
-            assert "BatchNormalization (layers 1;" in msg
-            assert "over 2 ranks" in msg and "ROADMAP A11b" in msg
-            assert iters == 0
+        assert set(g["builders"]) == {"make_zero_step",
+                                      "make_zero_accum_superstep"}
+        assert all(np.isfinite(v) for v in g["builders"].values())
     jt = JaxTrainer(jnet, mesh=jax_mesh({"data": 8}))
     ref_score = float(jt.score(jx.DataSet(x, y)))
     assert got[0]["score"] == pytest.approx(ref_score, rel=1e-5)

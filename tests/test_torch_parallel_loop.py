@@ -595,7 +595,7 @@ def test_bilstm_parallel_modes(world):
     trainer on 4 ranks: SYNC (and ZERO2's chunked moments of the nested
     leaves) equal JAX's 4-device mesh at 1e-5, AVERAGING trains (the twin
     of `tests/test_bilstm_subsystems.py::test_bilstm_parallel_modes`; its
-    tensor-parallel case is ROADMAP A11b)."""
+    tensor-parallel case is in `test_torch_tp_models.py`)."""
     def conf(lib):
         return (lib.NeuralNetConfiguration.builder().seed(0)
                 .updater(lib.Sgd(0.1)).list()

@@ -296,27 +296,37 @@ def placement(ctx):
                                                            0)
 
 
-def batchnorm_refusals(ctx, conf_json, flat, batch):
+def batchnorm_sync(ctx, conf_json, flat, batch):
     """SYNC training of a BatchNormalization model over this world's ranks
-    in each strategy, and the ZeRO step builders: the errors they raise.
-    The inference-mode score and accuracy of the untrained model, which
-    stay allowed."""
+    in each strategy, one step each (the global batch's statistics), and
+    one step of each ZeRO step builder; the inference-mode score and
+    accuracy of the untrained model."""
+    import torch
     from deeplearning4j_tpu_torch.parallel import (make_zero_accum_superstep,
                                                    make_zero_step)
     ds = pt.DataSet(*batch)
-    errors = {}
+    params, scores = {}, {}
     for strategy in ("replicated", "zero1", "zero2", "fsdp"):
-        tr = ParallelTrainer(build(conf_json, flat), mesh=ctx.mesh,
-                             strategy=strategy)
-        try:
-            tr.fit(ds)
-        except NotImplementedError as e:
-            errors[strategy] = (str(e), tr.iteration_count)
+        net = build(conf_json, flat)
+        tr = ParallelTrainer(net, mesh=ctx.mesh, strategy=strategy)
+        tr.fit(ds)
+        params[strategy] = net.params_flat()
+        scores[strategy] = tr.score()
+    builders = {}
     for fn in (make_zero_step, make_zero_accum_superstep):
-        try:
-            fn(build(conf_json, flat), ctx.mesh)
-        except NotImplementedError as e:
-            errors[fn.__name__] = (str(e), 0)
+        net = build(conf_json, flat)
+        step, info = fn(net, ctx.mesh)
+        rows = len(batch[0]) // ctx.mesh.size
+        sl = slice(ctx.mesh.rank * rows, (ctx.mesh.rank + 1) * rows)
+        b = (torch.tensor(batch[0][sl]), torch.tensor(batch[1][sl]), None,
+             None)
+        opt = step.plan.to_plan_opt(net.updater_state)
+        if fn is make_zero_step:
+            out = step(net.params, net.state, opt, 0, b)
+            builders[fn.__name__] = float(out[3])
+        else:
+            out = step(net.params, net.state, opt, 0, [[b]])
+            builders[fn.__name__] = float(out[3][0])
     tr = ParallelTrainer(build(conf_json, flat), mesh=ctx.mesh)
-    return {"errors": errors, "score": tr.score(ds),
-            "accuracy": tr.evaluate(ds).accuracy()}
+    return {"params": params, "scores": scores, "builders": builders,
+            "score": tr.score(ds), "accuracy": tr.evaluate(ds).accuracy()}

@@ -65,13 +65,14 @@ def _rank_main(rank, n, init, widths, tasks, results):
         task = tasks.get()
         if task is None:
             break
-        mod, name, args, kwargs, width = task
-        if rank >= width:
+        mod, name, args, kwargs, width, every = task
+        if rank >= width and not every:
             results.put((rank, True, None))
             continue
         try:
             fn = getattr(importlib.import_module(mod), name)
-            ctx.mesh = ctx.mesh_of(width)
+            ctx.width = width
+            ctx.mesh = ctx.mesh_of(width) if rank < width else None
             out = fn(ctx, *args, **kwargs)
             results.put((rank, True, out))
         except BaseException:
@@ -112,12 +113,14 @@ class World:
             raise AssertionError("\n".join(errors))
         return out
 
-    def run(self, fn, *args, width=None, timeout=600, **kwargs):
-        """fn(ctx, *args, **kwargs) on ranks 0..width-1; their results in
-        order."""
+    def run(self, fn, *args, width=None, timeout=600, every=False,
+            **kwargs):
+        """fn(ctx, *args, **kwargs) on ranks 0..width-1 (with `every`, on
+        every rank, `ctx.width` saying how many the task uses: making a
+        subgroup is a call of the whole world); their results in order."""
         width = self.n if width is None else int(width)
         for q in self.tasks:
-            q.put((fn.__module__, fn.__name__, args, kwargs, width))
+            q.put((fn.__module__, fn.__name__, args, kwargs, width, every))
         out = self._collect(self.n, timeout)
         return [out[r] for r in range(width)]
 
