@@ -326,9 +326,9 @@ class ModelGuesser:
 
     Recognized: ModelSerializer zips (MultiLayerNetwork or
     ComputationGraph), Keras HDF5 models (Sequential or functional, through
-    `modelimport/`), and word-vector files (Google binary, text, the
-    word2vec zip), which are named but not loaded: `nlp/` is not in the
-    port yet (ROADMAP A12)."""
+    `modelimport/`), and word-vector files (Google binary, text with or
+    without a header and gzipped or not, the word2vec zip), loaded through
+    `nlp.serializer.WordVectorSerializer` as a `WordVectorsModel`."""
 
     WORD_VECTOR_KINDS = ("word_vectors_binary", "word_vectors_text",
                          "word_vectors_zip")
@@ -400,8 +400,10 @@ class ModelGuesser:
                     raise   # keep the actionable sequential-import error
                 return import_keras_model_and_weights(path, device)
         if kind in ModelGuesser.WORD_VECTOR_KINDS:
-            raise NotImplementedError(
-                f"{path!r} holds word vectors ({kind}); word vectors (nlp/) "
-                "are not in the PyTorch port yet (ROADMAP A12)")
+            from ..nlp.serializer import WordVectorSerializer as S
+            read = {"word_vectors_binary": S.read_binary,
+                    "word_vectors_text": S.read_word_vectors,
+                    "word_vectors_zip": S.read_word2vec_model}[kind]
+            return read(path, device=device)
         raise ValueError(f"cannot determine model format of {path!r} "
                          f"(sniffed: {kind})")

@@ -2251,3 +2251,290 @@ def test_gloo_window_on_the_card_raises_capture_error(cuda):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "CaptureError True" in proc.stdout
+
+
+# ----------------------------------------------------------------------
+# word vectors (ROADMAP A12: nlp/, graphlib/): no hand kernel; the epochs
+# replay one captured step
+# ----------------------------------------------------------------------
+def _nlp_step_args(dtype, device, B=96, V=700, D=64, W2=8, seed=0):
+    r = np.random.default_rng(seed)
+    ctx = r.integers(0, V, (B, W2))
+    ctx[:, 1] = ctx[:, 0]
+    vm = (r.random((B, W2)) > 0.3).astype(np.float32)
+    pn = r.random(V)
+    arrays = (r.normal(size=(B, D)) * 0.3, r.normal(size=(V, D)) * 0.3)
+    return ([torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+            + [torch.as_tensor(ctx, device=device),
+               torch.as_tensor(vm, device=device),
+               torch.as_tensor(vm.sum(1), device=device),
+               torch.as_tensor(pn / pn.sum(), dtype=torch.float32,
+                               device=device)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sgns_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """The expected-NS step on the card against the same code on the CPU:
+    float64 at 1e-9 of the largest entry; float32 (bf16 logits and
+    cotangent, f32 products via `torch.mm(out_dtype=)`) at 1e-2."""
+    from deeplearning4j_tpu_torch.nlp.embeddings import _sgns_expected_step
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()
+    got = _sgns_expected_step(*_nlp_step_args(dtype, cuda), 5)
+    want = _sgns_expected_step(*_nlp_step_args(dtype, "cpu"), 5)
+    tol = 1e-9 if dtype == torch.float64 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        err = ((g.cpu() - w).abs().max() / w.abs().max()).item()
+        assert err <= tol, err
+
+
+def _nlp_corpus(n_sent=300, V=120, L=12, seed=0):
+    r = np.random.default_rng(seed)
+    words = r.zipf(1.3, size=(n_sent, L)) % V
+    return [" ".join(f"w{w}" for w in row) for row in words]
+
+
+def _nlp_epoch(device, dtype, steps, seed=0):
+    """A corpus-runner epoch of `steps` steps from one seeded table and one
+    CPU draw stream; returns (syn0, syn1neg, init, runner)."""
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp.embeddings import (
+        InMemoryLookupTable, make_skipgram_corpus_runner)
+    m = nlp.Word2Vec(sentence_iterator=nlp.CollectionSentenceIterator(
+        _nlp_corpus(seed=seed)), layer_size=32, window_size=3, seed=seed,
+        min_word_frequency=1, device="cpu")
+    seqs = m.build_vocab()
+    flat, sid = m._flatten_corpus(seqs, subsample=False)
+    n, B = len(flat), 64
+    g = torch.Generator().manual_seed(seed)
+    T = -(-n // B)
+    pos = torch.randperm(n, generator=g).repeat(2)[:T * B].view(T, B)
+    win = torch.randint(1, 4, (T, B), generator=g)
+    lrs = torch.linspace(0.025, 0.001, T)
+    init = m.lookup_table.syn0.clone()
+    t = InMemoryLookupTable.from_arrays(m.vocab, init, negative=5,
+                                        device=device)
+    s0, s1 = t.syn0.to(dtype), t.syn1neg.to(dtype)
+    run = make_skipgram_corpus_runner(t, 3)
+    run(s0, s1, torch.as_tensor(flat, dtype=torch.int64, device=device),
+        torch.as_tensor(sid, dtype=torch.int64, device=device),
+        pos[:steps].to(device), win[:steps].to(device),
+        lrs[:steps].to(device))
+    return s0.cpu(), s1.cpu(), init.to(dtype), run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sgns_epoch_replays_one_capture_and_matches_the_cpu(cuda, dtype):
+    """A corpus-runner epoch on the card is one capture and a replay a
+    step, launches no hand kernel, and equals the CPU's eager epoch on the
+    same draws: float64 at 1e-9 of the largest entry, float32 (8 steps)
+    at 5e-2 of the tables' move (a run that lost its last step reads past
+    it)."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()
+    S = 40 if dtype == torch.float64 else 8
+    before = kernels.count_snapshot()
+    g0, g1, init, run = _nlp_epoch(cuda, dtype, S)
+    torch.cuda.synchronize()
+    assert run.epochs.captures == 1 and run.epochs.replays == S
+    assert kernels.count_delta(before, kernels.count_snapshot()) == \
+        kernels.count_delta(before, before)
+    c0, c1, _, _ = _nlp_epoch("cpu", dtype, S)
+    s0, s1, _, _ = _nlp_epoch("cpu", dtype, S - 1)
+    if dtype == torch.float64:
+        for g, c in ((g0, c0), (g1, c1)):
+            assert ((g - c).abs().max() / c.abs().max()).item() <= 1e-9
+    else:
+        def gap(a, b, o):
+            return ((a - b).norm() / (b - o).norm()).item()
+        zero = torch.zeros_like(c1)
+        assert gap(g0, c0, init) <= 5e-2 and gap(g1, c1, zero) <= 5e-2
+        assert gap(g0, s0, init) > 5e-2 and gap(g1, s1, zero) > 5e-2
+
+
+def test_word2vec_fit_captures_once_and_records_the_dispatch(cuda):
+    """Two epochs of one fit on the card capture the SGNS step once (the
+    telemetry twin: `word2vec/sgns_epoch` counts 1), replay it every step
+    and record the device/dispatch span; a second fit replays the same
+    capture."""
+    from deeplearning4j_tpu_torch import nlp
+    sents = ["the quick brown fox jumps over the lazy dog",
+             "the cat sat on the mat and the dog barked"] * 20
+    w2v = nlp.Word2Vec(sentence_iterator=nlp.CollectionSentenceIterator(
+        sents), layer_size=8, window_size=2, negative=2,
+        min_word_frequency=1, epochs=2, batch_size=64, seed=3)
+    assert w2v.device.type == "cuda"
+    sess = pt.TelemetrySession()
+    with pt.telemetry.enabled(sess):
+        w2v.fit()
+        rep = sess.compiles.report()
+        assert rep.get("word2vec/sgns_epoch", {}).get("count") == 1, rep
+        assert sess.span_totals().get("device/dispatch", 0) > 0
+    w2v.fit()
+    eps = w2v._sg_runner.epochs
+    assert eps.captures == 1 and eps.replays > 0
+    assert np.isfinite(w2v.lookup_table.vectors_matrix()).all()
+
+
+class _CpuDraws:
+    """Negatives and infer_vector's draws from one CPU stream, moved to the
+    model's device: the card and the CPU train on the same draws."""
+
+    def _stream(self):
+        from deeplearning4j_tpu_torch.nlp import NegativeSampler
+        if getattr(self, "_draw_gen", None) is None:
+            self._draw_gen = torch.Generator().manual_seed(5)
+            self._cpu_sampler = NegativeSampler(self.vocab.counts_array(),
+                                                device="cpu")
+        return self._draw_gen
+
+    def _pair_negatives(self, gen, table, T, B, K):
+        g = self._stream()
+        return self._cpu_sampler.sample(g, (T, B, K)).to(table.device)
+
+
+@pytest.mark.parametrize("case", ["sg_hs", "cbow", "dbow", "dm"])
+def test_pair_epochs_replay_on_the_card_and_match_the_cpu(cuda, case):
+    """The pair path (autograd inside the captured step) on the card
+    against the CPU from one table and the same negatives, two epochs:
+    1e-4 of the largest entry; one capture per task."""
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp.embeddings import InMemoryLookupTable
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()
+    kw = dict(layer_size=16, window_size=3, min_word_frequency=1, seed=2,
+              epochs=2, batch_size=64, negative=4)
+    sents = _nlp_corpus(80, V=40, L=8, seed=3)
+    if case == "sg_hs":
+        kw.update(negative=0, use_hierarchic_softmax=True)
+    elif case == "cbow":
+        kw.update(elements_learning_algorithm="cbow")
+    base = (nlp.ParagraphVectors if case in ("dbow", "dm")
+            else nlp.Word2Vec)
+    cls = type("M", (_CpuDraws, base), {})
+    if case == "dm":
+        kw.update(sequence_learning_algorithm="dm")
+    out = []
+    for device in (cuda, "cpu"):
+        if base is nlp.ParagraphVectors:
+            m = cls(iterator=nlp.CollectionLabeledSentenceIterator(
+                sents, [f"d{i % 4}" for i in range(len(sents))]),
+                device=device, **kw)
+        else:
+            m = cls(sentence_iterator=nlp.CollectionSentenceIterator(sents),
+                    device=device, **kw)
+        m.build_vocab()
+        if out:
+            t = out[0].lookup_table
+            m.lookup_table = InMemoryLookupTable.from_arrays(
+                m.vocab, init, negative=t.negative, use_hs=t.use_hs,
+                device="cpu")
+        else:
+            init = m.lookup_table.syn0.cpu().clone()
+        m.fit()
+        out.append(m)
+    for k in ("syn0", "syn1", "syn1neg"):
+        a = getattr(out[0].lookup_table, k)
+        if a is None:
+            continue
+        b = getattr(out[1].lookup_table, k)
+        assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-4, k
+    assert all(r.epochs.captures == 1
+               for r in out[0]._pair_runners.values())
+
+
+def test_glove_epochs_replay_on_the_card_and_match_the_cpu(cuda):
+    from deeplearning4j_tpu_torch import nlp
+
+    class G(nlp.Glove):
+        def _init_params(self, V, D):
+            g = torch.Generator().manual_seed(1)
+            p = {k: torch.empty((V, D)).uniform_(-0.5 / D, 0.5 / D,
+                                                 generator=g)
+                 for k in ("w", "wc")}
+            p.update(b=torch.zeros(V), bc=torch.zeros(V))
+            return {k: v.to(self.device) for k, v in p.items()}
+
+    sents = _nlp_corpus(100, V=50, L=8, seed=4)
+    ms = [G(sentence_iterator=nlp.CollectionSentenceIterator(sents),
+            layer_size=12, window=4, epochs=5, batch_size=100, seed=1,
+            device=d) for d in (cuda, "cpu")]
+    for m in ms:
+        m.fit()
+    a, b = (m.lookup_table.syn0.cpu() for m in ms)
+    assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+    assert ms[0]._epochs.captures == 1 and ms[0]._epochs.replays > 0
+
+
+def test_distributed_word2vec_one_rank_nccl_bit_equal_to_fit(cuda,
+                                                             nccl_world):
+    """DistributedWord2Vec on the one-rank NCCL group (the step's sums
+    all-reduced inside the captured graph) is bit-equal to Word2Vec.fit,
+    the corpus path and the pair path."""
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    sents = _nlp_corpus(120, V=60, L=10, seed=6)
+    for extra in ({}, {"negative": 0, "use_hierarchic_softmax": True}):
+        kw = dict(layer_size=16, window_size=3, min_word_frequency=1,
+                  epochs=2, seed=4, batch_size=128, **extra)
+        a = nlp.Word2Vec(sentence_iterator=nlp.CollectionSentenceIterator(
+            sents), **kw)
+        a.fit()
+        b = DistributedWord2Vec(mesh=make_mesh(),
+                                sentence_iterator=nlp.CollectionSentenceIterator(
+                                    sents), **kw)
+        b.fit()
+        for k in ("syn0", "syn1", "syn1neg"):
+            x = getattr(a.lookup_table, k)
+            if x is not None:
+                assert torch.equal(x, getattr(b.lookup_table, k)), k
+
+
+def test_word_vectors_load_on_the_card_through_model_guesser(cuda,
+                                                             tmp_path):
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.util import ModelGuesser
+    m = nlp.Word2Vec(sentence_iterator=nlp.CollectionSentenceIterator(
+        _nlp_corpus(40, V=30, L=6)), layer_size=8, min_word_frequency=1,
+        seed=1)
+    m.fit()
+    S = nlp.WordVectorSerializer
+    for write, read, name in ((S.write_word_vectors, S.read_word_vectors,
+                               "v.txt"),
+                              (S.write_binary, S.read_binary, "v.bin"),
+                              (S.write_word2vec_model,
+                               S.read_word2vec_model, "v.zip")):
+        path = str(tmp_path / name)
+        write(m, path)
+        got = ModelGuesser.load(path)
+        assert got.lookup_table.syn0.device.type == "cuda"
+        np.testing.assert_array_equal(
+            got.lookup_table.vectors_matrix(),
+            read(path, device="cpu").lookup_table.vectors_matrix())
+
+
+def test_graph_embeddings_on_the_card_separate_communities(cuda):
+    from deeplearning4j_tpu_torch.graphlib import DeepWalk, Graph, Node2Vec
+    g = Graph(12)
+    for base in (0, 6):
+        for i in range(6):
+            for j in range(i + 1, 6):
+                g.add_edge(base + i, base + j)
+    g.add_edge(5, 6)
+    for model in (DeepWalk(vector_size=16, walk_length=10,
+                           walks_per_vertex=10, window_size=3, seed=3,
+                           epochs=2),
+                  Node2Vec(vector_size=16, walk_length=10,
+                           walks_per_vertex=10, window_size=3, q=0.5,
+                           seed=3, epochs=2)):
+        model.fit(g)
+        emb = np.stack([model.vertex_vector(i) for i in range(12)])
+        emb = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+        same = np.mean([emb[i] @ emb[j] for i in range(5) for j in range(5)
+                        if i != j])
+        cross = np.mean([emb[i] @ emb[j] for i in range(5)
+                         for j in range(7, 12)])
+        assert same > cross + 0.1, (type(model).__name__, same, cross)

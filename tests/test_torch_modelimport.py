@@ -3,7 +3,8 @@
 functional graphs, VGG-16, training an imported net, the archive reader,
 the refusals, the ordered weight assignment) and of
 `test_round4_regressions.py::test_h5_attr_missing_name_errors`; the
-`ModelGuesser` format table and its named error for word vectors; a Keras
+`ModelGuesser` format table and its word-vector kinds (loaded as the
+serializer reads them, refused by the serving registry); a Keras
 HDF5 file served through `load_source`; the legacy Keras backend server's
 error semantics (the twins of `tests/test_serving.py`'s legacy-server
 tests); and a Keras-2-layout file written with h5py alone, held against
@@ -430,10 +431,24 @@ def test_model_guesser_format_table(tmp_path, kind):
 
 @pytest.mark.parametrize("kind", ["word_vectors_text",
                                   "word_vectors_binary", "word_vectors_zip"])
-def test_model_guesser_word_vectors_name_roadmap_a12(tmp_path, kind):
+def test_model_guesser_loads_word_vectors_registry_refuses(tmp_path, kind):
+    """Each word-vector kind loads through ModelGuesser.load as
+    WordVectorSerializer reads it (and as JAX's guesser loads it); the
+    serving registry still refuses it, in JAX's words."""
+    from deeplearning4j_tpu_torch.nlp import WordVectorSerializer
     path = _guess_files(tmp_path)[kind]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ModelGuesser.load(path, device="cpu")
+    got = ModelGuesser.load(path, device="cpu")
+    read = {"word_vectors_text": WordVectorSerializer.read_word_vectors,
+            "word_vectors_binary": WordVectorSerializer.read_binary,
+            "word_vectors_zip": WordVectorSerializer.read_word2vec_model}[
+        kind](path, device="cpu")
+    want = JaxGuesser.load(path)
+    for other in (read, want):
+        assert got.vocab.words() == other.vocab.words()
+        np.testing.assert_array_equal(got.lookup_table.vectors_matrix(),
+                                      np.asarray(other.lookup_table
+                                                 .vectors_matrix()))
+    assert got.lookup_table.syn0.device.type == "cpu"
     with pytest.raises(ServingError, match="not a servable model file"):
         ModelRegistry(buckets=(1,), device="cpu").register("w", path)
 
