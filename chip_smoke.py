@@ -275,6 +275,31 @@ Phases:
      ModelGuesser; DistributedWord2Vec on a one-rank NCCL group bit-equal
      to fit; DeepWalk and Node2Vec on a barbell graph. `--nlp-only` runs
      phase 1 and phase 20.
+ 21. main path 17, the dashboard and the embedding plots (no hand kernel
+     of their own; `ui/`, `clustering/`, `plot/`, `eval/tools.py`): (a)
+     phase 6's char-RNN (the same zip and batches) trained 20 steps with
+     a StatsListener(frequency=1) into each of an in-memory, a file, a
+     sqlite storage and a RemoteUIStatsStorageRouter posting to a
+     UIServer: the storages read back equal, /train/data.json serves
+     every session's 20 reports, the reports against the CPU's (scores,
+     parameter summaries at phase 6's limits, the topology), the card's
+     memory in every report, the step p50 with and without the listener
+     and the host copies a report; fit(superstep=4) (per batch for TBPTT)
+     and fit_scan under the listener (scores bit-equal to K = 1, the
+     window edge's summaries equal, warn_scan_replay's warning); (b) on
+     LeNet, activation_grid card against CPU, the convolutional listener
+     on a card fit, and a superstep=4 window under the listener against K
+     = 1; (c) LeNet evaluated on the 384 bundled digits, the Evaluation
+     counts and ROCMultiClass's AUCs against the CPU, the three
+     EvaluationTools pages parsed and compared; (d) exact t-SNE
+     (perplexity 30, 500 steps) and K-means (k 10) on a seeded 10,000 x
+     128 table of 10 Gaussian clusters: each row's entropy at log 30, a
+     block of 1,000 rows of P and the first 10 steps against the CPU
+     (beside a CPU run that lost its last step), seconds, KL, 10-NN
+     cluster agreement, host reads and peak memory; K-means' labels,
+     centres and iterations against the CPU's; the topic corpus's word
+     vectors through BarnesHutTsne and Tsne into UIServer.attach_tsne and
+     export_tsne_html. `--ui-only` runs phase 1 and phase 21.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -325,7 +350,10 @@ launch per BN layer and step, none in evaluation (the kernels line's
 GPipe step (4 microbatches), two of each split BN kernel per step at 2
 data ranks and no fused BN launch (the kernels line's
 `model_parallel_launches`); and on the word-vector path (phase 20) none
-of any hand kernel (the kernels line's `nlp_launches`, 0 on every row).
+of any hand kernel (the kernels line's `nlp_launches`, 0 on every row);
+on the dashboard path (phase 21) 2 + 2 + 2 cluster LSTM launches per
+char-RNN step under the StatsListener, as phase 6, and none elsewhere (the
+kernels line's `ui_launches`).
 The last two lines are a
 `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
@@ -6562,11 +6590,12 @@ def nlp_path(pt, torch, tag, tmp, reset_counts):
     return out
 
 
-def add_nlp_launches(line, nlp):
-    """Each row of the kernels line gains `nlp_launches`: its own kernel's
-    launches on main path 16 (four Word2Vec.fit epochs of BASELINE config
-    4), by the row's counter and variant."""
-    counts = nlp["fit"]["hand_kernel_counts"]
+def add_path_launches(line, key, counts):
+    """Each row of the kernels line gains `key`: its own kernel's launches
+    in `counts` (a `kernels.count_snapshot()` of one path's run), by the
+    row's counter and variant: `nlp_launches` on main path 16 (four
+    Word2Vec.fit epochs of BASELINE config 4), `ui_launches` on main path
+    17 (the char-RNN's 20 steps under the StatsListener)."""
 
     def var(mod, kind, v):
         return counts[mod][1][kind][v]
@@ -6593,7 +6622,615 @@ def add_nlp_launches(line, nlp):
                     "lstm_residual_forward": "residual",
                     "lstm_adjoint": "adjoint"}[name.replace("_streamed", "")]
             n = var("lstm", kind, v or "cluster")
-        e["nlp_launches"] = n
+        e[key] = n
+
+
+# ---- main path 17: the dashboard and the embedding plots -------------------
+# t-SNE and K-means at BASELINE config 4's vocabulary and width (bench.py:29:
+# 10,000 words, D 128), drawn as 10 Gaussian clusters of 1,000 rows so the
+# outcome has a truth: centres N(0, 2^2) per dimension, rows N(centre, 1)
+TSNE_N, TSNE_D, TSNE_K, TSNE_CENTRE_SCALE = 10_000, 128, 10, 2.0
+TSNE_PERP, TSNE_ITERS, TSNE_CMP_STEPS, TSNE_CMP_ROWS = 30.0, 500, 10, 1000
+# P(j | i) of a block of rows, card against CPU, over its largest entry:
+# two float32 distance matrices round apart and the bisection lands on
+# slightly other betas (the CPU tests read 2.5e-5 against JAX)
+TSNE_P_TOL = 1e-4
+# each row's entropy against log(perplexity): 50 bisection steps in float32
+TSNE_ENTROPY_TOL = 1e-3
+# the first 10 steps card against CPU on one P, over the largest |y|; a CPU
+# run that lost its last step must read past it
+TSNE_STEP_TOL = 1e-3
+# the 10 nearest neighbours in 2-D that share a point's cluster, over all
+# points (well-separated clusters: near 1)
+TSNE_KNN_MIN = 0.9
+KMEANS_TOL = 1e-4           # K-means centres card against CPU, absolute
+LENET_UI_B = 32             # LeNet's batch in (b) and (c): 10 steps an epoch
+UI_SUPERSTEP = 4
+# (c): ROCMultiClass's AUCs card against CPU (100 thresholds; a probability
+# within rounding of a threshold moves one count), absolute
+UI_AUC_TOL = 2e-3
+UI_EVAL_FLIPS = 1           # digits of 384 whose prediction may flip
+# the topic corpus's 24 word vectors in 2-D: each word's 3 nearest share
+# its topic (1.000 for both plots in CPU rehearsals at seeds 1-3)
+WORDS_TSNE_LR, WORDS_KNN_MIN = 50.0, 0.9
+
+
+def _reports(storage, session):
+    return [r for _, r in storage.get_all_updates(session, "StatsListener",
+                                                  "local")]
+
+
+def _report_core(r):
+    """The parts of a report that depend on the model alone (not on the
+    clock or the process): what two listeners of one run must agree on."""
+    return json.dumps({k: r.get(k) for k in ("iteration", "score", "params",
+                                             "updates", "model")},
+                      sort_keys=True)
+
+
+def _summary_gap(card, cpu):
+    """Largest |card - CPU| of the parameter summaries (mean, stdev, min,
+    max) over the tensor's largest magnitude, and the largest histogram
+    count difference, over the reports' parameters."""
+    gap, hist = 0.0, 0
+    for g, w in zip(card, cpu):
+        for k, s in w["params"].items():
+            scale = max(abs(s["min"]), abs(s["max"]), 1e-30)
+            for key in ("mean", "stdev", "min", "max"):
+                gap = max(gap, abs(g["params"][k][key] - s[key]) / scale)
+            hist = max(hist, max(abs(a - b) for a, b in zip(
+                g["params"][k]["histogram"]["counts"],
+                s["histogram"]["counts"])))
+    return gap, hist
+
+
+class _HtmlShape:
+    """What an HTML page carries: its tags in order (parsed by the stdlib's
+    html.parser, every tag closed), its polylines' point counts and its
+    text."""
+
+    def __init__(self, text):
+        from html.parser import HTMLParser
+        shape = self
+        self.tags, self.points, self.text, self.open = [], [], [], []
+
+        class P(HTMLParser):
+            def handle_starttag(self, tag, attrs):
+                shape.tags.append(tag)
+                a = dict(attrs)
+                if tag == "polyline":
+                    shape.points.append(len(a["points"].split()))
+                if tag not in ("br", "polyline", "circle", "rect", "meta"):
+                    shape.open.append(tag)
+
+            def handle_startendtag(self, tag, attrs):
+                shape.tags.append(tag)
+                if tag == "polyline":
+                    shape.points.append(len(dict(attrs)["points"].split()))
+
+            def handle_endtag(self, tag):
+                check(shape.open and shape.open[-1] == tag,
+                      f"HTML closes {tag} inside {shape.open[-1:]}")
+                shape.open.pop()
+
+            def handle_data(self, data):
+                shape.text.append(data)
+
+        P().feed(text)
+        check(not self.open, f"HTML leaves {self.open} open")
+
+
+def _series_names(shape):
+    """The series legends of a chart page with their numbers dropped."""
+    import re
+    return [re.sub(r"[-0-9.]+", "#", t) for t in shape.text]
+
+
+def ui_path(pt, torch, tag, tmp, root, reset_counts):
+    """Main path 17 (phase 21): the dashboard and the embedding plots. (a)
+    StatsListener on phase 6's char-RNN training into the in-memory, file,
+    sqlite and remote storages, the dashboard's JSON, the CPU's reports,
+    the listener's cost and the windowed fit; (b) the convolutional
+    listener and a superstep window on LeNet; (c) the evaluation charts on
+    the 384 bundled digits; (d) exact t-SNE and K-means at 10,000 x 128 and
+    the word vectors' plot. Returns the phase's numbers."""
+    import warnings
+
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.eval import (ROC, EvaluationTools,
+                                               ROCMultiClass)
+    from deeplearning4j_tpu_torch.kernels import lstm
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nlp import (CollectionSentenceIterator,
+                                              Word2Vec)
+    from deeplearning4j_tpu_torch.plot.tsne import (BarnesHutTsne, Tsne,
+                                                    export_tsne_html,
+                                                    row_entropy)
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             InMemoryStatsStorage,
+                                             SqliteStatsStorage,
+                                             StatsListener, UIServer)
+    from deeplearning4j_tpu_torch.ui.convolutional import (
+        ConvolutionalIterationListener, activation_grid)
+    from deeplearning4j_tpu_torch.ui.remote import RemoteUIStatsStorageRouter
+    from deeplearning4j_tpu_torch.util.platform import strict_fp32
+    strict_fp32()       # full float32 products for the bare t-SNE / K-means
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+
+    # -- (a) the dashboard on the char-RNN's training ---------------------
+    x_text, y_text = readme_batches(root)
+    net = pt.char_rnn(vocab_size=VOCAB, lstm_size=HIDDEN, seq_len=TRAIN_T,
+                      tbptt=TRAIN_TBPTT)
+    net.init(generator=torch.Generator().manual_seed(3))   # phase 6's zip
+    rnn_zip = os.path.join(tmp, "ui_char_rnn.zip")
+    pt.ModelSerializer.write_model(net, rnn_zip)
+    batches = lambda: pt.ArrayDataSetIterator(x_text, y_text,
+                                              batch_size=TRAIN_B,
+                                              shuffle=True, seed=11)
+    steps = 2 * TRAIN_BATCHES
+
+    def train(device, *listeners, how="fit"):
+        """A fit of the zip on `device` with `listeners`; the step times
+        (host clock after synchronizing, the listeners' work included)."""
+        n = pt.ModelSerializer.restore(rnn_zip, device=device)
+        log = StepLog(torch if device == DEVICE else None)
+        n.set_listeners(*listeners, log)
+        t0 = time.perf_counter()
+        if how == "fit_scan":
+            n.fit_scan(list(batches()))
+        elif how == "superstep":
+            n.fit(batches(), superstep=UI_SUPERSTEP)
+        else:
+            n.fit(batches())
+        check(n.iteration_count == steps, f"{n.iteration_count} steps, "
+              f"want {steps}")
+        return n, np.diff([t0] + log.times) * 1e3
+
+    train(DEVICE)                                   # warm-up, not timed
+    _, plain_ms = train(DEVICE)
+    timed = InMemoryStatsStorage()
+    timed_listener = StatsListener(timed, session_id="timed")
+    reset_counts()
+    _, listener_ms = train(DEVICE, timed_listener)
+    torch.cuda.synchronize()
+    ui_counts = kernels.count_snapshot()
+    want_counts = {"launches": 0, "residual_launches": 2 * steps,
+                   "adjoint_launches": 2 * steps,
+                   "reduction_launches": 2 * steps}
+    check(lstm.launch_counts() == want_counts and
+          lstm.variant_counts()["residual"]["cluster"] ==
+          lstm.variant_counts()["adjoint"]["cluster"] == 2 * steps,
+          f"char-RNN training under the listener: LSTM launches "
+          f"{lstm.launch_counts()} {lstm.variant_counts()}, want phase 6's "
+          "2 + 2 + 2 cluster a step")
+    check(all(n == 0 for mod, (tot, _) in ui_counts.items()
+              if mod != "lstm" for n in tot.values()),
+          f"the listener's run launched other kernels: {ui_counts}")
+    copies = timed_listener.host_copies / steps
+
+    # the four storages on one run: each its own listener
+    mem = InMemoryStatsStorage()
+    fpath, spath = (os.path.join(tmp, f"ui_stats.{e}")
+                    for e in ("jsonl", "db"))
+    fstore, sstore = FileStatsStorage(fpath), SqliteStatsStorage(spath)
+    served_sqlite = None
+    srv = UIServer(port=0).enable_remote_listener().attach(mem).attach(
+        fstore).attach(sstore).start()
+    try:
+        router = RemoteUIStatsStorageRouter(f"http://127.0.0.1:{srv.port}")
+        listeners = [StatsListener(s, session_id=name) for s, name in (
+            (mem, "mem"), (fstore, "file"), (sstore, "sqlite"),
+            (router, "remote"))]
+        reset_counts()
+        gpu_net, _ = train(DEVICE, *listeners)
+        torch.cuda.synchronize()
+        check(lstm.launch_counts() == want_counts, f"four listeners: LSTM "
+              f"launches {lstm.launch_counts()}, want {want_counts}")
+        check(router.pending == 0, f"{router.pending} remote reports "
+              "undelivered")
+        m_reports = _reports(mem, "mem")
+        check(len(m_reports) == steps, f"{len(m_reports)} in-memory "
+              f"reports, want {steps}")
+        sstore.close()
+        read_back = {"file": _reports(FileStatsStorage(fpath), "file"),
+                     "remote": _reports(srv.remote_storage, "remote")}
+        served_sqlite = SqliteStatsStorage(spath)
+        read_back["sqlite"] = _reports(served_sqlite, "sqlite")
+        for name, reps in read_back.items():
+            check([_report_core(r) for r in reps]
+                  == [_report_core(r) for r in m_reports],
+                  f"the {name} storage read back differs from the "
+                  "in-memory reports")
+        # the dashboard's JSON: every session, every report
+        base = f"http://127.0.0.1:{srv.port}"
+        srv.detach(sstore).attach(served_sqlite)
+        sessions = http("GET", base + "/train/sessions.json")
+        check(sorted(sessions) == ["file", "mem", "remote", "sqlite"],
+              f"/train/sessions.json: {sessions}")
+        served = {}
+        for s in sessions:
+            d = http("GET", f"{base}/train/data.json?session={s}")
+            served[s] = len(d["scores"])
+            check(d["session"] == s and len(d["scores"]) == steps
+                  and len(d["model"]) == 1 + len(gpu_net.layers)
+                  and d["params"],
+                  f"/train/data.json?session={s}: {d['session']}, "
+                  f"{len(d['scores'])} scores")
+    finally:
+        srv.stop()
+        if served_sqlite is not None:
+            served_sqlite.close()
+    mem_bytes = [r["memory"].get("device_bytes_in_use", 0)
+                 for r in m_reports]
+    check(min(mem_bytes) > 0, f"device_bytes_in_use {mem_bytes[:3]}...")
+    card_bytes = torch.cuda.memory_allocated()
+
+    # the CPU: the same zip and batches
+    cpu_store = InMemoryStatsStorage()
+    t0 = time.perf_counter()
+    train("cpu", StatsListener(cpu_store, session_id="cpu"))
+    cpu_s = time.perf_counter() - t0
+    c_reports = _reports(cpu_store, "cpu")
+    score_err = max(abs(g["score"] - w["score"])
+                    for g, w in zip(m_reports, c_reports))
+    check(score_err <= SCORE_TOL, f"report scores card vs CPU: {score_err} "
+          f"> {SCORE_TOL}")
+    summary_err, hist_diff = _summary_gap(m_reports, c_reports)
+    check(summary_err <= PARAM_TOL, f"parameter summaries card vs CPU: "
+          f"{summary_err} of the tensor's largest magnitude > {PARAM_TOL}")
+    check(m_reports[0]["model"] == c_reports[0]["model"],
+          "the first report's topology differs card vs CPU")
+    p50 = lambda a: float(np.percentile(a, 50))
+    out["stats"] = {
+        "steps": steps, "step_ms_p50": p50(plain_ms),
+        "step_ms_p50_listener": p50(listener_ms),
+        "listener_ms_per_step": p50(listener_ms) - p50(plain_ms),
+        "host_copies_per_report": copies,
+        "score_err": score_err, "summary_err": summary_err,
+        "histogram_count_diff": hist_diff, "served": served,
+        "device_bytes_in_use": [min(mem_bytes), max(mem_bytes)],
+        "memory_allocated": card_bytes, "cpu_s": cpu_s,
+        "lstm_launches": lstm.launch_counts()}
+    print(f"{tag} phase 21 (a): StatsListener(frequency=1) on the char-RNN's "
+          f"{steps} TBPTT steps: step p50 {p50(plain_ms):.3f} ms without, "
+          f"{p50(listener_ms):.3f} ms with one listener (host clock after a "
+          f"sync); {copies:g} device-to-host copies a report (the score, "
+          f"the parameters); LSTM launches {want_counts} with the listener "
+          f"and with four (phase 6's 2 + 2 + 2 cluster a step); in-memory, "
+          f"file, sqlite and remote (POST /remote) storages read back equal; "
+          f"/train/data.json serves {served} reports; device_bytes_in_use "
+          f"{min(mem_bytes)}-{max(mem_bytes)} (torch.cuda.memory_allocated "
+          f"{card_bytes}); card vs CPU: scores max abs err {score_err:.3e} "
+          f"(limit {SCORE_TOL}), summaries {summary_err:.3e} of the "
+          f"tensor's largest magnitude (limit {PARAM_TOL}), histogram "
+          f"counts differ by at most {hist_diff} (printed, a bin edge can "
+          f"flip), topology equal")
+
+    # the windowed paths: fit(superstep=4) and fit_scan
+    for how in ("superstep", "fit_scan"):
+        store = InMemoryStatsStorage()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train(DEVICE, StatsListener(store, session_id=how), how=how)
+        warned = any("end-of-window" in str(w.message) for w in caught)
+        reps = _reports(store, how)
+        check([r["score"] for r in reps]
+              == [r["score"] for r in m_reports],
+              f"{how}: per-step scores differ from K = 1")
+        if how == "superstep":
+            # a TBPTT configuration chunks each batch on the host: the
+            # window falls back to per-batch dispatch (as in JAX), so every
+            # report is K = 1's and nothing warns
+            check(not warned and [_report_core(r) for r in reps]
+                  == [_report_core(r) for r in m_reports],
+                  "superstep=4 on the TBPTT char-RNN is not per-batch")
+        else:
+            check(warned, "fit_scan did not warn that the listener's "
+                  "parameter summaries are end-of-window snapshots")
+            check(reps[-1]["params"] == m_reports[-1]["params"],
+                  "fit_scan: the window edge's summaries differ from K = 1")
+    print(f"{tag} phase 21 (a): fit(superstep={UI_SUPERSTEP}) on the TBPTT "
+          "char-RNN runs per batch (no window, as in JAX): reports equal "
+          "K = 1's, no warning; fit_scan (one window of the epoch): "
+          "per-step scores bit-equal to K = 1, the window edge's summaries "
+          "equal K = 1's, warn_scan_replay's warning raised")
+
+    # -- (b) the convolutional listener and a window on LeNet --------------
+    reset_counts()
+    x_tr, y_tr, x_te, y_te = pt.bundled_mnist_subset()
+    lenet = zoo.lenet_mnist(device="cpu").init(
+        generator=torch.Generator().manual_seed(7))
+    lenet_zip = os.path.join(tmp, "ui_lenet.zip")
+    pt.ModelSerializer.write_model(lenet, lenet_zip)
+    lenets = [pt.ModelSerializer.restore(lenet_zip, device=d)
+              for d in (DEVICE, "cpu")]
+    conv = ConvolutionalIterationListener(None)
+    acts = [conv._first_conv_activation(n, x_tr[:8]) for n in lenets]
+    check(acts[0].shape == acts[1].shape == (8, 24, 24, 20),
+          f"LeNet's first conv activation {acts[0].shape} (want NHWC)")
+    act_err = float(np.abs(acts[0] - acts[1]).max() / np.abs(acts[1]).max())
+    grid_diff = max(int(np.abs(activation_grid(a).astype(int)
+                               - activation_grid(b).astype(int)).max())
+                    for a, b in zip(acts[0], acts[1]))
+    check(act_err <= CNN_LAYER_TOL and grid_diff <= 1,
+          f"activation grids card vs CPU: activations {act_err}, grids "
+          f"{grid_diff} grey levels")
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    conv_store = InMemoryStatsStorage()
+    lenet_batches = lambda: pt.ArrayDataSetIterator(
+        x_tr, y_tr, batch_size=LENET_UI_B, shuffle=True, seed=13,
+        drop_last=True)
+    conv_net = pt.ModelSerializer.restore(lenet_zip, device=DEVICE)
+    conv_net.set_listeners(ConvolutionalIterationListener(
+        conv_store, frequency=2, session_id="conv"))
+    conv_net.fit(lenet_batches())
+    pngs = len(conv_store.get_all_updates("conv", "activations", "worker-0"))
+    check(pngs == (5 if have_pil else 0), f"{pngs} activation reports with "
+          f"PIL {'present' if have_pil else 'missing'}")
+    # superstep=4 on LeNet: windows of 4, 4 and 2 steps an epoch. cuDNN's
+    # convolutions need not give the same bits eager and captured, so the
+    # window is held to K = 1 at phase 6's limits; a second K = 1 run shows
+    # whether the eager steps themselves repeat bit for bit
+    lenet_reps = {}
+    for k, key in ((1, "k1"), (1, "k1_again"), (UI_SUPERSTEP, "window")):
+        n = pt.ModelSerializer.restore(lenet_zip, device=DEVICE)
+        store = InMemoryStatsStorage()
+        n.set_listeners(StatsListener(store, session_id="lenet"))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            n.fit(lenet_batches(), superstep=k)
+        warned = any("end-of-window" in str(w.message) for w in caught)
+        check(warned == (k > 1), f"LeNet superstep={k}: warned {warned}")
+        lenet_reps[key] = _reports(store, "lenet")
+        if key == "k1":
+            trained = n
+    k1, k4 = lenet_reps["k1"], lenet_reps["window"]
+    scores = lambda reps: [r["score"] for r in reps]
+    repeat = scores(k1) == scores(lenet_reps["k1_again"])
+    window_bits = scores(k1) == scores(k4)
+    window_score_err = max(abs(a - b) for a, b in zip(scores(k1),
+                                                       scores(k4)))
+    edges = [i for i in range(len(k1))
+             if (i + 1) % UI_SUPERSTEP == 0 or i + 1 == len(k1)]
+    window_summary_err, _ = _summary_gap([k4[i] for i in edges],
+                                         [k1[i] for i in edges])
+    check(len(k4) == len(k1) and window_score_err <= SCORE_TOL
+          and window_summary_err <= PARAM_TOL,
+          f"LeNet superstep={UI_SUPERSTEP} against K = 1: scores "
+          f"{window_score_err}, summaries at the edges {window_summary_err}")
+    print(f"{tag} phase 21 (b): LeNet's first conv activation NHWC "
+          f"{acts[0].shape}, card vs CPU {act_err:.3e} of max (limit "
+          f"{CNN_LAYER_TOL}), activation grids within {grid_diff} grey "
+          f"level; ConvolutionalIterationListener on a card fit: {pngs} PNG "
+          f"reports (PIL {'present' if have_pil else 'missing: no report, as JAX'}); "
+          f"fit(superstep={UI_SUPERSTEP}) under StatsListener: "
+          f"warn_scan_replay's warning raised; {len(k4)} per-step scores "
+          f"{'bit-equal to' if window_bits else 'not bit-equal to'} K = 1's "
+          f"(max abs err {window_score_err:.3e}, limit {SCORE_TOL}), "
+          f"summaries at the window edges (steps {[i + 1 for i in edges]}) "
+          f"{window_summary_err:.3e} of the tensor's largest magnitude "
+          f"(limit {PARAM_TOL}); two K = 1 runs "
+          f"{'repeat' if repeat else 'do not repeat'} bit for bit")
+    out["conv"] = {"act_err": act_err, "grid_diff": grid_diff,
+                   "png_reports": pngs, "pil": have_pil,
+                   "superstep_edges": [i + 1 for i in edges],
+                   "window_bit_equal": window_bits,
+                   "window_score_err": window_score_err,
+                   "window_summary_err": window_summary_err,
+                   "k1_repeats": repeat}
+
+    # -- (c) the evaluation charts on the 384 bundled digits ---------------
+    eval_zip = os.path.join(tmp, "ui_lenet_trained.zip")
+    pt.ModelSerializer.write_model(trained, eval_zip)
+    x_all = np.concatenate([x_tr, x_te])
+    y_all = np.concatenate([y_tr, y_te])
+    evals, pages = [], []
+    for d in (DEVICE, "cpu"):
+        n = pt.ModelSerializer.restore(eval_zip, device=d)
+        probs = n.output(x_all).cpu().numpy()     # one copy of the outputs
+        ev = pt.Evaluation()
+        ev.eval(y_all, probs)
+        mc = ROCMultiClass(threshold_steps=100)
+        mc.eval(y_all, probs)
+        roc = ROC(threshold_steps=100)
+        roc.eval(y_all[:, 0], probs[:, 0])
+        cm_path = os.path.join(tmp, f"ui_confusion_{d}.html")
+        roc_path = os.path.join(tmp, f"ui_roc_{d}.html")
+        EvaluationTools.export_confusion_matrix_html_file(ev, cm_path)
+        EvaluationTools.export_roc_charts_to_html_file(roc, roc_path)
+        page = [open(p).read() for p in (roc_path, cm_path)]
+        page.append(EvaluationTools.roc_multi_class_chart_html(mc))
+        evals.append((ev, mc))
+        pages.append([_HtmlShape(p) for p in page])
+    flips = int(np.abs(evals[0][0]._m - evals[1][0]._m).sum()) // 2
+    auc_err = max(abs(evals[0][1].calculate_auc(c)
+                      - evals[1][1].calculate_auc(c)) for c in range(10))
+    check(evals[0][0].num_examples() == len(x_all) and flips
+          <= UI_EVAL_FLIPS, f"Evaluation card vs CPU: {flips} digits flip")
+    check(auc_err <= UI_AUC_TOL, f"ROCMultiClass AUCs card vs CPU: "
+          f"{auc_err} > {UI_AUC_TOL}")
+    for (g, w), what in zip(zip(*pages), ("ROC", "confusion", "multi-class")):
+        check(g.tags == w.tags and g.points == w.points
+              and _series_names(g) == _series_names(w),
+              f"the {what} HTML differs card vs CPU in its series")
+    check(len(pages[0][2].points) == 10 and pages[0][0].points,
+          f"chart series: {pages[0][2].points} {pages[0][0].points}")
+    out["eval"] = {"accuracy": [e.accuracy() for e, _ in evals],
+                   "flips": flips, "auc_err": auc_err,
+                   "average_auc": evals[0][1].calculate_average_auc()}
+    print(f"{tag} phase 21 (c): LeNet after {len(k1)} steps on the 384 "
+          f"bundled digits: accuracy card {evals[0][0].accuracy():.4f} / "
+          f"CPU {evals[1][0].accuracy():.4f}, {flips} digits flip (limit "
+          f"{UI_EVAL_FLIPS}); ROCMultiClass AUCs max abs err {auc_err:.3e} "
+          f"(limit {UI_AUC_TOL}), average "
+          f"{evals[0][1].calculate_average_auc():.4f}; the ROC, confusion "
+          "and one-vs-all HTML parse and carry the same series card and CPU")
+
+    # -- (d) exact t-SNE and K-means at 10,000 x 128 -----------------------
+    r = np.random.default_rng(21)
+    centres = r.normal(scale=TSNE_CENTRE_SCALE, size=(TSNE_K, TSNE_D))
+    truth = np.repeat(np.arange(TSNE_K), TSNE_N // TSNE_K)
+    table = (centres[truth] + r.normal(size=(TSNE_N, TSNE_D))).astype(
+        np.float32)
+    xt = torch.tensor(table, device=DEVICE)
+    rows = slice(0, TSNE_CMP_ROWS)
+    ts = Tsne(max_iter=TSNE_ITERS, perplexity=TSNE_PERP)
+    cond = ts.conditional_p(xt)
+    entropy_err = (row_entropy(cond) - np.log(TSNE_PERP)).abs().max().item()
+    cpu_cond = Tsne(perplexity=TSNE_PERP, device="cpu").conditional_p(
+        table, rows=rows)
+    p_err = ((cond[rows].cpu() - cpu_cond).abs().max()
+             / cpu_cond.max()).item()
+    del cond
+    check(entropy_err <= TSNE_ENTROPY_TOL, f"t-SNE rows' entropy: max |H - "
+          f"log {TSNE_PERP:g}| {entropy_err} > {TSNE_ENTROPY_TOL}")
+    check(p_err <= TSNE_P_TOL, f"t-SNE P(j|i) of {TSNE_CMP_ROWS} rows card "
+          f"vs CPU: {p_err} of max > {TSNE_P_TOL}")
+    # the first 10 steps: card against CPU on the card's P
+    first = Tsne(max_iter=TSNE_CMP_STEPS, perplexity=TSNE_PERP)
+    y_card = first.fit_transform(xt)
+    p = first._p_matrix(xt).cpu()
+    cpu = Tsne(perplexity=TSNE_PERP, device="cpu")
+    y = cpu._initial_y(TSNE_N)
+    vel, gains, ys = torch.zeros_like(y), torch.ones_like(y), []
+    for it in range(TSNE_CMP_STEPS):
+        scale = (cpu.exaggeration if it < cpu.stop_lying_iteration else 1.0)
+        momentum = (cpu.momentum if it < cpu.switch_momentum_iteration
+                    else cpu.final_momentum)
+        y, vel, gains, _ = cpu._step(y, vel, gains, p, scale, momentum, False)
+        ys.append(y.numpy())
+    del p
+    y_scale = np.abs(ys[-1]).max()
+    step_err = float(np.abs(y_card - ys[-1]).max() / y_scale)
+    control = float(np.abs(ys[-2] - ys[-1]).max() / y_scale)
+    check(step_err <= TSNE_STEP_TOL < control, f"t-SNE's first "
+          f"{TSNE_CMP_STEPS} steps card vs CPU: {step_err} (limit "
+          f"{TSNE_STEP_TOL}); the CPU without its last step {control}")
+    # the 500 steps on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    emb = ts.fit_transform(xt)
+    tsne_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    et = torch.tensor(emb, device=DEVICE)
+    d2 = torch.cdist(et, et)
+    d2.fill_diagonal_(float("inf"))
+    nn10 = d2.topk(10, dim=1, largest=False).indices.cpu().numpy()
+    del d2, et
+    knn = float((truth[nn10] == truth[:, None]).mean())
+    check(np.isfinite(ts.kl_divergence) and np.isfinite(emb).all()
+          and emb.shape == (TSNE_N, 2), f"t-SNE KL {ts.kl_divergence}")
+    check(ts.host_reads == 1, f"t-SNE read the host {ts.host_reads} times")
+    check(knn >= TSNE_KNN_MIN, f"t-SNE 10-NN cluster agreement {knn} < "
+          f"{TSNE_KNN_MIN}")
+    # K-means on the same table
+    km = KMeansClustering(TSNE_K, seed=0)
+    t0 = time.perf_counter()
+    km.fit(xt)
+    km_s = time.perf_counter() - t0
+    km_cpu = KMeansClustering(TSNE_K, seed=0, device="cpu").fit(table)
+    km_err = float(np.abs(km.centers - km_cpu.centers).max())
+    check(np.array_equal(km.labels_, km_cpu.labels_)
+          and km.iterations == km_cpu.iterations and km_err <= KMEANS_TOL,
+          f"K-means card vs CPU: labels equal "
+          f"{np.array_equal(km.labels_, km_cpu.labels_)}, iterations "
+          f"{km.iterations} / {km_cpu.iterations}, centres {km_err}")
+    purity = float(sum(np.bincount(truth[km.labels_ == c]).max()
+                       for c in range(TSNE_K)
+                       if (km.labels_ == c).any()) / TSNE_N)
+    out["tsne"] = {"n": TSNE_N, "d": TSNE_D, "seconds": tsne_s,
+                   "kl": ts.kl_divergence, "knn10_agreement": knn,
+                   "host_reads": ts.host_reads, "peak_bytes": peak,
+                   "entropy_err": entropy_err, "p_err": p_err,
+                   "step_err": step_err, "step_control": control}
+    out["kmeans"] = {"seconds": km_s, "iterations": km.iterations,
+                     "center_err": km_err, "purity": purity,
+                     "host_reads": km.host_reads}
+    print(f"{tag} phase 21 (d): exact t-SNE at N {TSNE_N} x {TSNE_D} "
+          f"(perplexity {TSNE_PERP:g}): rows' entropy within "
+          f"{entropy_err:.3e} of log {TSNE_PERP:g} (limit "
+          f"{TSNE_ENTROPY_TOL}); P(j|i) of {TSNE_CMP_ROWS} rows card vs CPU "
+          f"{p_err:.3e} of max (limit {TSNE_P_TOL}); first "
+          f"{TSNE_CMP_STEPS} steps card vs CPU {step_err:.3e} of max |y| "
+          f"(limit {TSNE_STEP_TOL}; the CPU without its last step "
+          f"{control:.3e}); {TSNE_ITERS} steps in {tsne_s:.3f} s (search "
+          f"included), KL {ts.kl_divergence:.4f}, 10-NN cluster agreement "
+          f"{knn:.4f} (limit {TSNE_KNN_MIN}), {ts.host_reads} host read, "
+          f"peak {peak / 2**20:.1f} MiB above the {base_bytes / 2**20:.1f} "
+          f"MiB held; K-means (k {TSNE_K}): {km.iterations} iterations in "
+          f"{km_s:.3f} s ({km.host_reads} host reads), labels equal the "
+          f"CPU's, centres max abs err {km_err:.3e} (limit {KMEANS_TOL}), "
+          f"purity {purity:.4f}")
+
+    # the user's flow: word vectors -> t-SNE -> the dashboard's t-SNE tab
+    sentences, topics = _topic_corpus()
+    w2v = Word2Vec(sentence_iterator=CollectionSentenceIterator(sentences),
+                   layer_size=NLP_TOPIC_D, window_size=4, min_word_frequency=3,
+                   epochs=3, seed=1, negative=5, batch_size=256,
+                   device=DEVICE)
+    w2v.fit()
+    words = [w for t in topics for w in t]
+    word_topic = [f"T{i}" for i, t in enumerate(topics) for _ in t]
+    idx = torch.as_tensor([w2v.vocab.index_of(w) for w in words],
+                          device=DEVICE)
+    vectors = w2v.lookup_table.syn0[idx]             # CUDA [24, 128]
+    # 24 points: learning rate 50, the floor of the usual max(N / 48, 50);
+    # at the default 200 exact t-SNE's early steps overshoot on so few
+    bh = BarnesHutTsne(max_iter=250, perplexity=5.0, seed=1,
+                       learning_rate=WORDS_TSNE_LR).fit_transform(vectors)
+    card_ts = Tsne(max_iter=250, perplexity=5.0, seed=1,
+                   learning_rate=WORDS_TSNE_LR)
+    coords = card_ts.fit_transform(vectors)
+    coords_cuda = torch.tensor(coords, device=DEVICE)
+    srv = UIServer(port=0).attach_tsne(coords_cuda, word_topic).start()
+    try:
+        served = http("GET", f"http://127.0.0.1:{srv.port}/tsne/data.json")
+    finally:
+        srv.stop()
+    check(served["labels"] == word_topic
+          and np.array_equal(np.asarray(served["points"]),
+                             coords.astype(np.float64)),
+          "/tsne/data.json does not serve the attached coordinates")
+    html_path = os.path.join(tmp, "ui_words_tsne.html")
+    export_tsne_html(coords_cuda, html_path, labels=word_topic,
+                     title="topic words")
+    circles = open(html_path).read().count("<circle")
+    check(circles == len(words) and np.isfinite(bh).all(),
+          f"export_tsne_html drew {circles} points of {len(words)}")
+
+    def topic_knn(c):
+        dd = ((c[:, None] - c[None]) ** 2).sum(-1)
+        np.fill_diagonal(dd, np.inf)
+        lab = np.array(word_topic)
+        return float((lab[np.argsort(dd, 1)[:, :3]] == lab[:, None]).mean())
+
+    out["words"] = {"n": len(words), "bh_knn3": topic_knn(bh),
+                    "tsne_knn3": topic_knn(coords)}
+    check(min(out["words"]["bh_knn3"], out["words"]["tsne_knn3"])
+          >= WORDS_KNN_MIN, f"the word plots' "
+          f"3-NN topic agreement {out['words']} < {WORDS_KNN_MIN}")
+    counts = kernels.count_snapshot()
+    check(all(n == 0 for tot, _ in counts.values() for n in tot.values()),
+          f"(b)-(d) launched hand kernels: {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["hand_kernel_counts"] = ui_counts
+    print(f"{tag} phase 21 (d): the topic corpus's {len(words)} word vectors "
+          f"(CUDA, D {NLP_TOPIC_D}) through BarnesHutTsne (host) and Tsne "
+          f"(card): 3-NN topic agreement in 2-D {out['words']['bh_knn3']:.3f}"
+          f" / {out['words']['tsne_knn3']:.3f} (limit {WORDS_KNN_MIN}); "
+          f"attach_tsne of the "
+          f"CUDA coordinates served at /tsne/data.json; export_tsne_html "
+          f"drew {circles} points; (b)-(d) launched no hand kernel; phase "
+          f"21 took {out['seconds']:.1f} s")
+    return out
 
 
 def main():
@@ -6699,6 +7336,19 @@ def main():
             nlp = nlp_path(pt, torch, tag, tmp, reset_counts)
         print(json.dumps({"word_vectors": nlp}, default=str))
         print(f"{tag} --nlp-only run: {time.perf_counter() - t_start:.1f} s "
+              "(kernel build included)")
+        return 0
+    if "--ui-only" in sys.argv:
+        # main path 17 alone, for work on the dashboard and the embedding
+        # plots; prints no result lines
+        with tempfile.TemporaryDirectory() as tmp:
+            ui = ui_path(pt, torch, tag, tmp,
+                         os.path.dirname(os.path.abspath(__file__)),
+                         reset_counts)
+        print(json.dumps({"dashboard": {k: v for k, v in ui.items()
+                                        if k != "hand_kernel_counts"}},
+                         default=str))
+        print(f"{tag} --ui-only run: {time.perf_counter() - t_start:.1f} s "
               "(kernel build included)")
         return 0
     if "--decode-only" in sys.argv:
@@ -8689,6 +9339,9 @@ def main():
     # ---- 20. main path 16: word vectors -----------------------------------
     print(f"{tag} phase 20 starts at {time.perf_counter() - t_start:.1f} s")
     nlp = nlp_path(pt, torch, tag, tmp, reset_counts)
+    # ---- 21. main path 17: the dashboard and the embedding plots --------
+    print(f"{tag} phase 21 starts at {time.perf_counter() - t_start:.1f} s")
+    ui = ui_path(pt, torch, tag, tmp, root, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -8699,6 +9352,9 @@ def main():
     print(json.dumps({"parallel": par}, default=str))
     print(json.dumps({"model_parallel": mp}, default=str))
     print(json.dumps({"word_vectors": nlp}, default=str))
+    print(json.dumps({"dashboard": {k: v for k, v in ui.items()
+                                    if k != "hand_kernel_counts"}},
+                     default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
                 for v, c in launches.items()}
@@ -9027,7 +9683,9 @@ def main():
              "shapes its plan gives the resident variant"))]}
     add_parallel_launches(kernels_line, par["launches"])
     add_model_parallel_launches(kernels_line, mp, split)
-    add_nlp_launches(kernels_line, nlp)
+    add_path_launches(kernels_line, "nlp_launches",
+                      nlp["fit"]["hand_kernel_counts"])
+    add_path_launches(kernels_line, "ui_launches", ui["hand_kernel_counts"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

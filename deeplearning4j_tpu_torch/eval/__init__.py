@@ -1,7 +1,9 @@
-"""Evaluation of the port: classification, ROC and regression metrics."""
+"""Evaluation of the port: classification, ROC and regression metrics, and
+their HTML charts (`EvaluationTools`)."""
 from .evaluation import ConfusionMatrix, Evaluation, Prediction
 from .regression import RegressionEvaluation
 from .roc import ROC, ROCMultiClass
+from .tools import EvaluationTools
 
-__all__ = ["ConfusionMatrix", "Evaluation", "Prediction",
+__all__ = ["ConfusionMatrix", "Evaluation", "EvaluationTools", "Prediction",
            "RegressionEvaluation", "ROC", "ROCMultiClass"]

@@ -8,14 +8,13 @@ VGG16 topology: TF-format HWIO conv kernels and NHWC-flattened dense kernels
 are the port's layout as they are.
 
 Nothing is downloaded here. `TrainedModelHelper` and `ImageNetLabels` look a
-file up in a cache directory (by default the JAX package's download cache,
-`data_dir("storage")`, under the name its downloader gives the file, or
-under the file's own name) and raise FileNotFoundError naming the file to
-place there when it is missing.
+file up in a cache directory (by default the download cache,
+`data_dir("storage")`, under the name `provision.StorageDownloader` gives
+the file, which is the JAX package's, or under the file's own name) and
+raise FileNotFoundError naming the file to place there when it is missing.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 from typing import List, Optional, Tuple
@@ -167,14 +166,13 @@ def assign_keras_weights_in_order(net, h5_path: str):
 
 
 def cached_file(url: str, cache_dir: Optional[str] = None) -> str:
-    """The cached copy of `url` in `cache_dir`: the name the JAX package's
-    downloader stores it under (`<sha256(url)[:12]>-<basename>`) or its
+    """The cached copy of `url` in `cache_dir`: the name the downloader
+    stores it under (`provision.StorageDownloader.cache_name`) or its
     basename. Raises FileNotFoundError naming both when neither is there."""
-    from ..datasets.fetchers import data_dir
-    cache_dir = cache_dir or data_dir("storage")
-    name = url.rstrip("/").rsplit("/", 1)[-1] or "object"
-    digest = hashlib.sha256(url.encode()).hexdigest()[:12]
-    names = (f"{digest}-{name}", name)
+    from ..provision import StorageDownloader, object_name
+    cache_dir = StorageDownloader(cache_dir).cache_dir
+    name = object_name(url)
+    names = (StorageDownloader.cache_name(url), name)
     for n in names:
         path = os.path.join(cache_dir, n)
         if os.path.exists(path):

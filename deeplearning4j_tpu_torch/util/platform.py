@@ -8,9 +8,10 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "strict_fp32"]
+__all__ = ["resolve_device", "as_device_input", "strict_fp32"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -24,6 +25,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU")
     return dev
+
+
+def as_device_input(x, device: torch.device) -> torch.Tensor:
+    """`x` as float32 on `device`. A CUDA tensor is never moved to the
+    CPU: a model on the CPU refuses it."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda and device.type != "cuda":
+            raise ValueError(
+                f"a CUDA input for a model on {device}: move the model to "
+                "the GPU (device=None) or the input to the CPU")
+        return x.detach().to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def strict_fp32():

@@ -2538,3 +2538,120 @@ def test_graph_embeddings_on_the_card_separate_communities(cuda):
         cross = np.mean([emb[i] @ emb[j] for i in range(5)
                          for j in range(7, 12)])
         assert same > cross + 0.1, (type(model).__name__, same, cross)
+
+
+# ------------------- the dashboard and the embedding plots -------------------
+
+def _tsne_blobs(n=500, d=32, k=5, seed=0):
+    r = np.random.default_rng(seed)
+    c = r.normal(scale=3, size=(k, d))
+    x = np.concatenate([c[i] + r.normal(size=(n // k, d)) for i in range(k)])
+    return x.astype(np.float32), np.repeat(np.arange(k), n // k)
+
+
+def test_tsne_p_and_first_steps_on_the_card_match_the_cpu(cuda):
+    """The P matrix's search and 10 steps on the card against the CPU
+    (the same P and start y); each row's entropy at log(perplexity); a
+    CPU run that lost its last step reads past the steps' limit."""
+    from deeplearning4j_tpu_torch.plot.tsne import Tsne, row_entropy
+    x, _ = _tsne_blobs()
+    xt = torch.tensor(x, device=cuda)
+    card = Tsne(max_iter=10, perplexity=30.0)
+    assert card.device.type == "cuda"
+    cond = card.conditional_p(xt)
+    want = Tsne(perplexity=30.0, device="cpu").conditional_p(x)
+    assert (cond.cpu() - want).abs().max() <= 1e-4 * want.max()
+    assert (row_entropy(cond) - np.log(30.0)).abs().max().item() <= 1e-3
+    p = card._p_matrix(xt)
+    y = card.fit_transform(xt)
+    assert card.host_reads == 1 and np.isfinite(card.kl_divergence)
+    runs = {}
+    for steps in (9, 10):
+        cpu = Tsne(max_iter=steps, perplexity=30.0, device="cpu")
+        cpu._p_matrix = lambda _x: p.cpu()
+        runs[steps] = cpu.fit_transform(x)
+    scale = np.abs(runs[10]).max()
+    err = np.abs(y - runs[10]).max() / scale
+    control = np.abs(runs[9] - runs[10]).max() / scale
+    assert err <= 1e-3 < control, (err, control)
+
+
+def test_kmeans_on_the_card_matches_the_cpu(cuda):
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    x, _ = _tsne_blobs(n=2000)
+    for distance in ("euclidean", "cosine"):
+        card = KMeansClustering(5, distance=distance, seed=1).fit(
+            torch.tensor(x, device=cuda))
+        cpu = KMeansClustering(5, distance=distance, seed=1,
+                               device="cpu").fit(x)
+        np.testing.assert_array_equal(card.labels_, cpu.labels_)
+        np.testing.assert_allclose(card.centers, cpu.centers, rtol=0,
+                                   atol=1e-5)
+        assert card.iterations == cpu.iterations == card.host_reads
+        np.testing.assert_array_equal(card.predict(x[:50]),
+                                      cpu.predict(x[:50]))
+
+
+def test_cuda_input_never_falls_back_to_the_cpu(cuda):
+    """A model on the CPU refuses a CUDA input; the host-side tools copy it
+    to the host once."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, VPTree
+    from deeplearning4j_tpu_torch.plot.tsne import BarnesHutTsne, Tsne
+    from deeplearning4j_tpu_torch.ui import UIServer
+    x, _ = _tsne_blobs(n=60, d=4)
+    xt = torch.tensor(x, device=cuda)
+    for model in (KMeansClustering(3, device="cpu"),
+                  Tsne(max_iter=2, device="cpu")):
+        with pytest.raises(ValueError, match="CUDA input"):
+            model.fit(xt)
+    bh = BarnesHutTsne(max_iter=20, perplexity=5.0).fit_transform(xt)
+    assert bh.shape == (60, 2)
+    tree = VPTree(xt)
+    assert [i for _, i in tree.knn(xt[3], 1)] == [3]
+    coords = torch.tensor(bh, device=cuda)
+    data = UIServer(port=0).attach_tsne(coords, list(range(60))).tsne_data()
+    np.testing.assert_allclose(data["points"], bh.astype(np.float64),
+                               rtol=1e-6)
+
+
+def test_stats_listener_on_a_cuda_model_matches_the_cpu(cuda, tmp_path):
+    """The same zip and batches on the card and the CPU: reports' scores at
+    1e-5, summaries at 1e-4 of the tensor's largest magnitude, the
+    topology equal; a CUDA report carries the card's memory and takes two
+    host copies (the score, the parameters)."""
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+    conf = (pt.NeuralNetConfiguration.builder().seed(3)
+            .updater(pt.Adam(1e-2)).list()
+            .layer(pt.DenseLayer(n_out=32, activation="relu"))
+            .layer(pt.OutputLayer(n_out=4, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(pt.InputType.feed_forward(16)).build())
+    path = str(tmp_path / "m.zip")
+    pt.ModelSerializer.write_model(
+        pt.MultiLayerNetwork(conf, device="cpu").init(), path)
+    r = np.random.default_rng(0)
+    data = [(r.normal(size=(64, 16)).astype(np.float32),
+             np.eye(4, dtype=np.float32)[r.integers(0, 4, 64)])
+            for _ in range(5)]
+    reports, listeners = [], []
+    for dev in ("cuda", "cpu"):
+        net = pt.ModelSerializer.restore(path, device=dev)
+        storage = InMemoryStatsStorage()
+        listeners.append(StatsListener(storage, session_id=dev))
+        net.set_listeners(listeners[-1])
+        for x, y in data:
+            net.fit(pt.DataSet(x, y))
+        reports.append([rep for _, rep in storage.get_all_updates(
+            dev, StatsListener.TYPE_ID, "local")])
+    assert len(reports[0]) == len(reports[1]) == 5
+    assert reports[0][0]["model"] == reports[1][0]["model"]
+    for g, w in zip(*reports):
+        assert abs(g["score"] - w["score"]) <= 1e-5
+        assert g["memory"]["device_bytes_in_use"] > 0
+        assert "device_bytes_in_use" not in w["memory"]
+        for k, s in w["params"].items():
+            scale = max(abs(s["min"]), abs(s["max"]))
+            for key in ("mean", "stdev", "min", "max"):
+                assert abs(g["params"][k][key] - s[key]) <= 1e-4 * scale
+    assert listeners[0].host_copies == 2 * 5
+    assert listeners[1].host_copies == 0

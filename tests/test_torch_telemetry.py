@@ -1,6 +1,7 @@
 """PyTorch port, telemetry on the CPU: the twins of `tests/test_telemetry.py`
 (its ParallelTrainer case is in `tests/test_torch_parallel_loop.py`, its
-Word2Vec case waits for ROADMAP A12): the
+Word2Vec case in `tests/test_torch_nlp.py::
+test_word2vec_telemetry_compile_count`): the
 metrics registry and its exporters, the tracer, the capture watcher, the
 resource watermarks, TelemetryListener on a fit, and the listener
 satellites.
