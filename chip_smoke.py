@@ -50,8 +50,8 @@ Phases:
      shakespeare-char widths, Adam 1e-3 with beta2 0.99, dropout 0) for 20
      optimizer steps at batch 64 x 256 with `fit` over an
      ArrayDataSetIterator of overlapping windows of the training text,
-     from a zip of seeded random weights; first-step gradients at batch 64
-     and a 20-step trajectory at batch 16 held against the same zip and
+     from a zip of seeded random weights; first-step gradients at batch 32
+     and a 10-step trajectory at batch 16 held against the same zip and
      batches on the CPU, and the same trajectory with nanoGPT's lr warm-up;
      the trained zip with its updater state restored on both devices for
      one more step, then registered and served at bucket 32 against the
@@ -75,11 +75,12 @@ Phases:
   9. main path 6: the LM of phase 7 in bf16 compute
      (`compute_dtype("bfloat16")`, float32 masters) with nanoGPT's lr
      warm-up, through the bf16 instantiations of the attention kernels:
-     first-step gradients at batch 16 and a 10-step trajectory at batch 16
+     first-step gradients at batch 16 and a 6-step trajectory at batch 16
      held against the same zip on the CPU, 20 steps at batch 64 x 256
      counted, and the trained zip's bucket-32 forward through the primal
-     kernel against the CPU; the same trajectory without the warm-up,
-     through the kernels and the plain attention, printed beside the CPU's;
+     kernel against the CPU's forward of its first 8 rows; 5 steps without
+     the warm-up, through the kernels and the plain attention, printed
+     beside the CPU's;
      then one-block LMs at head dimensions 256 and 512 (widths 512 and
      1024, 2 heads), one step and one forward each in float32 and in bf16,
      against the CPU;
@@ -193,7 +194,8 @@ Phases:
      traces) and again at 32 with a /swap mid-run (no request fails); a
      pool of 64 blocks forcing eviction and resume; an int8 KV arena whose
      first token is fp32's; bf16 and int8 precision at bucket 32 against
-     fp32 and the CPU, then 32 tokens generated in bf16; a canary at 0.25
+     fp32 and the CPU (the CPU's first 8 rows), then 32 tokens generated in
+     bf16; a canary at 0.25
      promoted, another rolled back; /metrics, /debug/flightrecord and the
      X-DL4J-Trace header on a success and an error; prefill and tick (CUDA
      graph and eager) times, a profiled tick, `run_decode_bench`
@@ -300,6 +302,28 @@ Phases:
      centres and iterations against the CPU's; the topic corpus's word
      vectors through BarnesHutTsne and Tsne into UIServer.attach_tsne and
      export_tsne_html. `--ui-only` runs phase 1 and phase 21.
+ 22. main path 18, the native C++ data plane (`native/`, host code built
+     with g++) and the zoo's benches: (a) the library's build (which build,
+     zlib or not, and its seconds); (b) the readers at the datasets' full
+     file sizes, written by the phase from the bundled digits (tiled and
+     shifted, seeded) and from seeded bytes: an MNIST training set in IDX
+     (60,000 x 28 x 28 and its labels) through MnistDataFetcher, the five
+     CIFAR-10 binary batches (50,000 records of 3,073 bytes) through
+     BinaryRecordReader and the PrefetchRing, a 10,000 x 785 CSV in the
+     MNIST-as-CSV layout through CSVRecordReader and 1,000 PNG, BMP and PGM
+     files through ImageRecordReader, each native against the plain numpy
+     / PIL path bit for bit, with the MB/s of each; (c) the bf16 BN-MLP of
+     phase 8 trained one epoch of the 60,000 digits at batch 4,096 from
+     MnistDataSetIterator over the IDX files, bit-equal to the same epoch
+     fed from the plain path's arrays, and VGG-16 (32 x 32 x 3, 10
+     classes) 8 steps at batch 32 from BinaryRecordDataSetIterator over a
+     CIFAR file against the plain-fed run at phase 11's limits, its step
+     p50 and idle share; (d) bench_lenet, bench_lenet_dispatch (BASELINE
+     config 1), bench_char_rnn, bench_char_rnn_dispatch (config 3),
+     bench_resnet50 (config 2, 224 x 224, batch 256, bf16; 8 steps a
+     window, its default 30), bench_lenet_ragged and bench_lenet_superstep
+     at their defaults, each value printed beside the card's name and power
+     limit. `--data-only` runs phase 1 and phase 22.
 
 Each kernel counts its launches. Every count is set to 0 before each main
 path and read after it: two primal LSTM launches per char-RNN forward
@@ -353,7 +377,12 @@ data ranks and no fused BN launch (the kernels line's
 of any hand kernel (the kernels line's `nlp_launches`, 0 on every row);
 on the dashboard path (phase 21) 2 + 2 + 2 cluster LSTM launches per
 char-RNN step under the StatsListener, as phase 6, and none elsewhere (the
-kernels line's `ui_launches`).
+kernels line's `ui_launches`); on the data path (phase 22) one resident
+BN+ReLU forward and backward launch per BN layer and step of the BN-MLP's
+epochs from the files, 2 + 2 + 2 cluster LSTM launches per TBPTT chunk
+step of bench_char_rnn (through the replays) and bench_char_rnn_dispatch,
+and none in the readers, VGG-16 or the LeNet and ResNet-50 benches (the
+kernels line's `data_launches`).
 The last two lines are a
 `{"kernels": [...]}` object and `{"ok":
 true, "device": {...}}`. Any failed check, or a machine without a CUDA
@@ -431,15 +460,27 @@ ATTN_GRAD_TOL = 2e-5
 LM_ALPHABET = ("\n !$&',-.3:;?ABCDEFGHIJKLMNOPQRSTUVWXYZ"
                "abcdefghijklmnopqrstuvwxyz")     # its 65 characters
 LM_TRAIN_B, LM_STEPS, LM_LR = 64, 20, 1e-3
-# The card-against-CPU trajectory runs at batch 16: a batch-64 step of the
+# The card-against-CPU trajectories run at batch 16: a batch-64 step of the
 # full-width LM takes seconds on the CPU (printed below), 20 of them more
-# than a minute. The bf16 LM's (phase 9) runs 10 steps: bf16 on the CPU
-# made its 20 steps the costliest part of a whole run (185 s of phase 9
-# on a slow host); its warmed-up score falls from the first step, where
-# the f32 LM's trajectory without the warm-up (phase 7) needs its 20
-# steps to come down from its loss spikes.
-LM_CMP_B, LM_CMP_STEPS = 16, 10
-# Scores of the LM's 20 steps, card against CPU (absolute). Without
+# than a minute (37.6 s for 20 steps at batch 16, both devices, NVIDIA H100
+# 80GB HBM3, 700.00 W, this script's printout). The f32 LM's two
+# trajectories (phase 7, without and with the warm-up) run
+# LM_F32_CMP_STEPS steps: without the warm-up the score has come down from
+# its loss spikes below its start by step 9 (4.18 -> 9.86 at step 5 ->
+# 3.48 at step 10). The bf16 LM's (phase 9) runs LM_CMP_STEPS: bf16 on
+# the CPU made its 20 steps the costliest part of a whole run (185 s of
+# phase 9 on a slow host, 3.4 s a step), and its warmed-up score falls
+# from the first step; its no-warm-up runs, printed and not held, run
+# LM_NOWARM_STEPS. The first-step gradients of phase 7 are taken at batch
+# LM_GRAD_B (the CPU's batch-64 forward and backward took 7.75 s).
+LM_CMP_B, LM_F32_CMP_STEPS, LM_CMP_STEPS, LM_NOWARM_STEPS = 16, 10, 6, 5
+LM_GRAD_B = 32
+# A bucket-32 forward of the LM on the card is held against the CPU's
+# forward of its first LM_CPU_ROWS rows (phases 9 and 16): each row's
+# forward is its own, and a bf16 forward of 32 x 256 tokens costs the CPU
+# seconds.
+LM_CPU_ROWS = 8
+# Scores of the LM's steps, card against CPU (absolute). Without
 # nanoGPT's warm-up, Adam at 1e-3 drives the score through spikes (4.2 ->
 # 8.2 -> 3.1 at batch 16) that amplify float32 rounding about 1000-fold:
 # 2.4e-7 apart at step 2, 2.0e-4 by step 17 through the kernels and 8.2e-5
@@ -447,7 +488,7 @@ LM_CMP_B, LM_CMP_STEPS = 16, 10
 # this script's printout), so the char-RNN's 1e-4 is out of reach for
 # either. The plain-attention run is repeated below in every run.
 LM_SCORE_TOL = 1e-3
-# The same 20 steps with nanoGPT's warm-up (LM_WARMUP, as the bf16 LM of
+# The same steps with nanoGPT's warm-up (LM_WARMUP, as the bf16 LM of
 # phase 9 trains) stay clear of the spikes, so they are held to the
 # char-RNN's trajectory limit.
 LM_WARM_SCORE_TOL = SCORE_TOL
@@ -4027,17 +4068,22 @@ def decode_path(pt, torch, tag, tmp, root, reset_counts):
             # small-model limits on both devices, ROADMAP C); int8 (the
             # same int8 weights, float32 compute) against the CPU's at the
             # LM's serving limit; bf16 against the CPU's printed
+            # (the CPU's registry predicts the first LM_CPU_ROWS rows, the
+            # card's rows of its bucket-32 predict held against them)
             x = text[10:42, :, None].astype(np.float32)
             ref, _ = reg.predict("lm_pool", x)
-            cpu_reg = pt.ModelRegistry(buckets=(32,), device="cpu")
+            ref = ref[:LM_CPU_ROWS]
+            cpu_reg = pt.ModelRegistry(buckets=(LM_CPU_ROWS,),
+                                       device="cpu")
             cpu_reg.register("fp32", zips[0])
-            cpu_ref, _ = cpu_reg.predict("fp32", x)
+            cpu_ref, _ = cpu_reg.predict("fp32", x[:LM_CPU_ROWS])
             prec = {}
             for precision in ("bf16", "int8"):
                 reg.register(f"lm_{precision}", zips[0], precision=precision)
                 cpu_reg.register(precision, zips[0], precision=precision)
                 got, _ = reg.predict(f"lm_{precision}", x)
-                host, _ = cpu_reg.predict(precision, x)
+                got = got[:LM_CPU_ROWS]
+                host, _ = cpu_reg.predict(precision, x[:LM_CPU_ROWS])
                 e = {"card_vs_fp32": float(np.max(np.abs(got - ref))),
                      "cpu_vs_fp32": float(np.max(np.abs(host - cpu_ref))),
                      "card_vs_cpu": float(np.max(np.abs(got - host)))}
@@ -6595,7 +6641,9 @@ def add_path_launches(line, key, counts):
     in `counts` (a `kernels.count_snapshot()` of one path's run), by the
     row's counter and variant: `nlp_launches` on main path 16 (four
     Word2Vec.fit epochs of BASELINE config 4), `ui_launches` on main path
-    17 (the char-RNN's 20 steps under the StatsListener)."""
+    17 (the char-RNN's 20 steps under the StatsListener), `data_launches`
+    on main path 18 (the BN-MLP's epochs from the files and the zoo's
+    benches)."""
 
     def var(mod, kind, v):
         return counts[mod][1][kind][v]
@@ -7233,6 +7281,447 @@ def ui_path(pt, torch, tag, tmp, root, reset_counts):
     return out
 
 
+# ---- main path 18: the native data plane and the zoo's benches -------------
+# The files phase 22 writes and reads, at their datasets' real sizes: the
+# MNIST training set (MnistDataFetcher.NUM_EXAMPLES digits of 28 x 28, the
+# 384 bundled digits tiled and each shifted by up to 2 pixels, seeded), the
+# five CIFAR-10 binary batches (10,000 records of 1 label byte + 3,072
+# pixel bytes each, seeded bytes), MNIST as CSV (a header, then label + 784
+# pixels for the first 10,000 digits) and 1,000 images of 32 x 32 (PNG, BMP
+# and PGM in turn, the CIFAR bytes) under 10 label directories. Nothing is
+# downloaded.
+DATA_MNIST_N, DATA_SHIFT = 60_000, 2
+DATA_CIFAR_FILES, DATA_CIFAR_N, DATA_CIFAR_REC = 5, 10_000, 1 + 3072
+DATA_CSV_ROWS, DATA_IMAGES, DATA_SIDE = 10_000, 1_000, 32
+# training from the files: the bf16 BN-MLP one epoch of the 60,000 digits
+# at batch 4096 (resident BN kernels; 14 x 4096 + 2,656: 15 steps),
+# VGG-16 at CIFAR's 32 x 32 x 3 and 10 classes (BASELINE config 5's model
+# and global batch) 8 steps at phase 11's lr
+DATA_MLP_B, DATA_VGG_B, DATA_VGG_STEPS = 4096, 32, 8
+# bench_resnet50 (BASELINE config 2) at its batch 256 takes 8 steps a window
+# here (its default 30: the script's time limit); a smaller batch runs only
+# where 256 does not fit the card, and the peak memory is printed
+BENCH_RESNET_STEPS, BENCH_RESNET_BATCHES = 8, (256, 128, 64)
+
+
+def write_idx(path, arr):
+    """An uncompressed IDX file of a uint8 array."""
+    with open(path, "wb") as f:
+        f.write(bytes([0, 0, 0x08, arr.ndim]))
+        for d in arr.shape:
+            f.write(int(d).to_bytes(4, "big"))
+        f.write(np.ascontiguousarray(arr, np.uint8).tobytes())
+
+
+def bits_equal(a, b):
+    """Two float32 (or integer) arrays hold the same bits."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def data_path(pt, torch, tag, tmp, reset_counts):
+    """Main path 18 (phase 22): the native data plane and the zoo's benches.
+    (a) the native library's build; (b) the readers at the datasets' full
+    file sizes, each file through the native path and the plain path (bit
+    for bit), with MB/s; (c) the bf16 BN-MLP trained one epoch from the IDX
+    fetcher, bit-equal to the epoch fed from the plain path's arrays, and
+    VGG-16 8 steps from BinaryRecordDataSetIterator over a CIFAR file
+    against the plain-fed run at phase 11's limits; (d) BASELINE configs
+    1-3's benches at full width. Returns the phase's numbers."""
+    import gc
+
+    from PIL import Image
+
+    from deeplearning4j_tpu_torch import datasets as pds
+    from deeplearning4j_tpu_torch import kernels, native
+    from deeplearning4j_tpu_torch.datasets import images as pimages
+    from deeplearning4j_tpu_torch.datasets.fetchers import _bundled_mnist_raw
+    from deeplearning4j_tpu_torch.models import zoo
+    out = {"card": tag.strip("[]")}
+    t_phase = time.perf_counter()
+    reset_counts()
+
+    # -- (a) the build -------------------------------------------------------
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native data plane did not load")
+    info = native.build_info()
+    out["build"] = {"build": info["build"], "zlib": info["zlib"],
+                    "compile_s": info["seconds"],
+                    "built_here": bool(info.get("built_here")),
+                    "first_use_s": time.perf_counter() - t0}
+    print(f"{tag} phase 22 (a): native data plane built with g++ "
+          f"({info['build']} build, {info['seconds']:.2f} s of compile; "
+          f"{'this process' if info.get('built_here') else 'an earlier one'} "
+          f"compiled it; first use {out['build']['first_use_s']:.2f} s): "
+          f"{info['command']}")
+
+    # -- (b) the readers at full file size -----------------------------------
+    rng = np.random.default_rng(22)
+    digits, digit_labels = _bundled_mnist_raw()
+    pick = rng.integers(0, len(digits), DATA_MNIST_N)
+    imgs, labels = digits[pick], digit_labels[pick].astype(np.uint8)
+    shifts = rng.integers(-DATA_SHIFT, DATA_SHIFT + 1, (DATA_MNIST_N, 2))
+    for dy in range(-DATA_SHIFT, DATA_SHIFT + 1):
+        for dx in range(-DATA_SHIFT, DATA_SHIFT + 1):
+            sel = (shifts[:, 0] == dy) & (shifts[:, 1] == dx)
+            imgs[sel] = np.roll(imgs[sel], (dy, dx), axis=(1, 2))
+    mnist_dir = os.path.join(tmp, "data_mnist")
+    os.makedirs(mnist_dir)
+    img_path = os.path.join(mnist_dir, "train-images-idx3-ubyte")
+    lab_path = os.path.join(mnist_dir, "train-labels-idx1-ubyte")
+    write_idx(img_path, imgs)
+    write_idx(lab_path, labels)
+    cifar = [os.path.join(tmp, f"data_batch_{i + 1}.bin")
+             for i in range(DATA_CIFAR_FILES)]
+    for path in cifar:
+        rec = rng.integers(0, 256, (DATA_CIFAR_N, DATA_CIFAR_REC), np.uint8)
+        rec[:, 0] = rng.integers(0, 10, DATA_CIFAR_N)
+        rec.tofile(path)
+    csv_path = os.path.join(tmp, "mnist_train.csv")
+    csv_rows = np.concatenate([labels[:DATA_CSV_ROWS, None],
+                               imgs[:DATA_CSV_ROWS].reshape(
+                                   DATA_CSV_ROWS, -1)], axis=1)
+    with open(csv_path, "w") as f:
+        f.write("label," + ",".join(f"{r + 1}x{c + 1}" for r in range(28)
+                                    for c in range(28)) + "\n")
+        np.savetxt(f, csv_rows, fmt="%d", delimiter=",")
+    image_root = os.path.join(tmp, "data_images")
+    rec0 = np.fromfile(cifar[0], np.uint8).reshape(DATA_CIFAR_N, -1)
+    image_files = []
+    for i in range(DATA_IMAGES):
+        d = os.path.join(image_root, f"class{i % 10}")
+        os.makedirs(d, exist_ok=True)
+        px = rec0[i, 1:].reshape(DATA_SIDE, DATA_SIDE, 3)
+        kind = ("png", "bmp", "pgm")[i % 3]
+        path = os.path.join(d, f"img{i:04d}.{kind}")
+        Image.fromarray(px[:, :, 0] if kind == "pgm" else px).save(path)
+        image_files.append(path)
+
+    def mb(paths):
+        return sum(os.path.getsize(p) for p in paths) / 1e6
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return r, time.perf_counter() - t0
+
+    readers = {}
+    (x_nat, y_nat), s_nat = timed(
+        lambda: pds.MnistDataFetcher(cache=mnist_dir).fetch())
+
+    def mnist_plain():
+        x = native.u8_to_f32_plain(
+            native.idx_read_plain(img_path).reshape(DATA_MNIST_N, -1))
+        y = np.eye(10, dtype=np.float32)[
+            native.idx_read_plain(lab_path).astype(np.int64)]
+        return x, y
+
+    (x_pl, y_pl), s_pl = timed(mnist_plain)
+    check(bits_equal(x_nat, x_pl) and bits_equal(y_nat, y_pl),
+          "MnistDataFetcher's arrays differ from the plain path's")
+    check(not bits_equal(x_nat, imgs.reshape(DATA_MNIST_N, -1).astype(
+        np.float32) / 255), "MnistDataFetcher scaled by x / 255, not by "
+          "the native x * float32(1/255)")
+    readers["mnist_idx"] = {"mb": mb([img_path, lab_path]),
+                            "native_s": s_nat, "plain_s": s_pl}
+
+    def ring_read(path):
+        return np.concatenate(list(pds.BinaryRecordReader(
+            path, (DATA_CIFAR_REC,)).batches(1000)))
+
+    def plain_read(path):
+        return np.concatenate(list(native.binary_batches_plain(
+            path, DATA_CIFAR_REC, DATA_CIFAR_N, 1000)))
+
+    got, s_nat = timed(lambda: [ring_read(p) for p in cifar])
+    want, s_pl = timed(lambda: [plain_read(p) for p in cifar])
+    check(all(bits_equal(a, b) for a, b in zip(got, want)),
+          "BinaryRecordReader's CIFAR records differ from the plain reads")
+    readers["cifar_bin"] = {"mb": mb(cifar), "native_s": s_nat,
+                            "plain_s": s_pl}
+    del got, want
+
+    got, s_nat = timed(lambda: pds.CSVRecordReader(
+        skip_num_lines=1).read_matrix(csv_path))
+    want, s_pl = timed(lambda: native.csv_read_plain(csv_path, 1))
+    check(bits_equal(got, want)
+          and bits_equal(got, csv_rows.astype(np.float32)),
+          "CSVRecordReader's matrix differs from the plain parse")
+    readers["mnist_csv"] = {"mb": mb([csv_path]), "native_s": s_nat,
+                            "plain_s": s_pl}
+
+    # every file decodes natively (PNG only on a zlib build: a zlib-free
+    # one leaves PNG to PIL, the JAX package's coverage), equal to PIL's
+    decoded = [native.image_decode_native(p) for p in image_files]
+    check(all((a is not None or (p.endswith(".png") and not info["zlib"]))
+              and (a is None or bits_equal(a, native.image_decode_plain(p)))
+              for a, p in zip(decoded, image_files)),
+          "a native image decode is missing or differs from PIL's")
+    readers_native = sum(a is not None for a in decoded)
+
+    def image_pass():
+        it = pimages.ImageRecordDataSetIterator(
+            pimages.ImageRecordReader(image_root, DATA_SIDE, DATA_SIDE, 3),
+            100)
+        return np.concatenate([ds.features for ds in it])
+
+    got, s_nat = timed(image_pass)
+    decode = pimages._decode
+    pimages._decode = native.image_decode_plain
+    try:
+        want, s_pl = timed(image_pass)
+    finally:
+        pimages._decode = decode
+    check(bits_equal(got, want) and got.shape == (DATA_IMAGES, DATA_SIDE,
+                                                  DATA_SIDE, 3),
+          "ImageRecordReader's features differ from the plain decodes")
+    readers["images"] = {"mb": mb(image_files), "native_s": s_nat,
+                         "plain_s": s_pl, "files": DATA_IMAGES,
+                         "decoded_natively": readers_native}
+    for r in readers.values():
+        r["native_mb_s"] = r["mb"] / r["native_s"]
+        r["plain_mb_s"] = r["mb"] / r["plain_s"]
+    out["readers"] = readers
+    print(f"{tag} phase 22 (b): readers native against plain, bit for bit "
+          "(warm page cache), MB/s native / plain: " + "; ".join(
+              f"{k} {r['mb']:.1f} MB {r['native_mb_s']:.1f} / "
+              f"{r['plain_mb_s']:.1f}" for k, r in readers.items())
+          + f" (MNIST {DATA_MNIST_N} x 28 x 28 through MnistDataFetcher; "
+          f"{DATA_CIFAR_FILES} CIFAR-10 batches of {DATA_CIFAR_N} x "
+          f"{DATA_CIFAR_REC} bytes through BinaryRecordReader / "
+          f"PrefetchRing; a {DATA_CSV_ROWS} x 785 CSV through "
+          f"CSVRecordReader; {DATA_IMAGES} PNG / BMP / PGM files through "
+          f"ImageRecordReader, {readers_native} decoded natively)")
+
+    # -- (c) training from the files on the card ------------------------------
+    mlp_json = bn_mlp_json(pt)
+    steps = -(-DATA_MNIST_N // DATA_MLP_B)
+    mlp = {}
+    for name in ("native", "plain"):
+        net = pt.MultiLayerNetwork(
+            pt.MultiLayerConfiguration.from_json(mlp_json),
+            device=DEVICE).init(generator=torch.Generator().manual_seed(7))
+        log = StepLog()
+        net.set_listeners(log)
+        before = kernels.count_snapshot()
+        t0 = time.perf_counter()
+        it = (pds.MnistDataSetIterator(batch_size=DATA_MLP_B,
+                                       cache=mnist_dir)
+              if name == "native" else
+              pt.ArrayDataSetIterator(x_pl, y_pl, batch_size=DATA_MLP_B))
+        net.fit(it)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        delta = kernels.count_delta(before, kernels.count_snapshot())
+        variants = delta["bn_relu"][1]
+        check(net.iteration_count == steps
+              and variants["fwd"] == {"resident": 2 * steps, "streamed": 0}
+              and variants["bwd"] == {"resident": 2 * steps, "streamed": 0}
+              and launches_in(delta) == 4 * steps,
+              f"BN-MLP epoch ({name}): {net.iteration_count} steps, "
+              f"launches {delta} (want {steps} steps, 2 + 2 resident "
+              "BN+ReLU launches a step and nothing else)")
+        scores = [float(s) for s in log.scores]
+        mlp[name] = {"net": net, "seconds": secs, "scores": scores,
+                     "launches": variants}
+    check(nets_equal(torch, mlp["native"]["net"], mlp["plain"]["net"])
+          and mlp["native"]["scores"] == mlp["plain"]["scores"],
+          "the BN-MLP epoch from the IDX fetcher differs from the epoch "
+          "fed from the plain arrays")
+    sc = mlp["native"]["scores"]
+    check(np.isfinite(sc).all() and sc[-1] < sc[0],
+          f"BN-MLP epoch scores {sc}")
+    out["bn_mlp"] = {"steps": steps, "batch": DATA_MLP_B, "bit_equal": True,
+                     "seconds": {k: v["seconds"] for k, v in mlp.items()},
+                     "scores": sc, "launches": mlp["native"]["launches"]}
+    print(f"{tag} phase 22 (c): bf16 BN-MLP one epoch of {DATA_MNIST_N} "
+          f"digits at batch {DATA_MLP_B} from MnistDataSetIterator over "
+          f"the IDX files ({steps} steps, score {sc[0]:.4f} -> "
+          f"{sc[-1]:.4f}, {mlp['native']['seconds']:.2f} s, the read "
+          "included): parameters, updater and layer state bit-equal to the "
+          f"epoch fed from the plain arrays ({mlp['plain']['seconds']:.2f} "
+          f"s); rows 4-5 launches a run {mlp['native']['launches']} (2 + 2 "
+          "a step)")
+    del mlp
+
+    def vgg_net():
+        return zoo.vgg16(n_classes=10, image=DATA_SIDE,
+                         updater=pt.Nesterovs(VGG_LR, 0.9),
+                         device=DEVICE).init(
+            generator=torch.Generator().manual_seed(12))
+
+    def plain_cifar_batches():
+        for raw in native.binary_batches_plain(cifar[0], DATA_CIFAR_REC,
+                                               DATA_CIFAR_N, DATA_VGG_B):
+            x = (raw[:, 1:].astype(np.float32) / 255.0).reshape(
+                (-1, DATA_SIDE, DATA_SIDE, 3))
+            yield pt.DataSet(x, np.eye(10, dtype=np.float32)[
+                raw[:, 0].astype(np.int64)])
+
+    vgg = {}
+    for name in ("native", "plain"):
+        net = vgg_net()
+        log = StepLog(torch)
+        net.set_listeners(log)
+        feed = (pds.BinaryRecordDataSetIterator(
+            cifar[0], (DATA_SIDE, DATA_SIDE, 3), 10, DATA_VGG_B)
+            if name == "native" else plain_cifar_batches())
+        take = (lambda: feed.next()) if name == "native" else \
+            (lambda: next(feed))
+        fed = [take()]
+        grads = first_chunk_grads(torch, net, fed[0], steps=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DATA_VGG_STEPS):
+            if i:
+                fed.append(take())
+            net.fit(fed[i])
+        del feed, take  # stops the ring in the middle of its epoch
+        vgg[name] = {"net": net, "fed": fed, "t0": t0, "times": log.times,
+                     "grads": grads,
+                     "scores": [float(s) for s in log.scores]}
+    check(all(bits_equal(a.features, b.features)
+              and bits_equal(a.labels, b.labels)
+              for a, b in zip(vgg["native"]["fed"], vgg["plain"]["fed"])),
+          "the CIFAR batches from BinaryRecordDataSetIterator differ from "
+          "the plain ones")
+    nv, pv = vgg["native"], vgg["plain"]
+    grad_err = max(l2_err(nv["grads"][k].double(), pv["grads"][k].double())
+                   for k in pv["grads"])
+    score_err = max(abs(a - b) / abs(b) for a, b in zip(nv["scores"],
+                                                          pv["scores"]))
+    # the parameters after the steps, in relative L2 over all of them (a
+    # bias that starts at 0 moves by lr-sized steps, where a max-pool or
+    # ReLU choice flipped by rounding shows as ~1e-2 of it; phase 11),
+    # and the worst tensor's, printed
+    from deeplearning4j_tpu_torch.nn.trees import flat_leaves
+    pairs = [(a.detach().double().cpu(), b.detach().double().cpu())
+             for p, q in zip(nv["net"].params, pv["net"].params)
+             for a, b in zip(flat_leaves(p), flat_leaves(q))]
+    param_err = (sum(((a - b) ** 2).sum() for a, b in pairs)
+                 / sum((b ** 2).sum() for _, b in pairs)).sqrt().item()
+    param_worst = tree_rel_l2(nv["net"], pv["net"])
+    first = nv["fed"][0].features
+    with torch.no_grad():
+        out_err = rel_err(nv["net"].output(first), pv["net"].output(first))
+    vgg_bit = nets_equal(torch, nv["net"], pv["net"])
+    step_ms = 1e3 * np.diff([nv["t0"]] + nv["times"])
+    ds = nv["fed"][-1]
+    busy, wall, h2d = window_profile(torch, lambda: nv["net"].fit(ds),
+                                     reps=3)
+    out["vgg16"] = {"steps": DATA_VGG_STEPS, "batch": DATA_VGG_B,
+                    "grad_rel_l2": grad_err, "score_rel_err": score_err,
+                    "param_rel_l2": param_err,
+                    "param_worst_tensor_rel_l2": param_worst,
+                    "output_err": out_err, "bit_equal": vgg_bit,
+                    "scores": nv["scores"],
+                    "step_p50_ms": float(np.median(step_ms)),
+                    "step_ms": step_ms.tolist(), "busy_ms": busy / 3,
+                    "wall_ms": wall / 3, "idle_share": 1 - busy / wall}
+    print(f"{tag} phase 22 (c): VGG-16 (32 x 32 x 3, 10 classes, Nesterovs "
+          f"{VGG_LR} / 0.9) {DATA_VGG_STEPS} steps at batch {DATA_VGG_B} "
+          "from BinaryRecordDataSetIterator over a CIFAR file against the "
+          f"plain-fed run: first-step gradients {grad_err:.3e} relative L2 "
+          f"per tensor (limit {VGG_GRAD_TOL}), scores {score_err:.3e} "
+          f"relative (limit 1e-4), parameters {param_err:.3e} relative L2 "
+          f"(limit {VGG_GRAD_TOL}; the worst tensor {param_worst:.3e}), "
+          f"next output {out_err:.3e} of max (limit {VGG_TOL}), bit-equal "
+          f"{vgg_bit}; step p50 {out['vgg16']['step_p50_ms']:.3f} ms, a "
+          f"step busy {busy / 3:.3f} of {wall / 3:.3f} ms (idle share "
+          f"{out['vgg16']['idle_share']:.3f}); scores {nv['scores']}")
+    check(grad_err <= VGG_GRAD_TOL and score_err <= 1e-4
+          and param_err <= VGG_GRAD_TOL and out_err <= VGG_TOL,
+          "VGG-16 from the CIFAR file against the plain-fed run past phase "
+          "11's limits")
+    check(np.isfinite(nv["scores"]).all(), "VGG-16 scores not finite")
+    del vgg, nv, pv
+    gc.collect()
+
+    # -- (d) the zoo's benches at full width ----------------------------------
+    benches = {}
+
+    def bench(name, fn, **kw):
+        before = kernels.count_snapshot()
+        t0 = time.perf_counter()
+        value = fn(**kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        delta = kernels.count_delta(before, kernels.count_snapshot())
+        benches[name] = {"kwargs": kw, "value": value, "seconds": secs,
+                         "launches": {m: d[0] for m, d in delta.items()
+                                      if any(d[0].values())}}
+        shown = (f"{value[0]:.1f} {value[1]}" if isinstance(value, tuple)
+                 else json.dumps(value))
+        args = ", ".join(f"{k}={v}" for k, v in kw.items())
+        print(f"{tag} phase 22 (d): {name}({args}) = {shown} ({secs:.1f} "
+              "s)")
+        return delta
+
+    for name in ("bench_lenet", "bench_lenet_dispatch"):
+        delta = bench(name, getattr(zoo, name))
+        check(launches_in(delta) == 0, f"{name} launched {delta}")
+    B3, T3, TB3 = 64, 128, 64           # bench_char_rnn's defaults
+    for name, series in (("bench_char_rnn", 2 * 240),
+                         ("bench_char_rnn_dispatch", 10 + 150)):
+        delta = bench(name, getattr(zoo, name))
+        want = 2 * series * (T3 // TB3)     # 2 layers a chunk step
+        tot, var = delta["lstm"]
+        check(tot == {"launches": 0, "residual_launches": want,
+                      "adjoint_launches": want, "reduction_launches": want}
+              and var["residual"]["cluster"] == want
+              and var["adjoint"]["cluster"] == want
+              and launches_in(delta) == 3 * want,
+              f"{name}: launches {delta} (want {want} cluster residual "
+              "forward, adjoint and reduction launches, 2 a chunk step)")
+        benches[name]["rows_6_7"] = {k: tot[k] for k in (
+            "residual_launches", "adjoint_launches", "reduction_launches")}
+    resnet = None
+    for b in BENCH_RESNET_BATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            delta = bench("bench_resnet50", zoo.bench_resnet50, batch=b,
+                          steps=BENCH_RESNET_STEPS)
+        except RuntimeError as e:
+            if "out of memory" not in str(e):
+                raise
+            benches.setdefault("resnet50_oom", {})[b] = {
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "error": str(e)[:300]}
+            print(f"{tag} phase 22 (d): bench_resnet50 at batch {b} does "
+                  f"not fit the card ({str(e)[:160]}); peak "
+                  f"{benches['resnet50_oom'][b]['peak_gib']:.1f} GiB")
+            continue
+        resnet = b
+        benches["bench_resnet50"]["peak_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        check(launches_in(delta) == 0, f"bench_resnet50 launched {delta} "
+              "(its 4-D BN takes the plain tier)")
+        break
+    check(resnet is not None, "bench_resnet50 ran at no batch")
+    print(f"{tag} phase 22 (d): bench_resnet50 ran at batch {resnet} "
+          f"(steps {BENCH_RESNET_STEPS}, its default 30), peak "
+          f"{benches['bench_resnet50']['peak_gib']:.1f} GiB allocated")
+    for name in ("bench_lenet_ragged", "bench_lenet_superstep"):
+        delta = bench(name, getattr(zoo, name))
+        check(launches_in(delta) == 0, f"{name} launched {delta}")
+    r = benches["bench_lenet_ragged"]["value"]
+    check([r[v]["train_step_compiles"] for v in
+           ("serial", "padded", "padded_prefetch")] == [2, 1, 1],
+          f"bench_lenet_ragged compiles {r}")
+    s = benches["bench_lenet_superstep"]["value"]
+    check(s["superstep"]["superstep_compiles"] == 1
+          and s["mlp128"]["superstep"]["superstep_compiles"] == 1,
+          f"bench_lenet_superstep captures {s}")
+    out["benches"] = benches
+    out["hand_kernel_counts"] = kernels.count_snapshot()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} phase 22: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -7350,6 +7839,17 @@ def main():
                          default=str))
         print(f"{tag} --ui-only run: {time.perf_counter() - t_start:.1f} s "
               "(kernel build included)")
+        return 0
+    if "--data-only" in sys.argv:
+        # main path 18 alone, for work on the native data plane and the
+        # zoo's benches; prints no result lines
+        with tempfile.TemporaryDirectory() as tmp:
+            data = data_path(pt, torch, tag, tmp, reset_counts)
+        print(json.dumps({"data_plane": {k: v for k, v in data.items()
+                                         if k != "hand_kernel_counts"}},
+                         default=str))
+        print(f"{tag} --data-only run: {time.perf_counter() - t_start:.1f} "
+              "s (kernel build included)")
         return 0
     if "--decode-only" in sys.argv:
         # main path 12 alone, for work on the decode plane; prints no
@@ -7997,15 +8497,22 @@ def main():
     lm_batches = lambda n, b: pt.ArrayDataSetIterator(
         lm_x[:n], lm_y[:n], batch_size=b, shuffle=True, seed=11)
 
+    def lm_cmp_batches(steps):
+        """The first `steps` batches of LM_CMP_B rows of the shuffled first
+        LM_STEPS x LM_CMP_B windows: a run of fewer steps trains on the
+        start of the same trajectory's batches."""
+        it = lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B)
+        return pt.ListDataSetIterator([it.next() for _ in range(steps)])
+
     def check_key_bias(nets, steps, what):
         for n in nets:
             kb = key_bias_max(n)
             check(kb <= LM_LR * steps, f"{what}: |b_k| {kb} beyond Adam's "
                   f"reach {LM_LR * steps}")
 
-    # the first step's gradients at batch 64 (before the counted run); the
-    # key bias's gradient is 0 up to rounding on both devices
-    first = lm_batches(len(lm_x), LM_TRAIN_B).next()
+    # the first step's gradients at batch LM_GRAD_B (before the counted
+    # run); the key bias's gradient is 0 up to rounding on both devices
+    first = lm_batches(len(lm_x), LM_GRAD_B).next()
     t0 = time.perf_counter()
     lg_cpu = first_chunk_grads(torch, cpu_lm, first, steps=None)
     cpu_grad_s = time.perf_counter() - t0
@@ -8054,12 +8561,13 @@ def main():
           f"gradients card vs CPU {lm_grad_err:.3e} of max (limit "
           f"{GRAD_TOL}; key bias {bk_grad:.3e} of its W_k's max on either "
           f"device); the CPU took {cpu_grad_s:.2f} s for that batch-"
-          f"{LM_TRAIN_B} forward and backward")
+          f"{LM_GRAD_B} forward and backward")
     check(np.isfinite(lm_scores).all() and lm_scores[-1] < lm_scores[0],
           f"LM training scores {lm_scores}")
     check_key_bias([gpu_lm], lm_steps, "LM training")
 
-    # card against CPU: 20 steps at batch LM_CMP_B from the same zip
+    # card against CPU: LM_F32_CMP_STEPS steps at batch LM_CMP_B from the
+    # same zip
     cmp_nets = [pt.ModelSerializer.restore(lm_zip),
                 pt.ModelSerializer.restore(lm_zip, device="cpu")]
     cmp_logs = [StepLog(), StepLog()]
@@ -8067,12 +8575,13 @@ def main():
     t0 = time.perf_counter()
     for n, log in zip(cmp_nets, cmp_logs):
         n.set_listeners(log)
-        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+        n.fit(lm_cmp_batches(LM_F32_CMP_STEPS))
     cmp_s = time.perf_counter() - t0
-    check(attention.launch_counts()["lse_launches"] == LM_BLOCKS * LM_STEPS,
+    check(attention.launch_counts()["lse_launches"]
+          == LM_BLOCKS * LM_F32_CMP_STEPS,
           f"comparison run launches {attention.launch_counts()}")
     cmp_scores = [[float(v) for v in log.scores] for log in cmp_logs]
-    check(len(cmp_scores[0]) == len(cmp_scores[1]) == LM_STEPS,
+    check(len(cmp_scores[0]) == len(cmp_scores[1]) == LM_F32_CMP_STEPS,
           "missing LM step scores")
     lm_score_err = float(np.abs(np.subtract(*cmp_scores)).max())
     lm_param_err = param_rel_l2(*cmp_nets, skip=("b_k",))
@@ -8082,7 +8591,7 @@ def main():
           f"parameters relative L2 {lm_param_err:.3e} (limit {PARAM_TOL}; "
           f"with the key biases {param_rel_l2(*cmp_nets):.3e}); |b_k| at "
           f"most {max(key_bias_max(n) for n in cmp_nets):.3e} (Adam's reach "
-          f"{LM_LR * LM_STEPS})")
+          f"{LM_LR * LM_F32_CMP_STEPS})")
     print(json.dumps({"lm_train_scores_card": cmp_scores[0],
                       "lm_train_scores_cpu": cmp_scores[1],
                       "lm_train_scores_b64": lm_scores}))
@@ -8096,7 +8605,7 @@ def main():
         plain = pt.ModelSerializer.restore(lm_zip)
         plain_log = StepLog()
         plain.set_listeners(plain_log)
-        plain.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+        plain.fit(lm_cmp_batches(LM_F32_CMP_STEPS))
     finally:
         block._attend = kernel_attend
     plain_scores = [float(v) for v in plain_log.scores]
@@ -8108,11 +8617,12 @@ def main():
           f"{plain_param_err:.3e}")
     check(lm_score_err <= LM_SCORE_TOL, f"LM step scores card vs CPU: max "
           f"abs err {lm_score_err} > {LM_SCORE_TOL}")
-    check(lm_param_err <= PARAM_TOL, f"LM parameters after {LM_STEPS} "
+    check(lm_param_err <= PARAM_TOL, f"LM parameters after "
+          f"{LM_F32_CMP_STEPS} "
           f"steps: relative L2 {lm_param_err} > {PARAM_TOL}")
     check(cmp_scores[0][-1] < cmp_scores[0][0], "the LM score did not fall "
           f"at batch {LM_CMP_B}: {cmp_scores[0]}")
-    check_key_bias(cmp_nets, LM_STEPS, "LM comparison")
+    check_key_bias(cmp_nets, LM_F32_CMP_STEPS, "LM comparison")
 
     # the same LM and batches with nanoGPT's warm-up: card against CPU
     warm_zip = os.path.join(tmp, "lm_train_warm.zip")
@@ -8124,7 +8634,7 @@ def main():
     warm_logs = [StepLog(), StepLog()]
     for n, log in zip(warm_nets, warm_logs):
         n.set_listeners(log)
-        n.fit(lm_batches(LM_STEPS * LM_CMP_B, LM_CMP_B))
+        n.fit(lm_cmp_batches(LM_F32_CMP_STEPS))
     warm_scores = [[float(v) for v in log.scores] for log in warm_logs]
     lm_warm_err = float(np.abs(np.subtract(*warm_scores)).max())
     lm_warm_param = param_rel_l2(*warm_nets, skip=("b_k",))
@@ -8139,9 +8649,10 @@ def main():
     check(lm_warm_err <= LM_WARM_SCORE_TOL, f"LM step scores with the "
           f"warm-up, card vs CPU: max abs err {lm_warm_err} > "
           f"{LM_WARM_SCORE_TOL}")
-    check(lm_warm_param <= PARAM_TOL, f"LM parameters after {LM_STEPS} "
+    check(lm_warm_param <= PARAM_TOL, f"LM parameters after "
+          f"{LM_F32_CMP_STEPS} "
           f"warm-up steps: relative L2 {lm_warm_param} > {PARAM_TOL}")
-    check_key_bias(warm_nets, LM_STEPS, "LM warm-up comparison")
+    check_key_bias(warm_nets, LM_F32_CMP_STEPS, "LM warm-up comparison")
 
     # the trained zip with its updater state: one more step on both
     # devices, then served against the CPU
@@ -8527,7 +9038,7 @@ def main():
     t0 = time.perf_counter()
     for n, log in zip(bf16_nets, bf16_logs):
         n.set_listeners(log)
-        n.fit(lm_batches(LM_CMP_STEPS * LM_CMP_B, LM_CMP_B))
+        n.fit(lm_cmp_batches(LM_CMP_STEPS))
     bf16_cmp_s = time.perf_counter() - t0
     check(attention.launch_counts()["lse_launches"]
           == LM_BLOCKS * LM_CMP_STEPS,
@@ -8553,12 +9064,15 @@ def main():
           f"bf16 LM forward launches {bf16_serve_counts} (want "
           f"{LM_BLOCKS} primal)")
     check_no_training_launches("bf16 LM serving")
+    # the CPU's reference on the first LM_CPU_ROWS rows (each row's forward
+    # is its own)
     ref = pt.ModelSerializer.restore(bf16_trained, device="cpu").output(
-        x_held)
+        x_held[:LM_CPU_ROWS])
     check(tuple(out.shape) == (32, LM_SEQ, LM_VOCAB)
           and torch.isfinite(out).all().item(), "bf16 LM served output "
           f"{tuple(out.shape)}")
-    bf16_serve_err = (out.float().cpu() - ref.float()).abs().max().item()
+    bf16_serve_err = (out[:LM_CPU_ROWS].float().cpu()
+                      - ref.float()).abs().max().item()
     print(f"bf16 LM (compute_dtype bfloat16, float32 masters): {bf16_steps} "
           f"steps of {LM_TRAIN_B} x {LM_SEQ} tokens in {bf16_fit_s:.2f} s on "
           f"the card; launches {bf16_counts}; by variant dq "
@@ -8605,7 +9119,7 @@ def main():
                 nowarm_zip, **({} if device is None else {"device": device}))
             log = StepLog()
             n.set_listeners(log)
-            n.fit(lm_batches(LM_CMP_STEPS * LM_CMP_B, LM_CMP_B))
+            n.fit(lm_cmp_batches(LM_NOWARM_STEPS))
         finally:
             block._attend = kernel_attend
         nowarm[name] = [float(v) for v in log.scores]
@@ -8614,7 +9128,7 @@ def main():
     print("bf16 LM without the warm-up, card vs CPU at batch "
           f"{LM_CMP_B}: " + "; ".join(
               f"{k} max abs err {g.max():.3e} at step {int(g.argmax()) + 1} "
-              f"(first 8 steps {g[:8].max():.3e})"
+              f"(first 3 steps {g[:3].max():.3e})"
               for k, g in nowarm_gap.items())
           + f"; scores on the CPU {nowarm['cpu'][0]:.4f} -> "
           f"{nowarm['cpu'][-1]:.4f}, max {max(nowarm['cpu']):.4f}")
@@ -9342,6 +9856,9 @@ def main():
     # ---- 21. main path 17: the dashboard and the embedding plots --------
     print(f"{tag} phase 21 starts at {time.perf_counter() - t_start:.1f} s")
     ui = ui_path(pt, torch, tag, tmp, root, reset_counts)
+    # ---- 22. main path 18: the native data plane, the zoo's benches -------
+    print(f"{tag} phase 22 starts at {time.perf_counter() - t_start:.1f} s")
+    data = data_path(pt, torch, tag, tmp, reset_counts)
     print(f"{tag} chip_smoke run: {time.perf_counter() - t_start:.1f} s "
           "(kernel build included)")
 
@@ -9354,6 +9871,9 @@ def main():
     print(json.dumps({"word_vectors": nlp}, default=str))
     print(json.dumps({"dashboard": {k: v for k, v in ui.items()
                                     if k != "hand_kernel_counts"}},
+                     default=str))
+    print(json.dumps({"data_plane": {k: v for k, v in data.items()
+                                     if k != "hand_kernel_counts"}},
                      default=str))
     launches = {"resident": bn_variants, "streamed": narrow_variants}
     launches = {v: {k: c[k][v] for k in ("fwd", "bwd")}
@@ -9686,6 +10206,8 @@ def main():
     add_path_launches(kernels_line, "nlp_launches",
                       nlp["fit"]["hand_kernel_counts"])
     add_path_launches(kernels_line, "ui_launches", ui["hand_kernel_counts"])
+    add_path_launches(kernels_line, "data_launches",
+                      data["hand_kernel_counts"])
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,7 +128,13 @@ def data_dir(dataset: str = "") -> str:
 
 def read_idx(path: str) -> np.ndarray:
     """Parse an IDX file (optionally .gz): magic = 0x00 0x00 <dtype> <ndim>.
-    MNIST uses dtype 0x08 (ubyte) with ndim 1 (labels) or 3 (images)."""
+    MNIST uses dtype 0x08 (ubyte) with ndim 1 (labels) or 3 (images).
+    Uncompressed files go through the native C++ decoder
+    (`native/dl4j_native.cpp`, the reference's `datasets/mnist/` reader
+    analog), as in the JAX package."""
+    if not path.endswith(".gz"):
+        from ..native import idx_read_native
+        return idx_read_native(path)
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         data = f.read()
@@ -178,9 +184,16 @@ class MnistDataFetcher:
         images = read_idx(self._file(f"{prefix}_images"))
         labels = read_idx(self._file(f"{prefix}_labels"))
         flat = images.reshape(images.shape[0], -1)
-        x = flat.astype(np.float32) / 255.0
-        if self.binarize:
-            x = (x > 0.5).astype(np.float32)
+        if flat.dtype == np.uint8:
+            # the native scaling, x * float32(1/255) (the JAX package's
+            # native tier: 126 of the 256 byte values are one ulp from
+            # x / 255); threshold 127 == (x / 255 > 0.5)
+            from ..native import u8_to_f32
+            x = u8_to_f32(flat, binarize=self.binarize, threshold=127)
+        else:
+            x = flat.astype(np.float32) / 255.0
+            if self.binarize:
+                x = (x > 0.5).astype(np.float32)
         y = np.eye(10, dtype=np.float32)[labels.astype(np.int64)]
         if self.shuffle:
             rng = np.random.default_rng(self.seed)

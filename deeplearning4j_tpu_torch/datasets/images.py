@@ -1,7 +1,8 @@
 """Image record reader: the port of `deeplearning4j_tpu/datasets/images.py`
 (DataVec's image pipeline: decode, channel fix, bilinear resize, NHWC
-float32 in [0, 1], parent-directory labels). Images decode through PIL;
-the JAX package's native C++ decoders come with ROADMAP A12.
+float32 in [0, 1], parent-directory labels). PNG, BMP, PPM and PGM decode
+in the native C++ tier (`native/dl4j_native.cpp`); PIL opens what that tier
+does not cover (JPEG and other formats), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +20,13 @@ _EXTS = (".png", ".bmp", ".ppm", ".pgm", ".jpg", ".jpeg", ".gif", ".webp")
 
 
 def _decode(path: str) -> np.ndarray:
-    """uint8 [H, W, C] through PIL."""
+    """uint8 [H, W, C]: the native tier first, PIL for the formats it does
+    not decode."""
+    from ..native import image_decode_native
+
+    img = image_decode_native(path)
+    if img is not None:
+        return img
     from PIL import Image
 
     with Image.open(path) as im:

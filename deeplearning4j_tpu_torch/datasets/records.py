@@ -1,8 +1,9 @@
 """Record readers: the port of `deeplearning4j_tpu/datasets/records.py`
 (the DataVec CSV and binary record readers). Readers parse whole files into
-dense numpy arrays up front; a binary record file streams in chunked reads.
-The JAX package's native C++ parser and prefetch ring come with ROADMAP
-A12; this is its numpy path, which gives the same arrays.
+dense numpy arrays up front; the CSV parser is the native C++ one
+(`native/dl4j_native.cpp`), and a binary record file streams through the
+native prefetch ring (a background C++ reader thread, the MagicQueue
+analog), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,14 +20,14 @@ __all__ = ["CSVRecordReader", "RecordReaderDataSetIterator",
 
 class CSVRecordReader:
     """Numeric CSV -> float32 matrix (DataVec `CSVRecordReader` analog).
-    Pre-encode categorical fields."""
+    Non-numeric fields parse as 0 (native) — pre-encode categoricals."""
 
     def __init__(self, skip_num_lines: int = 0):
         self.skip_num_lines = int(skip_num_lines)
 
     def read_matrix(self, path: str) -> np.ndarray:
-        return np.loadtxt(path, delimiter=",", skiprows=self.skip_num_lines,
-                          dtype=np.float32, ndmin=2)
+        from ..native import csv_read_native
+        return csv_read_native(path, self.skip_num_lines)
 
 
 class RecordReaderDataSetIterator(ArrayDataSetIterator):
@@ -56,9 +57,9 @@ class RecordReaderDataSetIterator(ArrayDataSetIterator):
 
 
 class BinaryRecordReader:
-    """Fixed-size binary records read in chunks of whole records (the
-    file-backed MagicQueue analog without its reader thread; `slots` is
-    kept for the JAX package's signature)."""
+    """Fixed-size binary records streamed via the native prefetch ring
+    (a background C++ reader thread filling `slots` batch buffers, the
+    file-backed MagicQueue/AsyncDataSetIterator analog)."""
 
     def __init__(self, path: str, record_shape: Sequence[int],
                  dtype=np.uint8, header_bytes: int = 0,
@@ -76,16 +77,19 @@ class BinaryRecordReader:
         self.slots = int(slots)
 
     def batches(self, batch_records: int) -> Iterator[np.ndarray]:
-        with open(self.path, "rb") as f:
-            f.seek(self.header_bytes)
-            done = 0
-            while done < self.total_records:
-                n = min(batch_records, self.total_records - done)
-                raw = f.read(n * self.record_bytes)
-                if len(raw) < n * self.record_bytes:
+        """Batches of `batch_records` records ([n, *record_shape]); a file
+        shorter than `total_records` raises IOError. A consumer that stops
+        early closes the ring (and joins its thread) when the generator
+        is closed or dropped."""
+        from ..native import PrefetchRing
+        with PrefetchRing(self.path, self.record_bytes, self.total_records,
+                          batch_records, header_bytes=self.header_bytes,
+                          slots=self.slots) as ring:
+            while True:
+                raw = ring.next_batch()
+                if raw is None:
                     return
-                done += n
-                yield (np.frombuffer(raw, self.dtype)
+                yield (raw.view(self.dtype)
                        .reshape((-1,) + self.record_shape))
 
 

@@ -4,9 +4,17 @@ reference's GravesLSTMCharModellingExample topology) and its sampling loop,
 VGG-16 / VGG-19, AlexNet, and the ComputationGraphs ResNet-50 (BASELINE
 config 2) and GoogLeNet. Each builder returns the model uninitialized, on
 the GPU unless `device` says otherwise.
+
+The `bench_*` functions are the measured forms of BASELINE configs 1-3,
+with the JAX package's defaults, data (`np.random.default_rng(0)`) and
+return values (the value and its label, or a dict with JAX's keys). They
+measure wall time as JAX's do; each timed window ends with
+`float(model.score())`, a host read that waits for the window's work on
+the card. They run on the card unless `device` says otherwise.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -21,8 +29,11 @@ from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam, Nesterovs
 from ..util.platform import DeviceLike
 
-__all__ = ["lenet_mnist", "char_rnn", "mlp_mnist", "vgg16", "vgg19",
-           "alexnet", "resnet50", "googlenet", "sample_characters"]
+__all__ = ["lenet_mnist", "bench_lenet", "bench_lenet_dispatch",
+           "bench_lenet_ragged", "bench_lenet_superstep", "mlp_mnist",
+           "char_rnn", "bench_char_rnn", "bench_char_rnn_dispatch",
+           "resnet50", "bench_resnet50", "vgg16", "vgg19", "alexnet",
+           "googlenet", "sample_characters"]
 
 
 def lenet_mnist(seed: int = 42, updater=None,
@@ -327,3 +338,307 @@ def googlenet(n_classes: int = 1000, image: int = 224, seed: int = 42,
     b.add_layer("out", OutputLayer(n_out=n_classes, activation="softmax",
                                    loss="mcxent", dropout=0.6), "gap")
     return ComputationGraph(b.set_outputs("out").build(), device=device)
+
+
+# ---------------------------------------------------------------------------
+# benches (BASELINE configs 1-3)
+# ---------------------------------------------------------------------------
+
+def _steps_window(model, a, steps: int):
+    """[steps, *a.shape]: one batch put on the model's device and broadcast
+    across the steps (a view, no copy), as JAX's `jnp.broadcast_to` of one
+    `device_put`."""
+    import torch
+    t = torch.as_tensor(a, device=model.device)
+    return t.expand((steps,) + tuple(t.shape))
+
+
+def _timed_scan(model, xs, ys) -> float:
+    """Seconds of one `fit_scan_arrays` window after a warm-up window of
+    the same length (on the card, the warm-up captures the step)."""
+    model.fit_scan_arrays(xs, ys)
+    float(model.score())
+    t0 = time.perf_counter()
+    model.fit_scan_arrays(xs, ys)
+    float(model.score())
+    return time.perf_counter() - t0
+
+
+def _timed_fits(model, ds, steps: int, warmup: int) -> float:
+    """Seconds of `steps` per-batch `fit(ds)` calls after `warmup` of
+    them."""
+    for _ in range(warmup):
+        model.fit(ds)
+    float(model.score())
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model.fit(ds)
+    float(model.score())
+    return time.perf_counter() - t0
+
+
+def _char_batch(batch: int, seq_len: int, vocab: int):
+    r = np.random.default_rng(0)
+    idx = r.integers(0, vocab, (batch, seq_len))
+    x = np.eye(vocab, dtype=np.float32)[idx]
+    y = np.eye(vocab, dtype=np.float32)[np.roll(idx, -1, axis=1)]
+    return x, y
+
+
+def _lenet_batch(batch: int):
+    r = np.random.default_rng(0)
+    x = r.normal(size=(batch, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, batch)]
+    return x, y
+
+
+def bench_char_rnn(batch: int = 64, seq_len: int = 128, steps: int = 240,
+                   warmup: int = 3, vocab: int = 77,
+                   device: DeviceLike = None):
+    """tokens/s of char-RNN training (BASELINE config 3: batch 64, sequence
+    128, TBPTT 64): `steps` series as one `fit_scan_arrays` window (on the
+    card, replays of the captured TBPTT chunk step, two chunks a series)
+    over one batch broadcast across the steps; the warm-up is one window of
+    the same length. Returns (tokens/s, "charRNN-tokens")."""
+    model = char_rnn(vocab_size=vocab, seq_len=seq_len, tbptt=64,
+                     device=device).init()
+    x, y = _char_batch(batch, seq_len, vocab)
+    dt = _timed_scan(model, _steps_window(model, x, steps),
+                     _steps_window(model, y, steps))
+    return batch * seq_len * steps / dt, "charRNN-tokens"
+
+
+def bench_resnet50(batch: int = 256, steps: int = 30, image: int = 224,
+                   n_classes: int = 1000,
+                   compute_dtype: Optional[str] = "bfloat16",
+                   device: DeviceLike = None):
+    """samples/s of ResNet-50 ImageNet-shaped training (BASELINE config 2):
+    bf16 compute, Adam(1e-3) with bf16 moments, the `steps` window as one
+    `fit_scan_arrays` call (on the card, replays of the captured step)
+    after a warm-up window of the same length. The input window holds the
+    batch rounded to the compute dtype, as JAX's; the graph takes its
+    inputs in float32 (exact for bf16 values) and casts them to the compute
+    dtype at entry, so the window is held on the device as steps x the
+    float32 batch. Returns (samples/s, "ResNet50-ImageNet")."""
+    import torch
+
+    model = resnet50(image=image, n_classes=n_classes,
+                     compute_dtype=compute_dtype,
+                     updater=Adam(1e-3, state_dtype="bfloat16"),
+                     device=device).init()
+    r = np.random.default_rng(0)
+    x = r.normal(size=(batch, image, image, 3)).astype(np.float32)
+    y = np.eye(n_classes, dtype=np.float32)[r.integers(0, n_classes, batch)]
+    xt = torch.as_tensor(x, device=model.device)
+    if compute_dtype is not None:
+        xt = xt.to(getattr(torch, compute_dtype))
+    dt = _timed_scan(model, xt.expand((steps,) + tuple(xt.shape)),
+                     _steps_window(model, y, steps))
+    return batch * steps / dt, "ResNet50-ImageNet"
+
+
+def bench_lenet(batch: int = 512, steps: int = 800, warmup: int = 5,
+                device: DeviceLike = None):
+    """samples/s of LeNet-MNIST training (BASELINE config 1): `steps`
+    steps as one `fit_scan_arrays` window over one batch broadcast across
+    the steps, after a warm-up window of the same length. Returns
+    (samples/s, "LeNet-MNIST")."""
+    model = lenet_mnist(device=device).init()
+    x, y = _lenet_batch(batch)
+    dt = _timed_scan(model, _steps_window(model, x, steps),
+                     _steps_window(model, y, steps))
+    return batch * steps / dt, "LeNet-MNIST"
+
+
+def bench_lenet_dispatch(batch: int = 512, steps: int = 300,
+                         warmup: int = 20, device: DeviceLike = None):
+    """samples/s of LeNet through the per-batch `fit(DataSet)` path (one
+    step launched from the host a batch: the reference's usage), beside
+    `bench_lenet`'s window. Returns (samples/s, "LeNet-MNIST-dispatch")."""
+    from ..datasets.iterators import DataSet
+
+    model = lenet_mnist(device=device).init()
+    dt = _timed_fits(model, DataSet(*_lenet_batch(batch)), steps, warmup)
+    return batch * steps / dt, "LeNet-MNIST-dispatch"
+
+
+def bench_char_rnn_dispatch(batch: int = 64, seq_len: int = 128,
+                            steps: int = 150, warmup: int = 10,
+                            vocab: int = 77, device: DeviceLike = None):
+    """tokens/s of the char-RNN through the per-batch `fit(DataSet)` path
+    (TBPTT chunking included), beside `bench_char_rnn`'s window. Returns
+    (tokens/s, "charRNN-tokens-dispatch")."""
+    from ..datasets.iterators import DataSet
+
+    model = char_rnn(vocab_size=vocab, seq_len=seq_len, tbptt=64,
+                     device=device).init()
+    dt = _timed_fits(model, DataSet(*_char_batch(batch, seq_len, vocab)),
+                     steps, warmup)
+    return batch * seq_len * steps / dt, "charRNN-tokens-dispatch"
+
+
+def bench_lenet_ragged(batch: int = 256, full_batches: int = 5,
+                       ragged: int = 255, epochs: int = 4, warmup: int = 1,
+                       device: DeviceLike = None):
+    """A ragged final batch through LeNet's per-batch `fit()`, three ways:
+
+      serial           the plain iterator: the ragged tail is a second
+                       batch signature (a second step capture on the card)
+      padded           fit(pad_ragged=True): weight-zero padding, one
+                       signature, pad_fraction reported
+      padded_prefetch  + fit(prefetch=True): batches staged one ahead on a
+                       background thread
+
+    Each variant runs under its own telemetry session on a fresh model, so
+    compile (capture) counts attribute cleanly; the warm-up epochs are not
+    timed; three rounds alternate the variants; samples/s counts real rows
+    only. Returns JAX's dict: per variant samples_per_s, steps_per_s, its
+    spread, train_step_compiles (and pipeline), then
+    prefetch_vs_serial_paired_ratio and prefetch_ge_serial."""
+    from ..datasets.iterators import ArrayDataSetIterator
+    from ..telemetry import runtime as telemetry_runtime
+    from ..telemetry.runtime import TelemetrySession
+
+    n = batch * full_batches + ragged
+    r = np.random.default_rng(0)
+    x = r.normal(size=(n, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, n)]
+    variants = (("serial", {}),
+                ("padded", dict(pad_ragged=True)),
+                ("padded_prefetch", dict(pad_ragged=True, prefetch=True)))
+    state = {}
+    for name, kw in variants:
+        sess = TelemetrySession()
+        model = lenet_mnist(device=device).init()
+        it = ArrayDataSetIterator(x, y, batch_size=batch)
+        with telemetry_runtime.enabled(sess):
+            model.fit(it, epochs=warmup, **kw)
+            float(model.score())
+        state[name] = (sess, model, it, kw, [])
+    rounds = []
+    for _ in range(3):
+        times = {}
+        for name, kw in variants:
+            sess, model, it, kw, reps = state[name]
+            with telemetry_runtime.enabled(sess):
+                t0 = time.perf_counter()
+                model.fit(it, epochs=epochs, **kw)
+                float(model.score())
+                times[name] = time.perf_counter() - t0
+                reps.append(times[name])
+        rounds.append(times)
+    out = {}
+    steps = (full_batches + 1) * epochs
+    for name, _ in variants:
+        sess, model, it, kw, reps = state[name]
+        reps.sort()
+        dt = reps[len(reps) // 2]
+        rec = {"samples_per_s": round(n * epochs / dt, 1),
+               "steps_per_s": round(steps / dt, 2),
+               "steps_per_s-spread": [round(steps / reps[-1], 2),
+                                      round(steps / reps[0], 2)],
+               "train_step_compiles": sess.compiles.count("nn/train_step")}
+        pipe = sess.pipeline_summary()
+        if pipe:
+            rec["pipeline"] = pipe
+        out[name] = rec
+    ratios = sorted(r["serial"] / r["padded_prefetch"] for r in rounds)
+    out["prefetch_vs_serial_paired_ratio"] = round(
+        ratios[len(ratios) // 2], 4)
+    out["prefetch_ge_serial"] = ratios[len(ratios) // 2] >= 1.0
+    return out
+
+
+def _paired_superstep(model_fn, x, y, batch, epochs, warmup, superstep):
+    """Alternating paired rounds of fit(superstep=K) against
+    fit(superstep=1): the same `fit(iterator)` call, only the knob differs,
+    so the paired ratio isolates the host launch path that a window of
+    replayed steps removes. Each variant has its own telemetry session and
+    fresh model."""
+    from ..datasets.iterators import ArrayDataSetIterator
+    from ..nn.superstep import auto_superstep_k
+    from ..telemetry import runtime as telemetry_runtime
+    from ..telemetry.runtime import TelemetrySession
+
+    n = x.shape[0]
+    variants = (("perbatch", 1), ("superstep", superstep))
+    state = {}
+    for name, k in variants:
+        sess = TelemetrySession()
+        model = model_fn()
+        it = ArrayDataSetIterator(x, y, batch_size=batch)
+        with telemetry_runtime.enabled(sess):
+            model.fit(it, epochs=warmup, superstep=k)
+            float(model.score())
+        state[name] = (sess, model, it, k, [], [])
+    rounds = []
+    for _ in range(3):
+        times = {}
+        for name, _k in variants:
+            sess, model, it, k, reps, disp = state[name]
+            with telemetry_runtime.enabled(sess):
+                d0 = sess.span_totals().get("device/dispatch", 0.0)
+                t0 = time.perf_counter()
+                model.fit(it, epochs=epochs, superstep=k)
+                float(model.score())
+                dt = time.perf_counter() - t0
+                disp.append(sess.span_totals().get("device/dispatch", 0.0)
+                            - d0)
+            times[name] = dt
+            reps.append(dt)
+        rounds.append(times)
+    out = {}
+    for name, _k in variants:
+        sess, model, it, k, reps, disp = state[name]
+        order = sorted(range(len(reps)), key=lambda i: reps[i])
+        mid = order[len(order) // 2]
+        dt = reps[mid]
+        out[name] = {
+            "samples_per_s": round(n * epochs / dt, 1),
+            "samples_per_s-spread": [round(n * epochs / max(reps), 1),
+                                     round(n * epochs / min(reps), 1)],
+            # host seconds inside the dispatch spans over the wall
+            "dispatch_share": round(disp[mid] / dt, 4),
+            "superstep_compiles": sess.compiles.count("nn/superstep"),
+            "train_step_compiles": sess.compiles.count("nn/train_step"),
+        }
+    out["superstep_k"] = (auto_superstep_k(x[:batch].nbytes + y[:batch].nbytes)
+                          if superstep == "auto" else superstep)
+    ratios = sorted(r["perbatch"] / r["superstep"] for r in rounds)
+    out["superstep_vs_perbatch_paired_ratio"] = round(
+        ratios[len(ratios) // 2], 4)
+    out["paired_ratios"] = [round(v, 4) for v in ratios]
+    return out
+
+
+def bench_lenet_superstep(batch: int = 512, n_batches: int = 24,
+                          epochs: int = 3, warmup: int = 1,
+                          superstep="auto", device: DeviceLike = None):
+    """LeNet's per-batch `fit()` through windows of replayed steps
+    (`superstep`) against K = 1, in alternating paired rounds, plus a
+    launch-bound mlp128 (64 -> 128 -> 10, batch 64) pairing. Returns JAX's
+    dict (`_paired_superstep`'s keys, the mlp128 pairing under
+    "mlp128")."""
+    r = np.random.default_rng(0)
+    n = batch * n_batches
+    x = r.normal(size=(n, 784)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[r.integers(0, 10, n)]
+    out = _paired_superstep(lambda: lenet_mnist(device=device).init(), x, y,
+                            batch, epochs, warmup, superstep)
+
+    def mlp128():
+        conf = (NeuralNetConfiguration.builder()
+                .seed(7).updater(Adam(1e-3)).list()
+                .layer(DenseLayer(n_out=128, activation="relu"))
+                .layer(OutputLayer(n_out=10, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.feed_forward(64))
+                .build())
+        return MultiLayerNetwork(conf, device=device).init()
+
+    b2 = 64
+    x2 = r.normal(size=(b2 * 64, 64)).astype(np.float32)
+    y2 = np.eye(10, dtype=np.float32)[r.integers(0, 10, b2 * 64)]
+    out["mlp128"] = _paired_superstep(mlp128, x2, y2, b2, epochs, warmup,
+                                      superstep)
+    return out

@@ -15,8 +15,8 @@ merges.
 JAX's `parallel/compat.py` is a shim over `shard_map`'s two spellings; it
 has no counterpart: the port's SPMD is `torch.distributed`'s one rank per
 device. JAX's `scaling_bench.py` measures strong scaling over a pod's
-devices; the card's machine has one card, so it waits with the benches
-(ROADMAP A12).
+devices; the card's machine has one card, so it is ported after the
+zoo's benches (ROADMAP A12).
 """
 from .checkpoint import (CoordinatedShardStore, ElasticWorkerLost,
                          ShardedCheckpoint, restore_sharded, save_sharded)

@@ -2655,3 +2655,78 @@ def test_stats_listener_on_a_cuda_model_matches_the_cpu(cuda, tmp_path):
                 assert abs(g["params"][k][key] - s[key]) <= 1e-4 * scale
     assert listeners[0].host_copies == 2 * 5
     assert listeners[1].host_copies == 0
+
+
+def _idx(path, arr):
+    with open(path, "wb") as f:
+        f.write(bytes([0, 0, 0x08, arr.ndim]))
+        for d in arr.shape:
+            f.write(int(d).to_bytes(4, "big"))
+        f.write(arr.tobytes())
+
+
+def test_bn_mlp_epoch_from_the_idx_fetcher_equals_the_plain_feed(cuda,
+                                                                 tmp_path):
+    """The bf16 BN-MLP trained one epoch on the card from
+    MnistDataSetIterator over IDX files (the native reader and scaling)
+    is bit-equal to the epoch fed from the plain numpy path's arrays, with
+    one resident BN+ReLU forward and backward launch per BN layer a
+    step."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    r = np.random.default_rng(20)
+    images = r.integers(0, 256, (3000, 28, 28), dtype=np.uint8)
+    labels = r.integers(0, 10, 3000).astype(np.uint8)
+    _idx(str(tmp_path / "train-images-idx3-ubyte"), images)
+    _idx(str(tmp_path / "train-labels-idx1-ubyte"), labels)
+    x = native.u8_to_f32_plain(native.idx_read_plain(
+        str(tmp_path / "train-images-idx3-ubyte")).reshape(3000, -1))
+    y = np.eye(10, dtype=np.float32)[labels.astype(np.int64)]
+    nets = []
+    for it in (MnistDataSetIterator(batch_size=1024, cache=str(tmp_path)),
+               pt.ArrayDataSetIterator(x, y, batch_size=1024)):
+        net = _bn_mlp(cuda, width=256)
+        bn_relu.reset_launches()
+        net.fit(it)
+        torch.cuda.synchronize()
+        assert bn_relu.variant_counts() == {
+            "fwd": {"resident": 6, "streamed": 0},
+            "bwd": {"resident": 6, "streamed": 0}}
+        nets.append(net)
+    for p, q in zip(nets[0].params, nets[1].params):
+        for k in q:
+            assert torch.equal(p[k], q[k]), k
+
+
+def test_char_rnn_benches_count_their_kernel_launches(cuda):
+    """bench_char_rnn's windows replay the captured TBPTT chunk step (2 +
+    2 + 2 cluster launches a chunk step, counted through the replays);
+    bench_char_rnn_dispatch launches the same per chunk step eagerly."""
+    from deeplearning4j_tpu_torch.models import zoo
+    for bench, series in ((lambda: zoo.bench_char_rnn(batch=8, steps=3),
+                           2 * 3),
+                          (lambda: zoo.bench_char_rnn_dispatch(
+                              batch=8, steps=2, warmup=1), 3)):
+        lstm.reset_launches()
+        value, label = bench()
+        torch.cuda.synchronize()
+        want = 2 * series * 2           # 2 layers, 2 chunks a series
+        assert np.isfinite(value) and value > 0, label
+        assert lstm.launch_counts() == {
+            "launches": 0, "residual_launches": want,
+            "adjoint_launches": want, "reduction_launches": want}, label
+        assert lstm.variant_counts()["adjoint"]["cluster"] == want
+
+
+def test_resnet50_and_lenet_benches_run_on_the_card(cuda):
+    """The bf16 ResNet-50 bench (its 4-D BN takes the plain tier: no hand
+    kernel) and the LeNet benches run on the card and give JAX's labels."""
+    from deeplearning4j_tpu_torch.models import zoo
+    bn_relu.reset_launches()
+    value, label = zoo.bench_resnet50(batch=4, steps=2, image=64,
+                                      n_classes=10)
+    assert label == "ResNet50-ImageNet" and np.isfinite(value)
+    assert set(bn_relu.launch_counts().values()) == {0}
+    assert zoo.bench_lenet(batch=64, steps=4)[1] == "LeNet-MNIST"
+    out = zoo.bench_lenet_superstep(batch=64, n_batches=4, epochs=1)
+    assert out["superstep"]["superstep_compiles"] == 1

@@ -4,15 +4,15 @@ Sampling), the fetchers (bundled digits and their stratified split and
 augmentation, IDX, MNIST / CIFAR-10 / LFW over a local cache, Iris,
 Curves), the CSV and binary record readers, the image record reader and
 LabeledPoint ingestion: the twins of the JAX package's
-`tests/test_datasets.py`, `tests/test_images.py` (bar its native-decoder
-cases, which wait for ROADMAP A12) and the labeled-point cases of
-`tests/test_timesource_labeledpoint.py`.
+`tests/test_datasets.py`, `tests/test_images.py` (its native-decoder
+cases are twinned in `tests/test_torch_native.py`) and the labeled-point
+cases of `tests/test_timesource_labeledpoint.py`.
 
 Every file a case reads is written by the test itself (IDX, CIFAR binary
 batches, CSV, PNG and JPEG images, an LFW tree). Both packages read the
 same files and must give equal arrays (exactly where both run the same
-numpy arithmetic; image resizing within 1e-6; MNIST's byte scaling within
-one float32 ulp, since the JAX package scales in its native tier).
+numpy or native arithmetic, MNIST's byte scaling included: both packages
+scale in their native tiers; image resizing within 1e-6).
 Nothing is downloaded: a cache miss raises FileNotFoundError in the port.
 """
 import gzip
@@ -146,17 +146,16 @@ def test_mnist_fetcher_and_iterator_read_the_cache_as_jax(tmp_path,
                                                           binarize):
     cache = str(tmp_path)
     _, labels = _fake_mnist(cache, gz=not binarize)
-    # within one float32 ulp: the JAX package scales the bytes in its
-    # native tier (times 1/255) where it is built, the port divides by 255
-    ulp = 1.2e-7
+    # bit for bit: both packages scale the bytes in their native tiers
+    # (times float32(1/255))
     x, y = pf.MnistDataFetcher(binarize=binarize, cache=cache).fetch()
     jx, jy = jf.MnistDataFetcher(binarize=binarize, cache=cache).fetch()
-    np.testing.assert_allclose(x, jx, rtol=0, atol=ulp)
+    _eq(x, jx)
     _eq(y, jy)
     _eq(y.argmax(1), labels)
     xs, _ = pf.MnistDataFetcher(shuffle=True, seed=4, cache=cache).fetch()
     jxs, _ = jf.MnistDataFetcher(shuffle=True, seed=4, cache=cache).fetch()
-    np.testing.assert_allclose(xs, jxs, rtol=0, atol=ulp)
+    _eq(xs, jxs)
     it = pd.MnistDataSetIterator(batch_size=16, num_examples=40,
                                  cache=cache)
     assert [b.num_examples() for b in _batches(it)] == [16, 16, 8]
